@@ -1,0 +1,154 @@
+"""Camera model (port of gpu_ray_tracing_tpu/models/camera.py:47-186).
+
+`CameraSettings` is the user-facing pose, `Camera` the derived per-render
+camera the integrators read, and `derive_camera` the closed-form math of
+the reference's camera.rs:293-350, in float32 like the JAX package.  The
+motion ops are not ported yet (ROADMAP Queue 1 item 3).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+
+def _f32(x, device=None) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def _fields_to(obj, device):
+    return type(obj)(*(getattr(obj, f.name).to(device)
+                       for f in dataclasses.fields(obj)))
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraSettings:
+    """User-facing camera parameters (camera.rs:10-28), f32 tensors."""
+
+    look_from: torch.Tensor  # (3,)
+    look_at: torch.Tensor  # (3,)
+    vup: torch.Tensor  # (3,)
+    field_of_view: torch.Tensor  # scalar, degrees
+    defocus_angle: torch.Tensor  # scalar, degrees
+    focus_distance: torch.Tensor  # scalar
+
+    @staticmethod
+    def make(look_from, look_at, vup, field_of_view, defocus_angle,
+             focus_distance, device=None) -> "CameraSettings":
+        """Settings from plain numbers or arrays, as f32 tensors."""
+        return CameraSettings(
+            look_from=_f32(look_from, device),
+            look_at=_f32(look_at, device),
+            vup=_f32(vup, device),
+            field_of_view=_f32(field_of_view, device),
+            defocus_angle=_f32(defocus_angle, device),
+            focus_distance=_f32(focus_distance, device),
+        )
+
+    @staticmethod
+    def default(device=None) -> "CameraSettings":
+        """Reference defaults (camera.rs:30-46)."""
+        return CameraSettings.make(
+            [13.0, 2.0, 3.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+            20.0, 0.6, 10.0, device=device,
+        )
+
+    def to(self, device) -> "CameraSettings":
+        return _fields_to(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    """Derived per-render camera (the live fields of camera.rs:256-291)."""
+
+    center: torch.Tensor  # (3,)
+    viewport_upper_left: torch.Tensor  # (3,)
+    pixel_delta_u: torch.Tensor  # (3,)
+    pixel_delta_v: torch.Tensor  # (3,)
+    defocus_disk_u: torch.Tensor  # (3,)
+    defocus_disk_v: torch.Tensor  # (3,)
+    defocus_angle: torch.Tensor  # scalar, degrees
+
+    @property
+    def device(self) -> torch.device:
+        return self.center.device
+
+    def to(self, device) -> "Camera":
+        return _fields_to(self, device)
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(v * v))
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.stack([
+        a[1] * b[2] - a[2] * b[1],
+        a[2] * b[0] - a[0] * b[2],
+        a[0] * b[1] - a[1] * b[0],
+    ])
+
+
+def validate_camera(settings: CameraSettings) -> None:
+    """Reject degenerate poses that would normalize a zero vector and
+    render NaNs: look_from == look_at, or vup parallel to the view axis."""
+    s = settings
+    gaze = (s.look_from.detach().cpu().double()
+            - s.look_at.detach().cpu().double()).numpy()
+    if float(np.dot(gaze, gaze)) == 0.0:
+        raise ValueError(
+            "degenerate camera: look_from == look_at (the view basis "
+            "would normalize a zero vector and render NaNs)"
+        )
+    cr = np.cross(s.vup.detach().cpu().double().numpy(), gaze)
+    if float(np.dot(cr, cr)) == 0.0:
+        raise ValueError(
+            "degenerate camera: vup is parallel to the view axis "
+            "(u = vup x w would normalize a zero vector)"
+        )
+
+
+def derive_camera(settings: CameraSettings, width: int, height: int) -> Camera:
+    """CameraSettings -> Camera (camera.rs:293-350), float32 throughout."""
+    s = settings
+    validate_camera(s)
+    f32 = torch.float32
+    aspect_ratio = torch.tensor(width, dtype=f32) / torch.tensor(height, dtype=f32)
+    deg = torch.tensor(math.pi / 180.0, dtype=f32)
+
+    theta = s.field_of_view * deg.to(s.field_of_view.device)
+    h = torch.tan(theta / 2.0)
+    viewport_height = 2.0 * h * s.focus_distance
+    viewport_width = viewport_height * aspect_ratio.to(h.device)
+
+    gaze = s.look_from - s.look_at
+    w = gaze / _norm(gaze)
+    uu = _cross(s.vup, w)
+    u = uu / _norm(uu)
+    v = _cross(w, u)
+
+    viewport_u = viewport_width * u
+    viewport_v = -viewport_height * v  # image y grows downward
+
+    pixel_delta_u = viewport_u / float(width)
+    pixel_delta_v = viewport_v / float(height)
+    viewport_upper_left = (
+        s.look_from - s.focus_distance * w - viewport_u / 2.0 - viewport_v / 2.0
+    )
+    defocus_radius = s.focus_distance * torch.tan(
+        (s.defocus_angle / 2.0) * deg.to(s.defocus_angle.device)
+    )
+    return Camera(
+        center=s.look_from,
+        viewport_upper_left=viewport_upper_left,
+        pixel_delta_u=pixel_delta_u,
+        pixel_delta_v=pixel_delta_v,
+        defocus_disk_u=u * defocus_radius,
+        defocus_disk_v=v * defocus_radius,
+        defocus_angle=s.defocus_angle.to(f32),
+    )

@@ -1,0 +1,272 @@
+"""Host side of the CUDA megakernel (port of gpu_ray_tracing_tpu/ops/pallas/megakernel.py).
+
+`render_cuda` launches ops/cuda/megakernel.cu, one thread per pixel, for
+the K1a slice of the Pallas `_kernel`: spheres, the brute-force scan, the
+independent hash sampler, the fixed spp loop, the AOV modes, Russian
+roulette and the clamp.  `render_reference` is its plain PyTorch version
+with the same signature, composed of ops/rays, ops/intersect,
+ops/materials and ops/integrators; the tests and the 'torch' backend run
+it, and chip_smoke.py holds the kernel against it on the card.
+
+`render_cuda` takes CUDA tensors only and never falls back: no device, a
+failed build or a failed launch raises.  The only torch operations around
+its launch pack the (16, N) scene and (1, 24) camera layouts, as
+render_pallas's XLA code does.
+"""
+
+from __future__ import annotations
+
+import collections
+
+import numpy as np
+import torch
+
+from gpu_ray_tracing_tpu_torch.models.camera import Camera
+from gpu_ray_tracing_tpu_torch.models.scene import as_scene
+from gpu_ray_tracing_tpu_torch.models.spheres import EMISSIVE, Spheres
+from gpu_ray_tracing_tpu_torch.ops import integrators
+from gpu_ray_tracing_tpu_torch.ops import rng as rng_ops
+from gpu_ray_tracing_tpu_torch.ops.cuda import build
+from gpu_ray_tracing_tpu_torch.ops.rays import generate_rays_hash
+
+#: Kernel launches per wrapper ("megakernel", "hash_probe"): each wrapper
+#: adds one where it launches, so a run can show which kernels it used.
+LAUNCHES: collections.Counter = collections.Counter()
+
+# Rows of the (16, N) scene planes (the Pallas layout, megakernel.py:84).
+_CX, _CY, _CZ, _RAD, _C2R2, _ALR, _ALG, _ALB, _KIND, _PARAM, _ACTIVE = range(11)
+_LIGHTID = 11
+_SCENE_ROWS = 16
+
+MODES = {"path": 0, "normal": 1, "albedo": 2, "depth": 3}
+
+# Pixels x spheres elements per chunk of the plain version's (P, N) planes.
+_CPU_BLOCK = 1 << 22
+_CUDA_BLOCK = 1 << 27
+
+
+def scene_planes(spheres: Spheres) -> torch.Tensor:
+    """Pack a Spheres SoA into the (16, N) f32 scene layout of the Pallas
+    kernel: centers, radius, |c|^2 - r^2, albedo, kind, param, active flag,
+    light id (the ordinal of an active emissive sphere, else -1)."""
+    c = spheres.centers.to(torch.float32)
+    r = spheres.radii.to(torch.float32)
+    n = spheres.count
+    planes = torch.zeros((_SCENE_ROWS, n), dtype=torch.float32, device=c.device)
+    planes[_CX] = c[:, 0]
+    planes[_CY] = c[:, 1]
+    planes[_CZ] = c[:, 2]
+    planes[_RAD] = r
+    planes[_C2R2] = (c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1] + c[:, 2] * c[:, 2]) - r * r
+    planes[_ALR] = spheres.albedo[:, 0]
+    planes[_ALG] = spheres.albedo[:, 1]
+    planes[_ALB] = spheres.albedo[:, 2]
+    planes[_KIND] = spheres.mat_kind.to(torch.float32)
+    planes[_PARAM] = spheres.mat_param
+    active = r > 0.0
+    planes[_ACTIVE] = active.to(torch.float32)
+    is_em = (spheres.mat_kind == EMISSIVE) & active
+    lid = torch.where(is_em, torch.cumsum(is_em.to(torch.int64), 0) - 1, -1)
+    planes[_LIGHTID] = lid.to(torch.float32)
+    return planes
+
+
+def camera_vector(camera: Camera) -> torch.Tensor:
+    """Pack a derived Camera into the (1, 24) layout: center 0-2, upper
+    left 3-5, pixel deltas 6-8 and 9-11, defocus disk 12-14 and 15-17,
+    defocus angle 18, zeros."""
+    parts = [
+        camera.center, camera.viewport_upper_left, camera.pixel_delta_u,
+        camera.pixel_delta_v, camera.defocus_disk_u, camera.defocus_disk_v,
+    ]
+    dev = camera.center.device
+    return torch.cat(
+        [p.to(torch.float32).reshape(3) for p in parts]
+        + [camera.defocus_angle.to(torch.float32).reshape(1),
+           torch.zeros(5, dtype=torch.float32, device=dev)]
+    ).reshape(1, 24)
+
+
+def _check_args(width, height, spp, max_depth, mode):
+    if width <= 0 or height <= 0:
+        raise ValueError(f"invalid resolution {width}x{height}")
+    if spp < 1:
+        raise ValueError(f"spp must be >= 1, got {spp}")
+    if max_depth < 1:
+        raise ValueError(f"max_depth must be >= 1, got {max_depth}")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
+
+
+def _trace_block(num_pixels: int, num_spheres: int, device: torch.device) -> int:
+    budget = _CUDA_BLOCK if device.type == "cuda" else _CPU_BLOCK
+    return max(1, min(num_pixels, budget // max(num_spheres, 1)))
+
+
+def render_reference(
+    scene_or_spheres,
+    camera: Camera,
+    *,
+    width: int,
+    height: int,
+    sample_index: int = 0,
+    frame_seed: int = 0,
+    max_depth: int,
+    t_min: float,
+    t_max: float = 3.4e35,
+    mode: str = "path",
+    russian_roulette_depth: int = 0,
+    sky_intensity: float = 1.0,
+    y_offset: int = 0,
+    spp: int = 1,
+    row_stride: int = 1,
+    clamp: float = 0.0,
+) -> torch.Tensor:
+    """The plain PyTorch version of render_cuda: the mean of spp hash-stream
+    samples as a (height, width, 3) f32 image, on the scene's device.
+    Sample s uses stream index sample_index + s."""
+    _check_args(width, height, spp, max_depth, mode)
+    sc = as_scene(scene_or_spheres)
+    dev = sc.spheres.device
+    camera = camera.to(dev)
+    p = width * height
+    block = _trace_block(p, sc.spheres.count, dev)
+    acc = torch.zeros((p, 3), dtype=torch.float32, device=dev)
+    for s in range(spp):
+        o, d, seeds = generate_rays_hash(
+            camera, width, height, rng_ops.as_u32(sample_index + s), frame_seed,
+            y_offset=y_offset, total_width=width, row_stride=row_stride,
+        )
+        o, d, seeds = o.reshape(p, 3), d.reshape(p, 3), seeds.reshape(p)
+        for start in range(0, p, block):
+            sl = slice(start, start + block)
+            if mode != "path":
+                aov = {
+                    "normal": integrators.shade_normals,
+                    "albedo": integrators.shade_albedo,
+                    "depth": integrators.shade_depth,
+                }[mode]
+                img = aov(o[sl], d[sl], sc, t_min, t_max)
+            else:
+                img = integrators.trace_path(
+                    o[sl], d[sl], sc, max_depth, t_min, t_max,
+                    pixel_seeds=seeds[sl],
+                    russian_roulette_depth=russian_roulette_depth,
+                    sky_intensity=sky_intensity,
+                )
+                if clamp > 0.0:
+                    img = integrators.clamp_radiance(img, clamp)
+            acc[sl] += img
+    return (acc / float(spp)).reshape(height, width, 3)
+
+
+def _require_cuda(*tensors: torch.Tensor) -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA megakernel needs an NVIDIA GPU; none is visible")
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(
+                f"the CUDA megakernel takes tensors on one CUDA device; got "
+                f"{t.device} (move the scene and camera with .to(device))"
+            )
+        if t.requires_grad:
+            raise RuntimeError(
+                "the CUDA megakernel has no backward; render with "
+                "backend='torch' to differentiate (ROADMAP Queue 1 item 11)"
+            )
+    return dev
+
+
+def render_cuda(
+    scene_or_spheres,
+    camera: Camera,
+    *,
+    width: int,
+    height: int,
+    sample_index: int = 0,
+    frame_seed: int = 0,
+    max_depth: int,
+    t_min: float,
+    t_max: float = 3.4e35,
+    mode: str = "path",
+    russian_roulette_depth: int = 0,
+    sky_intensity: float = 1.0,
+    y_offset: int = 0,
+    spp: int = 1,
+    row_stride: int = 1,
+    clamp: float = 0.0,
+) -> torch.Tensor:
+    """Render spp samples in one launch of the CUDA megakernel; returns the
+    (height, width, 3) f32 mean on the scene's CUDA device.  Same signature
+    and stream as render_reference."""
+    _check_args(width, height, spp, max_depth, mode)
+    sc = as_scene(scene_or_spheres)
+    s = sc.spheres
+    cam_fields = [getattr(camera, f) for f in camera.__dataclass_fields__]
+    dev = _require_cuda(s.centers, s.radii, s.albedo, s.mat_kind, s.mat_param,
+                        *cam_fields)
+    lib = build.load()
+    planes = scene_planes(s).contiguous()
+    cam = camera_vector(camera).contiguous()
+    out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.grt_render(
+            cam.data_ptr(), planes.data_ptr(), s.count, width, height,
+            int(sample_index) & 0xFFFFFFFF, int(frame_seed) & 0xFFFFFFFF,
+            int(y_offset) & 0xFFFFFFFF, int(row_stride) & 0xFFFFFFFF,
+            max_depth, float(t_min), float(t_max), MODES[mode],
+            int(russian_roulette_depth), float(sky_intensity), float(clamp),
+            spp, out.data_ptr(), stream,
+        )
+    build.check(rc, "megakernel")
+    LAUNCHES["megakernel"] += 1
+    return out
+
+
+def hash_probe_reference(values: torch.Tensor, salts, sample_index: int,
+                         frame_seed: int) -> dict[str, torch.Tensor]:
+    """Plain version of hash_probe: the same hashes from ops/rng.py, as
+    int64 tensors holding u32 values (uniforms as f32)."""
+    v = rng_ops.as_u32(values)
+    return {
+        "wgsl_hash": rng_ops.wgsl_hash(v),
+        "hash_pixel_seeds": rng_ops.hash_pixel_seeds(v, sample_index, frame_seed),
+        "hash2": torch.stack([rng_ops.hash2(v, k) for k in salts]),
+        "uniform_hash": torch.stack([rng_ops.uniform_hash(v, k) for k in salts]),
+    }
+
+
+def hash_probe(values: torch.Tensor, salts, sample_index: int,
+               frame_seed: int) -> dict[str, torch.Tensor]:
+    """The kernel's own hashes of a 1-D int32 CUDA tensor of u32 bit
+    patterns, at each salt: for a bit-exactness check against ops/rng.py.
+    Returns the same keys as hash_probe_reference."""
+    dev = _require_cuda(values)
+    if values.dtype != torch.int32 or values.dim() != 1:
+        raise ValueError("hash_probe takes a 1-D int32 tensor of u32 bit patterns")
+    lib = build.load()
+    values = values.contiguous()
+    n = values.numel()
+    salt_t = torch.from_numpy(
+        np.asarray([int(k) & 0xFFFFFFFF for k in salts], np.uint32).view(np.int32)
+    ).to(dev)
+    out = {
+        "wgsl_hash": torch.empty(n, dtype=torch.int32, device=dev),
+        "hash_pixel_seeds": torch.empty(n, dtype=torch.int32, device=dev),
+        "hash2": torch.empty((len(salts), n), dtype=torch.int32, device=dev),
+        "uniform_hash": torch.empty((len(salts), n), dtype=torch.float32, device=dev),
+    }
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.grt_hash_probe(
+            values.data_ptr(), n, salt_t.data_ptr(), len(salts),
+            int(sample_index) & 0xFFFFFFFF, int(frame_seed) & 0xFFFFFFFF,
+            out["wgsl_hash"].data_ptr(), out["hash_pixel_seeds"].data_ptr(),
+            out["hash2"].data_ptr(), out["uniform_hash"].data_ptr(), stream,
+        )
+    build.check(rc, "hash_probe")
+    LAUNCHES["hash_probe"] += 1
+    return {k: (t if t.dtype == torch.float32 else rng_ops.as_u32(t))
+            for k, t in out.items()}

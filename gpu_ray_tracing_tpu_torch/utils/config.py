@@ -1,0 +1,132 @@
+"""Render configuration (port of gpu_ray_tracing_tpu/utils/config.py).
+
+The same frozen dataclass with the same fields and cross-field checks.  The
+backends are the port's own: 'torch' is the plain PyTorch integrator (the
+counterpart of 'jax'; runs on any device) and 'cuda' is the hand-written
+megakernel (the counterpart of 'pallas').  Modes that the port does not
+carry yet raise NotImplementedError and name their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+_BACKENDS = ("torch", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static render settings (hashable).
+
+    Defaults mirror the reference: 1280x720 window (lib.rs:24-25), 30-bounce
+    depth (camera.rs:34), the (0.001, 3.4e35) hit interval
+    (compute_shader.wgsl:266).  See the JAX package's RenderConfig for the
+    meaning of every field; only the backend names differ.
+    """
+
+    width: int = 1280
+    height: int = 720
+    spp: int = 1
+    max_depth: int = 30
+    integrator: Literal["path", "normal", "albedo", "depth"] = "path"
+    # 'torch' = plain PyTorch integrator (reference path; runs anywhere)
+    # 'cuda'  = hand-written sm_90a megakernel (ops/cuda/megakernel.cu)
+    backend: Literal["torch", "cuda"] = "torch"
+    rng: Literal["hash", "threefry", "wgsl"] = "hash"
+    parity: bool = False
+    sky_intensity: float = 1.0
+    nee: bool = False
+    mis: bool = False
+    sampler: Literal["independent", "stratified", "sobol"] = "independent"
+    regenerate: Literal["auto", "on", "off"] = "off"
+    adaptive_tol: float = 0.0
+    adaptive_min_spp: int = 8
+    clamp: float = 0.0
+    russian_roulette_depth: int = 0
+    t_min: float = 1.0e-3
+    t_max: float = 3.4e35
+
+    def __post_init__(self):
+        if self.backend == "wavefront":
+            raise NotImplementedError(
+                "backend='wavefront' is not ported yet (ROADMAP Queue 1 "
+                "item 13, kernel K2)"
+            )
+        if self.backend not in _BACKENDS:
+            raise ValueError(
+                f"backend must be one of {_BACKENDS}, got {self.backend!r}"
+            )
+        if self.integrator not in ("path", "normal", "albedo", "depth"):
+            raise ValueError(f"unknown integrator {self.integrator!r}")
+        # The cross-field checks of the JAX RenderConfig, 'pallas' read as
+        # 'cuda'.
+        if self.width <= 0 or self.height <= 0:
+            raise ValueError(f"invalid resolution {self.width}x{self.height}")
+        if self.spp <= 0:
+            raise ValueError(f"spp must be positive, got {self.spp}")
+        if self.max_depth <= 0:
+            raise ValueError(f"max_depth must be positive, got {self.max_depth}")
+        if self.parity and self.rng != "wgsl":
+            raise ValueError("parity=True requires rng='wgsl'")
+        if self.backend == "cuda" and self.rng != "hash":
+            raise ValueError(f"backend={self.backend!r} requires rng='hash'")
+        if self.sampler != "independent" and self.rng != "hash":
+            raise ValueError(
+                f"sampler={self.sampler!r} requires rng='hash' (sample "
+                "points are addressed by absolute sample index, which "
+                "threefry keys and the wgsl parity chain don't carry)"
+            )
+        if self.mis and not self.nee:
+            raise ValueError("mis=True is a weighting of NEE; it requires nee=True")
+        if self.clamp < 0.0:
+            raise ValueError(f"clamp must be >= 0, got {self.clamp}")
+        if self.clamp > 0.0 and self.integrator != "path":
+            raise ValueError(
+                f"clamp is a path-integrator knob; integrator="
+                f"{self.integrator!r} ignores it"
+            )
+        if self.clamp > 0.0 and self.regenerate != "off":
+            raise ValueError(
+                "clamp > 0 is unsupported with ray regeneration (the pool "
+                "accumulates per-bounce deltas; no per-sample total exists)"
+            )
+        if self.adaptive_tol < 0.0:
+            raise ValueError(f"adaptive_tol must be >= 0, got {self.adaptive_tol}")
+        if self.adaptive_tol > 0.0 and self.backend != "cuda":
+            raise ValueError(
+                f"adaptive_tol={self.adaptive_tol} is a megakernel mode; "
+                f"backend={self.backend!r} ignores it — set backend='cuda' "
+                "or adaptive_tol=0"
+            )
+        if self.adaptive_tol > 0.0 and self.adaptive_min_spp < 2:
+            raise ValueError(
+                f"adaptive_min_spp must be >= 2, got {self.adaptive_min_spp}"
+            )
+        if self.regenerate != "off":
+            # Only the wavefront engine regenerates, and it is not ported.
+            raise ValueError(
+                f"regenerate={self.regenerate!r} is a wavefront-engine mode; "
+                f"backend={self.backend!r} ignores it — set regenerate='off'"
+            )
+        # Modes the port does not carry yet.
+        if self.rng != "hash":
+            raise NotImplementedError(
+                f"rng={self.rng!r} is not ported yet (ROADMAP Queue 1 item 2; "
+                "only the counter-based 'hash' stream is)"
+            )
+        if self.nee or self.mis:
+            raise NotImplementedError(
+                "nee/mis are not ported yet (ROADMAP Queue 1 items 4 and 6, "
+                "kernel K1b)"
+            )
+        if self.sampler != "independent":
+            raise NotImplementedError(
+                f"sampler={self.sampler!r} is not ported yet (ROADMAP Queue 1 "
+                "items 2 and 9, kernel K1e)"
+            )
+        if self.adaptive_tol > 0.0:
+            raise NotImplementedError(
+                "adaptive sampling is not ported yet (ROADMAP Queue 1 item 10, "
+                "kernel K1f)"
+            )

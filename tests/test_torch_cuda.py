@@ -1,0 +1,102 @@
+"""The CUDA megakernel against its plain PyTorch version, on the card.
+
+These tests need an NVIDIA GPU and nvcc: the kernel has no CPU mode, so
+without a card they skip.  The file imports no jax, so it runs on a machine
+that has only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Images of one RNG stream are held to the decision-flip contract
+(utils/parity.images_match); per-pixel identities (row bands, the spp
+mean) are exact, since the kernel computes each pixel the same way
+whatever the launch covers.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import gpu_ray_tracing_tpu_torch as T
+from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as mk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA megakernel has no CPU mode")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _one_weekend(dev, w, h):
+    return (T.one_weekend_scene(0, device=dev),
+            T.derive_camera(T.CameraSettings.default(), w, h).to(dev))
+
+
+def _assert_match(a, b, flip_frac=0.01, mean_tol=2e-4):
+    m = T.images_match(a, b, flip_frac, mean_tol)
+    assert m.ok, m
+
+
+def test_render_cuda_matches_render_reference(dev):
+    scene, cam = _one_weekend(dev, 160, 90)
+    kw = dict(width=160, height=90, spp=2, max_depth=12, t_min=1e-3, frame_seed=3)
+    before = mk.LAUNCHES["megakernel"]
+    got = mk.render_cuda(scene, cam, **kw)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["megakernel"] == before + 1
+    assert got.shape == (90, 160, 3) and bool(torch.isfinite(got).all())
+    _assert_match(got, mk.render_reference(scene, cam, **kw))
+
+
+@pytest.mark.parametrize("mode", ["normal", "albedo", "depth"])
+def test_aov_modes_match_render_reference(dev, mode):
+    scene, cam = _one_weekend(dev, 96, 54)
+    kw = dict(width=96, height=54, spp=2, max_depth=1, t_min=1e-3, frame_seed=1, mode=mode)
+    got = mk.render_cuda(scene, cam, **kw)
+    # Bounce-free: the same closest hit, up to rounding of the normal and
+    # the metric distance (relative; depth reaches ~1e2 on the ground).
+    torch.testing.assert_close(got, mk.render_reference(scene, cam, **kw),
+                               rtol=1e-5, atol=2e-5)
+
+
+def test_roulette_and_clamp_match_render_reference(dev):
+    scene, cam = _one_weekend(dev, 128, 72)
+    kw = dict(width=128, height=72, spp=2, max_depth=16, t_min=1e-3, frame_seed=5,
+              russian_roulette_depth=3, clamp=1.5, sky_intensity=0.7)
+    _assert_match(mk.render_cuda(scene, cam, **kw), mk.render_reference(scene, cam, **kw))
+
+
+def test_row_bands_and_spp_mean_are_exact(dev):
+    scene, cam = _one_weekend(dev, 64, 36)
+    kw = dict(width=64, max_depth=8, t_min=1e-3, frame_seed=9)
+    full = mk.render_cuda(scene, cam, height=36, spp=4, **kw)
+    band = mk.render_cuda(scene, cam, height=12, y_offset=2, row_stride=3, spp=4, **kw)
+    assert torch.equal(band, full[2::3])
+    singles = [mk.render_cuda(scene, cam, height=36, spp=1, sample_index=s, **kw)
+               for s in range(4)]
+    assert torch.equal(full, (singles[0] + singles[1] + singles[2] + singles[3]) / 4.0)
+
+
+def test_kernel_hashes_are_bit_exact(dev):
+    v = np.random.default_rng(1).integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)
+    v[:2] = (0, 2**32 - 1)
+    vt = torch.from_numpy(v.view(np.int32).copy()).to(dev)
+    salts = [1, 2, 3, 4, 16, 17, 18, 1000]
+    got = mk.hash_probe(vt, salts, 5, 99)
+    want = mk.hash_probe_reference(vt, salts, 5, 99)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_refuses_cpu_tensors_and_grad(dev):
+    cam = T.derive_camera(T.CameraSettings.default(), 8, 8)
+    kw = dict(width=8, height=8, max_depth=2, t_min=1e-3)
+    with pytest.raises(ValueError, match="CUDA device"):
+        mk.render_cuda(T.base_scene(), cam, **kw)
+    scene = T.base_scene(device=dev)
+    scene = T.Spheres(scene.centers.clone().requires_grad_(True), scene.radii,
+                      scene.albedo, scene.mat_kind, scene.mat_param)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mk.render_cuda(scene, cam.to(dev), **kw)
