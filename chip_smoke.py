@@ -6,22 +6,40 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the megakernel from gpu_ray_tracing_tpu_torch/ops/cuda/megakernel.cu
-with nvcc, then drives the port's main path on the card in phases, one JSON
+with nvcc, then drives the port's main paths on the card in phases, one JSON
 line each:
 
   1. device       the card, its compute capability and power limit
   2. build        nvcc version, build seconds, the kernel's registers
   3. hash_probe   the kernel's hashes vs ops/rng.py on 1M u32 values: bit-exact
-  4. goldens      backend='cuda' renders vs the committed goldens, at
-                  tests/test_goldens.py's decision-flip thresholds
+  4. goldens      backend='cuda' renders vs the committed goldens (mesh_ico
+                  included), at tests/test_goldens.py's decision-flip thresholds
   5. kernel_vs_plain  One-Weekend 320x180, 4 spp, depth 30: render_cuda vs
                   its plain PyTorch version, flip <= 1% and mean |diff| < 2e-4
   6. main_path    render(one_weekend_scene(0), CameraSettings.default(),
                   1280x720, 16 spp, depth 30, backend='cuda'): 2 warm-up and
                   5 timed frames (CUDA events), launch counts, output checks,
                   and the same frame from the plain version
+  7. sphere_bvh   the 487-sphere One-Weekend final scene (a sphere BVH),
+                  320x180, 4 spp, depth 50: the walk vs the plain version's
+                  scan of the same spheres, flip <= 2% and mean < 2e-3, and
+                  vs the brute kernel on the same spheres (timed beside it),
+                  flip <= 1% and mean < 2e-4
+  8. mesh_vs_plain  a smooth icosphere(4) (5,120 faces) on a ground sphere,
+                  320x240, 2 spp, depth 8: flip <= 1% and mean < 2e-4
+  9. config3      BASELINE config 3 through render(): the 487-sphere scene,
+                  1280x720, 1 spp, depth 50, timed as phase 6 and held to
+                  the plain version's frame at flip <= 2% and mean < 2e-3
+ 10. config4      BASELINE config 4 through render(): a smooth icosphere(6)
+                  (81,920 faces) behind its BVH, 640x480, 1 spp, depth 8,
+                  held to the plain version at flip <= 1% and mean < 2e-4
 
-then the kernels line, the card's `nvidia-smi` name and power limit, and last
+Every phase that launches the megakernel gates its launch count per route
+(megakernel:brute, :sphere_bvh, :mesh_bvh).
+ 11. bvh_builds   which BVH builder ran (it must be the native one)
+
+then the kernels line (the megakernel once per path: brute, sphere_bvh,
+mesh_bvh), the card's `nvidia-smi` name and power limit, and last
 {"ok": true, "device": {...}}.  A failed gate exits nonzero before that line.
 Without a CUDA device, or outside the repository, it exits nonzero and prints
 no result.  It needs no network and starts no process that outlives it.
@@ -29,6 +47,7 @@ no result.  It needs no network and starts no process that outlives it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -42,10 +61,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(REPO, "tests", "goldens")
 KERNEL_SOURCE = "gpu_ray_tracing_tpu_torch/ops/cuda/megakernel.cu"
 REPLACES = "gpu_ray_tracing_tpu/ops/pallas/megakernel.py:1420"
-# The JAX tests' BASE_CAMERA (tests/test_api.py:22-29).
+# The JAX tests' BASE_CAMERA (tests/test_api.py:22-29), and the mesh
+# camera of benchmarks/parity_check.py:96-99 and run.py:290-292.
 BASE_CAMERA = dict(look_from=[0.0, 0.0, 1.0], look_at=[0.0, 0.0, -1.0],
                    vup=[0.0, 1.0, 0.0], field_of_view=60.0, defocus_angle=0.0,
                    focus_distance=2.0)
+MESH_CAMERA = dict(BASE_CAMERA, look_from=[0.0, 1.2, 3.0], look_at=[0.0, 0.7, 0.0])
 
 failures: list[str] = []
 
@@ -77,6 +98,27 @@ def cuda_ms(fn, repeats: int) -> tuple[float, object]:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats, out
+
+
+def against_plain(T, mk, run, scene, cam, kw, flip: float, mean_tol: float,
+                  warmup: int = 1, plain=None) -> dict:
+    """Reset the launch counts, call `run` (a kernel path) `warmup` times
+    and 5 timed times (CUDA events), read the counts, then render the same
+    frame with the plain version once (render_reference(scene, cam, **kw);
+    its launches do not count) unless `plain` gives (image, ms) already.
+    The kernel's image is matched to the plain one at (flip, mean_tol)."""
+    mk.LAUNCHES.clear()
+    for _ in range(warmup):
+        run()
+    ms, img = cuda_ms(run, 5)
+    launches = dict(mk.LAUNCHES)
+    if plain is None:
+        plain_ms, plain_img = cuda_ms(lambda: mk.render_reference(scene, cam, **kw), 1)
+    else:
+        plain_img, plain_ms = plain
+    return dict(img=img, plain_img=plain_img, ms=ms, plain_ms=plain_ms,
+                launches=launches, finite=bool(torch.isfinite(img).all()),
+                mean=float(img.mean()), match=T.images_match(img, plain_img, flip, mean_tol))
 
 
 def main() -> int:
@@ -129,6 +171,15 @@ def main() -> int:
 
     # 4. goldens, through the public entry point with backend='cuda'
     base_cam = T.CameraSettings.make(**BASE_CAMERA)
+    mesh_cam = T.CameraSettings.make(**MESH_CAMERA)
+    ground = T.make_spheres([((0, -1000.0, 0), 1000.0, T.LAMBERTIAN, (0.5, 0.5, 0.5), 0.0)])
+
+    def mesh_scene(subdivisions: int):
+        """benchmarks/parity_check.py::_mesh_scene, and run.py's config 4
+        at subdivisions=6."""
+        ico = T.icosphere(subdivisions, albedo=(0.75, 0.6, 0.45), smooth=True)
+        return T.make_scene(ground, T.transform_mesh(ico, 0.8, (0.0, 0.8, 0.0)))
+
     cases = [
         ("base_normal_64x48.npy", T.base_scene(), base_cam,
          dict(width=64, height=48, spp=1, integrator="normal"), 0, 0.002, 1e-5),
@@ -136,6 +187,8 @@ def main() -> int:
          dict(width=64, height=48, spp=4, max_depth=8), 42, 0.005, 1e-4),
         ("one_weekend_48x27.npy", T.one_weekend_scene(0), T.CameraSettings.default(),
          dict(width=48, height=27, spp=2, max_depth=6), 3, 0.01, 2e-4),
+        ("mesh_ico_48x36.npy", mesh_scene(2), mesh_cam,
+         dict(width=48, height=36, spp=2, max_depth=4), 11, 0.005, 1e-4),
     ]
     for golden, scene, cam, cfg_kw, seed, flip, mean in cases:
         cfg = T.RenderConfig(backend="cuda", **cfg_kw)
@@ -191,15 +244,112 @@ def main() -> int:
           "card": smi})
     gate("main_path", shape_ok and finite and 0.0 < mean < 1.0,
          f"shape {tuple(img.shape)}, finite {finite}, mean {mean}")
-    gate("main_path", launches.get("megakernel", 0) == 7,
-         f"expected 7 megakernel launches, counted {launches}")
+    gate("main_path", launches == {"megakernel:brute": 7},
+         f"expected 7 brute-scan megakernel launches, counted {launches}")
     gate("main_path", m6.ok, f"vs plain: {m6}")
 
-    emit({"kernels": [{
-        "name": "megakernel", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches.get("megakernel", 0),
-        "max_abs_err": m6.max_abs, "ms": frame_ms, "plain_ms": plain_ms,
-    }]})
+    # 7. the sphere BVH against the plain scan of the same spheres
+    final = T.make_scene(T.one_weekend_scene(0, grid_min=-11, grid_max=11))
+    gate("sphere_bvh", final.sphere_bvh is not None, "make_scene built no sphere BVH")
+    final_dev = final.to(dev)
+    brute_dev = dataclasses.replace(final_dev, sphere_bvh=None)
+    w7, h7 = 320, 180
+    cam7 = T.derive_camera(T.CameraSettings.default(), w7, h7).to(dev)
+    kw7 = dict(width=w7, height=h7, spp=4, max_depth=50, t_min=1e-3, frame_seed=5)
+    walk = against_plain(T, mk, lambda: mk.render_cuda(final_dev, cam7, **kw7),
+                         final_dev, cam7, kw7, 0.02, 2e-3)
+    brute = against_plain(T, mk, lambda: mk.render_cuda(brute_dev, cam7, **kw7),
+                          final_dev, cam7, kw7, 0.01, 2e-4,
+                          plain=(walk["plain_img"], walk["plain_ms"]))
+    m7, m7b = walk["match"], brute["match"]
+    # The walk adds no flips over the scan: held to the brute kernel on the
+    # same spheres at the standard contract.
+    m7w = T.images_match(walk["img"], brute["img"], 0.01, 2e-4)
+    emit({"phase": "sphere_bvh", "spheres": final.spheres.count,
+          "bvh_nodes": final.sphere_bvh.num_nodes, "size": [w7, h7], "spp": 4,
+          "max_depth": 50, "flip_frac": m7.flip_frac, "mean_abs": m7.mean_abs,
+          "max_abs": m7.max_abs, "bvh_kernel_ms": walk["ms"], "brute_kernel_ms": brute["ms"],
+          "plain_ms": walk["plain_ms"], "brute_vs_plain_flip_frac": m7b.flip_frac,
+          "brute_vs_plain_mean_abs": m7b.mean_abs, "walk_vs_brute_flip_frac": m7w.flip_frac,
+          "walk_vs_brute_mean_abs": m7w.mean_abs, "walk_vs_brute_max_abs": m7w.max_abs,
+          "launches": {"walk": walk["launches"], "brute": brute["launches"]},
+          "card": smi, "ok": m7.ok and m7w.ok})
+    gate("sphere_bvh", m7.ok, f"walk vs plain: {m7}")
+    gate("sphere_bvh", m7w.ok, f"walk vs brute kernel: {m7w}")
+    gate("sphere_bvh", walk["launches"] == {"megakernel:sphere_bvh": 6},
+         f"expected 6 sphere-BVH launches, counted {walk['launches']}")
+    gate("sphere_bvh", brute["launches"] == {"megakernel:brute": 6},
+         f"expected 6 brute-scan launches, counted {brute['launches']}")
+
+    # 8. the mesh kernel against the plain version
+    ico4 = mesh_scene(4).to(dev)
+    w8, h8 = 320, 240
+    cam8 = T.derive_camera(mesh_cam, w8, h8).to(dev)
+    kw8 = dict(width=w8, height=h8, spp=2, max_depth=8, t_min=1e-3, frame_seed=8)
+    r8 = against_plain(T, mk, lambda: mk.render_cuda(ico4, cam8, **kw8),
+                       ico4, cam8, kw8, 0.01, 2e-4)
+    m8 = r8["match"]
+    emit({"phase": "mesh_vs_plain", "triangles": ico4.mesh.num_triangles,
+          "bvh_nodes": ico4.bvh.num_nodes, "size": [w8, h8], "spp": 2, "max_depth": 8,
+          "flip_frac": m8.flip_frac, "mean_abs": m8.mean_abs, "max_abs": m8.max_abs,
+          "kernel_ms": r8["ms"], "plain_ms": r8["plain_ms"], "launches": r8["launches"],
+          "card": smi, "ok": m8.ok})
+    gate("mesh_vs_plain", m8.ok, str(m8))
+    gate("mesh_vs_plain", r8["launches"] == {"megakernel:mesh_bvh": 6},
+         f"expected 6 mesh-BVH launches, counted {r8['launches']}")
+
+    # 9-10. BASELINE configs 3 and 4 at full size, through the public entry
+    # point (2 warm-up and 5 timed frames), each gated against the plain
+    # version of the same frame.
+    paths = {}
+    for phase, route, scene, cam, cfg, seed, flip, mean_tol in (
+        ("config3", "sphere_bvh", final, T.CameraSettings.default(),
+         T.RenderConfig(width=1280, height=720, spp=1, max_depth=50, backend="cuda"), 3,
+         0.02, 2e-3),
+        ("config4", "mesh_bvh", mesh_scene(6), mesh_cam,
+         T.RenderConfig(width=640, height=480, spp=1, max_depth=8, backend="cuda"), 4,
+         0.01, 2e-4),
+    ):
+        kw = dict(width=cfg.width, height=cfg.height, spp=cfg.spp, max_depth=cfg.max_depth,
+                  t_min=cfg.t_min, frame_seed=seed)
+        r = against_plain(
+            T, mk, lambda: T.render(scene, cam, cfg, frame_seed=seed), scene.to(dev),
+            T.derive_camera(cam, cfg.width, cfg.height).to(dev), kw, flip, mean_tol, warmup=2)
+        m = r["match"]
+        paths[phase] = dict(r, route=route)
+        emit({"phase": phase, "size": [cfg.width, cfg.height], "spp": cfg.spp,
+              "max_depth": cfg.max_depth, "spheres": scene.spheres.count,
+              "triangles": 0 if scene.mesh is None else scene.mesh.num_triangles,
+              "finite": r["finite"], "mean": r["mean"], "launches": r["launches"],
+              "ms_per_frame": r["ms"],
+              "primary_mrays_per_s": cfg.width * cfg.height * cfg.spp / (r["ms"] * 1e3),
+              "plain_ms": r["plain_ms"], "vs_plain_flip_frac": m.flip_frac,
+              "vs_plain_mean_abs": m.mean_abs, "vs_plain_max_abs": m.max_abs,
+              "vs_plain_limits": [flip, mean_tol], "card": smi, "ok": m.ok})
+        gate(phase, r["finite"] and 0.0 < r["mean"] < 1.0,
+             f"finite {r['finite']}, mean {r['mean']}")
+        gate(phase, r["launches"] == {"megakernel:" + route: 7},
+             f"expected 7 {route} megakernel launches, counted {r['launches']}")
+        gate(phase, m.ok, f"vs plain: {m}")
+
+    # 11. the BVH builder that ran: the native one, as in the CPU tests
+    from gpu_ray_tracing_tpu_torch.ops import bvh as bvh_ops
+    builds = dict(bvh_ops.BUILDS)
+    emit({"phase": "bvh_builds", "builds": builds})
+    gate("bvh_builds", builds.get("native", 0) > 0 and builds.get("numpy", 0) == 0,
+         f"expected only native BVH builds, got {builds}")
+
+    kernel = dict(route="cuda", source=KERNEL_SOURCE, replaces=REPLACES)
+    emit({"kernels": [
+        dict(kernel, name="megakernel:brute", path="brute",
+             launches=launches.get("megakernel:brute", 0),
+             max_abs_err=m6.max_abs, ms=frame_ms, plain_ms=plain_ms),
+    ] + [
+        dict(kernel, name="megakernel:" + p["route"], path=p["route"],
+             launches=p["launches"].get("megakernel:" + p["route"], 0),
+             max_abs_err=p["match"].max_abs, ms=p["ms"], plain_ms=p["plain_ms"])
+        for p in (paths["config3"], paths["config4"])
+    ]})
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED {f}", file=sys.stderr)

@@ -1,8 +1,9 @@
 """gpu_ray_tracing_tpu_torch: the PyTorch + CUDA port of gpu_ray_tracing_tpu.
 
-The port renders the hash-stream path tracer on a sphere scene with a
-hand-written sm_90a megakernel (backend='cuda') or the plain PyTorch
-integrator (backend='torch').  It imports torch and numpy, never jax.
+The port renders the hash-stream path tracer on sphere scenes (brute scan
+or sphere BVH) and triangle meshes behind a BVH, with a hand-written sm_90a
+megakernel (backend='cuda') or the plain PyTorch integrator
+(backend='torch').  It imports torch and numpy, never jax.
 
     from gpu_ray_tracing_tpu_torch import (
         CameraSettings, RenderConfig, one_weekend_scene, render)
@@ -19,11 +20,29 @@ from gpu_ray_tracing_tpu_torch.models.camera import (
     derive_camera,
     validate_camera,
 )
+from gpu_ray_tracing_tpu_torch.models.cornell import cornell_box_scene, cornell_camera
+from gpu_ray_tracing_tpu_torch.models.mesh import (
+    TriangleMesh,
+    box,
+    bunny_stand_in,
+    icosphere,
+    load_obj,
+    make_mesh,
+    merge_meshes,
+    torus,
+    transform_mesh,
+    trefoil,
+)
 from gpu_ray_tracing_tpu_torch.models.scene import (
     SPHERE_BVH_THRESHOLD,
+    Lights,
     Scene,
+    TriLights,
     as_scene,
+    extract_lights,
+    extract_tri_lights,
     make_scene,
+    tri_light_id_per_face,
 )
 from gpu_ray_tracing_tpu_torch.models.spheres import (
     DIELECTRIC,
@@ -35,14 +54,25 @@ from gpu_ray_tracing_tpu_torch.models.spheres import (
     make_spheres,
     one_weekend_scene,
 )
+from gpu_ray_tracing_tpu_torch.ops.bvh import (
+    BVH,
+    build_bvh,
+    build_mesh_bvh,
+    build_sphere_bvh,
+    validate_bvh,
+)
 from gpu_ray_tracing_tpu_torch.ops.cuda.megakernel import render_cuda, render_reference
 from gpu_ray_tracing_tpu_torch.utils.config import RenderConfig
 from gpu_ray_tracing_tpu_torch.utils.parity import images_match
 
 __all__ = [
-    "Camera", "CameraSettings", "DIELECTRIC", "EMISSIVE", "LAMBERTIAN", "METAL",
-    "RenderConfig", "SPHERE_BVH_THRESHOLD", "Scene", "Spheres",
-    "as_scene", "base_scene", "derive_camera", "from_reference", "images_match",
-    "make_scene", "make_spheres", "one_weekend_scene", "render", "render_cuda",
-    "render_reference", "validate_camera",
+    "BVH", "Camera", "CameraSettings", "DIELECTRIC", "EMISSIVE", "LAMBERTIAN",
+    "Lights", "METAL", "RenderConfig", "SPHERE_BVH_THRESHOLD", "Scene", "Spheres",
+    "TriLights", "TriangleMesh", "as_scene", "base_scene", "box", "build_bvh",
+    "build_mesh_bvh", "build_sphere_bvh", "bunny_stand_in", "cornell_box_scene",
+    "cornell_camera", "derive_camera", "extract_lights", "extract_tri_lights",
+    "from_reference", "icosphere", "images_match", "load_obj", "make_mesh",
+    "make_scene", "make_spheres", "merge_meshes", "one_weekend_scene", "render",
+    "render_cuda", "render_reference", "torus", "transform_mesh",
+    "tri_light_id_per_face", "trefoil", "validate_bvh", "validate_camera",
 ]

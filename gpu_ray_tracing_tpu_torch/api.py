@@ -1,7 +1,8 @@
 """Public rendering API (port of gpu_ray_tracing_tpu/api.py:232-342).
 
-`render(scene, camera, config, frame_seed=...)` renders one frame at
-config.spp samples per pixel on the counter-based hash stream:
+`render(scene, camera, config, frame_seed=...)` renders one frame of a
+Spheres or a Scene (spheres, sphere BVH, mesh with its BVH) at config.spp
+samples per pixel on the counter-based hash stream:
 
   backend='torch'  the plain PyTorch integrator (render_reference), on the
                    device the scene lies on; the counterpart of 'jax'.

@@ -8,11 +8,16 @@ motion ops are not ported yet (ROADMAP Queue 1 item 3).
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
+
+from gpu_ray_tracing_tpu_torch.ops.rounding import cross, dot3
 
 
 def _f32(x, device=None) -> torch.Tensor:
@@ -82,16 +87,24 @@ class Camera:
         return _fields_to(self, device)
 
 
+@functools.cache
+def _libm_tanf():
+    fn = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6").tanf
+    fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    return fn
+
+
+def _tan(x: torch.Tensor) -> torch.Tensor:
+    """tan of an f32 scalar, rounded as the C library's tanf rounds it:
+    jnp.tan on XLA:CPU calls tanf, which is not correctly rounded, and
+    one ulp of the viewport flips grazing hits in the goldens."""
+    return torch.tensor(_libm_tanf()(float(x)), dtype=torch.float32, device=x.device)
+
+
 def _norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(v * v))
-
-
-def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.stack([
-        a[1] * b[2] - a[2] * b[1],
-        a[2] * b[0] - a[0] * b[2],
-        a[0] * b[1] - a[1] * b[0],
-    ])
+    # jnp.linalg.norm and jnp.cross are jitted: XLA:CPU rounds their
+    # products as fused multiply-adds, and so does the port (ops/rounding).
+    return torch.sqrt(dot3(v, v))
 
 
 def validate_camera(settings: CameraSettings) -> None:
@@ -122,15 +135,15 @@ def derive_camera(settings: CameraSettings, width: int, height: int) -> Camera:
     deg = torch.tensor(math.pi / 180.0, dtype=f32)
 
     theta = s.field_of_view * deg.to(s.field_of_view.device)
-    h = torch.tan(theta / 2.0)
+    h = _tan(theta / 2.0)
     viewport_height = 2.0 * h * s.focus_distance
     viewport_width = viewport_height * aspect_ratio.to(h.device)
 
     gaze = s.look_from - s.look_at
     w = gaze / _norm(gaze)
-    uu = _cross(s.vup, w)
+    uu = cross(s.vup, w)
     u = uu / _norm(uu)
-    v = _cross(w, u)
+    v = cross(w, u)
 
     viewport_u = viewport_width * u
     viewport_v = -viewport_height * v  # image y grows downward
@@ -140,7 +153,7 @@ def derive_camera(settings: CameraSettings, width: int, height: int) -> Camera:
     viewport_upper_left = (
         s.look_from - s.focus_distance * w - viewport_u / 2.0 - viewport_v / 2.0
     )
-    defocus_radius = s.focus_distance * torch.tan(
+    defocus_radius = s.focus_distance * _tan(
         (s.defocus_angle / 2.0) * deg.to(s.defocus_angle.device)
     )
     return Camera(

@@ -40,7 +40,11 @@ _c_float = ctypes.c_float
 _SIGNATURES = {
     "grt_render": (
         _c_int,
-        [_c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_uint, _c_uint, _c_uint,
+        [_c_ptr, _c_ptr, _c_int,  # camera, sphere planes, n
+         _c_ptr, _c_ptr, _c_int,  # sphere BVH planes, nodes
+         _c_ptr, _c_int, _c_int,  # mesh table, triangles, smooth
+         _c_ptr, _c_ptr, _c_int,  # mesh BVH planes, nodes
+         _c_int, _c_int, _c_uint, _c_uint, _c_uint,
          _c_uint, _c_int, _c_float, _c_float, _c_int, _c_int, _c_float,
          _c_float, _c_int, _c_ptr, _c_ptr],
     ),

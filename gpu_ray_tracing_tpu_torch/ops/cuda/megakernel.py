@@ -1,36 +1,45 @@
 """Host side of the CUDA megakernel (port of gpu_ray_tracing_tpu/ops/pallas/megakernel.py).
 
 `render_cuda` launches ops/cuda/megakernel.cu, one thread per pixel, for
-the K1a slice of the Pallas `_kernel`: spheres, the brute-force scan, the
-independent hash sampler, the fixed spp loop, the AOV modes, Russian
-roulette and the clamp.  `render_reference` is its plain PyTorch version
-with the same signature, composed of ops/rays, ops/intersect,
+the K1a, K1c and K1d slices of the Pallas `_kernel`: spheres by the brute
+scan or through a sphere BVH, triangle meshes behind a BVH (flat or
+smooth), the independent hash sampler, the fixed spp loop, the AOV modes,
+Russian roulette and the clamp.  `render_reference` is its plain PyTorch
+version with the same signature, composed of ops/rays, ops/intersect,
 ops/materials and ops/integrators; the tests and the 'torch' backend run
-it, and chip_smoke.py holds the kernel against it on the card.
+it, and chip_smoke.py holds the kernel against it on the card.  The plain
+version scans every sphere whether or not the scene has a sphere BVH, as
+the JAX package's 'jax' backend does.
 
 `render_cuda` takes CUDA tensors only and never falls back: no device, a
 failed build or a failed launch raises.  The only torch operations around
-its launch pack the (16, N) scene and (1, 24) camera layouts, as
-render_pallas's XLA code does.
+its launch pack the (16, N) scene, (1, 24) camera, (F, 32) mesh table and
+BVH plane layouts, as render_pallas's XLA code does.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 
 import numpy as np
 import torch
 
 from gpu_ray_tracing_tpu_torch.models.camera import Camera
-from gpu_ray_tracing_tpu_torch.models.scene import as_scene
+from gpu_ray_tracing_tpu_torch.models.mesh import TriangleMesh
+from gpu_ray_tracing_tpu_torch.models.scene import Scene, as_scene
 from gpu_ray_tracing_tpu_torch.models.spheres import EMISSIVE, Spheres
 from gpu_ray_tracing_tpu_torch.ops import integrators
 from gpu_ray_tracing_tpu_torch.ops import rng as rng_ops
+from gpu_ray_tracing_tpu_torch.ops.bvh import BVH
 from gpu_ray_tracing_tpu_torch.ops.cuda import build
 from gpu_ray_tracing_tpu_torch.ops.rays import generate_rays_hash
 
-#: Kernel launches per wrapper ("megakernel", "hash_probe"): each wrapper
-#: adds one where it launches, so a run can show which kernels it used.
+#: Kernel launches per wrapper and route ("megakernel:brute",
+#: "megakernel:sphere_bvh", "megakernel:mesh_bvh", "hash_probe"): each
+#: wrapper adds one where it launches, keyed by the geometry the launch was
+#: given (a mesh, else a sphere BVH, else the brute scan), so a run can show
+#: which paths it used.
 LAUNCHES: collections.Counter = collections.Counter()
 
 # Rows of the (16, N) scene planes (the Pallas layout, megakernel.py:84).
@@ -39,6 +48,12 @@ _LIGHTID = 11
 _SCENE_ROWS = 16
 
 MODES = {"path": 0, "normal": 1, "albedo": 2, "depth": 3}
+
+# Mesh table: one row of 32 f32 slots per face (the Pallas table's
+# per-triangle group, megakernel.py:153-159, without its 4-per-row VMEM
+# layout): v0 0-2, e1 3-5, e2 6-8, corner normals 9-17 (the face normal
+# three times when flat), albedo 18-20, kind 21, param 22, light id 23.
+_TRI_SLOTS = 32
 
 # Pixels x spheres elements per chunk of the plain version's (P, N) planes.
 _CPU_BLOCK = 1 << 22
@@ -71,6 +86,34 @@ def scene_planes(spheres: Spheres) -> torch.Tensor:
     return planes
 
 
+def mesh_table(mesh: TriangleMesh) -> torch.Tensor:
+    """Pack a TriangleMesh into the (F, 32) f32 table the kernel reads.  The
+    light-id slot (23) holds -1 until NEE reads it."""
+    f = mesh.num_triangles
+    dev = mesh.device
+    n0, n1, n2 = (mesh.n0, mesh.n1, mesh.n2) if mesh.smooth else (mesh.normals,) * 3
+    lid = torch.full((f, 1), -1.0, dtype=torch.float32, device=dev)
+    return torch.cat([
+        mesh.v0, mesh.e1, mesh.e2, n0, n1, n2, mesh.albedo,
+        mesh.mat_kind.to(torch.float32)[:, None], mesh.mat_param[:, None], lid,
+        torch.zeros((f, _TRI_SLOTS - 24), dtype=torch.float32, device=dev),
+    ], dim=1).contiguous()
+
+
+def bvh_planes(bvh: BVH) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pack a threaded BVH into ((8, M) f32 bounds, (4, M) i32 links): rows
+    bmin x/y/z, bmax x/y/z, 0, 0 and miss link, leaf start, leaf count, 0."""
+    m, dev = bvh.num_nodes, bvh.device
+    f = torch.zeros((8, m), dtype=torch.float32, device=dev)
+    f[0:3] = bvh.bbox_min.T
+    f[3:6] = bvh.bbox_max.T
+    i = torch.zeros((4, m), dtype=torch.int32, device=dev)
+    i[0] = bvh.miss_link
+    i[1] = bvh.leaf_start
+    i[2] = bvh.leaf_count
+    return f, i
+
+
 def camera_vector(camera: Camera) -> torch.Tensor:
     """Pack a derived Camera into the (1, 24) layout: center 0-2, upper
     left 3-5, pixel deltas 6-8 and 9-11, defocus disk 12-14 and 15-17,
@@ -98,9 +141,15 @@ def _check_args(width, height, spp, max_depth, mode):
         raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
 
 
-def _trace_block(num_pixels: int, num_spheres: int, device: torch.device) -> int:
-    budget = _CUDA_BLOCK if device.type == "cuda" else _CPU_BLOCK
-    return max(1, min(num_pixels, budget // max(num_spheres, 1)))
+def _trace_block(num_pixels: int, sc: Scene) -> int:
+    """Pixels per chunk of the plain version, so that its (P, N) sphere
+    planes (and (P, F) triangle planes for a mesh without a BVH) stay
+    within a budget."""
+    budget = _CUDA_BLOCK if sc.device.type == "cuda" else _CPU_BLOCK
+    width = sc.spheres.count
+    if sc.mesh is not None and sc.bvh is None:
+        width += sc.mesh.num_triangles
+    return max(1, min(num_pixels, budget // width))
 
 
 def render_reference(
@@ -130,7 +179,7 @@ def render_reference(
     dev = sc.spheres.device
     camera = camera.to(dev)
     p = width * height
-    block = _trace_block(p, sc.spheres.count, dev)
+    block = _trace_block(p, sc)
     acc = torch.zeros((p, 3), dtype=torch.float32, device=dev)
     for s in range(spp):
         o, d, seeds = generate_rays_hash(
@@ -158,6 +207,18 @@ def render_reference(
                     img = integrators.clamp_radiance(img, clamp)
             acc[sl] += img
     return (acc / float(spp)).reshape(height, width, 3)
+
+
+def _tensors(obj) -> list[torch.Tensor]:
+    """Every tensor of a scene or camera dataclass, depth first."""
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif dataclasses.is_dataclass(v):
+            out += _tensors(v)
+    return out
 
 
 def _require_cuda(*tensors: torch.Tensor) -> torch.device:
@@ -199,21 +260,35 @@ def render_cuda(
 ) -> torch.Tensor:
     """Render spp samples in one launch of the CUDA megakernel; returns the
     (height, width, 3) f32 mean on the scene's CUDA device.  Same signature
-    and stream as render_reference."""
+    and stream as render_reference.  A scene with a sphere BVH walks it; a
+    mesh must have its BVH (make_scene builds one)."""
     _check_args(width, height, spp, max_depth, mode)
     sc = as_scene(scene_or_spheres)
     s = sc.spheres
-    cam_fields = [getattr(camera, f) for f in camera.__dataclass_fields__]
-    dev = _require_cuda(s.centers, s.radii, s.albedo, s.mat_kind, s.mat_param,
-                        *cam_fields)
+    dev = _require_cuda(*_tensors(sc), *_tensors(camera))
+    if sc.mesh is not None and sc.bvh is None:
+        raise ValueError("the CUDA megakernel renders a mesh through its BVH; "
+                         "build the scene with make_scene(use_bvh=True)")
     lib = build.load()
     planes = scene_planes(s).contiguous()
     cam = camera_vector(camera).contiguous()
+    sbvh = bvh_planes(sc.sphere_bvh) if sc.sphere_bvh is not None else (None, None)
+    if sc.mesh is not None:
+        table = mesh_table(sc.mesh)
+        mbvh = bvh_planes(sc.bvh)
+        n_tris, smooth = sc.mesh.num_triangles, int(sc.mesh.smooth)
+    else:
+        table, mbvh, n_tris, smooth = None, (None, None), 0, 0
+    ptr = lambda t: None if t is None else t.data_ptr()
+    nodes = lambda planes: 0 if planes[0] is None else planes[0].shape[1]
     out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.grt_render(
-            cam.data_ptr(), planes.data_ptr(), s.count, width, height,
+            cam.data_ptr(), planes.data_ptr(), s.count,
+            ptr(sbvh[0]), ptr(sbvh[1]), nodes(sbvh),
+            ptr(table), n_tris, smooth, ptr(mbvh[0]), ptr(mbvh[1]), nodes(mbvh),
+            width, height,
             int(sample_index) & 0xFFFFFFFF, int(frame_seed) & 0xFFFFFFFF,
             int(y_offset) & 0xFFFFFFFF, int(row_stride) & 0xFFFFFFFF,
             max_depth, float(t_min), float(t_max), MODES[mode],
@@ -221,7 +296,8 @@ def render_cuda(
             spp, out.data_ptr(), stream,
         )
     build.check(rc, "megakernel")
-    LAUNCHES["megakernel"] += 1
+    route = "mesh_bvh" if n_tris else "sphere_bvh" if nodes(sbvh) else "brute"
+    LAUNCHES["megakernel:" + route] += 1
     return out
 
 

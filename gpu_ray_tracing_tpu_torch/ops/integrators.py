@@ -1,4 +1,5 @@
-"""Integrators (port of gpu_ray_tracing_tpu/ops/integrators.py:35-127+).
+"""Integrators (port of gpu_ray_tracing_tpu/ops/integrators.py:35-127+ and
+the scene closest hit of gpu_ray_tracing_tpu/models/scene.py:310-362).
 
 `trace_path` is the reference's ray_color (wgsl:261-297) on the counter
 stream: a bounce loop to max_depth with multiplicative throughput, sky on
@@ -15,7 +16,12 @@ import torch
 from gpu_ray_tracing_tpu_torch.models.scene import as_scene
 from gpu_ray_tracing_tpu_torch.models.spheres import EMISSIVE
 from gpu_ray_tracing_tpu_torch.ops import rng as rng_ops
-from gpu_ray_tracing_tpu_torch.ops.intersect import intersect_spheres
+from gpu_ray_tracing_tpu_torch.ops.intersect import (
+    Hit,
+    intersect_bvh,
+    intersect_spheres,
+    intersect_triangles,
+)
 from gpu_ray_tracing_tpu_torch.ops.materials import scatter
 
 _WHITE = (1.0, 1.0, 1.0)
@@ -33,14 +39,39 @@ def sky_color(dirs: torch.Tensor) -> torch.Tensor:
 
 
 def intersect_scene(origins, dirs, scene, t_min: float, t_max: float):
-    """Closest hit of a sphere scene: (hit, albedo, kind, param) per ray."""
-    spheres = as_scene(scene).spheres
-    hit = intersect_spheres(origins, dirs, spheres, t_min, t_max)
+    """Closest hit across spheres and mesh: (hit, albedo, kind, param) per
+    ray, the material taken from whichever primitive won (the mesh where
+    its t is strictly less).  A sphere BVH is not walked: the spheres,
+    reordered or not, are all scanned."""
+    sc = as_scene(scene)
+    spheres = sc.spheres
+    s_hit = intersect_spheres(origins, dirs, spheres, t_min, t_max)
+    albedo = spheres.albedo[s_hit.idx]
+    kind = spheres.mat_kind[s_hit.idx]
+    param = spheres.mat_param[s_hit.idx]
+    if sc.mesh is None:
+        return s_hit, albedo, kind, param
+
+    mesh = sc.mesh
+    if sc.bvh is not None:
+        m_hit = intersect_bvh(origins, dirs, mesh, sc.bvh, t_min, t_max)
+    else:
+        m_hit = intersect_triangles(origins, dirs, mesh, t_min, t_max)
+    wins = m_hit.hit & (~s_hit.hit | (m_hit.t < s_hit.t))
+    w = wins[..., None]
+    hit = Hit(
+        t=torch.where(wins, m_hit.t, s_hit.t),
+        idx=torch.where(wins, m_hit.idx, s_hit.idx),
+        hit=s_hit.hit | m_hit.hit,
+        point=torch.where(w, m_hit.point, s_hit.point),
+        normal=torch.where(w, m_hit.normal, s_hit.normal),
+        front_face=torch.where(wins, m_hit.front_face, s_hit.front_face),
+    )
     return (
         hit,
-        spheres.albedo[hit.idx],
-        spheres.mat_kind[hit.idx],
-        spheres.mat_param[hit.idx],
+        torch.where(w, mesh.albedo[m_hit.idx], albedo),
+        torch.where(wins, mesh.mat_kind[m_hit.idx], kind),
+        torch.where(wins, mesh.mat_param[m_hit.idx], param),
     )
 
 

@@ -1,10 +1,13 @@
-"""Ray-sphere closest hit (port of gpu_ray_tracing_tpu/ops/intersect.py:56-165).
+"""Closest hits: spheres, triangles and the threaded mesh BVH (port of
+gpu_ray_tracing_tpu/ops/intersect.py).
 
 Every (ray, sphere) pair solves the reference's quadratic (wgsl:182-221)
 at once on (P, N) planes: each sphere picks its near root, or its far
 root when the near one is outside (t_min, t_max), and the closest hit is
 the minimum over spheres.  That equals the reference's sequential
-shrinking-window scan, ties going to the lower sphere index.
+shrinking-window scan, ties going to the lower sphere index.  Triangles
+use Moller-Trumbore; `intersect_bvh` walks the threaded BVH of
+ops/bvh.py with one cursor per ray.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import dataclasses
 import torch
 
 from gpu_ray_tracing_tpu_torch.models.spheres import Spheres
-from gpu_ray_tracing_tpu_torch.ops.rounding import dot3, fma
+from gpu_ray_tracing_tpu_torch.ops.rounding import cross, dot3, fma
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,7 +25,7 @@ class Hit:
     """Vectorized HitRecord (wgsl:143-149); the material is looked up by idx."""
 
     t: torch.Tensor  # (...,) ray parameter of the closest hit (t_max if none)
-    idx: torch.Tensor  # (...,) int64 index of the hit sphere (0 if none)
+    idx: torch.Tensor  # (...,) int64 index of the winning sphere or face (0 if none)
     hit: torch.Tensor  # (...,) bool
     point: torch.Tensor  # (..., 3)
     normal: torch.Tensor  # (..., 3) face normal, flipped toward the ray
@@ -106,3 +109,128 @@ def intersect_spheres(
         normal=normal.reshape(*batch_shape, 3),
         front_face=front_face.reshape(batch_shape),
     )
+
+
+# --- triangles ---------------------------------------------------------------
+
+
+def _moller_trumbore(o, d, v0, e1, e2, t_min: float, t_max):
+    """Moller-Trumbore for broadcast rays and triangles (..., 3): returns
+    (t, u, v, hit) with the open (t_min, t_max) test; t_max may be a
+    tensor (the shrinking window).  The cross and inner products round as
+    XLA:CPU rounds them (ops/rounding.py): the mesh_ico golden carries it."""
+    pvec = cross(d, e2)
+    det = dot3(e1, pvec)
+    near_parallel = torch.abs(det) < 1e-12
+    inv_det = 1.0 / torch.where(near_parallel, 1.0, det)
+    tvec = o - v0
+    u = dot3(tvec, pvec) * inv_det
+    qvec = cross(tvec, e1)
+    v = dot3(d, qvec) * inv_det
+    t = dot3(e2, qvec) * inv_det
+    hit = (~near_parallel & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t > t_min) & (t < t_max))
+    return t, u, v, hit
+
+
+def intersect_triangles(origins, dirs, mesh, t_min: float, t_max: float) -> Hit:
+    """Brute-force closest hit over every triangle, on (P, F) planes (for
+    tests and meshes without a BVH)."""
+    batch_shape = origins.shape[:-1]
+    o = origins.reshape(-1, 3)
+    d = dirs.reshape(-1, 3)
+    t, _, _, hit = _moller_trumbore(o[:, None, :], d[:, None, :], mesh.v0[None],
+                                    mesh.e1[None], mesh.e2[None], t_min, t_max)
+    t_best, idx = torch.min(torch.where(hit, t, torch.inf), dim=-1)
+    any_hit = torch.isfinite(t_best)
+    t_best = torch.where(any_hit, t_best, t_max)
+    return _mesh_hit_record(o, d, mesh, t_best, idx, any_hit, batch_shape)
+
+
+def _mesh_hit_record(o, d, mesh, t_best, idx, any_hit, batch_shape) -> Hit:
+    """Hit record of the winning faces: the flat normal, or with smooth
+    corner normals the barycentric blend of the winner (its u, v
+    recomputed), renormalized; then flipped toward the ray."""
+    point = o + torch.where(any_hit, t_best, 0.0)[:, None] * d
+    if mesh.smooth:
+        _, u, v, _ = _moller_trumbore(o, d, mesh.v0[idx], mesh.e1[idx], mesh.e2[idx],
+                                      0.0, 0.0)
+        outward = ((1.0 - u - v)[:, None] * mesh.n0[idx] + u[:, None] * mesh.n1[idx]
+                   + v[:, None] * mesh.n2[idx])
+        norm = torch.sqrt(torch.sum(outward * outward, dim=-1, keepdim=True))
+        outward = outward / torch.clamp(norm, min=1e-20)
+    else:
+        outward = mesh.normals[idx]
+    front_face = torch.sum(d * outward, dim=-1) < 0.0
+    normal = torch.where(front_face[:, None], outward, -outward)
+    return Hit(
+        t=t_best.reshape(batch_shape),
+        idx=idx.reshape(batch_shape),
+        hit=any_hit.reshape(batch_shape),
+        point=point.reshape(*batch_shape, 3),
+        normal=normal.reshape(*batch_shape, 3),
+        front_face=front_face.reshape(batch_shape),
+    )
+
+
+def intersect_bvh(origins, dirs, mesh, bvh, t_min: float, t_max: float) -> Hit:
+    """Stackless threaded-BVH closest hit (ops/bvh.py layout).
+
+    Every ray carries one cursor: a box whose slab interval overlaps the
+    ray's window (t_min, t_best) descends to node + 1 (inner) or scans its
+    leaf; otherwise the cursor follows the miss link, and -1 ends the
+    walk.  Rays whose walk has ended leave the working set, so the loop
+    costs the sum of the rays' visits, not their maximum times the ray
+    count.  A leaf's faces are tested together: the winner is the first
+    face of least t, which is what a sequential shrinking-window scan
+    keeps.  No gradient flows through the walk.
+    """
+    batch_shape = origins.shape[:-1]
+    o = origins.reshape(-1, 3)
+    d = dirs.reshape(-1, 3)
+    p = o.shape[0]
+    dev = o.device
+    inv_d = 1.0 / torch.where(torch.abs(d) < 1e-20, 1e-20, d)
+    t_out = torch.full((p,), t_max, dtype=torch.float32, device=dev)
+    idx_out = torch.full((p,), -1, dtype=torch.int64, device=dev)
+
+    ids = torch.arange(p, device=dev)
+    node = torch.zeros(p, dtype=torch.int64, device=dev)
+    so, sd, sinv = o, d, inv_d
+    tb, ib = t_out.clone(), idx_out.clone()
+    miss = bvh.miss_link.long()
+    lstart = bvh.leaf_start.long()
+    lcount = bvh.leaf_count.long()
+    ks = torch.arange(bvh.leaf_size, device=dev)
+    while ids.numel():
+        t0 = (bvh.bbox_min[node] - so) * sinv
+        t1 = (bvh.bbox_max[node] - so) * sinv
+        tn = torch.amax(torch.minimum(t0, t1), dim=-1)
+        tf = torch.amin(torch.maximum(t0, t1), dim=-1)
+        box_hit = (tf >= torch.clamp(tn, min=t_min)) & (tn < tb)
+        ls = lstart[node]
+        is_leaf = ls >= 0
+        leaf = torch.nonzero(box_hit & is_leaf).squeeze(1)
+        if leaf.numel():
+            tri = ls[leaf, None] + ks  # (L, K)
+            valid = ks < lcount[node[leaf], None]
+            tri = torch.where(valid, tri, 0)
+            t, _, _, hit = _moller_trumbore(
+                so[leaf, None], sd[leaf, None], mesh.v0[tri], mesh.e1[tri], mesh.e2[tri],
+                t_min, tb[leaf, None])
+            t_leaf, k = torch.min(torch.where(valid & hit, t, torch.inf), dim=-1)
+            take = torch.isfinite(t_leaf)
+            tb[leaf] = torch.where(take, t_leaf, tb[leaf])
+            ib[leaf] = torch.where(take, tri.gather(1, k[:, None]).squeeze(1), ib[leaf])
+        node = torch.where(box_hit & ~is_leaf, node + 1, miss[node])
+        done = node < 0
+        if bool(done.any()):
+            t_out[ids[done]] = tb[done]
+            idx_out[ids[done]] = ib[done]
+            keep = ~done
+            ids, node, so, sd, sinv, tb, ib = (
+                x[keep] for x in (ids, node, so, sd, sinv, tb, ib))
+
+    any_hit = idx_out >= 0
+    idx = torch.where(any_hit, idx_out, 0)
+    return _mesh_hit_record(o, d, mesh, t_out, idx, any_hit, batch_shape)

@@ -12,6 +12,8 @@ mean) are exact, since the kernel computes each pixel the same way
 whatever the launch covers.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -42,10 +44,10 @@ def _assert_match(a, b, flip_frac=0.01, mean_tol=2e-4):
 def test_render_cuda_matches_render_reference(dev):
     scene, cam = _one_weekend(dev, 160, 90)
     kw = dict(width=160, height=90, spp=2, max_depth=12, t_min=1e-3, frame_seed=3)
-    before = mk.LAUNCHES["megakernel"]
+    before = mk.LAUNCHES["megakernel:brute"]
     got = mk.render_cuda(scene, cam, **kw)
     torch.cuda.synchronize()
-    assert mk.LAUNCHES["megakernel"] == before + 1
+    assert mk.LAUNCHES["megakernel:brute"] == before + 1
     assert got.shape == (90, 160, 3) and bool(torch.isfinite(got).all())
     _assert_match(got, mk.render_reference(scene, cam, **kw))
 
@@ -77,6 +79,65 @@ def test_row_bands_and_spp_mean_are_exact(dev):
     singles = [mk.render_cuda(scene, cam, height=36, spp=1, sample_index=s, **kw)
                for s in range(4)]
     assert torch.equal(full, (singles[0] + singles[1] + singles[2] + singles[3]) / 4.0)
+
+
+def _mesh_scene(dev, smooth):
+    spheres = T.make_spheres([
+        ((0, -1000.0, 0), 1000.0, T.LAMBERTIAN, (0.5, 0.5, 0.5), 0.0),
+        ((-1.5, 0.5, -1.0), 0.5, T.METAL, (0.9, 0.9, 0.9), 0.05),
+        ((1.2, 0.3, 0.4), 0.3, T.DIELECTRIC, (1.0, 1.0, 1.0), 1.5),
+    ])
+    mesh = T.merge_meshes(
+        T.transform_mesh(T.icosphere(2, albedo=(0.8, 0.4, 0.2), smooth=smooth), 0.7, (0, 0.7, 0)),
+        T.transform_mesh(T.box(albedo=(0.2, 0.6, 0.3)), 0.5, (1.0, 0.25, -1.0)),
+    )
+    cam = T.CameraSettings.make([0.0, 1.0, 3.0], [0.0, 0.5, 0.0], [0, 1, 0], 45.0, 0.0, 3.0)
+    return T.make_scene(spheres, mesh).to(dev), T.derive_camera(cam, 96, 72).to(dev)
+
+
+def _sphere_bvh_scene(dev, w, h):
+    scene = T.make_scene(T.one_weekend_scene(0), sphere_bvh=True)
+    assert scene.sphere_bvh is not None
+    return scene.to(dev), T.derive_camera(T.CameraSettings.default(), w, h).to(dev)
+
+
+@pytest.mark.parametrize("mode", ["path", "normal", "albedo", "depth"])
+@pytest.mark.parametrize("smooth", [False, True])
+def test_mesh_scene_matches_render_reference(dev, smooth, mode):
+    scene, cam = _mesh_scene(dev, smooth)
+    kw = dict(width=96, height=72, spp=2, max_depth=8, t_min=1e-3, frame_seed=4, mode=mode)
+    before = mk.LAUNCHES["megakernel:mesh_bvh"]
+    got = mk.render_cuda(scene, cam, **kw)
+    assert mk.LAUNCHES["megakernel:mesh_bvh"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    want = mk.render_reference(scene, cam, **kw)
+    if mode == "path":
+        _assert_match(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("mode", ["path", "normal", "albedo", "depth"])
+def test_sphere_bvh_matches_brute_reference(dev, mode):
+    """The walked sphere BVH against the plain version's scan of the same
+    reordered spheres, at the sphere-BVH contract (flip <= 2%, mean <
+    2e-3: which leaves a walk scans can flip far-root decisions), and
+    against the brute kernel on the same spheres at the standard 1% / 2e-4."""
+    scene, cam = _sphere_bvh_scene(dev, 128, 72)
+    kw = dict(width=128, height=72, spp=2, max_depth=10, t_min=1e-3, frame_seed=6, mode=mode)
+    before = mk.LAUNCHES["megakernel:sphere_bvh"]
+    walk = mk.render_cuda(scene, cam, **kw)
+    assert mk.LAUNCHES["megakernel:sphere_bvh"] == before + 1
+    _assert_match(walk, mk.render_reference(scene, cam, **kw), 0.02, 2e-3)
+    brute = mk.render_cuda(dataclasses.replace(scene, sphere_bvh=None), cam, **kw)
+    _assert_match(walk, brute)
+
+
+def test_mesh_needs_its_bvh(dev):
+    scene, cam = _mesh_scene(dev, False)
+    brute = T.Scene(spheres=scene.spheres, mesh=scene.mesh, bvh=None)
+    with pytest.raises(ValueError, match="BVH"):
+        mk.render_cuda(brute, cam, width=8, height=8, max_depth=2, t_min=1e-3)
 
 
 def test_kernel_hashes_are_bit_exact(dev):

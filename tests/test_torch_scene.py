@@ -5,6 +5,7 @@ import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,6 +17,12 @@ from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as tmk
 from tests.test_api import BASE_CAMERA
 
 SPHERE_FIELDS = ("centers", "radii", "albedo", "mat_kind", "mat_param")
+MESH_FIELDS = ("v0", "e1", "e2", "normals", "albedo", "mat_kind", "mat_param",
+               "n0", "n1", "n2")
+BVH_FIELDS = ("bbox_min", "bbox_max", "miss_link", "leaf_start", "leaf_count")
+LIGHT_FIELDS = ("centers", "radii", "emission")
+TRI_LIGHT_FIELDS = ("v0", "e1", "e2", "normal", "area", "emission", "face_ids")
+EMISSIVE = 3
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -80,19 +87,128 @@ def test_from_reference_round_trip():
         T.from_reference(object())
 
 
-def test_make_scene_refuses_what_needs_a_bvh():
+def _many_lights_scene(mod, mesh_mod):
+    """benchmarks/parity_check.py::_many_lights_scene: an emissive sphere
+    and an emissive icosphere."""
+    spheres = mod.make_spheres([
+        ((0.0, -1000.0, 0.0), 1000.0, 0, (0.7, 0.7, 0.7), 0.0),
+        ((2.0, 2.2, -2.0), 0.4, EMISSIVE, (1.0, 0.9, 0.7), 4.0),
+    ])
+    glow = mesh_mod.transform_mesh(
+        mesh_mod.icosphere(1, albedo=(0.9, 1.0, 0.8), mat_kind=EMISSIVE, mat_param=3.0),
+        scale=0.5, translate=(-0.8, 1.8, -2.0))
+    return mod.make_scene(spheres, glow)
+
+
+@pytest.mark.parametrize("part", ["mesh", "bvh", "lights", "tri_lights", "scene"])
+def test_from_reference_carries_mesh_bvh_and_lights(part):
+    from gpu_ray_tracing_tpu.models import mesh as jmesh
+
+    js = _many_lights_scene(J, jmesh)
+    if part == "scene":
+        _assert_scenes_equal(js, T.from_reference(js))
+        _assert_scenes_equal(js, _many_lights_scene(T, T))
+        return
+    fields = {"mesh": MESH_FIELDS, "bvh": BVH_FIELDS, "lights": LIGHT_FIELDS,
+              "tri_lights": TRI_LIGHT_FIELDS}[part]
+    tobj = T.from_reference(getattr(js, part))
+    _assert_tensors_equal(getattr(js, part), tobj, fields)
+    if part == "bvh":
+        assert tobj.leaf_size == js.bvh.leaf_size
+
+
+def _nee_scene(mod):
+    """benchmarks/parity_check.py::_nee_scene: one emissive sphere."""
+    return mod.make_scene(mod.make_spheres([
+        ((0, -1000.0, 0), 1000.0, 0, (0.7, 0.7, 0.7), 0.0),
+        ((0.0, 2.0, -2.0), 0.3, EMISSIVE, (1.0, 0.9, 0.7), 20.0),
+        ((0.8, 0.4, -1.5), 0.4, 0, (0.3, 0.5, 0.8), 0.0),
+    ]))
+
+
+@pytest.mark.parametrize("which", ["nee", "emissive_mesh"])
+def test_emissive_scenes_convert_and_render_without_nee(which):
+    """A JAX scene with emissive spheres or faces carries its light lists
+    over and renders with nee=False, where emission ends a path, under a
+    dark sky, within the contract tests/test_pallas.py holds emissive
+    scenes to across backends (flip <= 2%, mean |diff| < 2e-3)."""
+    from gpu_ray_tracing_tpu.models import mesh as jmesh
+
+    js = _nee_scene(J) if which == "nee" else _many_lights_scene(J, jmesh)
+    ts = T.from_reference(js)
+    _assert_scenes_equal(js, ts)
+    assert ts.lights is not None
+    assert (ts.tri_lights is not None) == (which == "emissive_mesh")
+    kw = dict(width=48, height=36, spp=2, max_depth=5, sky_intensity=0.0)
+    want = np.asarray(J.render(js, BASE_CAMERA, J.RenderConfig(**kw), frame_seed=jnp.uint32(9)))
+    got = T.render(ts, T.CameraSettings.make([0.0, 0.0, 1.0], [0.0, 0.0, -1.0],
+                                             [0.0, 1.0, 0.0], 60.0, 0.0, 2.0),
+                   T.RenderConfig(**kw), frame_seed=9)
+    assert got.max() > 1.0  # a light is seen
+    m = T.images_match(got, want, 0.02, 2e-3)
+    assert m.ok, m
+
+
+def test_tri_light_id_per_face_matches_jax():
+    from gpu_ray_tracing_tpu.models import mesh as jmesh
+    from gpu_ray_tracing_tpu.models.scene import tri_light_id_per_face
+
+    js = _many_lights_scene(J, jmesh)
+    ts = T.from_reference(js)
+    want = np.asarray(tri_light_id_per_face(js.mesh, js.tri_lights))
+    got = T.tri_light_id_per_face(ts.mesh, ts.tri_lights).numpy()
+    assert got.dtype == np.int32 and np.array_equal(want, got)
+    assert np.array_equal(T.tri_light_id_per_face(ts.mesh, None).numpy(),
+                          np.full(ts.mesh.num_triangles, -1, np.int32))
+
+
+def _assert_tensors_equal(jobj, tobj, fields):
+    for f in fields:
+        want, got = getattr(jobj, f), getattr(tobj, f)
+        if want is None:
+            assert got is None, f
+            continue
+        want, got = np.asarray(want), got.numpy()
+        assert want.dtype == got.dtype and np.array_equal(want, got), f
+
+
+def _assert_scenes_equal(js, ts):
+    """Every array of two scenes equal, field by field."""
+    _assert_spheres_equal(js.spheres, ts.spheres)
+    assert (ts.bvh_leaf_size, ts.mesh_has_emissive) == (js.bvh_leaf_size, js.mesh_has_emissive)
+    groups = {"mesh": MESH_FIELDS, "bvh": BVH_FIELDS, "sphere_bvh": BVH_FIELDS,
+              "lights": LIGHT_FIELDS, "tri_lights": TRI_LIGHT_FIELDS}
+    for name, fields in groups.items():
+        jpart, tpart = getattr(js, name), getattr(ts, name)
+        assert (jpart is None) == (tpart is None), name
+        if jpart is not None:
+            _assert_tensors_equal(jpart, tpart, fields)
+
+
+def test_make_scene_matches_jax():
+    """make_scene builds the sphere BVH above 256 active spheres and the mesh
+    BVH, reorders, and extracts the light lists, as the JAX make_scene does."""
     big = T.one_weekend_scene(0, grid_min=-11, grid_max=11)
     assert int((big.radii > 0).sum()) > T.SPHERE_BVH_THRESHOLD
-    with pytest.raises(NotImplementedError, match="sphere BVH"):
-        T.make_scene(big)
-    with pytest.raises(NotImplementedError, match="sphere BVH"):
-        T.make_scene(T.base_scene(), sphere_bvh=True)
-    with pytest.raises(NotImplementedError, match="meshes"):
-        T.make_scene(T.base_scene(), mesh=object())
-    # The default scene stays on the brute scan, as in the JAX package.
+    jbig = J.make_scene(J.one_weekend_scene(jax.random.key(0), grid_min=-11, grid_max=11))
+    tbig = T.make_scene(big)
+    assert tbig.sphere_bvh is not None and tbig.sphere_bvh.leaf_size == 16
+    _assert_scenes_equal(jbig, tbig)
+    # The default scene stays on the brute scan; both switches force.
     assert T.make_scene(T.one_weekend_scene(0)).sphere_bvh is None
-    assert J.make_scene(J.one_weekend_scene(jax.random.key(0))).sphere_bvh is None
     assert T.make_scene(big, sphere_bvh=False).spheres.count == big.count
+    _assert_scenes_equal(J.make_scene(J.base_scene(), sphere_bvh=True),
+                         T.make_scene(T.base_scene(), sphere_bvh=True))
+    # A mesh with emissive faces: reordered by its BVH, tri-lights after.
+    glow = lambda m: m.transform_mesh(
+        m.icosphere(1, albedo=(0.9, 1.0, 0.8), mat_kind=EMISSIVE, mat_param=3.0), 0.5,
+        (-0.8, 1.8, -2.0))
+    from gpu_ray_tracing_tpu.models import mesh as jmesh
+
+    _assert_scenes_equal(J.make_scene(J.base_scene(), glow(jmesh)),
+                         T.make_scene(T.base_scene(), glow(T)))
+    _assert_scenes_equal(J.make_scene(J.base_scene(), glow(jmesh), use_bvh=False),
+                         T.make_scene(T.base_scene(), glow(T), use_bvh=False))
 
 
 def test_degenerate_camera_raises():
