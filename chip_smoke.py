@@ -11,9 +11,13 @@ line each:
 
   1. device       the card, its compute capability and power limit
   2. build        nvcc version, build seconds, the kernel's registers
-  3. hash_probe   the kernel's hashes vs ops/rng.py on 1M u32 values: bit-exact
-  4. goldens      backend='cuda' renders vs the committed goldens (mesh_ico
-                  included), at tests/test_goldens.py's decision-flip thresholds
+  3. hash_probe   the kernel's hashes vs ops/rng.py on 1M u32 values: bit-exact;
+     sampler_probe  the kernel's stratified (4,4) and Sobol (nbits 5) remaps at
+                  pair ids 5-8 on 1M (pixel id, sample) pairs: bit-exact
+  4. goldens      backend='cuda' renders vs the committed goldens (mesh_ico,
+                  nee_light, nee_mis, many_mis and sobol_base included), at
+                  tests/test_goldens.py's decision-flip thresholds; cornell_48x48
+                  vs the plain version on the card at parity_check's 1.5% / 1e-3
   5. kernel_vs_plain  One-Weekend 320x180, 4 spp, depth 30: render_cuda vs
                   its plain PyTorch version, flip <= 1% and mean |diff| < 2e-4
   6. main_path    render(one_weekend_scene(0), CameraSettings.default(),
@@ -34,13 +38,26 @@ line each:
                   (81,920 faces) behind its BVH, 640x480, 1 spp, depth 8,
                   held to the plain version at flip <= 1% and mean < 2e-4
 
-Every phase that launches the megakernel gates its launch count per route
-(megakernel:brute, :sphere_bvh, :mesh_bvh).
- 11. bvh_builds   which BVH builder ran (it must be the native one)
+ 11. nee_vs_plain  the NEE kernel vs its plain version at 1% / 2e-4: _nee_scene
+                  (nee+mis, RR 3, sky 0, 320x240, 4 spp, depth 8), the 81-light
+                  _many_lights_scene (320x240, 4 spp, depth 4, the plain
+                  version's per-(sample, bounce) pick) and the CLI's night scene
+                  (2 sphere lights, metal and glass; 320x180, 4 spp, depth 30)
+ 12. lit_path     `render --scene cornell --nee --mis --sky-intensity 0` at the
+                  CLI's defaults through render(): 1280x720, 16 spp, depth 30,
+                  2 warm-up and 5 timed frames, the kernel alone timed too, held
+                  to the plain frame at 1.5% / 1e-3
+ 13. sampler_path One-Weekend with sampler='sobol' through render() at the main
+                  path's size, timed, held to its plain frame at 1% / 2e-4; and
+                  'stratified' at 320x180, 16 spp
+ 14. bvh_builds   which BVH builder ran (it must be the native one)
 
-then the kernels line (the megakernel once per path: brute, sphere_bvh,
-mesh_bvh), the card's `nvidia-smi` name and power limit, and last
-{"ok": true, "device": {...}}.  A failed gate exits nonzero before that line.
+Every phase that launches the megakernel gates its launch count on its own
+route key (megakernel:brute, :sphere_bvh, :mesh_bvh, suffixed +nee and
++sobol/+stratified when the launch ran them).  Then the kernels line (the
+megakernel once per path: brute, sphere_bvh, mesh_bvh, mesh_bvh+nee,
+brute+nee, brute+sobol, and the two probes), the card's `nvidia-smi` name
+and power limit, and last {"ok": true, "device": {...}}.  A failed gate exits nonzero before that line.
 Without a CUDA device, or outside the repository, it exits nonzero and prints
 no result.  It needs no network and starts no process that outlives it.
 """
@@ -61,12 +78,19 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(REPO, "tests", "goldens")
 KERNEL_SOURCE = "gpu_ray_tracing_tpu_torch/ops/cuda/megakernel.cu"
 REPLACES = "gpu_ray_tracing_tpu/ops/pallas/megakernel.py:1420"
+# The probes launch the kernel's hash and sampler functions alone: the
+# draws of `_kernel` (megakernel.py:1509) and its sampler remaps (:1517).
+PROBE_REPLACES = {"hash_probe": "gpu_ray_tracing_tpu/ops/pallas/megakernel.py:1509",
+                  "sampler_probe": "gpu_ray_tracing_tpu/ops/pallas/megakernel.py:1517"}
 # The JAX tests' BASE_CAMERA (tests/test_api.py:22-29), and the mesh
 # camera of benchmarks/parity_check.py:96-99 and run.py:290-292.
 BASE_CAMERA = dict(look_from=[0.0, 0.0, 1.0], look_at=[0.0, 0.0, -1.0],
                    vup=[0.0, 1.0, 0.0], field_of_view=60.0, defocus_angle=0.0,
                    focus_distance=2.0)
 MESH_CAMERA = dict(BASE_CAMERA, look_from=[0.0, 1.2, 3.0], look_at=[0.0, 0.7, 0.0])
+# The CLI's night camera (gpu_ray_tracing_tpu/cli.py:142-148).
+NIGHT_CAMERA = dict(look_from=[0.0, 1.3, 4.0], look_at=[0.0, 0.7, -1.0], vup=[0.0, 1.0, 0.0],
+                    field_of_view=45.0, defocus_angle=0.0, focus_distance=10.0)
 
 failures: list[str] = []
 
@@ -121,6 +145,38 @@ def against_plain(T, mk, run, scene, cam, kw, flip: float, mean_tol: float,
                 mean=float(img.mean()), match=T.images_match(img, plain_img, flip, mean_tol))
 
 
+def lit_scenes(T) -> dict:
+    """The lit scenes of benchmarks/parity_check.py (_nee_scene,
+    _many_lights_scene) and the CLI's night scene (cli.py:116-123)."""
+    em, lam = T.EMISSIVE, T.LAMBERTIAN
+    glow = T.transform_mesh(T.icosphere(1, albedo=(0.9, 1.0, 0.8), mat_kind=em, mat_param=3.0),
+                            0.5, (-0.8, 1.8, -2.0))
+    return {
+        "nee": T.make_scene(T.make_spheres([
+            ((0, -1000.0, 0), 1000.0, lam, (0.7, 0.7, 0.7), 0.0),
+            ((0.0, 2.0, -2.0), 0.3, em, (1.0, 0.9, 0.7), 20.0),
+            ((0.8, 0.4, -1.5), 0.4, lam, (0.3, 0.5, 0.8), 0.0)])),
+        "many_lights": T.make_scene(T.make_spheres([
+            ((0.0, -1000.0, 0.0), 1000.0, lam, (0.7, 0.7, 0.7), 0.0),
+            ((2.0, 2.2, -2.0), 0.4, em, (1.0, 0.9, 0.7), 4.0)]), glow),
+        "night": T.make_scene(T.make_spheres([
+            ((0, -1000.0, 0), 1000.0, lam, (0.65, 0.65, 0.65), 0.0),
+            ((0.0, 2.6, -1.0), 0.7, em, (1.0, 0.85, 0.6), 8.0),
+            ((-2.4, 0.5, -0.5), 0.5, T.METAL, (0.9, 0.9, 0.95), 0.03),
+            ((2.0, 0.5, -1.0), 0.5, T.DIELECTRIC, (1, 1, 1), 1.5),
+            ((0.0, 0.5, -1.0), 0.5, lam, (0.2, 0.4, 0.8), 0.0),
+            ((-4.5, 1.2, -4.0), 0.8, em, (0.4, 0.6, 1.0), 6.0)])),
+    }
+
+
+def render_kw(cfg, seed: int) -> dict:
+    """render_cuda/render_reference keywords of a RenderConfig frame."""
+    return dict(width=cfg.width, height=cfg.height, spp=cfg.spp, max_depth=cfg.max_depth,
+                t_min=cfg.t_min, frame_seed=seed, sky_intensity=cfg.sky_intensity,
+                russian_roulette_depth=cfg.russian_roulette_depth, nee=cfg.nee,
+                mis=cfg.mis, sampler_spec=cfg.sampler_spec)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
@@ -166,8 +222,33 @@ def main() -> int:
     got = mk.hash_probe(vt, salts, 5, 99)
     want = mk.hash_probe_reference(vt, salts, 5, 99)
     exact = {k: bool(torch.equal(got[k], want[k])) for k in want}
-    emit({"phase": "hash_probe", "n": int(values.size), "salts": salts, "bit_exact": exact})
+    hash_ms, _ = cuda_ms(lambda: mk.hash_probe(vt, salts, 5, 99), 5)
+    hash_plain_ms, _ = cuda_ms(lambda: mk.hash_probe_reference(vt, salts, 5, 99), 1)
+    emit({"phase": "hash_probe", "n": int(values.size), "salts": salts, "bit_exact": exact,
+          "ms": hash_ms, "plain_ms": hash_plain_ms})
     gate("hash_probe", all(exact.values()), f"hashes differ: {exact}")
+    probes = {"hash_probe": dict(launches=mk.LAUNCHES["hash_probe"], ms=hash_ms,
+                                 plain_ms=hash_plain_ms, max_abs_err=0.0 if all(exact.values())
+                                 else float("nan"))}
+    # The sampler's remaps at pair ids 5-8 (AA, scatter, lens, NEE light 0)
+    # on (pixel id, sample) pairs from the same values.
+    samples = torch.from_numpy(np.roll(values, 1).view(np.int32).copy()).to(dev)
+    pairs = [5, 6, 7, 8]
+    mk.LAUNCHES.clear()
+    errs, sampler_ms, sampler_plain_ms = [], 0.0, 0.0
+    for spec in (("stratified", 4, 4), ("sobol", 5)):
+        got = mk.sampler_probe(vt, samples, 99, spec, pairs)
+        want = mk.sampler_probe_reference(vt, samples, 99, spec, pairs)
+        exact = all(torch.equal(got[k], want[k]) for k in want)
+        errs.append(max(float((got[k] - want[k]).abs().max()) for k in want))
+        t_k, _ = cuda_ms(lambda: mk.sampler_probe(vt, samples, 99, spec, pairs), 5)
+        t_p, _ = cuda_ms(lambda: mk.sampler_probe_reference(vt, samples, 99, spec, pairs), 1)
+        sampler_ms, sampler_plain_ms = sampler_ms + t_k, sampler_plain_ms + t_p
+        emit({"phase": "sampler_probe", "spec": list(spec), "n": int(values.size),
+              "pairs": pairs, "bit_exact": exact, "ms": t_k, "plain_ms": t_p})
+        gate("sampler_probe", exact, f"{spec}: the kernel's remaps differ from ops/rng.py")
+    probes["sampler_probe"] = dict(launches=mk.LAUNCHES["sampler_probe"], ms=sampler_ms,
+                                   plain_ms=sampler_plain_ms, max_abs_err=max(errs))
 
     # 4. goldens, through the public entry point with backend='cuda'
     base_cam = T.CameraSettings.make(**BASE_CAMERA)
@@ -180,6 +261,7 @@ def main() -> int:
         ico = T.icosphere(subdivisions, albedo=(0.75, 0.6, 0.45), smooth=True)
         return T.make_scene(ground, T.transform_mesh(ico, 0.8, (0.0, 0.8, 0.0)))
 
+    lit = lit_scenes(T)
     cases = [
         ("base_normal_64x48.npy", T.base_scene(), base_cam,
          dict(width=64, height=48, spp=1, integrator="normal"), 0, 0.002, 1e-5),
@@ -189,6 +271,17 @@ def main() -> int:
          dict(width=48, height=27, spp=2, max_depth=6), 3, 0.01, 2e-4),
         ("mesh_ico_48x36.npy", mesh_scene(2), mesh_cam,
          dict(width=48, height=36, spp=2, max_depth=4), 11, 0.005, 1e-4),
+        ("nee_light_48x36.npy", lit["nee"], base_cam,
+         dict(width=48, height=36, spp=4, max_depth=6, sky_intensity=0.0, nee=True,
+              russian_roulette_depth=3), 9, 0.005, 1e-4),
+        ("nee_mis_48x36.npy", lit["nee"], base_cam,
+         dict(width=48, height=36, spp=4, max_depth=6, sky_intensity=0.0, nee=True, mis=True,
+              russian_roulette_depth=3), 9, 0.005, 1e-4),
+        ("many_mis_48x36.npy", lit["many_lights"], base_cam,
+         dict(width=48, height=36, spp=4, max_depth=4, sky_intensity=0.0, nee=True,
+              mis=True), 17, 0.005, 1e-4),
+        ("sobol_base_48x32.npy", T.base_scene(), base_cam,
+         dict(width=48, height=32, spp=4, max_depth=6, sampler="sobol"), 5, 0.005, 1e-4),
     ]
     for golden, scene, cam, cfg_kw, seed, flip, mean in cases:
         cfg = T.RenderConfig(backend="cuda", **cfg_kw)
@@ -199,6 +292,21 @@ def main() -> int:
               "flip_limit": flip, "mean_abs": m.mean_abs, "mean_limit": mean,
               "max_abs": m.max_abs, "ok": m.ok})
         gate("goldens", m.ok, f"{golden}: {m}")
+    # cornell_48x48 is chaotic across platforms (its glass sphere is a lens):
+    # held to the plain version on this card at parity_check's contract.
+    cfg = T.RenderConfig(width=48, height=48, spp=4, max_depth=6, sky_intensity=0.0,
+                         nee=True, mis=True, backend="cuda")
+    img = T.render(T.cornell_box_scene(), T.cornell_camera(), cfg, frame_seed=13)
+    plain = mk.render_reference(T.cornell_box_scene().to(dev),
+                                T.derive_camera(T.cornell_camera(), 48, 48).to(dev),
+                                **render_kw(cfg, 13))
+    m = T.images_match(img, plain, 0.015, 1e-3)
+    g = T.images_match(img, np.load(os.path.join(GOLDENS, "cornell_48x48.npy")), 0.005, 1e-4)
+    emit({"phase": "goldens", "golden": "cornell_48x48.npy", "against": "render_reference",
+          "flip_frac": m.flip_frac, "flip_limit": 0.015, "mean_abs": m.mean_abs,
+          "mean_limit": 1e-3, "max_abs": m.max_abs, "ok": m.ok,
+          "vs_golden_flip_frac": g.flip_frac, "vs_golden_mean_abs": g.mean_abs})
+    gate("goldens", m.ok, f"cornell_48x48 vs plain: {m}")
 
     # 5. kernel vs plain on the card, same inputs
     scene = T.one_weekend_scene(0, device=dev)
@@ -332,7 +440,75 @@ def main() -> int:
              f"expected 7 {route} megakernel launches, counted {r['launches']}")
         gate(phase, m.ok, f"vs plain: {m}")
 
-    # 11. the BVH builder that ran: the native one, as in the CPU tests
+    # 11. the NEE kernel against its plain version, each case on its own key
+    nee_runs = {}
+    for case, route, scene, cam_kw, cfg in (
+        ("nee", "brute+nee", lit["nee"], BASE_CAMERA,
+         T.RenderConfig(width=320, height=240, spp=4, max_depth=8, sky_intensity=0.0,
+                        nee=True, mis=True, russian_roulette_depth=3)),
+        ("many_lights", "mesh_bvh+nee", lit["many_lights"], BASE_CAMERA,
+         T.RenderConfig(width=320, height=240, spp=4, max_depth=4, sky_intensity=0.0,
+                        nee=True, mis=True)),
+        ("night", "brute+nee", lit["night"], NIGHT_CAMERA,
+         T.RenderConfig(width=320, height=180, spp=4, max_depth=30, nee=True, mis=True)),
+    ):
+        sc = scene.to(dev)
+        cam = T.derive_camera(T.CameraSettings.make(**cam_kw), cfg.width, cfg.height).to(dev)
+        kw = render_kw(cfg, 3)
+        r = against_plain(T, mk, lambda: mk.render_cuda(sc, cam, **kw), sc, cam, kw,
+                          0.01, 2e-4)
+        m = r["match"]
+        nee_runs[case] = dict(r, route=route)
+        emit({"phase": "nee_vs_plain", "case": case, "size": [cfg.width, cfg.height],
+              "spp": cfg.spp, "max_depth": cfg.max_depth, "lights": [
+                  0 if sc.lights is None else sc.lights.count,
+                  0 if sc.tri_lights is None else sc.tri_lights.count],
+              "flip_frac": m.flip_frac, "mean_abs": m.mean_abs, "max_abs": m.max_abs,
+              "kernel_ms": r["ms"], "plain_ms": r["plain_ms"], "launches": r["launches"],
+              "card": smi, "ok": m.ok})
+        gate("nee_vs_plain", m.ok, f"{case}: {m}")
+        gate("nee_vs_plain", r["launches"] == {"megakernel:" + route: 6},
+             f"{case}: expected 6 {route} launches, counted {r['launches']}")
+
+    # 12-13. the lit path and the samplers at full frame size, through the
+    # public entry point, each held to the plain version of the same frame.
+    for phase, route, scene, cam, cfg, seed, flip, mean_tol in (
+        ("lit_path", "mesh_bvh+nee", T.cornell_box_scene(), T.cornell_camera(),
+         T.RenderConfig(width=1280, height=720, spp=16, max_depth=30, sky_intensity=0.0,
+                        nee=True, mis=True, backend="cuda"), 0, 0.015, 1e-3),
+        ("sampler_path", "brute+sobol", T.one_weekend_scene(0), T.CameraSettings.default(),
+         T.RenderConfig(width=1280, height=720, spp=16, max_depth=30, sampler="sobol",
+                        backend="cuda"), 7, 0.01, 2e-4),
+        ("sampler_path", "brute+stratified", T.one_weekend_scene(0),
+         T.CameraSettings.default(),
+         T.RenderConfig(width=320, height=180, spp=16, max_depth=30, sampler="stratified",
+                        backend="cuda"), 7, 0.01, 2e-4),
+    ):
+        sc_dev = scene.to(dev)
+        cam_dev = T.derive_camera(cam, cfg.width, cfg.height).to(dev)
+        kw = render_kw(cfg, seed)
+        r = against_plain(T, mk, lambda: T.render(scene, cam, cfg, frame_seed=seed), sc_dev,
+                          cam_dev, kw, flip, mean_tol, warmup=2)
+        # The kernel alone, scene and camera already on the card: short
+        # frames are host-bound in render() (PERF.md section 5).
+        kernel_ms, _ = cuda_ms(lambda: mk.render_cuda(sc_dev, cam_dev, **kw), 5)
+        m = r["match"]
+        paths[route] = dict(r, route=route, kernel_ms=kernel_ms)
+        emit({"phase": phase, "route": route, "size": [cfg.width, cfg.height],
+              "spp": cfg.spp, "max_depth": cfg.max_depth, "sampler": cfg.sampler,
+              "nee": cfg.nee, "mis": cfg.mis, "finite": r["finite"], "mean": r["mean"],
+              "launches": r["launches"], "ms_per_frame": r["ms"], "kernel_ms": kernel_ms,
+              "primary_mrays_per_s": cfg.width * cfg.height * cfg.spp / (r["ms"] * 1e3),
+              "plain_ms": r["plain_ms"], "vs_plain_flip_frac": m.flip_frac,
+              "vs_plain_mean_abs": m.mean_abs, "vs_plain_max_abs": m.max_abs,
+              "vs_plain_limits": [flip, mean_tol], "card": smi, "ok": m.ok})
+        gate(phase, r["finite"] and 0.0 < r["mean"] < 1.0,
+             f"{route}: finite {r['finite']}, mean {r['mean']}")
+        gate(phase, r["launches"] == {"megakernel:" + route: 7},
+             f"expected 7 {route} megakernel launches, counted {r['launches']}")
+        gate(phase, m.ok, f"{route} vs plain: {m}")
+
+    # 14. the BVH builder that ran: the native one, as in the CPU tests
     from gpu_ray_tracing_tpu_torch.ops import bvh as bvh_ops
     builds = dict(bvh_ops.BUILDS)
     emit({"phase": "bvh_builds", "builds": builds})
@@ -340,7 +516,7 @@ def main() -> int:
          f"expected only native BVH builds, got {builds}")
 
     kernel = dict(route="cuda", source=KERNEL_SOURCE, replaces=REPLACES)
-    emit({"kernels": [
+    rows = [
         dict(kernel, name="megakernel:brute", path="brute",
              launches=launches.get("megakernel:brute", 0),
              max_abs_err=m6.max_abs, ms=frame_ms, plain_ms=plain_ms),
@@ -348,8 +524,13 @@ def main() -> int:
         dict(kernel, name="megakernel:" + p["route"], path=p["route"],
              launches=p["launches"].get("megakernel:" + p["route"], 0),
              max_abs_err=p["match"].max_abs, ms=p["ms"], plain_ms=p["plain_ms"])
-        for p in (paths["config3"], paths["config4"])
-    ]})
+        for p in (paths["config3"], paths["config4"], paths["mesh_bvh+nee"],
+                  nee_runs["night"], paths["brute+sobol"])
+    ] + [
+        dict(kernel, name=name, path=name, replaces=PROBE_REPLACES[name], **p)
+        for name, p in probes.items()
+    ]
+    emit({"kernels": rows})
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED {f}", file=sys.stderr)

@@ -1,7 +1,9 @@
 """gpu_ray_tracing_tpu_torch: the PyTorch + CUDA port of gpu_ray_tracing_tpu.
 
 The port renders the hash-stream path tracer on sphere scenes (brute scan
-or sphere BVH) and triangle meshes behind a BVH, with a hand-written sm_90a
+or sphere BVH) and triangle meshes behind a BVH, lit by the sky or by
+sphere and triangle lights (next-event estimation with MIS), under the
+independent, stratified or Sobol sampler, with a hand-written sm_90a
 megakernel (backend='cuda') or the plain PyTorch integrator
 (backend='torch').  It imports torch and numpy, never jax.
 

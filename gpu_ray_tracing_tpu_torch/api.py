@@ -1,16 +1,22 @@
 """Public rendering API (port of gpu_ray_tracing_tpu/api.py:232-342).
 
 `render(scene, camera, config, frame_seed=...)` renders one frame of a
-Spheres or a Scene (spheres, sphere BVH, mesh with its BVH) at config.spp
-samples per pixel on the counter-based hash stream:
+Spheres or a Scene (spheres, sphere BVH, mesh with its BVH, sphere and
+triangle lights) at config.spp samples per pixel on the counter-based hash
+stream, with config.nee/mis and config.sampler:
 
-  backend='torch'  the plain PyTorch integrator (render_reference), on the
-                   device the scene lies on; the counterpart of 'jax'.
+  backend='torch'  the plain PyTorch integrator (render_reference with
+                   light_pick='lane'), on the device the scene lies on; the
+                   counterpart of 'jax'.
   backend='cuda'   the hand-written megakernel (render_cuda); the
                    counterpart of 'pallas'.  It needs a CUDA device and
                    raises without one; a scene on the CPU is moved to the
                    current CUDA device explicitly.  It has no backward, so
                    inputs that require grad raise.
+
+Above 4 lights the two backends pick the NEE light differently, as JAX's
+'jax' and 'pallas' do: 'torch' per lane, 'cuda' once per (sample,
+bounce).  Their images then differ per pixel and agree in the mean.
 """
 
 from __future__ import annotations
@@ -46,8 +52,9 @@ def render(scene, camera: Camera | CameraSettings, config: RenderConfig, *,
         t_min=config.t_min, t_max=config.t_max, mode=config.integrator,
         russian_roulette_depth=config.russian_roulette_depth,
         sky_intensity=config.sky_intensity, spp=config.spp, clamp=config.clamp,
+        nee=config.nee, mis=config.mis, sampler_spec=config.sampler_spec,
     )
     if config.backend == "cuda":
         device = _cuda_device()
         return render_cuda(sc.to(device), camera.to(device), **kwargs)
-    return render_reference(sc, camera.to(sc.device), **kwargs)
+    return render_reference(sc, camera.to(sc.device), light_pick="lane", **kwargs)

@@ -1,9 +1,8 @@
 """The Cornell box (port of gpu_ray_tracing_tpu/models/cornell.py).
 
 The 555-unit box with a ceiling quad light, a glass and a mirror sphere.
-It is meant for NEE/MIS with sky_intensity=0; until NEE is ported (kernel
-K1b) it renders with nee=False, where only paths that reach the lamp by
-BSDF sampling carry light.
+It is meant for NEE/MIS with sky_intensity=0: the lamp's two faces are
+triangle lights, area-sampled from every diffuse vertex.
 """
 
 from __future__ import annotations

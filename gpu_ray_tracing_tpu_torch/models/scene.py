@@ -4,9 +4,9 @@ light lists (port of gpu_ray_tracing_tpu/models/scene.py:32-281).
 `make_scene` builds the BVHs on the host as the JAX package does: a sphere
 BVH above SPHERE_BVH_THRESHOLD active spheres (the spheres reordered into
 leaf order) and a mesh BVH (the faces reordered), then extracts the light
-lists.  The lights are host-side data for next-event estimation (kernel
-K1b, not ported yet): a scene with emissive spheres or faces renders
-without NEE, where emission ends a path.
+lists.  The lights feed next-event estimation (nee=True): sphere lights
+are cone-sampled and triangle lights area-sampled, in one ordinal space
+(sphere lights first).  Without NEE, emission simply ends a path.
 """
 
 from __future__ import annotations
@@ -119,6 +119,13 @@ def tri_light_id_per_face(mesh: TriangleMesh, tri_lights: TriLights | None) -> t
     return lid
 
 
+def sphere_light_ids(spheres: Spheres) -> torch.Tensor:
+    """(N,) i64 NEE light ordinal per sphere: the l-th active emissive
+    sphere is light l (the order of extract_lights), -1 for the others."""
+    is_em = (spheres.mat_kind == EMISSIVE) & (spheres.radii > 0.0)
+    return torch.where(is_em, torch.cumsum(is_em.to(torch.int64), 0) - 1, -1)
+
+
 @dataclasses.dataclass(frozen=True)
 class Scene:
     """Sphere geometry plus an optional triangle mesh with its BVH.
@@ -151,6 +158,29 @@ class Scene:
         moved = {name: (None if (v := getattr(self, name)) is None else v.to(device))
                  for name in ("spheres", "mesh", "bvh", "sphere_bvh", "lights", "tri_lights")}
         return dataclasses.replace(self, **moved)
+
+    def nee_light_counts(self, nee: bool) -> tuple[int, int]:
+        """(sphere lights, triangle lights) that NEE samples, (0, 0) without
+        NEE.  Raises, as render_pallas does, when NEE has nothing to sample
+        or an emissive mesh lacks its triangle light list."""
+        if not nee:
+            return 0, 0
+        n_sl = 0 if self.lights is None else self.lights.count
+        n_tl = 0 if self.tri_lights is None else self.tri_lights.count
+        if n_sl + n_tl == 0:
+            raise ValueError("nee=True needs a Scene with emissive lights; build it with "
+                             "make_scene so the light list is extracted")
+        if self.mesh_has_emissive and self.tri_lights is None:
+            raise ValueError("nee=True with EMISSIVE mesh faces needs the triangle light "
+                             "list; build the Scene via make_scene (it extracts tri_lights)")
+        return n_sl, n_tl
+
+    def global_tri_light_ids(self) -> torch.Tensor:
+        """(F,) global NEE light ordinal per face: its triangle-light index
+        plus the sphere light count, -1 for non-lights (render_pallas:1956)."""
+        base = tri_light_id_per_face(self.mesh, self.tri_lights)
+        n_sl = 0 if self.lights is None else self.lights.count
+        return torch.where(base >= 0, base + n_sl, -1)
 
 
 def make_scene(

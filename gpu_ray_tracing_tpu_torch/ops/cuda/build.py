@@ -44,6 +44,9 @@ _SIGNATURES = {
          _c_ptr, _c_ptr, _c_int,  # sphere BVH planes, nodes
          _c_ptr, _c_int, _c_int,  # mesh table, triangles, smooth
          _c_ptr, _c_ptr, _c_int,  # mesh BVH planes, nodes
+         _c_ptr, _c_int, _c_ptr, _c_int,  # light planes, L, tri-light planes, T
+         _c_int, _c_int,  # nee, mis
+         _c_int, _c_int, _c_int, _c_int,  # sampler kind, kx, ky, nbits
          _c_int, _c_int, _c_uint, _c_uint, _c_uint,
          _c_uint, _c_int, _c_float, _c_float, _c_int, _c_int, _c_float,
          _c_float, _c_int, _c_ptr, _c_ptr],
@@ -52,6 +55,11 @@ _SIGNATURES = {
         _c_int,
         [_c_ptr, _c_int, _c_ptr, _c_int, _c_uint, _c_uint, _c_ptr, _c_ptr,
          _c_ptr, _c_ptr, _c_ptr],
+    ),
+    "grt_sampler_probe": (
+        _c_int,
+        [_c_ptr, _c_ptr, _c_int, _c_ptr, _c_int, _c_uint, _c_int, _c_int, _c_int,
+         _c_int, _c_ptr, _c_ptr, _c_ptr],
     ),
     "grt_error_string": (ctypes.c_char_p, [_c_int]),
 }

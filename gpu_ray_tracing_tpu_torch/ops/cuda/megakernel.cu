@@ -1,10 +1,13 @@
 // Path-tracing megakernel for Hopper (sm_90a): one thread per pixel.
 //
 // Replaces the Pallas TPU kernel gpu_ray_tracing_tpu/ops/pallas/megakernel.py
-// `_kernel` (launched by `render_pallas`) on its K1a, K1c and K1d paths:
-// spheres by the brute-force closest-hit scan (K1a) or through a sphere BVH
-// (K1c), triangle meshes behind a threaded BVH, flat or smooth shaded (K1d);
-// the independent hash sampler, no NEE/MIS, the fixed spp loop, the
+// `_kernel` (launched by `render_pallas`) on its K1a-K1e paths: spheres by
+// the brute-force closest-hit scan (K1a) or through a sphere BVH (K1c),
+// triangle meshes behind a threaded BVH, flat or smooth shaded (K1d);
+// next-event estimation toward sphere lights (cone sampling) and triangle
+// lights (area sampling) with MIS power-heuristic weights, an any-hit
+// shadow query and the > 4-light pick (K1b); the independent, stratified
+// and Owen-scrambled Sobol samplers (K1e); the fixed spp loop, the
 // normal/albedo/depth AOV modes, Russian roulette and the per-sample clamp.
 // Each thread runs ray generation, the bounce loop and the spp mean for its
 // pixel and writes one RGB triple; nothing else touches device memory.
@@ -16,14 +19,18 @@
 // walk is one cursor per thread (the TPU walked one per tile and descended
 // when any lane overlapped): threads of a warp visit different nodes, so
 // node and triangle loads scatter through L1/L2 (a 81,920-face mesh table
-// is 10 MB, inside the 50 MB L2).  Divergence is the other cost: a thread
-// whose path ended idles until its warp's deepest path ends.  This version
-// is simple: it stages nothing in shared memory and is built with
+// is 10 MB, inside the 50 MB L2).  NEE adds one shadow query per light and
+// diffuse vertex; it ends at the first blocker, and only threads whose
+// sample is otherwise valid start one.  Divergence is the other cost: a
+// thread whose path ended idles until its warp's deepest path ends.  This
+// version is simple: it stages nothing in shared memory and is built with
 // -fmad=false and without fast math, so the compiler contracts nothing on
-// its own.  Fused multiply-adds appear only where written (fmaf): in the ray
-// generation, the sphere quadratic and Moller-Trumbore, where the
+// its own.  Fused multiply-adds appear only where written (fmaf), where the
 // reference's own rounding (XLA:CPU contracts a*b+c, and the goldens carry
-// that) decides grazing hits and self-intersections.
+// that) decides grazing hits, self-intersections and shadow rays: the ray
+// generation, the sphere quadratic, Moller-Trumbore, hit points and the
+// NEE sample directions, as the plain version (ops/integrators.py) writes
+// them.
 //
 // Counter-based RNG: every draw is a pure function of (global pixel id,
 // sample index, frame seed, salt), bit-exact with ops/rng.py.
@@ -33,7 +40,12 @@
 namespace {
 
 // Rows of the (16, N) scene planes (ops/cuda/megakernel.py::scene_planes).
-enum SceneRow { CX = 0, CY, CZ, RAD, C2R2, ALR, ALG, ALB, KIND, PARAM, ACTIVE };
+enum SceneRow { CX = 0, CY, CZ, RAD, C2R2, ALR, ALG, ALB, KIND, PARAM, ACTIVE, LIGHTID };
+
+// Rows of the (8, L) sphere-light and (16, T) triangle-light planes
+// (megakernel.py::lights_planes, tri_lights_planes).
+enum LightRow { LCX = 0, LCY, LCZ, LRAD, LER, LEG, LEB };
+enum TriLightRow { TLV0 = 0, TLE1 = 3, TLE2 = 6, TLN = 9, TLAREA = 12, TLE = 13 };
 
 // Slots of the (1, 24) camera vector (megakernel.py::camera_vector).
 enum CamSlot {
@@ -69,6 +81,74 @@ __device__ __forceinline__ unsigned int hash_pixel_seeds(
   return wgsl_hash(pid * 2654435761u ^ wgsl_hash(sample * 0x85EBCA6Bu + frame_seed));
 }
 
+// The stratified and Sobol samplers of ops/rng.py (`sampler_uniforms`):
+// one dimension pair (u1, u2) of absolute sample s, remapped per (pixel,
+// frame, pair id `salt`).  Two knobs round as jitted XLA rounds what the
+// callers do next (ops/rng.py::stratified_uniforms): `shift` is subtracted
+// in one fused multiply-add with the stratified scaling (the AA jitter's
+// 0.5), and `y_scale` multiplies u2, folded into its 1/ky (the lens
+// angle's 2 pi).  `base0` is the pixel's sample-0 seed,
+// hash_pixel_seeds(pid, 0, frame_seed).
+enum SamplerKind { INDEPENDENT = 0, STRATIFIED = 1, SOBOL = 2 };
+
+struct Sampler {
+  int kind;
+  int kx, ky;  // stratified grid
+  int nbits;   // Sobol index bits
+};
+
+// Laine-Karras permutation (Burley, JCGT 2020).
+__device__ __forceinline__ unsigned int laine_karras(unsigned int x, unsigned int seed) {
+  x += seed;
+  x ^= x * 0x6C50B47Cu;
+  x ^= x * 0xB82F1E52u;
+  x ^= x * 0xC7AFE638u;
+  x ^= x * 0x8D22F6E6u;
+  return x;
+}
+
+__device__ __forceinline__ float msb_to_unit(unsigned int bits) {
+  return (float)(bits >> 8) * (1.0f / 16777216.0f);
+}
+
+__device__ void sampler_uniforms(const Sampler& sm, unsigned int base0, unsigned int s,
+                                 unsigned int salt, float& u1, float& u2,
+                                 float shift = 0.0f, float y_scale = 1.0f) {
+  if (sm.kind == STRATIFIED && sm.kx * sm.ky > 1) {
+    const int k = sm.kx * sm.ky;
+    // Sample s takes stratum (s + rot) mod K, jittered by (u1, u2);
+    // division by kx, ky is a multiply by the f32 reciprocal, as jitted XLA
+    // computes it.
+    const float rot = fminf(floorf(uniform_hash(base0, salt) * (float)k), (float)(k - 1));
+    float stratum = rot + (float)(s % (unsigned int)k);
+    if (stratum >= (float)k) stratum = stratum - (float)k;
+    const float inv_kx = 1.0f / (float)sm.kx;
+    const float inv_ky = 1.0f / (float)sm.ky;
+    const float cy = floorf(stratum * inv_kx);
+    const float cx = stratum - cy * (float)sm.kx;
+    u1 = fmaf(cx + u1, inv_kx, -shift);
+    u2 = fmaf(cy + u2, inv_ky * y_scale, -shift);
+    return;
+  }
+  if (sm.kind == SOBOL) {
+    const unsigned int seed_x = hash2(base0, salt);
+    const unsigned int seed_y = wgsl_hash(seed_x);
+    // Dimension 0 is the bit-reversed index; dimension 1 XORs the direction
+    // numbers v_0 = 2^31, v_{b+1} = v_b ^ (v_b >> 1) of the set bits.
+    const unsigned int x = __brev(laine_karras(s, seed_x));
+    unsigned int y1 = 0u, v = 0x80000000u;
+    for (int b = 0; b < sm.nbits; ++b) {
+      if ((s >> b) & 1u) y1 ^= v;
+      v ^= v >> 1;
+    }
+    const unsigned int y = __brev(laine_karras(__brev(y1), seed_y));
+    u1 = msb_to_unit(x);
+    u2 = msb_to_unit(y);
+  }
+  u1 = u1 - shift;
+  u2 = u2 * y_scale - shift;
+}
+
 struct Vec3 {
   float x, y, z;
 };
@@ -93,6 +173,7 @@ struct Hit {
   float t;  // 1.0 on a miss (a benign value, as in the Pallas kernel)
   Vec3 p, n;  // hit point, face normal flipped toward the ray
   float ar, ag, ab, kind, param;
+  float lid;  // NEE light ordinal of the winning primitive, -1 if none
 };
 
 // Inner product as a chain of fused multiply-adds: the rounding XLA:CPU
@@ -125,7 +206,8 @@ constexpr int kTriSlots = 32;
 // window (t_min, tb) descends to node + 1, or runs `leaf(start, count)` if
 // it is a leaf; otherwise the cursor follows the miss link, and -1 ends the
 // walk.  `tb` is read at every node, so the window shrinks as leaves find
-// hits.  The entry test clamps tn to t_min first (megakernel.py:316-317).
+// hits; a leaf that returns true ends the walk (the any-hit query).  The
+// entry test clamps tn to t_min first (megakernel.py:316-317).
 template <class Leaf>
 __device__ __forceinline__ void walk_bvh(const Bvh& b, Vec3 o, Vec3 inv, float t_min,
                                          const float& tb, Leaf leaf) {
@@ -142,7 +224,9 @@ __device__ __forceinline__ void walk_bvh(const Bvh& b, Vec3 o, Vec3 inv, float t
     const float tn_eff = fmaxf(tn, t_min);
     const bool enter = (tf >= tn_eff) & (tn_eff < tb);
     const int start = __ldg(b.i + LSTART * b.m + node);
-    if (enter & (start >= 0)) leaf(start, __ldg(b.i + LCOUNT * b.m + node));
+    if (enter & (start >= 0)) {
+      if (leaf(start, __ldg(b.i + LCOUNT * b.m + node))) return;
+    }
     node = (enter & (start < 0)) ? node + 1 : __ldg(b.i + LMISS * b.m + node);
   }
 }
@@ -167,57 +251,76 @@ struct SphereRay {
 // (ops/intersect.py::_sphere_roots), and it forms |c|^2 - r^2 in-kernel the
 // same way instead of reading the C2R2 row.  The brute scan runs it over
 // all spheres, the sphere-BVH walk over each entered leaf.
+// Sphere j against the window (t_min, tb): true with its root when hit.
+__device__ __forceinline__ bool sphere_root(const float* __restrict__ sc, int n, int j,
+                                            float t_min, Vec3 o, Vec3 d, const SphereRay& r,
+                                            float tb, float& root) {
+  const float cx = __ldg(sc + CX * n + j);
+  const float cy = __ldg(sc + CY * n + j);
+  const float cz = __ldg(sc + CZ * n + j);
+  const float rj = __ldg(sc + RAD * n + j);
+  const float c2r2 = fdot3(cx, cy, cz, cx, cy, cz) - rj * rj;
+  const float h = fdot3(d.x, d.y, d.z, cx, cy, cz) - r.od;
+  const float cc = c2r2 - 2.0f * fdot3(o.x, o.y, o.z, cx, cy, cz) + r.oo;
+  const float disc = fmaf(h, h, -(r.a * cc));
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float rn = (h - sq) * r.inv_a;
+  const float rf = (h + sq) * r.inv_a;
+  const bool nok = (rn > t_min) & (rn < tb);
+  const bool fok = (rf > t_min) & (rf < tb);
+  root = nok ? rn : rf;
+  return (disc >= 0.0f) & (nok | fok) & (__ldg(sc + ACTIVE * n + j) > 0.0f);
+}
+
 __device__ __forceinline__ void sphere_scan(const float* __restrict__ sc, int n, int j0,
                                             int j1, float t_min, Vec3 o, Vec3 d,
                                             const SphereRay& r, float& tb, int& best) {
   for (int j = j0; j < j1; ++j) {
-    const float cx = __ldg(sc + CX * n + j);
-    const float cy = __ldg(sc + CY * n + j);
-    const float cz = __ldg(sc + CZ * n + j);
-    const float rj = __ldg(sc + RAD * n + j);
-    const float c2r2 = fdot3(cx, cy, cz, cx, cy, cz) - rj * rj;
-    const float h = fdot3(d.x, d.y, d.z, cx, cy, cz) - r.od;
-    const float cc = c2r2 - 2.0f * fdot3(o.x, o.y, o.z, cx, cy, cz) + r.oo;
-    const float disc = fmaf(h, h, -(r.a * cc));
-    const float sq = sqrtf(fmaxf(disc, 0.0f));
-    const float rn = (h - sq) * r.inv_a;
-    const float rf = (h + sq) * r.inv_a;
-    const bool nok = (rn > t_min) & (rn < tb);
-    const bool fok = (rf > t_min) & (rf < tb);
-    if ((disc >= 0.0f) & (nok | fok) & (__ldg(sc + ACTIVE * n + j) > 0.0f)) {
-      tb = nok ? rn : rf;
+    float root;
+    if (sphere_root(sc, n, j, t_min, o, d, r, tb, root)) {
+      tb = root;
       best = j;
     }
   }
 }
 
-// Moller-Trumbore over faces [j0, j1) of the mesh table (`_tri_intersect`,
+// Moller-Trumbore on face j of the mesh table (`_tri_intersect`,
 // megakernel.py:439-470): determinant guard 1e-12, u, v >= 0, u + v <= 1,
 // t_min < t < tb.  The cross and inner products round as fused
 // multiply-adds, as the reference renders them (ops/rounding.py::cross,
 // dot3).  A winner keeps its barycentrics for the smooth normal.
+__device__ __forceinline__ bool tri_test(const float* __restrict__ tbl, int j, float t_min,
+                                         Vec3 o, Vec3 d, float tb, float& t_out,
+                                         float& u_out, float& v_out) {
+  const float4* row = reinterpret_cast<const float4*>(tbl + (size_t)j * kTriSlots);
+  const float4 r0 = __ldg(row), r1 = __ldg(row + 1), r2 = __ldg(row + 2);
+  const Vec3 v0 = {r0.x, r0.y, r0.z};
+  const Vec3 e1 = {r0.w, r1.x, r1.y};
+  const Vec3 e2 = {r1.z, r1.w, r2.x};
+  const Vec3 pv = {fmaf(d.y, e2.z, -(d.z * e2.y)), fmaf(d.z, e2.x, -(d.x * e2.z)),
+                   fmaf(d.x, e2.y, -(d.y * e2.x))};
+  const float det = fdot3(e1.x, e1.y, e1.z, pv.x, pv.y, pv.z);
+  const bool near_parallel = fabsf(det) < 1e-12f;
+  const float inv_det = 1.0f / (near_parallel ? 1.0f : det);
+  const Vec3 tv = {o.x - v0.x, o.y - v0.y, o.z - v0.z};
+  const float u = fdot3(tv.x, tv.y, tv.z, pv.x, pv.y, pv.z) * inv_det;
+  const Vec3 qv = {fmaf(tv.y, e1.z, -(tv.z * e1.y)), fmaf(tv.z, e1.x, -(tv.x * e1.z)),
+                   fmaf(tv.x, e1.y, -(tv.y * e1.x))};
+  const float v = fdot3(d.x, d.y, d.z, qv.x, qv.y, qv.z) * inv_det;
+  const float t = fdot3(e2.x, e2.y, e2.z, qv.x, qv.y, qv.z) * inv_det;
+  t_out = t;
+  u_out = u;
+  v_out = v;
+  return !near_parallel & (u >= 0.0f) & (v >= 0.0f) & (u + v <= 1.0f) & (t > t_min) &
+         (t < tb);
+}
+
 __device__ __forceinline__ void tri_scan(const float* __restrict__ tbl, int j0, int j1,
                                          float t_min, Vec3 o, Vec3 d, float& tb, int& best,
                                          float& bu, float& bv) {
   for (int j = j0; j < j1; ++j) {
-    const float4* row = reinterpret_cast<const float4*>(tbl + (size_t)j * kTriSlots);
-    const float4 r0 = __ldg(row), r1 = __ldg(row + 1), r2 = __ldg(row + 2);
-    const Vec3 v0 = {r0.x, r0.y, r0.z};
-    const Vec3 e1 = {r0.w, r1.x, r1.y};
-    const Vec3 e2 = {r1.z, r1.w, r2.x};
-    const Vec3 pv = {fmaf(d.y, e2.z, -(d.z * e2.y)), fmaf(d.z, e2.x, -(d.x * e2.z)),
-                     fmaf(d.x, e2.y, -(d.y * e2.x))};
-    const float det = fdot3(e1.x, e1.y, e1.z, pv.x, pv.y, pv.z);
-    const bool near_parallel = fabsf(det) < 1e-12f;
-    const float inv_det = 1.0f / (near_parallel ? 1.0f : det);
-    const Vec3 tv = {o.x - v0.x, o.y - v0.y, o.z - v0.z};
-    const float u = fdot3(tv.x, tv.y, tv.z, pv.x, pv.y, pv.z) * inv_det;
-    const Vec3 qv = {fmaf(tv.y, e1.z, -(tv.z * e1.y)), fmaf(tv.z, e1.x, -(tv.x * e1.z)),
-                     fmaf(tv.x, e1.y, -(tv.y * e1.x))};
-    const float v = fdot3(d.x, d.y, d.z, qv.x, qv.y, qv.z) * inv_det;
-    const float t = fdot3(e2.x, e2.y, e2.z, qv.x, qv.y, qv.z) * inv_det;
-    if (!near_parallel & (u >= 0.0f) & (v >= 0.0f) & (u + v <= 1.0f) & (t > t_min) &
-        (t < tb)) {
+    float t, u, v;
+    if (tri_test(tbl, j, t_min, o, d, tb, t, u, v)) {
       tb = t;
       best = j;
       bu = u;
@@ -240,12 +343,17 @@ struct Geometry {
 // megakernel.py:632-761): the mesh walk starts from the sphere stage's
 // window, so a face wins only strictly closer, as in
 // ops/integrators.py::intersect_scene.
-__device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, Vec3 d) {
+__device__ __forceinline__ SphereRay sphere_ray(Vec3 o, Vec3 d) {
   SphereRay sr;
   sr.a = fdot3(d.x, d.y, d.z, d.x, d.y, d.z);
   sr.inv_a = 1.0f / sr.a;
   sr.od = fdot3(o.x, o.y, o.z, d.x, d.y, d.z);
   sr.oo = fdot3(o.x, o.y, o.z, o.x, o.y, o.z);
+  return sr;
+}
+
+__device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, Vec3 d) {
+  const SphereRay sr = sphere_ray(o, d);
   float tb = t_max;
   int best = -1;
   const float* sc = g.scene;
@@ -254,6 +362,7 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
   if (g.sphere_bvh.m > 0) {
     walk_bvh(g.sphere_bvh, o, inv, t_min, tb, [&](int start, int count) {
       sphere_scan(sc, n, start, start + count, t_min, o, d, sr, tb, best);
+      return false;
     });
   } else {
     sphere_scan(sc, n, 0, n, t_min, o, d, sr, tb, best);
@@ -263,14 +372,18 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
   if (g.n_tris > 0) {
     walk_bvh(g.mesh_bvh, o, inv, t_min, tb, [&](int start, int count) {
       tri_scan(g.mesh, start, start + count, t_min, o, d, tb, tri, bu, bv);
+      return false;
     });
   }
 
   Hit r;
   r.hit = tb < t_max;
   r.t = r.hit ? tb : 1.0f;  // a benign t for misses
-  r.p = {o.x + r.t * d.x, o.y + r.t * d.y, o.z + r.t * d.z};
+  // o + t d rounded once, as the plain version (ops/intersect.py) and XLA:CPU
+  // form it: the last bit decides whether the next ray leaves the surface.
+  r.p = {fmaf(r.t, d.x, o.x), fmaf(r.t, d.y, o.y), fmaf(r.t, d.z, o.z)};
   r.ar = r.ag = r.ab = r.kind = r.param = 0.0f;
+  r.lid = -1.0f;
   Vec3 nrm;
   if (tri >= 0) {
     const float* f = g.mesh + (size_t)tri * kTriSlots;
@@ -279,6 +392,7 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
     r.ab = __ldg(f + TALB + 2);
     r.kind = __ldg(f + TKIND);
     r.param = __ldg(f + TPARAM);
+    r.lid = __ldg(f + TLID);
     if (g.smooth) {
       // Barycentric blend of the corner normals, renormalized once
       // (megakernel.py:501-505, 744-748).
@@ -304,6 +418,7 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
       r.ab = __ldg(sc + ALB * n + best);
       r.kind = __ldg(sc + KIND * n + best);
       r.param = __ldg(sc + PARAM * n + best);
+      r.lid = __ldg(sc + LIGHTID * n + best);
     }
     // The outward normal (p - c) / r (wgsl:206).
     const float rs = rad != 0.0f ? rad : 1.0f;
@@ -315,6 +430,47 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
   return r;
 }
 
+// Any-hit shadow query (`_occluded`, megakernel.py:554-629): true when a
+// sphere or face lies at t_min < t < window along o + t w.  It ends at the
+// first blocker.  "No hit below the window" is the plain version's "nearest
+// t >= window" (ops/integrators.py::nearest_t_scene).
+__device__ bool occluded(const Geometry& g, float t_min, Vec3 o, Vec3 w, float window) {
+  if (!(window > t_min)) return false;
+  const SphereRay sr = sphere_ray(o, w);
+  const float* sc = g.scene;
+  const int n = g.n;
+  bool blocked = false;
+  const auto spheres = [&](int j0, int j1) {
+    for (int j = j0; j < j1; ++j) {
+      float root;
+      if (sphere_root(sc, n, j, t_min, o, w, sr, window, root)) return true;
+    }
+    return false;
+  };
+  const Vec3 inv = safe_inverse(w);
+  if (g.sphere_bvh.m > 0) {
+    walk_bvh(g.sphere_bvh, o, inv, t_min, window, [&](int start, int count) {
+      blocked = spheres(start, start + count);
+      return blocked;
+    });
+  } else {
+    blocked = spheres(0, n);
+  }
+  if (!blocked && g.n_tris > 0) {
+    walk_bvh(g.mesh_bvh, o, inv, t_min, window, [&](int start, int count) {
+      for (int j = start; j < start + count; ++j) {
+        float t, u, v;
+        if (tri_test(g.mesh, j, t_min, o, w, window, t, u, v)) {
+          blocked = true;
+          return true;
+        }
+      }
+      return false;
+    });
+  }
+  return blocked;
+}
+
 // Vertical white->blue gradient (wgsl:293-296), `_sky` (megakernel.py:764).
 __device__ __forceinline__ Vec3 sky(Vec3 d) {
   const float inv_len = rsqrtf(d.x * d.x + d.y * d.y + d.z * d.z);
@@ -322,13 +478,15 @@ __device__ __forceinline__ Vec3 sky(Vec3 d) {
   return {1.0f - 0.5f * a, 1.0f - 0.3f * a, 1.0f};
 }
 
-// Three-material scatter, `_scatter` (megakernel.py:780-866): salts
-// salt_base, +1, +2.  Only the hit material's BSDF is evaluated; the draws
-// are pure functions of (seed, salt), so skipping unused ones changes
-// nothing.  Returns false when the ray is absorbed.
-__device__ __forceinline__ bool scatter(const Hit& h, Vec3 d, unsigned int seed,
-                                        unsigned int salt_base, Vec3* out,
-                                        Vec3* att) {
+// Three-material scatter, `_scatter` (megakernel.py:780-866): (u1, u2) is
+// the unit-vector pair (salts salt_base and +1, remapped by the sampler at
+// bounce 0), u_reflect is drawn at salt_base + 2.  Only the hit material's
+// BSDF is evaluated; the draws are pure functions of (seed, salt), so
+// skipping unused ones changes nothing.  Returns false when the ray is
+// absorbed.
+__device__ __forceinline__ bool scatter(const Hit& h, Vec3 d, float u1, float u2,
+                                        unsigned int seed, unsigned int salt_base,
+                                        Vec3* out, Vec3* att) {
   const float kp = h.kind;
   const Vec3 n = h.n;
   if (kp >= 1.5f) {  // dielectric; param is the ior
@@ -359,8 +517,6 @@ __device__ __forceinline__ bool scatter(const Hit& h, Vec3 d, unsigned int seed,
     return true;
   }
   // Shared random unit vector for lambertian and metal fuzz.
-  const float u1 = uniform_hash(seed, salt_base);
-  const float u2 = uniform_hash(seed, salt_base + 1u);
   const float z = 2.0f * u1 - 1.0f;
   const float ang = u2 * kTwoPi;
   const float rr = sqrtf(fmaxf(1.0f - z * z, 0.0f));
@@ -379,9 +535,114 @@ __device__ __forceinline__ bool scatter(const Hit& h, Vec3 d, unsigned int seed,
   return r.x * n.x + r.y * n.y + r.z * n.z > 0.0f;
 }
 
+// Sphere and triangle lights for next-event estimation: (8, L) and (16, T)
+// planes; L + T is the ordinal space (sphere lights first).
+struct LightSet {
+  const float* s;
+  int L;
+  const float* t;
+  int T;
+  __device__ float sph(int row, int l) const { return __ldg(s + row * L + l); }
+  __device__ float tri(int row, int j) const { return __ldg(t + row * T + j); }
+};
+
+// The cancellation-free 1 - cos(half-angle) of a sphere's cone,
+// (r2/d2) / (1 + sqrt(1 - r2/d2)), capped at 1 (`_one_minus_cos_max`,
+// integrators.py:107-124).
+__device__ __forceinline__ float one_minus_cos_max(float r2, float d2) {
+  const float q = r2 / d2;
+  return fminf(q / (1.0f + sqrtf(fminf(fmaxf(1.0f - q, 1e-12f), 1.0f))), 1.0f);
+}
+
+// cross(a, b) with each component rounded as fma(a1, b2, -(a2 b1)), as the
+// plain version (ops/rounding.py::cross) and XLA:CPU round it.
+__device__ __forceinline__ Vec3 fcross(Vec3 a, Vec3 b) {
+  return {fmaf(a.y, b.z, -(a.z * b.y)), fmaf(a.z, b.x, -(a.x * b.z)),
+          fmaf(a.x, b.y, -(a.y * b.x))};
+}
+
+// A light sample from shading point p (normal n): the direction, the
+// shadow window before its 1e-3 shrink, the scan-independent validity,
+// the estimator weight (also the MIS ratio p_b / p_nee) and the emission.
+struct LightSample {
+  Vec3 w;
+  float reach;
+  bool ok;
+  float wgt;
+  Vec3 le;
+};
+
+// Cone sample toward sphere light l (`_sphere_cand`, megakernel.py:1073;
+// the arithmetic of ops/integrators.py::_sphere_candidate).
+__device__ LightSample sphere_light_sample(const LightSet& ls, int l, Vec3 p, Vec3 n,
+                                           float u1n, float u2n) {
+  const Vec3 dc = {ls.sph(LCX, l) - p.x, ls.sph(LCY, l) - p.y, ls.sph(LCZ, l) - p.z};
+  const float lr = ls.sph(LRAD, l);
+  const float d2 = fdot3(dc.x, dc.y, dc.z, dc.x, dc.y, dc.z);
+  const float d2s = fmaxf(d2, 1e-12f);
+  const float r2 = lr * lr;
+  const bool inside = d2 <= r2 * 1.0001f;
+  const float omc = one_minus_cos_max(r2, d2s);
+  const float cos_t = fmaf(-u1n, omc, 1.0f);
+  const float sin_t = sqrtf(fmaxf(fmaf(-cos_t, cos_t, 1.0f), 0.0f));
+  const float phi = u2n * kTwoPi;
+  const float dl = sqrtf(d2s);
+  const Vec3 wl = {dc.x / dl, dc.y / dl, dc.z / dl};
+  const bool pick = fabsf(wl.x) > 0.9f;
+  Vec3 ua = fcross({pick ? 0.0f : 1.0f, pick ? 1.0f : 0.0f, 0.0f}, wl);
+  const float un = fmaxf(sqrtf(fdot3(ua.x, ua.y, ua.z, ua.x, ua.y, ua.z)), 1e-12f);
+  ua = {ua.x / un, ua.y / un, ua.z / un};
+  const Vec3 va = fcross(wl, ua);
+  // cos/sin of phi rounded from double, as the plain version takes them.
+  const float cp = (float)cos((double)phi) * sin_t;
+  const float sp = (float)sin((double)phi) * sin_t;
+  LightSample r;
+  r.w = {fmaf(wl.x, cos_t, fmaf(ua.x, cp, va.x * sp)),
+         fmaf(wl.y, cos_t, fmaf(ua.y, cp, va.y * sp)),
+         fmaf(wl.z, cos_t, fmaf(ua.z, cp, va.z * sp))};
+  const float cos_i = fdot3(n.x, n.y, n.z, r.w.x, r.w.y, r.w.z);
+  const float h_l = fdot3(dc.x, dc.y, dc.z, r.w.x, r.w.y, r.w.z);
+  const float disc = fmaf(h_l, h_l, -fmaf(-lr, lr, d2));
+  r.reach = h_l - sqrtf(fmaxf(disc, 0.0f));
+  r.ok = (cos_i > 0.0f) & !inside & (disc > 0.0f);
+  r.wgt = cos_i * 2.0f * omc;
+  r.le = {ls.sph(LER, l), ls.sph(LEG, l), ls.sph(LEB, l)};
+  return r;
+}
+
+// Uniform-area sample on triangle light j, two-sided (`_tri_cand`,
+// megakernel.py:1188; ops/integrators.py::_tri_candidate).
+__device__ LightSample tri_light_sample(const LightSet& ls, int j, Vec3 p, Vec3 n,
+                                        float u1n, float u2n) {
+  const float su = sqrtf(u1n);
+  const float b1 = 1.0f - su;
+  const float b2 = u2n * su;
+  Vec3 q;
+  q.x = fmaf(b2, ls.tri(TLE2, j), fmaf(b1, ls.tri(TLE1, j), ls.tri(TLV0, j)));
+  q.y = fmaf(b2, ls.tri(TLE2 + 1, j), fmaf(b1, ls.tri(TLE1 + 1, j), ls.tri(TLV0 + 1, j)));
+  q.z = fmaf(b2, ls.tri(TLE2 + 2, j), fmaf(b1, ls.tri(TLE1 + 2, j), ls.tri(TLV0 + 2, j)));
+  const Vec3 dc = {q.x - p.x, q.y - p.y, q.z - p.z};
+  const float d2 = fdot3(dc.x, dc.y, dc.z, dc.x, dc.y, dc.z);
+  const float d2s = fmaxf(d2, 1e-12f);
+  const float dist = sqrtf(d2s);
+  LightSample r;
+  r.w = {dc.x / dist, dc.y / dist, dc.z / dist};
+  const float cos_i = fdot3(n.x, n.y, n.z, r.w.x, r.w.y, r.w.z);
+  const float cos_l = fabsf(fdot3(ls.tri(TLN, j), ls.tri(TLN + 1, j), ls.tri(TLN + 2, j),
+                                  r.w.x, r.w.y, r.w.z));
+  r.reach = dist;
+  r.ok = (cos_i > 0.0f) & (cos_l > 1e-7f) & (d2 > 1e-12f);
+  r.wgt = cos_i * cos_l * ls.tri(TLAREA, j) / (3.14159265358979f * d2s);
+  r.le = {ls.tri(TLE, j), ls.tri(TLE + 1, j), ls.tri(TLE + 2, j)};
+  return r;
+}
+
 struct Params {
   const float* cam;  // (24,)
   Geometry geo;
+  LightSet lights;
+  bool mis;  // read only by the NEE instance
+  Sampler sampler;
   int width, height;
   unsigned int sample_index, frame_seed, y_offset, row_stride;
   int max_depth;
@@ -394,6 +655,36 @@ struct Params {
   float* out;  // (height, width, 3)
 };
 
+// MIS weight of emission reached by a BSDF ray from a diffuse vertex o
+// (megakernel.py:973-1038): 1 / (1 + r^2), r = p_nee / p_b of the light the
+// ray hit, from the exact light id; 0 for an emitter that is no light.
+__device__ float mis_emission_weight(const Params& p, const Hit& h, Vec3 o, float prev_cos) {
+  const LightSet& ls = p.lights;
+  if (!(h.lid >= 0.0f)) return 0.0f;
+  const int g = (int)h.lid;
+  float r;
+  if (g < ls.L) {
+    const Vec3 dlo = {o.x - ls.sph(LCX, g), o.y - ls.sph(LCY, g), o.z - ls.sph(LCZ, g)};
+    const float d2o = fmaxf(fdot3(dlo.x, dlo.y, dlo.z, dlo.x, dlo.y, dlo.z), 1e-12f);
+    const float lr = ls.sph(LRAD, g);
+    r = 1.0f / fmaxf(2.0f * one_minus_cos_max(lr * lr, d2o) * prev_cos, 1e-12f);
+  } else {
+    const int j = g - ls.L;
+    const Vec3 dh = {h.p.x - o.x, h.p.y - o.y, h.p.z - o.z};
+    const float d2h = fmaxf(fdot3(dh.x, dh.y, dh.z, dh.x, dh.y, dh.z), 1e-12f);
+    const float d3h = d2h * sqrtf(d2h);
+    const float ndot = fabsf(fdot3(dh.x, dh.y, dh.z, ls.tri(TLN, j), ls.tri(TLN + 1, j),
+                                   ls.tri(TLN + 2, j)));
+    r = (3.14159265358979f * d3h) / fmaxf(ndot * ls.tri(TLAREA, j) * prev_cos, 1e-12f);
+  }
+  if (ls.L + ls.T > 4) r = r / (float)(ls.L + ls.T);  // the pick pdf's share
+  return 1.0f / fmaf(r, r, 1.0f);
+}
+
+// kNee selects next-event estimation at compile time: the NEE code (light
+// sampling, shadow queries, MIS) costs registers, and without it the
+// instance keeps the register budget of the path it replaces.
+template <bool kNee>
 __global__ void __launch_bounds__(256) render_kernel(const Params p) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y_local = blockIdx.y * blockDim.y + threadIdx.y;
@@ -402,6 +693,11 @@ __global__ void __launch_bounds__(256) render_kernel(const Params p) {
   // the global id, so a row band renders exactly its rows of the frame.
   const unsigned int y = (unsigned int)y_local * p.row_stride + p.y_offset;
   const unsigned int pid = y * (unsigned int)p.width + (unsigned int)x;
+  // The sample-0 seed keys the sampler's per-(pixel, frame, pair) remaps.
+  const unsigned int base0 = hash_pixel_seeds(pid, 0u, p.frame_seed);
+  const Sampler& sm = p.sampler;
+  const LightSet& ls = p.lights;
+  const int n_lights = ls.L + ls.T;
 
   float cam[19];
 #pragma unroll
@@ -410,12 +706,13 @@ __global__ void __launch_bounds__(256) render_kernel(const Params p) {
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   for (int s = 0; s < p.spp; ++s) {
-    const unsigned int seed =
-        hash_pixel_seeds(pid, p.sample_index + (unsigned int)s, p.frame_seed);
-    // Ray generation (megakernel.py:1507-1548): jitter from salts 1-2,
-    // uniform-disk lens point from salts 3-4, direction not normalized.
-    const float jx = uniform_hash(seed, 1u) - 0.5f;
-    const float jy = uniform_hash(seed, 2u) - 0.5f;
+    const unsigned int s_abs = p.sample_index + (unsigned int)s;
+    const unsigned int seed = hash_pixel_seeds(pid, s_abs, p.frame_seed);
+    // Ray generation (megakernel.py:1507-1548): jitter from salts 1-2 (the
+    // sampler's pair 5), uniform-disk lens point from salts 3-4 (pair 7),
+    // direction not normalized.
+    float jx = uniform_hash(seed, 1u), jy = uniform_hash(seed, 2u);
+    sampler_uniforms(sm, base0, s_abs, 5u, jx, jy, 0.5f);
     // The pixel center and lens point round as the reference renders them
     // (fused multiply-adds, cos/sin rounded from double; ops/rays.py): a
     // ray one ulp off can graze a sphere differently.
@@ -427,10 +724,11 @@ __global__ void __launch_bounds__(256) render_kernel(const Params p) {
     pc.z = fmaf(cam[PDV + 2], fy, fmaf(cam[PDU + 2], fx, cam[UPPER_LEFT + 2]));
     Vec3 o = {cam[CENTER + 0], cam[CENTER + 1], cam[CENTER + 2]};
     if (lens) {
-      const float radius = sqrtf(uniform_hash(seed, 3u));
-      const double ang = (double)(kTwoPi * uniform_hash(seed, 4u));
-      const float pxd = radius * (float)cos(ang);
-      const float pyd = radius * (float)sin(ang);
+      float u3 = uniform_hash(seed, 3u), ang = uniform_hash(seed, 4u);
+      sampler_uniforms(sm, base0, s_abs, 7u, u3, ang, 0.0f, kTwoPi);
+      const float radius = sqrtf(u3);
+      const float pxd = radius * (float)cos((double)ang);
+      const float pyd = radius * (float)sin((double)ang);
       o.x = fmaf(pyd, cam[DISK_V + 0], fmaf(pxd, cam[DISK_U + 0], o.x));
       o.y = fmaf(pyd, cam[DISK_V + 1], fmaf(pxd, cam[DISK_U + 1], o.y));
       o.z = fmaf(pyd, cam[DISK_V + 2], fmaf(pxd, cam[DISK_U + 2], o.z));
@@ -452,10 +750,14 @@ __global__ void __launch_bounds__(256) render_kernel(const Params p) {
         r = 0.5f * (h.n.x + 1.0f), g = 0.5f * (h.n.y + 1.0f), b = 0.5f * (h.n.z + 1.0f);
       }
     } else {
-      // The bounce loop of `_path_bounce` (megakernel.py:874-1417) with no
-      // lights.  The thread leaves the loop when its path ends: the
-      // per-thread form of the tile early exit (megakernel.py:1609-1614).
+      // The bounce loop of `_path_bounce` (megakernel.py:874-1417).  The
+      // thread leaves the loop when its path ends: the per-thread form of
+      // the tile early exit (megakernel.py:1609-1614).  prev_diffuse and
+      // prev_cos describe the vertex the ray left (for MIS).
       float tr = 1.0f, tg = 1.0f, tb = 1.0f;
+      bool prev_diffuse = false;
+      float prev_cos = 0.0f;
+      const unsigned int pick_seed = s_abs ^ wgsl_hash(p.frame_seed);
       for (int i = 0; i < p.max_depth; ++i) {
         const Hit h = closest_hit(p.geo, p.t_min, p.t_max, o, d);
         if (!h.hit) {
@@ -465,17 +767,75 @@ __global__ void __launch_bounds__(256) render_kernel(const Params p) {
           b = b + tb * sk.z * p.sky_intensity;
           break;
         }
-        if (h.kind >= 2.5f) {  // emissive: radiate albedo * param, end the path
-          r = r + tr * h.ar * h.param;
-          g = g + tg * h.ag * h.param;
-          b = b + tb * h.ab * h.param;
+        if (h.kind >= 2.5f) {
+          // Emissive: radiate albedo * param and end the path.  Under NEE a
+          // BSDF ray from a diffuse vertex counts it at the MIS weight, or
+          // not at all without MIS (NEE sampled that light already).
+          float w = 1.0f;
+          if (kNee && prev_diffuse) w = p.mis ? mis_emission_weight(p, h, o, prev_cos) : 0.0f;
+          r = r + tr * h.ar * (h.param * w);
+          g = g + tg * h.ag * (h.param * w);
+          b = b + tb * h.ab * (h.param * w);
           break;
         }
+        const bool lambertian = h.kind < 0.5f;
+        // A point inside a sphere light cannot cone-sample it; such vertices
+        // fall back to BSDF sampling (megakernel.py:1061-1070).
+        bool inside_any = false;
+        if (kNee && lambertian) {
+          for (int l = 0; l < ls.L; ++l) {
+            const Vec3 dc = {ls.sph(LCX, l) - h.p.x, ls.sph(LCY, l) - h.p.y,
+                             ls.sph(LCZ, l) - h.p.z};
+            const float lr = ls.sph(LRAD, l);
+            inside_any |= fdot3(dc.x, dc.y, dc.z, dc.x, dc.y, dc.z) <= lr * lr * 1.0001f;
+          }
+        }
+        if (kNee && lambertian && !inside_any) {
+          // Next-event estimation (megakernel.py:1040-1374): with at most 4
+          // lights every light, sphere lights first, salts 2000+37i+7g+{1,2}
+          // (at bounce 0 the sampler's pair 8+g); above 4 one light per
+          // (sample, bounce), weighted by the count.
+          const unsigned int salt0 = 2000u + 37u * (unsigned int)i;
+          const bool last = i == p.max_depth - 1;
+          const int n_terms = n_lights <= 4 ? n_lights : 1;
+          int picked = -1;
+          if (n_lights > 4) {
+            const unsigned int bounce_seed = hash2(pick_seed, 3000u + (unsigned int)i);
+            picked = (int)(hash2(bounce_seed, 0u) % (unsigned int)n_lights);
+          }
+          for (int k = 0; k < n_terms; ++k) {
+            const int gl = picked >= 0 ? picked : k;
+            const unsigned int salt = salt0 + (picked >= 0 ? 0u : 7u * (unsigned int)k);
+            float u1n = uniform_hash(seed, salt + 1u), u2n = uniform_hash(seed, salt + 2u);
+            if (i == 0 && picked < 0) sampler_uniforms(sm, base0, s_abs, 8u + k, u1n, u2n);
+            const LightSample ln = gl < ls.L
+                                       ? sphere_light_sample(ls, gl, h.p, h.n, u1n, u2n)
+                                       : tri_light_sample(ls, gl - ls.L, h.p, h.n, u1n, u2n);
+            if (!ln.ok) continue;
+            if (occluded(p.geo, p.t_min, h.p, ln.w, ln.reach * 0.999f)) continue;
+            float wgt = ln.wgt * (picked >= 0 ? (float)n_lights : 1.0f);
+            if (p.mis && !last) wgt = wgt / fmaf(wgt, wgt, 1.0f);
+            r = r + tr * h.ar * ln.le.x * wgt;
+            g = g + tg * h.ag * ln.le.y * wgt;
+            b = b + tb * h.ab * ln.le.z * wgt;
+          }
+        }
+        float su1 = uniform_hash(seed, 16u + 3u * (unsigned int)i);
+        float su2 = uniform_hash(seed, 17u + 3u * (unsigned int)i);
+        if (i == 0) sampler_uniforms(sm, base0, s_abs, 6u, su1, su2);
         Vec3 nd, att;
-        if (!scatter(h, d, seed, 16u + 3u * (unsigned int)i, &nd, &att)) break;
+        if (!scatter(h, d, su1, su2, seed, 16u + 3u * (unsigned int)i, &nd, &att)) break;
         tr = tr * att.x;
         tg = tg * att.y;
         tb = tb * att.z;
+        prev_diffuse = lambertian && !inside_any;
+        if (kNee && p.mis) {
+          // cos(scatter direction, normal) at this diffuse vertex: its BSDF
+          // pdf is prev_cos / pi, which the next emission weight needs.
+          const float nd2 = fmaxf(fdot3(nd.x, nd.y, nd.z, nd.x, nd.y, nd.z), 1e-20f);
+          const float cos_s = fdot3(nd.x, nd.y, nd.z, h.n.x, h.n.y, h.n.z) * (1.0f / sqrtf(nd2));
+          prev_cos = prev_diffuse ? fmaxf(cos_s, 0.0f) : 0.0f;
+        }
         o = h.p;
         d = nd;
         if (p.rr_depth > 0 && i >= p.rr_depth) {
@@ -525,6 +885,27 @@ __global__ void hash_probe_kernel(const unsigned int* __restrict__ v, int n,
   }
 }
 
+// The sampler's remaps as the kernel draws them, for a bit-exactness probe
+// against ops/rng.py: per (pixel id, absolute sample) the (salt 1, salt 2)
+// draws remapped under each pair id.
+__global__ void sampler_probe_kernel(const unsigned int* __restrict__ pids,
+                                     const unsigned int* __restrict__ samples, int n,
+                                     const unsigned int* __restrict__ salts, int n_salts,
+                                     unsigned int frame_seed, Sampler sm, float* out_u1,
+                                     float* out_u2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned int pid = pids[i], s = samples[i];
+  const unsigned int seed = hash_pixel_seeds(pid, s, frame_seed);
+  const unsigned int base0 = hash_pixel_seeds(pid, 0u, frame_seed);
+  for (int k = 0; k < n_salts; ++k) {
+    float u1 = uniform_hash(seed, 1u), u2 = uniform_hash(seed, 2u);
+    sampler_uniforms(sm, base0, s, salts[k], u1, u2);
+    out_u1[(size_t)k * n + i] = u1;
+    out_u2[(size_t)k * n + i] = u2;
+  }
+}
+
 }  // namespace
 
 // Plain C interface for ctypes (ops/cuda/build.py).  Each launcher enqueues
@@ -533,11 +914,15 @@ __global__ void hash_probe_kernel(const unsigned int* __restrict__ v, int n,
 
 // The geometry: (16, n) sphere planes; a sphere BVH (sbvh_m = 0: brute
 // scan); a (n_tris, 32) mesh table with its BVH (n_tris = 0: no mesh).
+// The lights: (8, n_lights) and (16, n_tri_lights) planes, read when nee.
+// The sampler: kind 0 independent, 1 stratified (kx, ky), 2 Sobol (nbits).
 extern "C" int grt_render(const float* cam, const float* scene, int n,
                           const float* sbvh_f, const int* sbvh_i, int sbvh_m,
                           const float* mesh, int n_tris, int smooth,
                           const float* mbvh_f, const int* mbvh_i, int mbvh_m,
-                          int width, int height, unsigned int sample_index,
+                          const float* lights, int n_lights, const float* tri_lights,
+                          int n_tri_lights, int nee, int mis, int sampler, int kx, int ky,
+                          int nbits, int width, int height, unsigned int sample_index,
                           unsigned int frame_seed, unsigned int y_offset,
                           unsigned int row_stride, int max_depth, float t_min,
                           float t_max, int mode, int rr_depth, float sky_intensity,
@@ -551,6 +936,9 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
   p.geo.n_tris = n_tris;
   p.geo.smooth = smooth != 0;
   p.geo.mesh_bvh = {mbvh_f, mbvh_i, mbvh_m};
+  p.lights = {lights, nee ? n_lights : 0, tri_lights, nee ? n_tri_lights : 0};
+  p.mis = nee != 0 && mis != 0;
+  p.sampler = {sampler, kx, ky, nbits};
   p.width = width;
   p.height = height;
   p.sample_index = sample_index;
@@ -568,7 +956,12 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
   p.out = out;
   const dim3 block(32, 8);
   const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  render_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nee) {
+    render_kernel<true><<<grid, block, 0, s>>>(p);
+  } else {
+    render_kernel<false><<<grid, block, 0, s>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -582,6 +975,18 @@ extern "C" int grt_hash_probe(const unsigned int* v, int n, const unsigned int* 
                       static_cast<cudaStream_t>(stream)>>>(
       v, n, salts, n_salts, sample_index, frame_seed, out_hash, out_seeds,
       out_hash2, out_uniform);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int grt_sampler_probe(const unsigned int* pids, const unsigned int* samples,
+                                 int n, const unsigned int* salts, int n_salts,
+                                 unsigned int frame_seed, int sampler, int kx, int ky,
+                                 int nbits, float* out_u1, float* out_u2, void* stream) {
+  const int block = 256;
+  const Sampler sm = {sampler, kx, ky, nbits};
+  sampler_probe_kernel<<<(n + block - 1) / block, block, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      pids, samples, n, salts, n_salts, frame_seed, sm, out_u1, out_u2);
   return static_cast<int>(cudaGetLastError());
 }
 

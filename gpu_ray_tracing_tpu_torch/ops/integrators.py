@@ -1,28 +1,37 @@
-"""Integrators (port of gpu_ray_tracing_tpu/ops/integrators.py:35-127+ and
-the scene closest hit of gpu_ray_tracing_tpu/models/scene.py:310-362).
+"""Integrators (port of gpu_ray_tracing_tpu/ops/integrators.py and the
+scene queries of gpu_ray_tracing_tpu/models/scene.py:310-387).
 
 `trace_path` is the reference's ray_color (wgsl:261-297) on the counter
 stream: a bounce loop to max_depth with multiplicative throughput, sky on
 a miss, emission ending the path, absorbed rays black, optional Russian
-roulette.  Every ray runs the full trip count with a `live` mask, as in
-the JAX package; dead rays add nothing.  Only the `pixel_seeds` stream
-is ported (threefry, the WGSL chain and NEE/MIS are ROADMAP items).
+roulette, and optional next-event estimation toward sphere lights (cone
+sampling) and triangle lights (area sampling) with MIS power-heuristic
+weights, and the stratified/Sobol first-bounce remaps.  Every ray runs the
+full trip count with a `live` mask, as in the JAX package; dead rays add
+nothing.  Only the `pixel_seeds` stream is ported (threefry and the WGSL
+chain are ROADMAP items).
+
+Arithmetic follows the JAX package's 'jax' engine.  Where XLA:CPU
+contracts a*b+c into one fused multiply-add, the plain version does too
+(ops/rounding.py), and the CUDA kernel writes the same fmaf.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gpu_ray_tracing_tpu_torch.models.scene import as_scene
-from gpu_ray_tracing_tpu_torch.models.spheres import EMISSIVE
+from gpu_ray_tracing_tpu_torch.models.scene import as_scene, sphere_light_ids
+from gpu_ray_tracing_tpu_torch.models.spheres import EMISSIVE, LAMBERTIAN
 from gpu_ray_tracing_tpu_torch.ops import rng as rng_ops
 from gpu_ray_tracing_tpu_torch.ops.intersect import (
     Hit,
     intersect_bvh,
     intersect_spheres,
     intersect_triangles,
+    nearest_t_spheres,
 )
 from gpu_ray_tracing_tpu_torch.ops.materials import scatter
+from gpu_ray_tracing_tpu_torch.ops.rounding import cross, dot3, fma
 
 _WHITE = (1.0, 1.0, 1.0)
 _BLUE = (0.5, 0.7, 1.0)
@@ -38,11 +47,20 @@ def sky_color(dirs: torch.Tensor) -> torch.Tensor:
     return (1.0 - a) * white + a * blue
 
 
-def intersect_scene(origins, dirs, scene, t_min: float, t_max: float):
+def _mesh_hit(origins, dirs, sc, t_min: float, t_max: float) -> Hit:
+    if sc.bvh is not None:
+        return intersect_bvh(origins, dirs, sc.mesh, sc.bvh, t_min, t_max)
+    return intersect_triangles(origins, dirs, sc.mesh, t_min, t_max)
+
+
+def intersect_scene(origins, dirs, scene, t_min: float, t_max: float, *,
+                    want_mesh_wins: bool = False):
     """Closest hit across spheres and mesh: (hit, albedo, kind, param) per
     ray, the material taken from whichever primitive won (the mesh where
-    its t is strictly less).  A sphere BVH is not walked: the spheres,
-    reordered or not, are all scanned."""
+    its t is strictly less).  `want_mesh_wins=True` appends the "the mesh
+    won" plane, which says whether hit.idx is a face or a sphere index.  A
+    sphere BVH is not walked: the spheres, reordered or not, are all
+    scanned."""
     sc = as_scene(scene)
     spheres = sc.spheres
     s_hit = intersect_spheres(origins, dirs, spheres, t_min, t_max)
@@ -50,13 +68,12 @@ def intersect_scene(origins, dirs, scene, t_min: float, t_max: float):
     kind = spheres.mat_kind[s_hit.idx]
     param = spheres.mat_param[s_hit.idx]
     if sc.mesh is None:
+        if want_mesh_wins:
+            return s_hit, albedo, kind, param, torch.zeros_like(s_hit.hit)
         return s_hit, albedo, kind, param
 
     mesh = sc.mesh
-    if sc.bvh is not None:
-        m_hit = intersect_bvh(origins, dirs, mesh, sc.bvh, t_min, t_max)
-    else:
-        m_hit = intersect_triangles(origins, dirs, mesh, t_min, t_max)
+    m_hit = _mesh_hit(origins, dirs, sc, t_min, t_max)
     wins = m_hit.hit & (~s_hit.hit | (m_hit.t < s_hit.t))
     w = wins[..., None]
     hit = Hit(
@@ -67,12 +84,24 @@ def intersect_scene(origins, dirs, scene, t_min: float, t_max: float):
         normal=torch.where(w, m_hit.normal, s_hit.normal),
         front_face=torch.where(wins, m_hit.front_face, s_hit.front_face),
     )
-    return (
+    out = (
         hit,
         torch.where(w, mesh.albedo[m_hit.idx], albedo),
         torch.where(wins, mesh.mat_kind[m_hit.idx], kind),
         torch.where(wins, mesh.mat_param[m_hit.idx], param),
     )
+    return out + (wins,) if want_mesh_wins else out
+
+
+def nearest_t_scene(origins, dirs, scene, t_min: float, t_max: float) -> torch.Tensor:
+    """Shadow-ray query: the nearest hit t across all geometry (t_max on a
+    miss), without building a hit record."""
+    sc = as_scene(scene)
+    t = nearest_t_spheres(origins, dirs, sc.spheres, t_min, t_max)
+    if sc.mesh is None:
+        return t
+    m_hit = _mesh_hit(origins, dirs, sc, t_min, t_max)
+    return torch.minimum(t, torch.where(m_hit.hit, m_hit.t, t_max))
 
 
 def shade_normals(origins, dirs, scene, t_min: float, t_max: float) -> torch.Tensor:
@@ -103,6 +132,79 @@ def clamp_radiance(rgb: torch.Tensor, clamp: float) -> torch.Tensor:
     return rgb * torch.clamp(clamp / torch.clamp(m, min=1e-12), max=1.0)
 
 
+def _one_minus_cos_max(r2, d2):
+    """1 - cos(half-angle) of the cone a radius^2-r2 sphere subtends at
+    squared distance d2, cancellation-free: (r2/d2) / (1 + sqrt(1 - r2/d2)),
+    capped at 1 (inside the sphere every consumer masks the lane)."""
+    q = r2 / d2
+    return torch.clamp(q / (1.0 + torch.sqrt(torch.clamp(1.0 - q, 1e-12, 1.0))), max=1.0)
+
+
+_X_AXIS = (1.0, 0.0, 0.0)
+_Y_AXIS = (0.0, 1.0, 0.0)
+
+
+def _sphere_candidate(pnt, normal, lc, lr, u1n, u2n):
+    """Cone sample toward a sphere light (centre lc, radius lr, per lane):
+    returns (omega, t_l, ok, wgt0), where ok holds the scan-independent
+    validity terms and wgt0 = cos_i * 2 (1 - cos_max) is the estimator
+    weight and the MIS ratio p_b / p_nee."""
+    dc = lc - pnt
+    d2 = dot3(dc, dc)
+    d2s = torch.clamp(d2, min=1e-12)
+    r2 = lr * lr
+    inside = d2 <= r2 * 1.0001
+    omc = _one_minus_cos_max(r2, d2s)
+    cos_t = fma(-u1n, omc, torch.ones_like(omc))
+    sin_t = torch.sqrt(torch.clamp(fma(-cos_t, cos_t, torch.ones_like(cos_t)), min=0.0))
+    phi = u2n * torch.tensor(2.0 * torch.pi, dtype=torch.float32)
+    wl = dc / torch.sqrt(d2s)[..., None]
+    pick = torch.abs(wl[..., 0:1]) > 0.9
+    a_ax = torch.where(pick, torch.tensor(_Y_AXIS, device=pnt.device),
+                       torch.tensor(_X_AXIS, device=pnt.device))
+    u_ax = cross(a_ax, wl)
+    u_ax = u_ax / torch.clamp(torch.sqrt(dot3(u_ax, u_ax)), min=1e-12)[..., None]
+    v_ax = cross(wl, u_ax)
+    # cos/sin rounded from f64: nearer XLA's f32 results than torch's own.
+    phi64 = phi.double()
+    cp = torch.cos(phi64).float() * sin_t
+    sp = torch.sin(phi64).float() * sin_t
+    omega = fma(wl, cos_t[..., None], fma(u_ax, cp[..., None], v_ax * sp[..., None]))
+    cos_i = dot3(normal, omega)
+    h_l = dot3(dc, omega)
+    disc_l = fma(h_l, h_l, -fma(-lr, lr, d2))
+    t_l = h_l - torch.sqrt(torch.clamp(disc_l, min=0.0))
+    ok = (cos_i > 0.0) & ~inside & (disc_l > 0.0)
+    return omega, t_l, ok, cos_i * 2.0 * omc
+
+
+def _tri_candidate(pnt, normal, v0, e1, e2, nl, area, u1n, u2n):
+    """Uniform-area sample on a triangle light (per-lane parameters):
+    returns (omega, dist, ok, wgt0), wgt0 = cos_i cos_l area / (pi d^2),
+    two-sided (|cos_l|)."""
+    su = torch.sqrt(u1n)
+    b1 = 1.0 - su
+    b2 = u2n * su
+    p = fma(b2[..., None], e2, fma(b1[..., None], e1, v0))
+    dc = p - pnt
+    d2 = dot3(dc, dc)
+    d2s = torch.clamp(d2, min=1e-12)
+    dist = torch.sqrt(d2s)
+    omega = dc / dist[..., None]
+    cos_i = dot3(normal, omega)
+    cos_l = torch.abs(dot3(nl, omega))
+    ok = (cos_i > 0.0) & (cos_l > 1e-7) & (d2 > 1e-12)
+    wgt0 = cos_i * cos_l * area / (torch.tensor(torch.pi, dtype=torch.float32) * d2s)
+    return omega, dist, ok, wgt0
+
+
+def _mis_nee_weight(wgt, last: bool):
+    """The NEE side of the power heuristic, 1 / (1 + r^2) with r = wgt (the
+    fully scaled estimator weight); the last bounce keeps weight 1, since
+    its BSDF counterpart is never traced."""
+    return wgt if last else wgt / fma(wgt, wgt, torch.ones_like(wgt))
+
+
 def trace_path(
     origins: torch.Tensor,
     dirs: torch.Tensor,
@@ -114,22 +216,91 @@ def trace_path(
     pixel_seeds: torch.Tensor,
     russian_roulette_depth: int = 0,
     sky_intensity: float = 1.0,
+    nee: bool = False,
+    mis: bool = False,
+    pixel_ids: torch.Tensor | None = None,
+    sample_index=None,
+    frame_seed_u32=None,
+    sampler_spec: tuple | None = None,
+    light_pick: str = "lane",
 ) -> torch.Tensor:
     """Path-trace a batch of rays on the counter stream; returns linear RGB
     of shape dirs.shape.  Draws are pure functions of (pixel seed, bounce,
-    salt): salts 16+3i..18+3i scatter, 1000+i Russian roulette."""
+    salt): salts 16+3i..18+3i scatter, 1000+i Russian roulette,
+    2000+37i+7g+{0,1,2} NEE toward light ordinal g (sphere lights first,
+    then triangle lights).
+
+    `nee=True` samples every light from each diffuse hit when there are at
+    most 4, else one picked light weighted by the count.  `light_pick`
+    chooses that pick: 'lane' draws it per lane from salt 2000+37i (the
+    JAX package's 'jax' engine); 'sample' takes one light per (sample,
+    bounce) for the whole batch, hash2(hash2(sample ^ wgsl_hash(frame
+    seed), 3000+i), 0) mod L (the megakernel's pick, which needs the scalar
+    `sample_index` and `frame_seed_u32`).  `sampler_spec` remaps the
+    first-bounce scatter pair (salt 6) and, in the <= 4-light loop, light
+    g's first-bounce NEE pair (salt 8+g); it needs `pixel_ids`,
+    `sample_index` and `frame_seed_u32`.
+    """
+    sc = as_scene(scene)
+    if mis and not nee:
+        raise ValueError("mis=True is a weighting of NEE; it requires nee=True")
+    n_sl, n_tl = sc.nee_light_counts(nee)
+    total = n_sl + n_tl
+    if light_pick not in ("lane", "sample"):
+        raise ValueError(f"light_pick must be 'lane' or 'sample', got {light_pick!r}")
+    if sampler_spec is not None and (pixel_ids is None or sample_index is None
+                                     or frame_seed_u32 is None):
+        raise ValueError("sampler_spec= needs pixel_ids=, sample_index= and "
+                         "frame_seed_u32=")
+    pick_per_sample = nee and total > 4 and light_pick == "sample"
+    if pick_per_sample and (sample_index is None or frame_seed_u32 is None):
+        raise ValueError("light_pick='sample' needs sample_index= and frame_seed_u32=")
+
     batch_shape = dirs.shape[:-1]
     dev = dirs.device
     o, d = origins, dirs
     throughput = torch.ones((*batch_shape, 3), dtype=torch.float32, device=dev)
     result = torch.zeros((*batch_shape, 3), dtype=torch.float32, device=dev)
     live = torch.ones(batch_shape, dtype=torch.bool, device=dev)
+    prev_diffuse = torch.zeros(batch_shape, dtype=torch.bool, device=dev)
+    prev_cos = torch.zeros(batch_shape, dtype=torch.float32, device=dev)
+    lights, tl = sc.lights, sc.tri_lights
+
+    if mis:
+        # Exact light identity of the primitive a ray hits (sphere lights
+        # first, then triangle lights).
+        lid_sphere = sphere_light_ids(sc.spheres)
+        if sc.mesh is not None:
+            lid_tri = sc.global_tri_light_ids().long()
+    if pick_per_sample:
+        pick_seed = rng_ops.as_u32(sample_index, dev) ^ rng_ops.wgsl_hash(
+            rng_ops.as_u32(frame_seed_u32, dev))
+
+    def shadow_visible(ok, pnt, omega, window):
+        """Lanes of `ok` with no hit in (t_min, window): the any-hit query,
+        driven only by lanes whose sample is otherwise valid."""
+        vis = torch.zeros_like(ok)
+        idx = torch.nonzero(ok.reshape(-1)).squeeze(1)
+        if idx.numel():
+            t = nearest_t_scene(pnt.reshape(-1, 3)[idx], omega.reshape(-1, 3)[idx],
+                                sc, t_min, t_max)
+            vis.reshape(-1)[idx] = t >= window.reshape(-1)[idx]
+        return vis
 
     for i in range(max_depth):
-        hit, albedo, kind, param = intersect_scene(o, d, scene, t_min, t_max)
+        if mis:
+            hit, albedo, kind, param, mesh_won = intersect_scene(
+                o, d, sc, t_min, t_max, want_mesh_wins=True)
+        else:
+            hit, albedo, kind, param = intersect_scene(o, d, sc, t_min, t_max)
         base = 16 + 3 * i
         u1 = rng_ops.uniform_hash(pixel_seeds, base)
         u2 = rng_ops.uniform_hash(pixel_seeds, base + 1)
+        if sampler_spec is not None and i == 0:
+            # The first-bounce scatter pair (salt 6): strata of the sphere.
+            u1, u2 = rng_ops.sampler_uniforms(
+                u1, u2, pixel_ids, sample_index, frame_seed_u32, sampler_spec,
+                rot_salt=rng_ops._SCATTER_ROT_SALT)
         unit_vec = rng_ops.unit_vector_from_uniforms(u1, u2)
         u_reflect = rng_ops.uniform_hash(pixel_seeds, base + 2)
         new_dir, attenuation, ok = scatter(
@@ -142,16 +313,142 @@ def trace_path(
             result,
         )
         emissive = live & hit.hit & (kind == EMISSIVE)
+        if mis:
+            # Power heuristic for a BSDF ray that left a diffuse vertex and
+            # hit light l: w_b = 1 / (1 + r^2), r = p_nee / p_b as seen from
+            # the previous vertex o.
+            hit_lid = lid_sphere[hit.idx.clamp(0, sc.spheres.count - 1)]
+            if sc.mesh is not None:
+                hit_lid = torch.where(
+                    mesh_won, lid_tri[hit.idx.clamp(0, sc.mesh.num_triangles - 1)], hit_lid)
+            omc = torch.zeros(batch_shape, dtype=torch.float32, device=dev)
+            for l in range(n_sl):
+                dlo = o - lights.centers[l]
+                d2o = torch.clamp(dot3(dlo, dlo), min=1e-12)
+                r_l = lights.radii[l]
+                omc = torch.where(hit_lid == l, _one_minus_cos_max(r_l * r_l, d2o), omc)
+            r_ratio = 1.0 / torch.clamp(2.0 * omc * prev_cos, min=1e-12)
+            if n_tl:
+                delta = hit.point - o
+                d2h = torch.clamp(dot3(delta, delta), min=1e-12)
+                d3h = d2h * torch.sqrt(d2h)
+                for j in range(n_tl):
+                    ndot = torch.abs(dot3(delta, tl.normal[j]))
+                    r_tri = (torch.pi * d3h) / torch.clamp(ndot * tl.area[j] * prev_cos,
+                                                           min=1e-12)
+                    r_ratio = torch.where(hit_lid == n_sl + j, r_tri, r_ratio)
+            if total > 4:
+                r_ratio = r_ratio / float(total)
+            w_emis = torch.where(
+                prev_diffuse,
+                torch.where(hit_lid >= 0, 1.0 / fma(r_ratio, r_ratio, torch.ones_like(r_ratio)),
+                            0.0),
+                1.0,
+            )
+        else:
+            w_emis = torch.where(prev_diffuse, 0.0, 1.0) if nee else torch.ones_like(prev_cos)
         result = torch.where(
-            emissive[..., None], result + throughput * albedo * param[..., None],
+            emissive[..., None], result + throughput * albedo * (param * w_emis)[..., None],
             result,
         )
 
+        inside_any = torch.zeros(batch_shape, dtype=torch.bool, device=dev)
+        if nee:
+            pnt, nrm = hit.point, hit.normal
+            for l in range(n_sl):
+                dcl = lights.centers[l] - pnt
+                r_l = lights.radii[l]
+                inside_any = inside_any | (dot3(dcl, dcl) <= r_l * r_l * 1.0001)
+            nee_ok = live & hit.hit & (kind == LAMBERTIAN) & ~inside_any
+            salt0 = 2000 + 37 * i
+            last = i == max_depth - 1
+
+            def draws(g: int):
+                u1n = rng_ops.uniform_hash(pixel_seeds, salt0 + 7 * g + 1)
+                u2n = rng_ops.uniform_hash(pixel_seeds, salt0 + 7 * g + 2)
+                if sampler_spec is not None and i == 0 and total <= 4:
+                    u1n, u2n = rng_ops.sampler_uniforms(
+                        u1n, u2n, pixel_ids, sample_index, frame_seed_u32, sampler_spec,
+                        rot_salt=rng_ops._NEE_ROT_SALT_BASE + g)
+                return u1n, u2n
+
+            def add(result, ok, omega, window, wgt, le):
+                valid = nee_ok & ok
+                valid = valid & shadow_visible(valid, pnt, omega, window * (1.0 - 1e-3))
+                if mis:
+                    wgt = _mis_nee_weight(wgt, last)
+                return torch.where(valid[..., None],
+                                   result + throughput * albedo * le * wgt[..., None], result)
+
+            def sphere_term(result, li, u1n, u2n, weight):
+                omega, t_l, ok, wgt0 = _sphere_candidate(
+                    pnt, nrm, lights.centers[li], lights.radii[li], u1n, u2n)
+                return add(result, ok, omega, t_l, wgt0 * weight, lights.emission[li])
+
+            def tri_term(result, ji, u1n, u2n, weight):
+                omega, dist, ok, wgt0 = _tri_candidate(
+                    pnt, nrm, tl.v0[ji], tl.e1[ji], tl.e2[ji], tl.normal[ji], tl.area[ji],
+                    u1n, u2n)
+                return add(result, ok, omega, dist, wgt0 * weight, tl.emission[ji])
+
+            if total <= 4:
+                # Every light, sphere lights first, weight 1.
+                for l in range(n_sl):
+                    u1n, u2n = draws(l)
+                    li = torch.full(batch_shape, l, dtype=torch.long, device=dev)
+                    result = sphere_term(result, li, u1n, u2n, 1.0)
+                for j in range(n_tl):
+                    u1n, u2n = draws(n_sl + j)
+                    ji = torch.full(batch_shape, j, dtype=torch.long, device=dev)
+                    result = tri_term(result, ji, u1n, u2n, 1.0)
+            else:
+                # One light, weighted by the count.
+                u1n, u2n = draws(0)
+                if pick_per_sample:
+                    bounce_seed = rng_ops.hash2(pick_seed, 3000 + i)
+                    g = rng_ops.hash2(bounce_seed, 0) % total
+                    gi = torch.full(batch_shape, int(g), dtype=torch.long, device=dev)
+                else:
+                    u_l = rng_ops.uniform_hash(pixel_seeds, salt0)
+                    gi = torch.clamp((u_l * float(total)).long(), 0, total - 1)
+                if n_tl == 0:
+                    result = sphere_term(result, gi, u1n, u2n, float(total))
+                else:
+                    # Both candidates from the picked ordinal, selected
+                    # per lane before the one shadow query.
+                    is_sph = gi < n_sl
+                    if n_sl:
+                        li = torch.clamp(gi, 0, n_sl - 1)
+                        s_om, s_t, s_ok, s_w = _sphere_candidate(
+                            pnt, nrm, lights.centers[li], lights.radii[li], u1n, u2n)
+                        s_le = lights.emission[li]
+                    ji = torch.clamp(gi - n_sl, 0, n_tl - 1)
+                    t_om, t_dist, t_ok, t_w = _tri_candidate(
+                        pnt, nrm, tl.v0[ji], tl.e1[ji], tl.e2[ji], tl.normal[ji],
+                        tl.area[ji], u1n, u2n)
+                    if n_sl:
+                        sel = is_sph[..., None]
+                        omega = torch.where(sel, s_om, t_om)
+                        window = torch.where(is_sph, s_t, t_dist)
+                        ok = torch.where(is_sph, s_ok, t_ok)
+                        wgt0 = torch.where(is_sph, s_w, t_w)
+                        le = torch.where(sel, s_le, tl.emission[ji])
+                    else:
+                        omega, window, ok, wgt0, le = t_om, t_dist, t_ok, t_w, tl.emission[ji]
+                    result = add(result, ok, omega, window, wgt0 * float(total), le)
+
+        # Absorbed rays (metal below the surface) contribute black.
         scattered = live & hit.hit & ok & (kind != EMISSIVE)
         throughput = torch.where(scattered[..., None], throughput * attenuation, throughput)
         o = torch.where(scattered[..., None], hit.point, o)
         d = torch.where(scattered[..., None], new_dir, d)
         live = scattered
+        # Only lanes that ran NEE suppress (or MIS-weight) BSDF-hit emission.
+        prev_diffuse = scattered & (kind == LAMBERTIAN) & ~inside_any
+        if mis:
+            nd2 = torch.clamp(dot3(new_dir, new_dir), min=1e-20)
+            cos_s = dot3(new_dir, hit.normal) * torch.rsqrt(nd2)
+            prev_cos = torch.where(prev_diffuse, torch.clamp(cos_s, min=0.0), 0.0)
 
         if russian_roulette_depth > 0 and i >= russian_roulette_depth:
             # Survive with p = max channel throughput (clamped), divide by p.

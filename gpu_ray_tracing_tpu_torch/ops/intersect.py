@@ -94,7 +94,10 @@ def intersect_spheres(
     radius_best = spheres.radii[idx]
     # Misses keep t = t_max in the record but must not build a ~1e35 point.
     t_point = torch.where(hit, t_best, 0.0)
-    point = o + t_point[:, None] * d
+    # o + t d rounded once, as XLA:CPU fuses it: the point decides whether
+    # the next ray leaves the surface (a metal sphere at ~400 units or the
+    # Cornell ceiling flip on its last bit).
+    point = fma(t_point[:, None], d, o)
     # Outward normal = (p - center) / radius (wgsl:206); guard pad radius 0.
     safe_r = torch.where(radius_best != 0.0, radius_best, 1.0)
     outward = (point - center_best) / safe_r[:, None]
@@ -109,6 +112,17 @@ def intersect_spheres(
         normal=normal.reshape(*batch_shape, 3),
         front_face=front_face.reshape(batch_shape),
     )
+
+
+def nearest_t_spheres(origins, dirs, spheres: Spheres, t_min: float,
+                      t_max: float) -> torch.Tensor:
+    """Shadow-ray variant of intersect_spheres: the nearest valid t only
+    (t_max where nothing hits)."""
+    batch_shape = origins.shape[:-1]
+    root, valid = _sphere_roots(origins.reshape(-1, 3), dirs.reshape(-1, 3),
+                                spheres, t_min, t_max)
+    t = torch.amin(torch.where(valid, root, t_max), dim=-1)
+    return t.reshape(batch_shape)
 
 
 # --- triangles ---------------------------------------------------------------
@@ -151,7 +165,7 @@ def _mesh_hit_record(o, d, mesh, t_best, idx, any_hit, batch_shape) -> Hit:
     """Hit record of the winning faces: the flat normal, or with smooth
     corner normals the barycentric blend of the winner (its u, v
     recomputed), renormalized; then flipped toward the ray."""
-    point = o + torch.where(any_hit, t_best, 0.0)[:, None] * d
+    point = fma(torch.where(any_hit, t_best, 0.0)[:, None], d, o)  # as spheres
     if mesh.smooth:
         _, u, v, _ = _moller_trumbore(o, d, mesh.v0[idx], mesh.e1[idx], mesh.e2[idx],
                                       0.0, 0.0)

@@ -87,11 +87,14 @@ def generate_rays_for_ids(
                   fma(camera.pixel_delta_u, fx, camera.viewport_upper_left))
     u3 = rng_ops.uniform_hash(seeds, 3)
     u4 = rng_ops.uniform_hash(seeds, 4)
-    u3, u4 = rng_ops.sampler_uniforms(
-        u3, u4, pid, sample_index, frame_seed_u32, sampler_spec
+    # The thin-lens point is its own sampler pair (salt 7), uncorrelated
+    # with the AA jitter's strata; its angle is the second draw times 2 pi.
+    u3, angle = rng_ops.sampler_uniforms(
+        u3, u4, pid, sample_index, frame_seed_u32, sampler_spec,
+        rot_salt=rng_ops._LENS_ROT_SALT, y_scale=_TWO_PI,
     )
     radius = torch.sqrt(u3)
-    angle = (_TWO_PI * u4).double()
+    angle = angle.double()
     # cos/sin rounded from f64: nearer XLA's f32 results than torch's own.
     px = radius * torch.cos(angle).float()
     py = radius * torch.sin(angle).float()

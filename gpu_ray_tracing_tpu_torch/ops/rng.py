@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from gpu_ray_tracing_tpu_torch.ops.rounding import fma
+
 _MASK = 0xFFFFFFFF
 _XOR_SEED = 2747636419
 _MUL = 2654435769
@@ -83,22 +85,148 @@ def hash_pixel_seeds(pixel_ids, sample_index, frame_seed_u32) -> torch.Tensor:
     return wgsl_hash(_mul32(as_u32(pixel_ids, dev), _PIX_MUL) ^ inner)
 
 
-def sampler_uniforms(u1, u2, pixel_ids, sample_index, frame_seed_u32, spec):
-    """One dimension pair through the configured sampler.  Only the
-    independent sampler (spec None) is ported: the draws pass through."""
-    if spec is not None:
-        raise NotImplementedError(
-            f"sampler spec {spec!r} is not ported yet (ROADMAP Queue 1 item 9)"
-        )
-    return u1, u2
+#: Pair ids ("rotation salts") of the stratified/Sobol sampler, drawn on the
+#: sample-0 pixel seed: AA jitter 5, first-bounce scatter 6, thin-lens point
+#: 7, and NEE light g of the <= 4-light loop 8 + g.
+_STRATUM_ROT_SALT = 5
+_SCATTER_ROT_SALT = 6
+_LENS_ROT_SALT = 7
+_NEE_ROT_SALT_BASE = 8
+
+
+def strata_shape(spp: int) -> tuple[int, int]:
+    """Factor spp into a (kx, ky) grid, kx the largest divisor <= sqrt(spp)."""
+    if spp < 1:
+        raise ValueError(f"spp must be >= 1, got {spp}")
+    kx = max(1, int(spp**0.5))
+    while spp % kx:
+        kx -= 1
+    return kx, spp // kx
+
+
+def stratified_uniforms(u1, u2, pixel_ids, sample_index, frame_seed_u32,
+                        strata: tuple[int, int], rot_salt=_STRATUM_ROT_SALT,
+                        shift: float = 0.0, y_scale: float = 1.0):
+    """Remap two U[0,1) draws into sample s's stratum of a kx*ky grid: sample
+    s lands in stratum (s + rot(pixel, frame)) mod K, jittered inside it by
+    (u1, u2).  `rot_salt` names the pair, so pairs rotate independently.
+
+    Two knobs round as jitted XLA rounds what its callers do next: `shift`
+    is subtracted from both outputs in one fused multiply-add with the
+    scaling (the AA jitter's 0.5), and `y_scale` multiplies the second
+    output, folded into its 1/ky constant (the lens angle's 2 pi)."""
+    kx, ky = strata
+    k_total = kx * ky
+    if k_total == 1:
+        return u1 - shift, u2 * y_scale - shift
+    dev = _device_of(u1, pixel_ids)
+    rot_u = uniform_hash(hash_pixel_seeds(pixel_ids, 0, frame_seed_u32), rot_salt)
+    rot = torch.clamp(torch.floor(rot_u * float(k_total)), max=float(k_total - 1))
+    s_f = (as_u32(sample_index, dev) % k_total).to(torch.float32)
+    stratum = rot + s_f
+    stratum = torch.where(stratum >= k_total, stratum - float(k_total), stratum)
+    # Division by a constant as jitted XLA computes it: times the f32
+    # reciprocal (the megakernel does the same).
+    inv_kx, inv_ky = _f32_recip(kx), _f32_recip(ky)
+    cy = torch.floor(stratum * inv_kx)
+    cx = stratum - cy * float(kx)
+    inv_ky = inv_ky * y_scale
+    if shift:
+        neg = torch.tensor(-shift, dtype=torch.float32)
+        return fma(cx + u1, inv_kx, neg), fma(cy + u2, inv_ky, neg)
+    return (cx + u1) * inv_kx, (cy + u2) * inv_ky
+
+
+def _f32_recip(k: int) -> torch.Tensor:
+    return torch.tensor(1.0, dtype=torch.float32) / float(k)
+
+
+def _sobol_dim1_directions() -> list[int]:
+    """Direction numbers of Sobol dimension 1: v_0 = 2**31,
+    v_{b+1} = v_b ^ (v_b >> 1)."""
+    v, out = 0x80000000, []
+    for _ in range(32):
+        out.append(v)
+        v ^= v >> 1
+    return out
+
+
+_SOBOL_DIM1 = _sobol_dim1_directions()
+
+
+def sobol_nbits(spp: int) -> int:
+    """Bits covering every sample index an spp budget can reach (up to
+    2*spp - 2, the progressive straddle window)."""
+    if spp < 1:
+        raise ValueError(f"spp must be >= 1, got {spp}")
+    return max(1, (2 * spp - 2).bit_length())
+
+
+def _reverse_bits32(x: torch.Tensor) -> torch.Tensor:
+    """Bitwise reversal of u32 values held in int64 (5 swap rounds)."""
+    x = (x >> 16) | ((x << 16) & _MASK)
+    x = ((x & 0x00FF00FF) << 8) | ((x >> 8) & 0x00FF00FF)
+    x = ((x & 0x0F0F0F0F) << 4) | ((x >> 4) & 0x0F0F0F0F)
+    x = ((x & 0x33333333) << 2) | ((x >> 2) & 0x33333333)
+    return ((x & 0x55555555) << 1) | ((x >> 1) & 0x55555555)
+
+
+def _laine_karras(x: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Laine-Karras permutation (Burley, JCGT 2020): each output bit depends
+    only on input bits at or below it."""
+    x = (x + seed) & _MASK
+    for c in (0x6C50B47C, 0xB82F1E52, 0xC7AFE638, 0x8D22F6E6):
+        x = x ^ _mul32(x, c)
+    return x
+
+
+def _u32_msb_to_f32(bits: torch.Tensor) -> torch.Tensor:
+    """Top 24 bits of an MSB-first fraction as f32 in [0, 1)."""
+    return (bits >> 8).to(torch.float32) * _INV_2_24
+
+
+def sobol02_uniforms(pixel_ids, sample_index, frame_seed_u32, nbits: int,
+                     rot_salt=_STRATUM_ROT_SALT):
+    """Owen-scrambled 2D Sobol point of `sample_index` for one dimension
+    pair, scrambled per (pixel, frame, pair); sample_index < 2**nbits."""
+    base = hash_pixel_seeds(pixel_ids, 0, frame_seed_u32)
+    seed_x = hash2(base, rot_salt)
+    seed_y = wgsl_hash(seed_x)
+    s = as_u32(sample_index, base.device)
+    # Dimension 0 is the bit-reversed index, so owen(reverse(s)) =
+    # reverse(LK(s)).
+    x = _reverse_bits32(_laine_karras(s, seed_x))
+    y1 = torch.zeros_like(s)
+    for b in range(nbits):
+        y1 = y1 ^ (((s >> b) & 1) * _SOBOL_DIM1[b])
+    y = _reverse_bits32(_laine_karras(_reverse_bits32(y1), seed_y))
+    return _u32_msb_to_f32(x), _u32_msb_to_f32(y)
+
+
+def sampler_uniforms(u1, u2, pixel_ids, sample_index, frame_seed_u32, spec,
+                     rot_salt=_STRATUM_ROT_SALT, shift: float = 0.0, y_scale: float = 1.0):
+    """One dimension pair through the configured sampler: spec None passes
+    (u1, u2) through; ('stratified', kx, ky) remaps them into sample s's
+    stratum; ('sobol', nbits) replaces them with the scrambled Sobol point.
+    `rot_salt` names the pair; both outputs come less `shift` and the
+    second times `y_scale` (see stratified_uniforms)."""
+    if spec is None:
+        return u1 - shift, u2 * y_scale - shift
+    if spec[0] == "stratified":
+        return stratified_uniforms(u1, u2, pixel_ids, sample_index, frame_seed_u32,
+                                   tuple(spec[1:]), rot_salt=rot_salt, shift=shift,
+                                   y_scale=y_scale)
+    if spec[0] == "sobol":
+        x, y = sobol02_uniforms(pixel_ids, sample_index, frame_seed_u32, spec[1],
+                                rot_salt=rot_salt)
+        return x - shift, y * y_scale - shift
+    raise ValueError(f"unknown sampler spec {spec!r}")
 
 
 def sampler_jitter(u1, u2, pixel_ids, sample_index, frame_seed_u32, spec):
-    """AA pixel-jitter pair in [-0.5, 0.5)."""
-    su1, su2 = sampler_uniforms(
-        u1, u2, pixel_ids, sample_index, frame_seed_u32, spec
-    )
-    return su1 - 0.5, su2 - 0.5
+    """AA pixel-jitter pair in [-0.5, 0.5) under the configured sampler."""
+    return sampler_uniforms(u1, u2, pixel_ids, sample_index, frame_seed_u32, spec,
+                            shift=0.5)
 
 
 def unit_vector_from_uniforms(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:

@@ -3,14 +3,18 @@
 The same frozen dataclass with the same fields and cross-field checks.  The
 backends are the port's own: 'torch' is the plain PyTorch integrator (the
 counterpart of 'jax'; runs on any device) and 'cuda' is the hand-written
-megakernel (the counterpart of 'pallas').  Modes that the port does not
-carry yet raise NotImplementedError and name their ROADMAP.md item.
+megakernel (the counterpart of 'pallas').  NEE/MIS and the stratified and
+Sobol samplers run on both.  The modes the port does not carry yet raise
+NotImplementedError and name their ROADMAP.md item: adaptive sampling
+(K1f), the wavefront backend (K2), and the threefry and wgsl streams.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
+
+from gpu_ray_tracing_tpu_torch.ops.rng import sobol_nbits, strata_shape
 
 _BACKENDS = ("torch", "cuda")
 
@@ -115,18 +119,19 @@ class RenderConfig:
                 f"rng={self.rng!r} is not ported yet (ROADMAP Queue 1 item 2; "
                 "only the counter-based 'hash' stream is)"
             )
-        if self.nee or self.mis:
-            raise NotImplementedError(
-                "nee/mis are not ported yet (ROADMAP Queue 1 items 4 and 6, "
-                "kernel K1b)"
-            )
-        if self.sampler != "independent":
-            raise NotImplementedError(
-                f"sampler={self.sampler!r} is not ported yet (ROADMAP Queue 1 "
-                "items 2 and 9, kernel K1e)"
-            )
         if self.adaptive_tol > 0.0:
             raise NotImplementedError(
                 "adaptive sampling is not ported yet (ROADMAP Queue 1 item 10, "
                 "kernel K1f)"
             )
+
+    @property
+    def sampler_spec(self) -> tuple | None:
+        """The spec ops/rng.sampler_uniforms takes: None for the independent
+        sampler, ('stratified', kx, ky) or ('sobol', nbits), derived from the
+        spp budget."""
+        if self.sampler == "stratified":
+            return ("stratified", *strata_shape(self.spp))
+        if self.sampler == "sobol":
+            return ("sobol", sobol_nbits(self.spp))
+        return None

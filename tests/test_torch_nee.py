@@ -1,0 +1,254 @@
+"""Next-event estimation and MIS in the port against the JAX package, on the CPU.
+
+The light packers are held bit-equal to the Pallas kernel's; trace_path with
+nee/mis to JAX's jitted raygen + trace_path pieces (the 'jax' engine) on the
+scenes of benchmarks/parity_check.py; and the lit goldens to
+tests/test_goldens.py's thresholds: nee_light and nee_mis through
+backend='torch', many_mis (pinned from the Pallas kernel's per-(sample,
+bounce) light pick) through render_reference(light_pick='sample').  Cornell
+is chaotic across XLA and torch (its glass sphere is a lens), so it is held
+to JAX's pieces at parity_check's same-device contract.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gpu_ray_tracing_tpu as J
+import gpu_ray_tracing_tpu_torch as T
+from benchmarks import parity_check as pc
+from gpu_ray_tracing_tpu.models import scene as jscene
+from gpu_ray_tracing_tpu.ops import integrators as ji
+from gpu_ray_tracing_tpu.ops import rays as jr
+from gpu_ray_tracing_tpu.ops.pallas import megakernel as jmk
+from gpu_ray_tracing_tpu_torch.ops import integrators as ti
+from gpu_ray_tracing_tpu_torch.ops import rays as tr
+from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as tmk
+
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
+TMIN, TMAX = 1e-3, 3.4e35
+T_BASE_CAMERA = T.CameraSettings.make([0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0],
+                                      60.0, 0.0, 2.0)
+
+
+def _golden(name):
+    return np.load(os.path.join(GOLDEN_DIR, name))
+
+
+def _assert_match(a, b, flip_frac, mean_tol):
+    m = T.images_match(a, b, flip_frac, mean_tol)
+    assert m.ok, m
+
+
+def _t_nee_scene():
+    """parity_check._nee_scene, built by the port."""
+    return T.make_scene(T.make_spheres([
+        ((0, -1000.0, 0), 1000.0, T.LAMBERTIAN, (0.7, 0.7, 0.7), 0.0),
+        ((0.0, 2.0, -2.0), 0.3, T.EMISSIVE, (1.0, 0.9, 0.7), 20.0),
+        ((0.8, 0.4, -1.5), 0.4, T.LAMBERTIAN, (0.3, 0.5, 0.8), 0.0),
+    ]))
+
+
+def _t_many_lights_scene():
+    """parity_check._many_lights_scene, built by the port: 81 light
+    ordinals (1 emissive sphere + an 80-face emissive icosphere)."""
+    spheres = T.make_spheres([
+        ((0.0, -1000.0, 0.0), 1000.0, T.LAMBERTIAN, (0.7, 0.7, 0.7), 0.0),
+        ((2.0, 2.2, -2.0), 0.4, T.EMISSIVE, (1.0, 0.9, 0.7), 4.0),
+    ])
+    glow = T.transform_mesh(T.icosphere(1, albedo=(0.9, 1.0, 0.8), mat_kind=T.EMISSIVE,
+                                        mat_param=3.0), 0.5, (-0.8, 1.8, -2.0))
+    return T.make_scene(spheres, glow)
+
+
+# --- modules ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["many_lights", "cornell"])
+def test_light_planes_and_face_ids_match_jax(name):
+    """lights_planes, tri_lights_planes and the table's per-face global
+    light ordinal (slot 23) bit-equal to the Pallas packers; JAX's (G, 128)
+    table holds 4 faces per row, padded, so its slot is read back per face."""
+    js = pc._many_lights_scene() if name == "many_lights" else J.cornell_box_scene()
+    ts = T.from_reference(js)
+    if js.lights is not None:
+        want = np.asarray(jmk.lights_planes(js.lights))
+        assert np.array_equal(want, tmk.lights_planes(ts.lights).numpy())
+    assert np.array_equal(np.asarray(jmk.tri_lights_planes(js.tri_lights)),
+                          tmk.tri_lights_planes(ts.tri_lights).numpy())
+    n_sl = 0 if js.lights is None else js.lights.count
+    base = jscene.tri_light_id_per_face(js.mesh, js.tri_lights)
+    jtable = np.asarray(jmk.mesh_table(js.mesh, tri_light_ids=jnp.where(
+        base >= 0, base + n_sl, -1))).reshape(-1, 32)[:js.mesh.num_triangles]
+    ttable = tmk.mesh_table(ts.mesh, ts.global_tri_light_ids()).numpy()
+    assert np.array_equal(jtable[:, 23], ttable[:, 23])
+    assert np.array_equal(jtable[:, :24], ttable[:, :24])
+    lit = ttable[:, 23] >= 0
+    assert lit.sum() == js.tri_lights.count and ttable[lit, 23].min() == n_sl
+    # Without NEE the slot stays -1.
+    assert (tmk.mesh_table(ts.mesh)[:, 23] == -1).all()
+
+
+def test_one_minus_cos_max_matches_jax():
+    rng = np.random.default_rng(4)
+    r2 = rng.uniform(1e-4, 4.0, 10_000).astype(np.float32)
+    d2 = (r2 * rng.uniform(0.5, 1e8, 10_000)).astype(np.float32)
+    want = np.asarray(jax.jit(ji._one_minus_cos_max)(r2, d2))
+    got = ti._one_minus_cos_max(torch.from_numpy(r2), torch.from_numpy(d2)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-7, atol=0)
+
+
+@pytest.mark.parametrize("name", ["nee", "many_lights", "cornell"])
+def test_scene_queries_match_jax(name):
+    """intersect_scene(want_mesh_wins=True) and the shadow query
+    nearest_t_scene on seeded random rays: the same winners (up to 0.5% of
+    grazing rays) and t to 2e-4 relative."""
+    js = {"nee": pc._nee_scene, "many_lights": pc._many_lights_scene,
+          "cornell": J.cornell_box_scene}[name]()
+    ts = T.from_reference(js)
+    rng = np.random.default_rng(11)
+    scale = 278.0 if name == "cornell" else 2.0
+    o = (rng.uniform(-1, 1, (4000, 3)) * scale + (scale if name == "cornell" else 0.0)
+         ).astype(np.float32)
+    o[:, 1] = np.abs(o[:, 1]) + 0.1
+    d = rng.normal(size=(4000, 3)).astype(np.float32)
+    jhit, _, jkind, _, jwon = jax.jit(lambda o, d: jscene.intersect_scene(
+        o, d, js, TMIN, TMAX, want_mesh_wins=True))(o, d)
+    thit, _, tkind, _, twon = ti.intersect_scene(torch.from_numpy(o), torch.from_numpy(d),
+                                                 ts, TMIN, TMAX, want_mesh_wins=True)
+    same = ((np.asarray(jhit.hit) == thit.hit.numpy())
+            & (np.asarray(jwon) == twon.numpy())
+            & (np.asarray(jhit.idx) == thit.idx.numpy()))
+    assert same.mean() >= 0.995, same.mean()
+    assert np.array_equal(np.asarray(jkind)[same], tkind.numpy()[same])
+    np.testing.assert_allclose(thit.t.numpy()[same], np.asarray(jhit.t)[same], rtol=2e-4)
+    jt = np.asarray(jax.jit(lambda o, d: jscene.nearest_t_scene(o, d, js, TMIN, TMAX))(o, d))
+    tt = ti.nearest_t_scene(torch.from_numpy(o), torch.from_numpy(d), ts, TMIN, TMAX).numpy()
+    np.testing.assert_allclose(tt[same], jt[same], rtol=2e-4)
+
+
+# --- trace_path against JAX's pieces --------------------------------------
+
+
+def _trace_both(js, jcam, w, h, depth, seed, samples=(0,), **kw):
+    """The mean over `samples` of JAX's jitted raygen + trace_path and of
+    the port's, on the same frame (each jitted function compiled once)."""
+    jc = J.derive_camera(jcam, w, h)
+    raygen = jax.jit(lambda s, f: jr.generate_rays_hash(jc, w, h, s, f))
+    trace = jax.jit(lambda o, d, s: ji.trace_path(
+        o, d, js, depth, TMIN, TMAX, pixel_seeds=s, sky_intensity=0.0, **kw))
+    tc, ts = T.from_reference(jc), T.from_reference(js)
+    got, want = 0.0, 0.0
+    for sample in samples:
+        jo, jd, jseeds = raygen(jnp.uint32(sample), jnp.uint32(seed))
+        want = want + np.asarray(trace(jo.reshape(-1, 3), jd.reshape(-1, 3),
+                                       jseeds.reshape(-1))).reshape(h, w, 3)
+        to, td, tseeds = tr.generate_rays_hash(tc, w, h, sample, seed)
+        got = got + ti.trace_path(to.reshape(-1, 3), td.reshape(-1, 3), ts, depth, TMIN, TMAX,
+                                  pixel_seeds=tseeds.reshape(-1), sky_intensity=0.0,
+                                  light_pick="lane", **kw).reshape(h, w, 3)
+    return got / float(len(samples)), want / np.float32(len(samples))
+
+
+@pytest.mark.parametrize("scene,kw,flip,mean", [
+    # One sphere light, <= 4-light loop: flip 0 measured (mean ~2.5e-8).
+    ("nee", dict(nee=True, russian_roulette_depth=3), 0.005, 1e-4),
+    ("nee", dict(nee=True, mis=True, russian_roulette_depth=3), 0.005, 1e-4),
+    # 81 ordinals, the per-lane combined pick: flip 0 measured (mean ~5e-9).
+    ("many_lights", dict(nee=True), 0.005, 1e-4),
+    ("many_lights", dict(nee=True, mis=True), 0.005, 1e-4),
+    # Two triangle lights behind a glass lens: 0.30% flips measured at this
+    # seed, held to parity_check's same-device contract for this scene.
+    ("cornell", dict(nee=True, mis=True), 0.015, 1e-3),
+])
+def test_trace_path_nee_matches_jax_pieces(scene, kw, flip, mean):
+    if scene == "cornell":
+        js, cam, w, h, depth, seed = J.cornell_box_scene(), J.cornell_camera(), 48, 48, 6, 13
+    elif scene == "nee":
+        js, cam, w, h, depth, seed = pc._nee_scene(), pc.BASE_CAMERA, 48, 36, 6, 9
+    else:
+        js, cam, w, h, depth, seed = pc._many_lights_scene(), pc.BASE_CAMERA, 48, 36, 4, 17
+    got, want = _trace_both(js, cam, w, h, depth, seed, **kw)
+    _assert_match(got, want, flip, mean)
+
+
+def test_cornell_matches_jax_pieces_over_four_samples():
+    """The cornell_48x48 frame (4 spp) as the mean of JAX's jitted pieces,
+    at parity_check's same-device contract for this scene (1.5% / 1e-3;
+    1.26% / 1.8e-4 measured).  The golden itself is JAX's fused render,
+    which departs from its own pieces by 1.30% / 2.2e-4; the port reads
+    0.74% / 1.1e-4 against it (ROADMAP Queue 3)."""
+    got, want = _trace_both(J.cornell_box_scene(), J.cornell_camera(), 48, 48, 6, 13,
+                            samples=range(4), nee=True, mis=True)
+    _assert_match(got, want, 0.015, 1e-3)
+    torch_frame = T.render(T.cornell_box_scene(), T.cornell_camera(), T.RenderConfig(
+        width=48, height=48, spp=4, max_depth=6, sky_intensity=0.0, nee=True, mis=True),
+        frame_seed=13)
+    assert torch.equal(torch_frame, got)
+
+
+# --- goldens -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("golden,mis", [("nee_light_48x36.npy", False),
+                                        ("nee_mis_48x36.npy", True)])
+def test_nee_goldens(golden, mis):
+    cfg = T.RenderConfig(width=48, height=36, spp=4, max_depth=6, sky_intensity=0.0,
+                         nee=True, mis=mis, russian_roulette_depth=3)
+    img = T.render(_t_nee_scene(), T_BASE_CAMERA, cfg, frame_seed=9)
+    _assert_match(img, _golden(golden), 0.005, 1e-4)
+
+
+def test_many_mis_golden_through_the_kernels_pick():
+    """many_mis_48x36 is pinned from the Pallas kernel's per-(sample,
+    bounce) pick; render_reference(light_pick='sample') draws that stream
+    (0.23% / 1.5e-5 measured)."""
+    cam = T.derive_camera(T_BASE_CAMERA, 48, 36)
+    img = tmk.render_reference(_t_many_lights_scene(), cam, width=48, height=36, spp=4,
+                               max_depth=4, t_min=TMIN, sky_intensity=0.0, nee=True,
+                               mis=True, frame_seed=17, light_pick="sample")
+    _assert_match(img, _golden("many_mis_48x36.npy"), 0.005, 1e-4)
+
+
+# --- validation --------------------------------------------------------------
+
+
+def test_nee_validation_errors():
+    cam = T.derive_camera(T_BASE_CAMERA, 8, 8)
+    kw = dict(width=8, height=8, max_depth=2, t_min=TMIN)
+    with pytest.raises(ValueError, match="emissive lights"):
+        tmk.render_reference(T.base_scene(), cam, nee=True, **kw)
+    with pytest.raises(ValueError, match="emissive lights"):
+        T.render(T.base_scene(), T_BASE_CAMERA,
+                 T.RenderConfig(width=8, height=8, max_depth=2, nee=True))
+    glow = _t_many_lights_scene()
+    no_tri = T.Scene(spheres=glow.spheres, mesh=glow.mesh, bvh=glow.bvh, lights=glow.lights)
+    assert no_tri.mesh_has_emissive
+    with pytest.raises(ValueError, match="tri_lights"):
+        tmk.render_reference(no_tri, cam, nee=True, **kw)
+    o = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="tri_lights"):
+        ti.trace_path(o, o + 1.0, no_tri, 2, TMIN, TMAX,
+                      pixel_seeds=torch.zeros(4, dtype=torch.int64), nee=True)
+    for call in (lambda: T.RenderConfig(mis=True),
+                 lambda: tmk.render_reference(_t_nee_scene(), cam, mis=True, **kw),
+                 lambda: ti.trace_path(o, o + 1.0, _t_nee_scene(), 2, TMIN, TMAX,
+                                       pixel_seeds=torch.zeros(4, dtype=torch.int64),
+                                       mis=True)):
+        with pytest.raises(ValueError, match="requires nee=True"):
+            call()
+    with pytest.raises(ValueError, match="light_pick"):
+        tmk.render_reference(glow, cam, nee=True, light_pick="tile", **kw)
+
+
+def test_cuda_backend_refuses_lit_scenes_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; this checks the CPU-only refusal")
+    cfg = T.RenderConfig(width=8, height=8, max_depth=2, nee=True, mis=True,
+                         sampler="sobol", backend="cuda")
+    with pytest.raises(RuntimeError, match="NVIDIA GPU"):
+        T.render(_t_nee_scene(), T_BASE_CAMERA, cfg)

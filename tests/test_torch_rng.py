@@ -96,5 +96,7 @@ def test_independent_sampler_passes_draws_through(values):
     u2 = trng.uniform_hash(_t(values), 2)
     jx, jy = trng.sampler_jitter(u1, u2, _t(values), 0, 0, None)
     assert torch.equal(jx, u1 - 0.5) and torch.equal(jy, u2 - 0.5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        trng.sampler_uniforms(u1, u2, _t(values), 0, 0, ("stratified", 2, 2))
+    # The stratified and Sobol samplers are accepted too (their bit-exact
+    # tests are in tests/test_torch_sampler.py).
+    su1, su2 = trng.sampler_uniforms(u1, u2, _t(values), 0, 0, ("stratified", 2, 2))
+    assert su1.shape == u1.shape and float(su1.max()) < 1.0 and float(su2.min()) >= 0.0
