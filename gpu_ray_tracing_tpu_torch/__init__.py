@@ -3,24 +3,38 @@
 The port renders the hash-stream path tracer on sphere scenes (brute scan
 or sphere BVH) and triangle meshes behind a BVH, lit by the sky or by
 sphere and triangle lights (next-event estimation with MIS), under the
-independent, stratified or Sobol sampler, with a hand-written sm_90a
-megakernel (backend='cuda') or the plain PyTorch integrator
-(backend='torch').  It imports torch and numpy, never jax.
+independent, stratified or Sobol sampler, in one shot, progressively, or
+adaptively per tile, with a hand-written sm_90a megakernel (backend='cuda',
+the default) or the plain PyTorch integrator (backend='torch').  It
+imports torch and numpy, never jax.
 
     from gpu_ray_tracing_tpu_torch import (
         CameraSettings, RenderConfig, one_weekend_scene, render)
     img = render(one_weekend_scene(0), CameraSettings.default(),
-                 RenderConfig(width=1280, height=720, spp=16, backend="cuda"),
-                 frame_seed=7)
+                 RenderConfig(width=1280, height=720, spp=16), frame_seed=7)
 """
 
-from gpu_ray_tracing_tpu_torch.api import render
+from gpu_ray_tracing_tpu_torch.api import (
+    adaptive_progressive_step,
+    count_traced_rays,
+    progressive_step,
+    render,
+    render_animation,
+    render_progressive,
+    stack_camera_track,
+)
 from gpu_ray_tracing_tpu_torch.convert import from_reference
 from gpu_ray_tracing_tpu_torch.models.camera import (
     Camera,
     CameraSettings,
     derive_camera,
+    dolly,
+    elevate,
+    orbit_pitch,
+    orbit_yaw,
+    strafe,
     validate_camera,
+    zoom,
 )
 from gpu_ray_tracing_tpu_torch.models.cornell import cornell_box_scene, cornell_camera
 from gpu_ray_tracing_tpu_torch.models.mesh import (
@@ -56,6 +70,13 @@ from gpu_ray_tracing_tpu_torch.models.spheres import (
     make_spheres,
     one_weekend_scene,
 )
+from gpu_ray_tracing_tpu_torch.ops.accumulate import (
+    AccumState,
+    AdaptiveAccumState,
+    fold_sample,
+    init_accum,
+    init_adaptive_accum,
+)
 from gpu_ray_tracing_tpu_torch.ops.bvh import (
     BVH,
     build_bvh,
@@ -64,17 +85,27 @@ from gpu_ray_tracing_tpu_torch.ops.bvh import (
     validate_bvh,
 )
 from gpu_ray_tracing_tpu_torch.ops.cuda.megakernel import render_cuda, render_reference
+from gpu_ray_tracing_tpu_torch.utils.checkpoint import (
+    checkpoint_path,
+    load_accum,
+    render_fingerprint,
+    save_accum,
+)
 from gpu_ray_tracing_tpu_torch.utils.config import RenderConfig
 from gpu_ray_tracing_tpu_torch.utils.parity import images_match
 
 __all__ = [
-    "BVH", "Camera", "CameraSettings", "DIELECTRIC", "EMISSIVE", "LAMBERTIAN",
-    "Lights", "METAL", "RenderConfig", "SPHERE_BVH_THRESHOLD", "Scene", "Spheres",
-    "TriLights", "TriangleMesh", "as_scene", "base_scene", "box", "build_bvh",
-    "build_mesh_bvh", "build_sphere_bvh", "bunny_stand_in", "cornell_box_scene",
-    "cornell_camera", "derive_camera", "extract_lights", "extract_tri_lights",
-    "from_reference", "icosphere", "images_match", "load_obj", "make_mesh",
-    "make_scene", "make_spheres", "merge_meshes", "one_weekend_scene", "render",
-    "render_cuda", "render_reference", "torus", "transform_mesh",
-    "tri_light_id_per_face", "trefoil", "validate_bvh", "validate_camera",
+    "AccumState", "AdaptiveAccumState", "BVH", "Camera", "CameraSettings", "DIELECTRIC",
+    "EMISSIVE", "LAMBERTIAN", "Lights", "METAL", "RenderConfig", "SPHERE_BVH_THRESHOLD",
+    "Scene", "Spheres", "TriLights", "TriangleMesh", "adaptive_progressive_step",
+    "as_scene", "base_scene", "box", "build_bvh", "build_mesh_bvh", "build_sphere_bvh",
+    "bunny_stand_in", "checkpoint_path", "cornell_box_scene", "cornell_camera",
+    "count_traced_rays", "derive_camera", "dolly", "elevate", "extract_lights",
+    "extract_tri_lights", "fold_sample", "from_reference", "icosphere", "images_match",
+    "init_accum", "init_adaptive_accum", "load_accum", "load_obj", "make_mesh",
+    "make_scene", "make_spheres", "merge_meshes", "one_weekend_scene", "orbit_pitch",
+    "orbit_yaw", "progressive_step", "render", "render_animation", "render_cuda",
+    "render_fingerprint", "render_progressive", "render_reference", "save_accum",
+    "stack_camera_track", "strafe", "torus", "transform_mesh", "trefoil",
+    "tri_light_id_per_face", "validate_bvh", "validate_camera", "zoom",
 ]

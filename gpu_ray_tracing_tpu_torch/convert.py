@@ -1,9 +1,10 @@
 """Carry scene and camera state over from the JAX package.
 
 `from_reference(obj)` turns the JAX package's Spheres, TriangleMesh, BVH,
-Lights, TriLights, Scene, CameraSettings or Camera into the port's, field
-by field through `np.asarray`.  It recognises the classes by name and
-module, so it never imports jax itself.
+Lights, TriLights, Scene, CameraSettings, Camera, AccumState or
+AdaptiveAccumState into the port's, field by field through `np.asarray`,
+so a render started in JAX can be resumed in the port.  It recognises the
+classes by name and module, so it never imports jax itself.
 """
 
 from __future__ import annotations
@@ -17,11 +18,13 @@ from gpu_ray_tracing_tpu_torch.models.camera import Camera, CameraSettings
 from gpu_ray_tracing_tpu_torch.models.mesh import TriangleMesh
 from gpu_ray_tracing_tpu_torch.models.scene import Lights, Scene, TriLights
 from gpu_ray_tracing_tpu_torch.models.spheres import Spheres
+from gpu_ray_tracing_tpu_torch.ops.accumulate import AccumState, AdaptiveAccumState
 from gpu_ray_tracing_tpu_torch.ops.bvh import BVH
 
 _REFERENCE_PACKAGE = "gpu_ray_tracing_tpu."
 _ARRAY_CLASSES = {c.__name__: c for c in
-                  (Spheres, TriangleMesh, Lights, TriLights, CameraSettings, Camera)}
+                  (Spheres, TriangleMesh, Lights, TriLights, CameraSettings, Camera,
+                   AdaptiveAccumState)}
 
 
 def _tensor(x, device) -> torch.Tensor | None:
@@ -41,6 +44,9 @@ def from_reference(obj, device=None):
     name = cls.__name__
     if name in _ARRAY_CLASSES:
         return _fields(obj, _ARRAY_CLASSES[name], device)
+    if name == "AccumState":
+        # The count stays on the host (ops/accumulate.py).
+        return AccumState(rgb=_tensor(obj.rgb, device), count=_tensor(obj.count, None))
     if name == "BVH":
         arrays = {f: _tensor(getattr(obj, f), device) for f in
                   ("bbox_min", "bbox_max", "miss_link", "leaf_start", "leaf_count")}

@@ -1,9 +1,11 @@
-"""Camera model (port of gpu_ray_tracing_tpu/models/camera.py:47-186).
+"""Camera model (port of gpu_ray_tracing_tpu/models/camera.py).
 
 `CameraSettings` is the user-facing pose, `Camera` the derived per-render
 camera the integrators read, and `derive_camera` the closed-form math of
 the reference's camera.rs:293-350, in float32 like the JAX package.  The
-motion ops are not ported yet (ROADMAP Queue 1 item 3).
+motion ops (`dolly` ... `zoom`) are pure (settings, amount) -> settings
+functions of the reference's keyboard systems (camera.rs:125-253), from
+which animation tracks are built.
 """
 
 from __future__ import annotations
@@ -65,6 +67,9 @@ class CameraSettings:
 
     def to(self, device) -> "CameraSettings":
         return _fields_to(self, device)
+
+    def replace(self, **kw) -> "CameraSettings":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,3 +170,87 @@ def derive_camera(settings: CameraSettings, width: int, height: int) -> Camera:
         defocus_disk_v=v * defocus_radius,
         defocus_angle=s.defocus_angle.to(f32),
     )
+
+
+# ---------------------------------------------------------------------------
+# Camera motion, the pure-functional form of camera.rs:125-253 (the JAX
+# package's camera.py:202-266).  Speeds are the caller's `amount`; the
+# reference's double-applied yaw (camera.rs:170-206) is not reproduced.
+# ---------------------------------------------------------------------------
+
+_Y_AXIS = (0.0, 1.0, 0.0)
+
+
+def _normalize(v: torch.Tensor) -> torch.Tensor:
+    return v / torch.linalg.vector_norm(v)
+
+
+def _y_axis(like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(_Y_AXIS, dtype=torch.float32, device=like.device)
+
+
+def _forward(settings: CameraSettings) -> torch.Tensor:
+    # The reference's "forward" points from look_at toward look_from
+    # (camera.rs:134), so W moves the camera away from the target.
+    return _normalize(settings.look_from - settings.look_at)
+
+
+def _right(settings: CameraSettings) -> torch.Tensor:
+    fwd = _forward(settings)
+    return _normalize(torch.linalg.cross(fwd, _y_axis(fwd)))
+
+
+def dolly(settings: CameraSettings, amount) -> CameraSettings:
+    """W/S: move along the view axis (camera.rs:140-147)."""
+    return settings.replace(look_from=settings.look_from + _forward(settings) * amount)
+
+
+def strafe(settings: CameraSettings, amount) -> CameraSettings:
+    """A/D: move along the right axis (camera.rs:150-157)."""
+    return settings.replace(look_from=settings.look_from + _right(settings) * amount)
+
+
+def elevate(settings: CameraSettings, amount) -> CameraSettings:
+    """Up/Down arrows: move along world +Y (camera.rs:160-166)."""
+    return settings.replace(look_from=settings.look_from + _y_axis(settings.look_from) * amount)
+
+
+def _rotate_y(v: torch.Tensor, angle) -> torch.Tensor:
+    angle = _f32(angle, v.device)
+    c, s = torch.cos(angle), torch.sin(angle)
+    x, y, z = v[0], v[1], v[2]
+    return torch.stack([c * x + s * z, y, -s * x + c * z])
+
+
+def orbit_yaw(settings: CameraSettings, angle) -> CameraSettings:
+    """Left/Right arrows: rotate look_from about look_at around world Y
+    (camera.rs:170-187), applied once."""
+    view = settings.look_from - settings.look_at
+    length = torch.linalg.vector_norm(view)
+    direction = _normalize(_rotate_y(view, angle))
+    return settings.replace(look_from=settings.look_at + direction * length)
+
+
+def orbit_pitch(settings: CameraSettings, angle) -> CameraSettings:
+    """Keys 1/2: pitch look_from about look_at around the right axis, with
+    the flip guard |dot(dir, Y)| < 0.95 (camera.rs:209-242)."""
+    view = settings.look_from - settings.look_at
+    length = torch.linalg.vector_norm(view)
+    fwd = _normalize(view)
+    right = _normalize(torch.linalg.cross(fwd, _y_axis(fwd)))
+    # Rodrigues rotation of fwd around `right`.
+    angle = _f32(angle, fwd.device)
+    c, s = torch.cos(angle), torch.sin(angle)
+    rotated = (fwd * c + torch.linalg.cross(right, fwd) * s
+               + right * torch.dot(right, fwd) * (1.0 - c))
+    rotated = _normalize(rotated)
+    ok = torch.abs(rotated[1]) < 0.95
+    new_from = torch.where(ok, settings.look_at + rotated * length, settings.look_from)
+    return settings.replace(look_from=new_from)
+
+
+def zoom(settings: CameraSettings, fov_delta, fov_min=10.0, fov_max=120.0) -> CameraSettings:
+    """Mouse-wheel FOV zoom with the 10..120 degree clamp (camera.rs:57-68,
+    121-122)."""
+    fov = torch.clamp(settings.field_of_view + fov_delta, fov_min, fov_max)
+    return settings.replace(field_of_view=fov)

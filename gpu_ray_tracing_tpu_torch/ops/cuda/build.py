@@ -49,7 +49,10 @@ _SIGNATURES = {
          _c_int, _c_int, _c_int, _c_int,  # sampler kind, kx, ky, nbits
          _c_int, _c_int, _c_uint, _c_uint, _c_uint,
          _c_uint, _c_int, _c_float, _c_float, _c_int, _c_int, _c_float,
-         _c_float, _c_int, _c_ptr, _c_ptr],
+         _c_float, _c_int,  # ... clamp, spp
+         _c_ptr, _c_ptr, _c_ptr,  # out, rays, adaptive state
+         _c_int, _c_int, _c_int, _c_float,  # tile rows, min spp, chunk, tol
+         _c_ptr],  # stream
     ),
     "grt_hash_probe": (
         _c_int,

@@ -1,16 +1,20 @@
-// Path-tracing megakernel for Hopper (sm_90a): one thread per pixel.
+// Path-tracing megakernel for Hopper (sm_90a): one thread per pixel, or one
+// block per tile for the adaptive spp loop.
 //
 // Replaces the Pallas TPU kernel gpu_ray_tracing_tpu/ops/pallas/megakernel.py
-// `_kernel` (launched by `render_pallas`) on its K1a-K1e paths: spheres by
+// `_kernel` (launched by `render_pallas`) on its K1a-K1f paths: spheres by
 // the brute-force closest-hit scan (K1a) or through a sphere BVH (K1c),
 // triangle meshes behind a threaded BVH, flat or smooth shaded (K1d);
 // next-event estimation toward sphere lights (cone sampling) and triangle
 // lights (area sampling) with MIS power-heuristic weights, an any-hit
 // shadow query and the > 4-light pick (K1b); the independent, stratified
 // and Owen-scrambled Sobol samplers (K1e); the fixed spp loop, the
-// normal/albedo/depth AOV modes, Russian roulette and the per-sample clamp.
-// Each thread runs ray generation, the bounce loop and the spp mean for its
-// pixel and writes one RGB triple; nothing else touches device memory.
+// normal/albedo/depth AOV modes, Russian roulette and the per-sample clamp;
+// the adaptive spp loop with its exact resume, the spp map and the in-kernel
+// ray counters (K1f).  In the fixed loop each thread runs ray generation,
+// the bounce loop and the spp mean for its pixel and writes one RGB triple
+// (and its ray count); the adaptive loop keeps its six state planes in
+// device memory (render_adaptive_kernel below).
 //
 // What bounds it on this card: arithmetic on small scenes, scattered loads
 // on large ones.  The brute scan tests every sphere (~25 flops each, N = 197
@@ -651,8 +655,18 @@ struct Params {
   int rr_depth;
   float sky_intensity;
   float clamp;
-  int spp;
-  float* out;  // (height, width, 3)
+  int spp;     // the fixed loop's count; the adaptive loop's budget
+  float* out;  // (height, width, 3), or null (adaptive resume)
+  float* rays;  // (height, width) rays-traced plane, or null
+};
+
+// The adaptive spp loop (K1f): its tile, stopping test and state planes.
+struct Adaptive {
+  float* state;  // (6, height, width): sum r/g/b, count, Welford mlum, m2
+  int tile_rows;  // 32 for the path integrator, 64 for the AOV modes
+  int min_spp;    // min(max(2, adaptive_min_spp), spp)
+  int chunk;      // samples a launch may add to a tile
+  float tol;
 };
 
 // MIS weight of emission reached by a BSDF ray from a diffuse vertex o
@@ -681,191 +695,346 @@ __device__ float mis_emission_weight(const Params& p, const Hit& h, Vec3 o, floa
   return 1.0f / fmaf(r, r, 1.0f);
 }
 
+// The camera's 19 used slots, read once per thread.
+struct Cam {
+  float v[19];
+  bool lens;
+};
+
+__device__ __forceinline__ void load_cam(const float* src, Cam& c) {
+#pragma unroll
+  for (int k = 0; k < 19; ++k) c.v[k] = __ldg(src + k);
+  c.lens = c.v[DEFOCUS_ANGLE] > 0.0f;
+}
+
+// One sample of pixel (x, global row y): ray generation, then one closest
+// hit (AOV modes) or the bounce loop, then the clamp; returns its RGB.
 // kNee selects next-event estimation at compile time: the NEE code (light
 // sampling, shadow queries, MIS) costs registers, and without it the
-// instance keeps the register budget of the path it replaces.
-template <bool kNee>
+// instance keeps the register budget of the path it replaces.  kCount adds
+// the rays this sample traced to `rays` (megakernel.py:951, :1071, :1374,
+// :1416): one per live bounce and one per NEE shadow ray whose light sample
+// is valid, counted before its visibility test; an AOV sample traces one.
+template <bool kNee, bool kCount>
+__device__ __forceinline__ Vec3 trace_sample(const Params& p, const Cam& cm, int x,
+                                             unsigned int y, unsigned int pid,
+                                             unsigned int base0, unsigned int s_abs,
+                                             unsigned int& rays) {
+  const float* cam = cm.v;
+  const Sampler& sm = p.sampler;
+  const LightSet& ls = p.lights;
+  const int n_lights = ls.L + ls.T;
+  const unsigned int seed = hash_pixel_seeds(pid, s_abs, p.frame_seed);
+  // Ray generation (megakernel.py:1507-1548): jitter from salts 1-2 (the
+  // sampler's pair 5), uniform-disk lens point from salts 3-4 (pair 7),
+  // direction not normalized.
+  float jx = uniform_hash(seed, 1u), jy = uniform_hash(seed, 2u);
+  sampler_uniforms(sm, base0, s_abs, 5u, jx, jy, 0.5f);
+  // The pixel center and lens point round as the reference renders them
+  // (fused multiply-adds, cos/sin rounded from double; ops/rays.py): a
+  // ray one ulp off can graze a sphere differently.
+  const float fx = (float)x + 0.5f + jx;
+  const float fy = (float)y + 0.5f + jy;
+  Vec3 pc;
+  pc.x = fmaf(cam[PDV + 0], fy, fmaf(cam[PDU + 0], fx, cam[UPPER_LEFT + 0]));
+  pc.y = fmaf(cam[PDV + 1], fy, fmaf(cam[PDU + 1], fx, cam[UPPER_LEFT + 1]));
+  pc.z = fmaf(cam[PDV + 2], fy, fmaf(cam[PDU + 2], fx, cam[UPPER_LEFT + 2]));
+  Vec3 o = {cam[CENTER + 0], cam[CENTER + 1], cam[CENTER + 2]};
+  if (cm.lens) {
+    float u3 = uniform_hash(seed, 3u), ang = uniform_hash(seed, 4u);
+    sampler_uniforms(sm, base0, s_abs, 7u, u3, ang, 0.0f, kTwoPi);
+    const float radius = sqrtf(u3);
+    const float pxd = radius * (float)cos((double)ang);
+    const float pyd = radius * (float)sin((double)ang);
+    o.x = fmaf(pyd, cam[DISK_V + 0], fmaf(pxd, cam[DISK_U + 0], o.x));
+    o.y = fmaf(pyd, cam[DISK_V + 1], fmaf(pxd, cam[DISK_U + 1], o.y));
+    o.z = fmaf(pyd, cam[DISK_V + 2], fmaf(pxd, cam[DISK_U + 2], o.z));
+  }
+  Vec3 d = {pc.x - o.x, pc.y - o.y, pc.z - o.z};
+
+  float r = 0.0f, g = 0.0f, b = 0.0f;
+  if (p.mode != PATH) {
+    // Bounce-free AOV modes (megakernel.py:1550-1576).
+    if (kCount) ++rays;
+    const Hit h = closest_hit(p.geo, p.t_min, p.t_max, o, d);
+    const Vec3 sk = sky(d);
+    if (p.mode == DEPTH) {
+      r = g = b = h.hit ? h.t * sqrtf(d.x * d.x + d.y * d.y + d.z * d.z) : 0.0f;
+    } else if (!h.hit) {
+      r = sk.x, g = sk.y, b = sk.z;
+    } else if (p.mode == ALBEDO) {
+      r = h.ar, g = h.ag, b = h.ab;
+    } else {
+      r = 0.5f * (h.n.x + 1.0f), g = 0.5f * (h.n.y + 1.0f), b = 0.5f * (h.n.z + 1.0f);
+    }
+    return {r, g, b};
+  }
+  // The bounce loop of `_path_bounce` (megakernel.py:874-1417).  The
+  // thread leaves the loop when its path ends: the per-thread form of
+  // the tile early exit (megakernel.py:1609-1614).  prev_diffuse and
+  // prev_cos describe the vertex the ray left (for MIS).
+  float tr = 1.0f, tg = 1.0f, tb = 1.0f;
+  bool prev_diffuse = false;
+  float prev_cos = 0.0f;
+  const unsigned int pick_seed = s_abs ^ wgsl_hash(p.frame_seed);
+  for (int i = 0; i < p.max_depth; ++i) {
+    if (kCount) ++rays;
+    const Hit h = closest_hit(p.geo, p.t_min, p.t_max, o, d);
+    if (!h.hit) {
+      const Vec3 sk = sky(d);
+      r = r + tr * sk.x * p.sky_intensity;
+      g = g + tg * sk.y * p.sky_intensity;
+      b = b + tb * sk.z * p.sky_intensity;
+      break;
+    }
+    if (h.kind >= 2.5f) {
+      // Emissive: radiate albedo * param and end the path.  Under NEE a
+      // BSDF ray from a diffuse vertex counts it at the MIS weight, or
+      // not at all without MIS (NEE sampled that light already).
+      float w = 1.0f;
+      if (kNee && prev_diffuse) w = p.mis ? mis_emission_weight(p, h, o, prev_cos) : 0.0f;
+      r = r + tr * h.ar * (h.param * w);
+      g = g + tg * h.ag * (h.param * w);
+      b = b + tb * h.ab * (h.param * w);
+      break;
+    }
+    const bool lambertian = h.kind < 0.5f;
+    // A point inside a sphere light cannot cone-sample it; such vertices
+    // fall back to BSDF sampling (megakernel.py:1061-1070).
+    bool inside_any = false;
+    if (kNee && lambertian) {
+      for (int l = 0; l < ls.L; ++l) {
+        const Vec3 dc = {ls.sph(LCX, l) - h.p.x, ls.sph(LCY, l) - h.p.y,
+                         ls.sph(LCZ, l) - h.p.z};
+        const float lr = ls.sph(LRAD, l);
+        inside_any |= fdot3(dc.x, dc.y, dc.z, dc.x, dc.y, dc.z) <= lr * lr * 1.0001f;
+      }
+    }
+    if (kNee && lambertian && !inside_any) {
+      // Next-event estimation (megakernel.py:1040-1374): with at most 4
+      // lights every light, sphere lights first, salts 2000+37i+7g+{1,2}
+      // (at bounce 0 the sampler's pair 8+g); above 4 one light per
+      // (sample, bounce), weighted by the count.
+      const unsigned int salt0 = 2000u + 37u * (unsigned int)i;
+      const bool last = i == p.max_depth - 1;
+      const int n_terms = n_lights <= 4 ? n_lights : 1;
+      int picked = -1;
+      if (n_lights > 4) {
+        const unsigned int bounce_seed = hash2(pick_seed, 3000u + (unsigned int)i);
+        picked = (int)(hash2(bounce_seed, 0u) % (unsigned int)n_lights);
+      }
+      for (int k = 0; k < n_terms; ++k) {
+        const int gl = picked >= 0 ? picked : k;
+        const unsigned int salt = salt0 + (picked >= 0 ? 0u : 7u * (unsigned int)k);
+        float u1n = uniform_hash(seed, salt + 1u), u2n = uniform_hash(seed, salt + 2u);
+        if (i == 0 && picked < 0) sampler_uniforms(sm, base0, s_abs, 8u + k, u1n, u2n);
+        const LightSample ln = gl < ls.L
+                                   ? sphere_light_sample(ls, gl, h.p, h.n, u1n, u2n)
+                                   : tri_light_sample(ls, gl - ls.L, h.p, h.n, u1n, u2n);
+        if (!ln.ok) continue;
+        if (kCount) ++rays;
+        if (occluded(p.geo, p.t_min, h.p, ln.w, ln.reach * 0.999f)) continue;
+        float wgt = ln.wgt * (picked >= 0 ? (float)n_lights : 1.0f);
+        if (p.mis && !last) wgt = wgt / fmaf(wgt, wgt, 1.0f);
+        r = r + tr * h.ar * ln.le.x * wgt;
+        g = g + tg * h.ag * ln.le.y * wgt;
+        b = b + tb * h.ab * ln.le.z * wgt;
+      }
+    }
+    float su1 = uniform_hash(seed, 16u + 3u * (unsigned int)i);
+    float su2 = uniform_hash(seed, 17u + 3u * (unsigned int)i);
+    if (i == 0) sampler_uniforms(sm, base0, s_abs, 6u, su1, su2);
+    Vec3 nd, att;
+    if (!scatter(h, d, su1, su2, seed, 16u + 3u * (unsigned int)i, &nd, &att)) break;
+    tr = tr * att.x;
+    tg = tg * att.y;
+    tb = tb * att.z;
+    prev_diffuse = lambertian && !inside_any;
+    if (kNee && p.mis) {
+      // cos(scatter direction, normal) at this diffuse vertex: its BSDF
+      // pdf is prev_cos / pi, which the next emission weight needs.
+      const float nd2 = fmaxf(fdot3(nd.x, nd.y, nd.z, nd.x, nd.y, nd.z), 1e-20f);
+      const float cos_s = fdot3(nd.x, nd.y, nd.z, h.n.x, h.n.y, h.n.z) * (1.0f / sqrtf(nd2));
+      prev_cos = prev_diffuse ? fmaxf(cos_s, 0.0f) : 0.0f;
+    }
+    o = h.p;
+    d = nd;
+    if (p.rr_depth > 0 && i >= p.rr_depth) {
+      // Russian roulette, salt 1000+i (megakernel.py:1397-1408).
+      const float u_rr = uniform_hash(seed, 1000u + (unsigned int)i);
+      const float pmax = fminf(fmaxf(fmaxf(tr, fmaxf(tg, tb)), 0.05f), 1.0f);
+      if (!(u_rr < pmax)) break;
+      const float inv_p = 1.0f + (1.0f / pmax - 1.0f);
+      tr = tr * inv_p;
+      tg = tg * inv_p;
+      tb = tb * inv_p;
+    }
+  }
+  // A path that exhausts max_depth contributes what it gathered so far
+  // (black for the exhausted segment).
+  if (p.clamp > 0.0f) {  // per-sample clamp (megakernel.py:1647-1654)
+    const float m = fmaxf(r, fmaxf(g, b));
+    const float scale = fminf(1.0f, p.clamp / fmaxf(m, 1e-12f));
+    r = r * scale, g = g * scale, b = b * scale;
+  }
+  return {r, g, b};
+}
+
+// Global row and pixel id of a local pixel (megakernel.py:1492-1505): the
+// stream keys on the global id, so a row band renders exactly its rows of
+// the frame.
+__device__ __forceinline__ unsigned int global_row(const Params& p, int y_local) {
+  return (unsigned int)y_local * p.row_stride + p.y_offset;
+}
+
+// The fixed spp loop: one thread per pixel, the mean of p.spp samples.
+template <bool kNee, bool kCount>
 __global__ void __launch_bounds__(256) render_kernel(const Params p) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y_local = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= p.width || y_local >= p.height) return;
-  // Global row and pixel id (megakernel.py:1492-1505): the stream keys on
-  // the global id, so a row band renders exactly its rows of the frame.
-  const unsigned int y = (unsigned int)y_local * p.row_stride + p.y_offset;
+  const unsigned int y = global_row(p, y_local);
   const unsigned int pid = y * (unsigned int)p.width + (unsigned int)x;
   // The sample-0 seed keys the sampler's per-(pixel, frame, pair) remaps.
   const unsigned int base0 = hash_pixel_seeds(pid, 0u, p.frame_seed);
-  const Sampler& sm = p.sampler;
-  const LightSet& ls = p.lights;
-  const int n_lights = ls.L + ls.T;
-
-  float cam[19];
-#pragma unroll
-  for (int k = 0; k < 19; ++k) cam[k] = __ldg(p.cam + k);
-  const bool lens = cam[DEFOCUS_ANGLE] > 0.0f;
-
+  Cam cm;
+  load_cam(p.cam, cm);
+  unsigned int rays = 0u;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   for (int s = 0; s < p.spp; ++s) {
-    const unsigned int s_abs = p.sample_index + (unsigned int)s;
-    const unsigned int seed = hash_pixel_seeds(pid, s_abs, p.frame_seed);
-    // Ray generation (megakernel.py:1507-1548): jitter from salts 1-2 (the
-    // sampler's pair 5), uniform-disk lens point from salts 3-4 (pair 7),
-    // direction not normalized.
-    float jx = uniform_hash(seed, 1u), jy = uniform_hash(seed, 2u);
-    sampler_uniforms(sm, base0, s_abs, 5u, jx, jy, 0.5f);
-    // The pixel center and lens point round as the reference renders them
-    // (fused multiply-adds, cos/sin rounded from double; ops/rays.py): a
-    // ray one ulp off can graze a sphere differently.
-    const float fx = (float)x + 0.5f + jx;
-    const float fy = (float)y + 0.5f + jy;
-    Vec3 pc;
-    pc.x = fmaf(cam[PDV + 0], fy, fmaf(cam[PDU + 0], fx, cam[UPPER_LEFT + 0]));
-    pc.y = fmaf(cam[PDV + 1], fy, fmaf(cam[PDU + 1], fx, cam[UPPER_LEFT + 1]));
-    pc.z = fmaf(cam[PDV + 2], fy, fmaf(cam[PDU + 2], fx, cam[UPPER_LEFT + 2]));
-    Vec3 o = {cam[CENTER + 0], cam[CENTER + 1], cam[CENTER + 2]};
-    if (lens) {
-      float u3 = uniform_hash(seed, 3u), ang = uniform_hash(seed, 4u);
-      sampler_uniforms(sm, base0, s_abs, 7u, u3, ang, 0.0f, kTwoPi);
-      const float radius = sqrtf(u3);
-      const float pxd = radius * (float)cos((double)ang);
-      const float pyd = radius * (float)sin((double)ang);
-      o.x = fmaf(pyd, cam[DISK_V + 0], fmaf(pxd, cam[DISK_U + 0], o.x));
-      o.y = fmaf(pyd, cam[DISK_V + 1], fmaf(pxd, cam[DISK_U + 1], o.y));
-      o.z = fmaf(pyd, cam[DISK_V + 2], fmaf(pxd, cam[DISK_U + 2], o.z));
-    }
-    Vec3 d = {pc.x - o.x, pc.y - o.y, pc.z - o.z};
-
-    float r = 0.0f, g = 0.0f, b = 0.0f;
-    if (p.mode != PATH) {
-      // Bounce-free AOV modes (megakernel.py:1550-1576).
-      const Hit h = closest_hit(p.geo, p.t_min, p.t_max, o, d);
-      const Vec3 sk = sky(d);
-      if (p.mode == DEPTH) {
-        r = g = b = h.hit ? h.t * sqrtf(d.x * d.x + d.y * d.y + d.z * d.z) : 0.0f;
-      } else if (!h.hit) {
-        r = sk.x, g = sk.y, b = sk.z;
-      } else if (p.mode == ALBEDO) {
-        r = h.ar, g = h.ag, b = h.ab;
-      } else {
-        r = 0.5f * (h.n.x + 1.0f), g = 0.5f * (h.n.y + 1.0f), b = 0.5f * (h.n.z + 1.0f);
-      }
-    } else {
-      // The bounce loop of `_path_bounce` (megakernel.py:874-1417).  The
-      // thread leaves the loop when its path ends: the per-thread form of
-      // the tile early exit (megakernel.py:1609-1614).  prev_diffuse and
-      // prev_cos describe the vertex the ray left (for MIS).
-      float tr = 1.0f, tg = 1.0f, tb = 1.0f;
-      bool prev_diffuse = false;
-      float prev_cos = 0.0f;
-      const unsigned int pick_seed = s_abs ^ wgsl_hash(p.frame_seed);
-      for (int i = 0; i < p.max_depth; ++i) {
-        const Hit h = closest_hit(p.geo, p.t_min, p.t_max, o, d);
-        if (!h.hit) {
-          const Vec3 sk = sky(d);
-          r = r + tr * sk.x * p.sky_intensity;
-          g = g + tg * sk.y * p.sky_intensity;
-          b = b + tb * sk.z * p.sky_intensity;
-          break;
-        }
-        if (h.kind >= 2.5f) {
-          // Emissive: radiate albedo * param and end the path.  Under NEE a
-          // BSDF ray from a diffuse vertex counts it at the MIS weight, or
-          // not at all without MIS (NEE sampled that light already).
-          float w = 1.0f;
-          if (kNee && prev_diffuse) w = p.mis ? mis_emission_weight(p, h, o, prev_cos) : 0.0f;
-          r = r + tr * h.ar * (h.param * w);
-          g = g + tg * h.ag * (h.param * w);
-          b = b + tb * h.ab * (h.param * w);
-          break;
-        }
-        const bool lambertian = h.kind < 0.5f;
-        // A point inside a sphere light cannot cone-sample it; such vertices
-        // fall back to BSDF sampling (megakernel.py:1061-1070).
-        bool inside_any = false;
-        if (kNee && lambertian) {
-          for (int l = 0; l < ls.L; ++l) {
-            const Vec3 dc = {ls.sph(LCX, l) - h.p.x, ls.sph(LCY, l) - h.p.y,
-                             ls.sph(LCZ, l) - h.p.z};
-            const float lr = ls.sph(LRAD, l);
-            inside_any |= fdot3(dc.x, dc.y, dc.z, dc.x, dc.y, dc.z) <= lr * lr * 1.0001f;
-          }
-        }
-        if (kNee && lambertian && !inside_any) {
-          // Next-event estimation (megakernel.py:1040-1374): with at most 4
-          // lights every light, sphere lights first, salts 2000+37i+7g+{1,2}
-          // (at bounce 0 the sampler's pair 8+g); above 4 one light per
-          // (sample, bounce), weighted by the count.
-          const unsigned int salt0 = 2000u + 37u * (unsigned int)i;
-          const bool last = i == p.max_depth - 1;
-          const int n_terms = n_lights <= 4 ? n_lights : 1;
-          int picked = -1;
-          if (n_lights > 4) {
-            const unsigned int bounce_seed = hash2(pick_seed, 3000u + (unsigned int)i);
-            picked = (int)(hash2(bounce_seed, 0u) % (unsigned int)n_lights);
-          }
-          for (int k = 0; k < n_terms; ++k) {
-            const int gl = picked >= 0 ? picked : k;
-            const unsigned int salt = salt0 + (picked >= 0 ? 0u : 7u * (unsigned int)k);
-            float u1n = uniform_hash(seed, salt + 1u), u2n = uniform_hash(seed, salt + 2u);
-            if (i == 0 && picked < 0) sampler_uniforms(sm, base0, s_abs, 8u + k, u1n, u2n);
-            const LightSample ln = gl < ls.L
-                                       ? sphere_light_sample(ls, gl, h.p, h.n, u1n, u2n)
-                                       : tri_light_sample(ls, gl - ls.L, h.p, h.n, u1n, u2n);
-            if (!ln.ok) continue;
-            if (occluded(p.geo, p.t_min, h.p, ln.w, ln.reach * 0.999f)) continue;
-            float wgt = ln.wgt * (picked >= 0 ? (float)n_lights : 1.0f);
-            if (p.mis && !last) wgt = wgt / fmaf(wgt, wgt, 1.0f);
-            r = r + tr * h.ar * ln.le.x * wgt;
-            g = g + tg * h.ag * ln.le.y * wgt;
-            b = b + tb * h.ab * ln.le.z * wgt;
-          }
-        }
-        float su1 = uniform_hash(seed, 16u + 3u * (unsigned int)i);
-        float su2 = uniform_hash(seed, 17u + 3u * (unsigned int)i);
-        if (i == 0) sampler_uniforms(sm, base0, s_abs, 6u, su1, su2);
-        Vec3 nd, att;
-        if (!scatter(h, d, su1, su2, seed, 16u + 3u * (unsigned int)i, &nd, &att)) break;
-        tr = tr * att.x;
-        tg = tg * att.y;
-        tb = tb * att.z;
-        prev_diffuse = lambertian && !inside_any;
-        if (kNee && p.mis) {
-          // cos(scatter direction, normal) at this diffuse vertex: its BSDF
-          // pdf is prev_cos / pi, which the next emission weight needs.
-          const float nd2 = fmaxf(fdot3(nd.x, nd.y, nd.z, nd.x, nd.y, nd.z), 1e-20f);
-          const float cos_s = fdot3(nd.x, nd.y, nd.z, h.n.x, h.n.y, h.n.z) * (1.0f / sqrtf(nd2));
-          prev_cos = prev_diffuse ? fmaxf(cos_s, 0.0f) : 0.0f;
-        }
-        o = h.p;
-        d = nd;
-        if (p.rr_depth > 0 && i >= p.rr_depth) {
-          // Russian roulette, salt 1000+i (megakernel.py:1397-1408).
-          const float u_rr = uniform_hash(seed, 1000u + (unsigned int)i);
-          const float pmax = fminf(fmaxf(fmaxf(tr, fmaxf(tg, tb)), 0.05f), 1.0f);
-          if (!(u_rr < pmax)) break;
-          const float inv_p = 1.0f + (1.0f / pmax - 1.0f);
-          tr = tr * inv_p;
-          tg = tg * inv_p;
-          tb = tb * inv_p;
-        }
-      }
-      // A path that exhausts max_depth contributes what it gathered so far
-      // (black for the exhausted segment).
-      if (p.clamp > 0.0f) {  // per-sample clamp (megakernel.py:1647-1654)
-        const float m = fmaxf(r, fmaxf(g, b));
-        const float scale = fminf(1.0f, p.clamp / fmaxf(m, 1e-12f));
-        r = r * scale, g = g * scale, b = b * scale;
-      }
-    }
-    acc_r = acc_r + r;
-    acc_g = acc_g + g;
-    acc_b = acc_b + b;
+    const Vec3 c = trace_sample<kNee, kCount>(p, cm, x, y, pid, base0,
+                                              p.sample_index + (unsigned int)s, rays);
+    acc_r = acc_r + c.x;
+    acc_g = acc_g + c.y;
+    acc_b = acc_b + c.z;
   }
   const float inv = (float)p.spp;  // the mean is sum / spp (megakernel.py:1789)
-  float* out = p.out + ((size_t)y_local * p.width + x) * 3;
+  const size_t pix = (size_t)y_local * p.width + x;
+  float* out = p.out + pix * 3;
   out[0] = acc_r / inv;
   out[1] = acc_g / inv;
   out[2] = acc_b / inv;
+  if (kCount) p.rays[pix] = (float)rays;
+}
+
+constexpr int kAdaptiveThreads = 256;
+
+// The adaptive spp loop (`_adaptive_tools` and its two loops,
+// megakernel.py:1659-1776), one block per (tile_rows x 128) tile of the
+// local frame.  Thread t owns the tile's pixels t, t + 256, ... in
+// row-major order, so a warp traces neighbouring pixels of one row; pad
+// pixels outside the frame are neither traced nor counted.  The six state
+// planes live in global memory and are the resume ABI: the tile continues
+// at its carried count k0 (tile-constant; read at the tile's first pixel)
+// and takes samples while
+//   (k < min_spp) | ((k < spp) & (mean(m2)/max(k-1,1)/k > (mean(mlum) tol + 1e-4)^2))
+// and k < k0 + chunk, the means taken over the tile's in-frame pixels.  A
+// one-shot render is this loop from zero planes with chunk = spp, so a
+// chunked run takes the same samples and ends in the same bits.  The tile
+// sums are a fixed-order tree in shared memory, with no atomics, so a tile
+// stops at the same sample in every run.  Thread 0 decides and broadcasts
+// through shared memory: the trip count is uniform in the block, which
+// keeps __syncthreads() legal.  With `out` set it writes sum / k (the
+// one-shot mean, megakernel.py:1776); `rays` accumulates per pixel.
+template <bool kNee, bool kCount>
+__global__ void __launch_bounds__(kAdaptiveThreads) render_adaptive_kernel(const Params p,
+                                                                           const Adaptive a) {
+  __shared__ float red_m2[kAdaptiveThreads];
+  __shared__ float red_ml[kAdaptiveThreads];
+  __shared__ int go;
+  const int t = threadIdx.x;
+  const int x0 = blockIdx.x * 128;
+  const int y0 = blockIdx.y * a.tile_rows;
+  const size_t plane = (size_t)p.width * p.height;
+  float* const s_r = a.state;
+  float* const s_g = a.state + plane;
+  float* const s_b = a.state + 2 * plane;
+  float* const s_k = a.state + 3 * plane;
+  float* const s_ml = a.state + 4 * plane;
+  float* const s_m2 = a.state + 5 * plane;
+  const int rows = min(a.tile_rows, p.height - y0);
+  const int cols = min(128, p.width - x0);
+  const float n_valid = fmaxf((float)(rows * cols), 1.0f);
+  const int k0 = (int)s_k[(size_t)y0 * p.width + x0];
+  Cam cm;
+  load_cam(p.cam, cm);
+
+  // Partial sums of the thread's in-frame pixels, in a fixed order.
+  float pm2 = 0.0f, pml = 0.0f;
+  for (int q = t; q < a.tile_rows * 128; q += kAdaptiveThreads) {
+    const int row = q >> 7, col = q & 127;
+    if (row >= rows || col >= cols) continue;
+    const size_t pix = (size_t)(y0 + row) * p.width + (x0 + col);
+    pm2 = pm2 + s_m2[pix];
+    pml = pml + s_ml[pix];
+  }
+  int k = k0;
+  while (true) {
+    red_m2[t] = pm2;
+    red_ml[t] = pml;
+    __syncthreads();
+    for (int w = kAdaptiveThreads / 2; w > 0; w >>= 1) {
+      if (t < w) {
+        red_m2[t] = red_m2[t] + red_m2[t + w];
+        red_ml[t] = red_ml[t] + red_ml[t + w];
+      }
+      __syncthreads();
+    }
+    if (t == 0) {
+      const float kf = (float)k;
+      const float stderr2 = red_m2[0] / n_valid / fmaxf(kf - 1.0f, 1.0f) / kf;
+      const float scale = fmaf(red_ml[0] / n_valid, a.tol, 1e-4f);
+      const bool more = (k < a.min_spp) | ((k < p.spp) & (stderr2 > scale * scale));
+      go = more & (k < k0 + a.chunk);
+    }
+    __syncthreads();
+    if (!go) break;
+    // Sample k of every in-frame pixel: Welford update of the pixel's
+    // luminance (megakernel.py:1676-1682) and the raw sums.
+    const unsigned int s_abs = p.sample_index + (unsigned int)k;
+    const float k1f = (float)(k + 1);
+    pm2 = 0.0f;
+    pml = 0.0f;
+    for (int q = t; q < a.tile_rows * 128; q += kAdaptiveThreads) {
+      const int row = q >> 7, col = q & 127;
+      if (row >= rows || col >= cols) continue;
+      const int x = x0 + col, y_local = y0 + row;
+      const unsigned int y = global_row(p, y_local);
+      const unsigned int pid = y * (unsigned int)p.width + (unsigned int)x;
+      const unsigned int base0 = hash_pixel_seeds(pid, 0u, p.frame_seed);
+      unsigned int rays = 0u;
+      const Vec3 c = trace_sample<kNee, kCount>(p, cm, x, y, pid, base0, s_abs, rays);
+      const size_t pix = (size_t)y_local * p.width + x;
+      const float lum = (c.x + c.y + c.z) * (1.0f / 3.0f);
+      const float ml = s_ml[pix];
+      const float dl = lum - ml;
+      const float ml1 = ml + dl / k1f;
+      // M2 rounds as one fused multiply-add: XLA:CPU contracts it in the
+      // reference's run.
+      const float m21 = fmaf(dl, lum - ml1, s_m2[pix]);
+      s_ml[pix] = ml1;
+      s_m2[pix] = m21;
+      s_r[pix] = s_r[pix] + c.x;
+      s_g[pix] = s_g[pix] + c.y;
+      s_b[pix] = s_b[pix] + c.z;
+      if (kCount) p.rays[pix] = p.rays[pix] + (float)rays;
+      pm2 = pm2 + m21;
+      pml = pml + ml1;
+    }
+    ++k;
+  }
+  const float kf = (float)k;
+  for (int q = t; q < a.tile_rows * 128; q += kAdaptiveThreads) {
+    const int row = q >> 7, col = q & 127;
+    if (row >= rows || col >= cols) continue;
+    const size_t pix = (size_t)(y0 + row) * p.width + (x0 + col);
+    s_k[pix] = kf;
+    if (p.out != nullptr) {
+      p.out[pix * 3 + 0] = s_r[pix] / kf;
+      p.out[pix * 3 + 1] = s_g[pix] / kf;
+      p.out[pix * 3 + 2] = s_b[pix] / kf;
+    }
+  }
 }
 
 // The hashes the kernel draws, for a bit-exactness probe against ops/rng.py.
@@ -916,6 +1085,10 @@ __global__ void sampler_probe_kernel(const unsigned int* __restrict__ pids,
 // scan); a (n_tris, 32) mesh table with its BVH (n_tris = 0: no mesh).
 // The lights: (8, n_lights) and (16, n_tri_lights) planes, read when nee.
 // The sampler: kind 0 independent, 1 stratified (kx, ky), 2 Sobol (nbits).
+// The outputs: `out` (height, width, 3) and, when not null, `rays`
+// (height, width), the rays traced per pixel.  With `state` (6, height,
+// width) the adaptive loop runs (spp is its budget) and updates the state;
+// `out` is then optional (the one-shot mean).
 extern "C" int grt_render(const float* cam, const float* scene, int n,
                           const float* sbvh_f, const int* sbvh_i, int sbvh_m,
                           const float* mesh, int n_tris, int smooth,
@@ -926,7 +1099,8 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
                           unsigned int frame_seed, unsigned int y_offset,
                           unsigned int row_stride, int max_depth, float t_min,
                           float t_max, int mode, int rr_depth, float sky_intensity,
-                          float clamp, int spp, float* out, void* stream) {
+                          float clamp, int spp, float* out, float* rays, float* state,
+                          int tile_rows, int min_spp, int chunk, float tol, void* stream) {
   Params p;
   p.cam = cam;
   p.geo.scene = scene;
@@ -954,13 +1128,30 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
   p.clamp = clamp;
   p.spp = spp;
   p.out = out;
+  p.rays = rays;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool count = rays != nullptr;
+  if (state != nullptr) {
+    const Adaptive a = {state, tile_rows, min_spp, chunk, tol};
+    const dim3 grid((width + 127) / 128, (height + tile_rows - 1) / tile_rows);
+    const int block = kAdaptiveThreads;
+    if (nee) {
+      if (count) render_adaptive_kernel<true, true><<<grid, block, 0, s>>>(p, a);
+      else render_adaptive_kernel<true, false><<<grid, block, 0, s>>>(p, a);
+    } else {
+      if (count) render_adaptive_kernel<false, true><<<grid, block, 0, s>>>(p, a);
+      else render_adaptive_kernel<false, false><<<grid, block, 0, s>>>(p, a);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   const dim3 block(32, 8);
   const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nee) {
-    render_kernel<true><<<grid, block, 0, s>>>(p);
+    if (count) render_kernel<true, true><<<grid, block, 0, s>>>(p);
+    else render_kernel<true, false><<<grid, block, 0, s>>>(p);
   } else {
-    render_kernel<false><<<grid, block, 0, s>>>(p);
+    if (count) render_kernel<false, true><<<grid, block, 0, s>>>(p);
+    else render_kernel<false, false><<<grid, block, 0, s>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,13 @@
 """Host side of the CUDA megakernel (port of gpu_ray_tracing_tpu/ops/pallas/megakernel.py).
 
-`render_cuda` launches ops/cuda/megakernel.cu, one thread per pixel, for
-the K1a-K1e slices of the Pallas `_kernel`: spheres by the brute scan or
-through a sphere BVH, triangle meshes behind a BVH (flat or smooth),
-next-event estimation toward sphere and triangle lights with MIS, the
-independent, stratified and Sobol samplers, the fixed spp loop, the AOV
-modes, Russian roulette and the clamp.  `render_reference` is its plain
-PyTorch version with the same signature, composed of ops/rays,
+`render_cuda` launches ops/cuda/megakernel.cu for the K1a-K1f slices of
+the Pallas `_kernel`: spheres by the brute scan or through a sphere BVH,
+triangle meshes behind a BVH (flat or smooth), next-event estimation toward
+sphere and triangle lights with MIS, the independent, stratified and Sobol
+samplers, the fixed spp loop (one thread per pixel), the AOV modes, Russian
+roulette and the clamp, and the adaptive spp loop (one block per tile) with
+its resume state, the spp map and the ray counters.  `render_reference` is
+its plain PyTorch version with the same signature, composed of ops/rays,
 ops/intersect, ops/materials and ops/integrators; the tests and the
 'torch' backend run it, and chip_smoke.py holds the kernel against it on
 the card.  The plain version scans every sphere whether or not the scene
@@ -19,7 +20,8 @@ does.
 failed build or a failed launch raises.  The only torch operations around
 its launch pack the (16, N) scene, (1, 24) camera, (F, 32) mesh table,
 BVH, (8, L) light and (16, T) triangle-light plane layouts, as
-render_pallas's XLA code does.
+render_pallas's XLA code does, and allocate the outputs and the adaptive
+state planes.
 """
 
 from __future__ import annotations
@@ -44,16 +46,18 @@ from gpu_ray_tracing_tpu_torch.ops import integrators
 from gpu_ray_tracing_tpu_torch.ops import rng as rng_ops
 from gpu_ray_tracing_tpu_torch.ops.bvh import BVH
 from gpu_ray_tracing_tpu_torch.ops.cuda import build
-from gpu_ray_tracing_tpu_torch.ops.rays import generate_rays_hash, hash_pixel_ids
+from gpu_ray_tracing_tpu_torch.ops.rays import generate_rays_for_ids, hash_pixel_ids
+from gpu_ray_tracing_tpu_torch.ops.rounding import fma
 
 #: Kernel launches per wrapper and route ("megakernel:brute",
 #: "megakernel:sphere_bvh", "megakernel:mesh_bvh", "hash_probe",
 #: "sampler_probe"): each wrapper adds one where it launches, keyed by the
 #: geometry the launch was given (a mesh, else a sphere BVH, else the brute
-#: scan), suffixed "+nee" when the launch ran next-event estimation and
-#: "+stratified" or "+sobol" when it ran that sampler (e.g.
-#: "megakernel:mesh_bvh+nee", "megakernel:brute+sobol"), so a run can show
-#: which paths it used.
+#: scan), suffixed "+nee" when the launch ran next-event estimation,
+#: "+stratified" or "+sobol" when it ran that sampler, "+adaptive" when it
+#: ran the adaptive loop and "+rays" when it counted rays (e.g.
+#: "megakernel:mesh_bvh+nee", "megakernel:brute+adaptive"), so a run can
+#: show which paths it used.
 LAUNCHES: collections.Counter = collections.Counter()
 
 # Rows of the (16, N) scene planes (the Pallas layout, megakernel.py:84).
@@ -69,6 +73,14 @@ SAMPLERS = {None: 0, "stratified": 1, "sobol": 2}
 # layout): v0 0-2, e1 3-5, e2 6-8, corner normals 9-17 (the face normal
 # three times when flat), albedo 18-20, kind 21, param 22, light id 23.
 _TRI_SLOTS = 32
+
+# The adaptive stopping test's tile (megakernel.py:105-114): TILE_ROWS x
+# 128 pixels of the local frame for the path integrator, AOV_TILE_ROWS for
+# the bounce-free modes.  The tile belongs to the semantics: the spp map is
+# constant within it.
+TILE_ROWS = 32
+AOV_TILE_ROWS = 64
+TILE_COLS = 128
 
 # Pixels x spheres elements per chunk of the plain version's (P, N) planes.
 _CPU_BLOCK = 1 << 22
@@ -179,6 +191,73 @@ def _check_args(width, height, spp, max_depth, mode, nee, mis, sampler_spec):
         raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
 
 
+@dataclasses.dataclass(frozen=True)
+class _AdaptivePlan:
+    """What a render call's adaptive options ask of the spp loop: `state`
+    is the (6, H, W) f32 resume state (zeros for a one-shot render), or
+    None for the fixed loop."""
+
+    state: torch.Tensor | None
+    resume: bool
+    tile_rows: int
+    min_spp: int
+    chunk: int
+    tol: float
+
+
+def _adaptive_plan(width, height, spp, mode, dev, adaptive_tol, adaptive_min_spp,
+                   return_spp_map, return_ray_count, adaptive_state,
+                   adaptive_chunk) -> _AdaptivePlan:
+    """Validate the adaptive options as render_pallas does
+    (megakernel.py:2006-2025) and plan the loop.  A one-shot adaptive
+    render (adaptive_tol > 0, spp > 1) is the resume loop from zero planes
+    with chunk = spp; at spp = 1 the fixed loop takes the one sample."""
+    tile_rows = TILE_ROWS if mode == "path" else AOV_TILE_ROWS
+    min_spp = min(max(2, adaptive_min_spp), spp)
+    if adaptive_state is not None:
+        if adaptive_tol <= 0.0 or mode != "path" or adaptive_chunk <= 0:
+            raise ValueError(
+                "adaptive_state requires adaptive_tol > 0, mode='path' and "
+                "adaptive_chunk > 0"
+            )
+        if return_spp_map or return_ray_count:
+            raise ValueError(
+                "adaptive_state already returns the per-pixel count plane; "
+                "return_spp_map/return_ray_count do not compose with it"
+            )
+        if len(adaptive_state) != 6:
+            raise ValueError(
+                f"adaptive_state must be a 6-tuple, got {len(adaptive_state)}"
+            )
+        for st in adaptive_state:
+            if tuple(st.shape) != (height, width):
+                raise ValueError(f"adaptive_state planes must be ({height}, {width}), "
+                                 f"got {tuple(st.shape)}")
+        state = torch.stack([st.to(device=dev, dtype=torch.float32)
+                             for st in adaptive_state]).contiguous()
+        return _AdaptivePlan(state, True, tile_rows, min_spp, adaptive_chunk,
+                             float(adaptive_tol))
+    if adaptive_tol > 0.0 and spp > 1:
+        state = torch.zeros((6, height, width), dtype=torch.float32, device=dev)
+        return _AdaptivePlan(state, False, tile_rows, min_spp, spp, float(adaptive_tol))
+    return _AdaptivePlan(None, False, tile_rows, min_spp, 0, 0.0)
+
+
+def _outputs(img, plan: _AdaptivePlan, spp: int, return_spp_map: bool, rays):
+    """render_pallas's return shapes: the 6 updated state planes on resume;
+    else the image, then the spp map and the ray-count plane if asked."""
+    if plan.resume:
+        return tuple(plan.state.unbind(0))
+    extras = []
+    if return_spp_map:
+        extras.append(plan.state[3] if plan.state is not None
+                      else torch.full(img.shape[:2], float(spp), dtype=torch.float32,
+                                      device=img.device))
+    if rays is not None:
+        extras.append(rays)
+    return (img, *extras) if extras else img
+
+
 def _sampler_args(spec: tuple | None) -> tuple[int, int, int, int]:
     """The kernel's (kind, kx, ky, nbits) of a sampler spec."""
     kind = SAMPLERS[None if spec is None else spec[0]]
@@ -196,6 +275,59 @@ def _trace_block(num_pixels: int, sc: Scene) -> int:
     if sc.mesh is not None and sc.bvh is None:
         width += sc.mesh.num_triangles
     return max(1, min(num_pixels, budget // width))
+
+
+_THIRD = torch.tensor(1.0 / 3.0, dtype=torch.float32)
+
+
+def _adaptive_loop_reference(sample, width: int, height: int, plan: _AdaptivePlan,
+                             spp: int, rays: torch.Tensor | None) -> None:
+    """The kernel's adaptive spp loop in plain PyTorch, updating plan.state
+    in place: per-pixel Welford planes, per-tile sums over the in-frame
+    pixels of each (tile_rows x 128) tile of the local frame, one "wants
+    more" per tile broadcast to its pixels, and samples added only where
+    the tile still wants more.  `sample(idx, k)` traces sample k of the
+    local pixels idx and returns (rgb, rays or None)."""
+    st = plan.state.reshape(6, -1)
+    dev = st.device
+    ty = torch.arange(height, device=dev) // plan.tile_rows
+    tx = torch.arange(width, device=dev) // TILE_COLS
+    n_tx = -(-width // TILE_COLS)
+    n_tiles = -(-height // plan.tile_rows) * n_tx
+    tile = (ty[:, None] * n_tx + tx[None, :]).reshape(-1)
+    n_valid = torch.bincount(tile, minlength=n_tiles).to(torch.float32).clamp(min=1.0)
+    # The tile's count, read at its first pixel (tile-constant).
+    first = torch.full((n_tiles,), -1, dtype=torch.int64, device=dev)
+    first = first.scatter_reduce(0, tile, torch.arange(tile.numel(), device=dev),
+                                 reduce="amin", include_self=False)
+    k0 = st[3][first].to(torch.int64)
+    k = k0.clone()
+    while True:
+        mean_m2 = torch.zeros(n_tiles, device=dev).index_add_(0, tile, st[5]) / n_valid
+        mean_ml = torch.zeros(n_tiles, device=dev).index_add_(0, tile, st[4]) / n_valid
+        kf = k.to(torch.float32)
+        stderr2 = mean_m2 / torch.clamp(kf - 1.0, min=1.0) / kf
+        scale = fma(mean_ml, torch.tensor(plan.tol, dtype=torch.float32),
+                    torch.tensor(1e-4, dtype=torch.float32))
+        want = (k < plan.min_spp) | ((k < spp) & (stderr2 > scale * scale))
+        want = want & (k < k0 + plan.chunk)
+        if not bool(want.any()):
+            break
+        for kv in torch.unique(k[want]).tolist():
+            idx = torch.nonzero((want & (k == kv))[tile]).squeeze(1)
+            rgb, r = sample(idx, kv)
+            lum = (rgb[:, 0] + rgb[:, 1] + rgb[:, 2]) * _THIRD
+            ml, m2 = st[4][idx], st[5][idx]
+            d = lum - ml
+            ml = ml + d / torch.tensor(float(kv + 1), dtype=torch.float32)
+            st[4][idx] = ml
+            # As XLA:CPU rounds it in the reference: one fused multiply-add.
+            st[5][idx] = fma(d, lum - ml, m2)
+            st[0:3, idx] += rgb.T
+            if r is not None:
+                rays[idx] += r
+        k = k + want.to(torch.int64)
+    st[3] = k[tile].to(torch.float32)
 
 
 def render_reference(
@@ -219,57 +351,83 @@ def render_reference(
     nee: bool = False,
     mis: bool = False,
     sampler_spec: tuple | None = None,
+    adaptive_tol: float = 0.0,
+    adaptive_min_spp: int = 8,
+    return_spp_map: bool = False,
+    return_ray_count: bool = False,
+    adaptive_state: tuple | None = None,
+    adaptive_chunk: int = 0,
     light_pick: str = "sample",
-) -> torch.Tensor:
+):
     """The plain PyTorch version of render_cuda: the mean of spp hash-stream
-    samples as a (height, width, 3) f32 image, on the scene's device.
-    Sample s uses stream index sample_index + s.  `light_pick` ('sample',
-    the kernel's, or 'lane', the 'jax' engine's) chooses the > 4-light
-    pick (ops/integrators.trace_path)."""
+    samples as a (height, width, 3) f32 image, on the scene's device, with
+    render_cuda's adaptive options and return shapes.  Sample s uses stream
+    index sample_index + s.  `light_pick` ('sample', the kernel's, or
+    'lane', the 'jax' engine's) chooses the > 4-light pick
+    (ops/integrators.trace_path)."""
     _check_args(width, height, spp, max_depth, mode, nee, mis, sampler_spec)
     sc = as_scene(scene_or_spheres)
     sc.nee_light_counts(nee)
     dev = sc.spheres.device
+    plan = _adaptive_plan(width, height, spp, mode, dev, adaptive_tol, adaptive_min_spp,
+                          return_spp_map, return_ray_count, adaptive_state,
+                          adaptive_chunk)
     camera = camera.to(dev)
     p = width * height
     block = _trace_block(p, sc)
-    acc = torch.zeros((p, 3), dtype=torch.float32, device=dev)
     pid = hash_pixel_ids(width, height, y_offset=y_offset, total_width=width,
                          row_stride=row_stride, device=dev).reshape(p)
-    for s in range(spp):
+    aov = {"normal": integrators.shade_normals, "albedo": integrators.shade_albedo,
+           "depth": integrators.shade_depth}.get(mode)
+
+    def sample(idx, s: int):
+        """Sample s of the local pixels idx (all when None): (rgb, rays)."""
         s_u32 = (int(sample_index) + s) & 0xFFFFFFFF
-        o, d, seeds = generate_rays_hash(
-            camera, width, height, s_u32, frame_seed,
-            y_offset=y_offset, total_width=width, row_stride=row_stride,
-            sampler_spec=sampler_spec,
-        )
-        o, d, seeds = o.reshape(p, 3), d.reshape(p, 3), seeds.reshape(p)
-        for start in range(0, p, block):
+        ids = pid if idx is None else pid[idx]
+        o, d, seeds = generate_rays_for_ids(camera, ids, s_u32, frame_seed,
+                                            total_width=width, sampler_spec=sampler_spec)
+        n = ids.numel()
+        rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        rays = torch.ones(n, dtype=torch.float32, device=dev) if return_ray_count else None
+        for start in range(0, n, block):
             sl = slice(start, start + block)
-            if mode != "path":
-                aov = {
-                    "normal": integrators.shade_normals,
-                    "albedo": integrators.shade_albedo,
-                    "depth": integrators.shade_depth,
-                }[mode]
-                img = aov(o[sl], d[sl], sc, t_min, t_max)
-            else:
-                img = integrators.trace_path(
-                    o[sl], d[sl], sc, max_depth, t_min, t_max,
-                    pixel_seeds=seeds[sl],
-                    russian_roulette_depth=russian_roulette_depth,
-                    sky_intensity=sky_intensity, nee=nee, mis=mis,
-                    pixel_ids=pid[sl], sample_index=s_u32,
-                    frame_seed_u32=int(frame_seed) & 0xFFFFFFFF,
-                    sampler_spec=sampler_spec, light_pick=light_pick,
-                )
-                if clamp > 0.0:
-                    img = integrators.clamp_radiance(img, clamp)
-            acc[sl] += img
-    return (acc / float(spp)).reshape(height, width, 3)
+            if aov is not None:
+                rgb[sl] = aov(o[sl], d[sl], sc, t_min, t_max)
+                continue
+            out = integrators.trace_path(
+                o[sl], d[sl], sc, max_depth, t_min, t_max,
+                pixel_seeds=seeds[sl],
+                russian_roulette_depth=russian_roulette_depth,
+                sky_intensity=sky_intensity, nee=nee, mis=mis,
+                pixel_ids=ids[sl], sample_index=s_u32,
+                frame_seed_u32=int(frame_seed) & 0xFFFFFFFF,
+                sampler_spec=sampler_spec, light_pick=light_pick,
+                count_rays=return_ray_count,
+            )
+            img = out[0] if return_ray_count else out
+            if return_ray_count:
+                rays[sl] = out[1]
+            rgb[sl] = integrators.clamp_radiance(img, clamp) if clamp > 0.0 else img
+        return rgb, rays
+
+    rays = torch.zeros(p, dtype=torch.float32, device=dev) if return_ray_count else None
+    if plan.state is not None:
+        _adaptive_loop_reference(sample, width, height, plan, spp, rays)
+        st = plan.state.reshape(6, p)
+        img = (st[0:3] / st[3]).T
+    else:
+        acc = torch.zeros((p, 3), dtype=torch.float32, device=dev)
+        for s in range(spp):
+            rgb, r = sample(None, s)
+            acc += rgb
+            if r is not None:
+                rays += r
+        img = acc / float(spp)
+    rays = None if rays is None else rays.reshape(height, width)
+    return _outputs(img.reshape(height, width, 3), plan, spp, return_spp_map, rays)
 
 
-def _tensors(obj) -> list[torch.Tensor]:
+def dataclass_tensors(obj) -> list[torch.Tensor]:
     """Every tensor of a scene or camera dataclass, depth first."""
     out = []
     for f in dataclasses.fields(obj):
@@ -277,7 +435,7 @@ def _tensors(obj) -> list[torch.Tensor]:
         if isinstance(v, torch.Tensor):
             out.append(v)
         elif dataclasses.is_dataclass(v):
-            out += _tensors(v)
+            out += dataclass_tensors(v)
     return out
 
 
@@ -320,19 +478,35 @@ def render_cuda(
     nee: bool = False,
     mis: bool = False,
     sampler_spec: tuple | None = None,
-) -> torch.Tensor:
+    adaptive_tol: float = 0.0,
+    adaptive_min_spp: int = 8,
+    return_spp_map: bool = False,
+    return_ray_count: bool = False,
+    adaptive_state: tuple | None = None,
+    adaptive_chunk: int = 0,
+):
     """Render spp samples in one launch of the CUDA megakernel; returns the
     (height, width, 3) f32 mean on the scene's CUDA device.  Same signature
     and stream as render_reference (whose default light_pick='sample' is
     the kernel's > 4-light pick).  A scene with a sphere BVH walks it; a
-    mesh must have its BVH (make_scene builds one)."""
+    mesh must have its BVH (make_scene builds one).
+
+    The options of render_pallas: `adaptive_tol > 0` makes spp a per-tile
+    budget (the adaptive kernel, one block per tile); `return_spp_map` and
+    `return_ray_count` append the (height, width) samples-taken and
+    rays-traced planes; `adaptive_state` (six (height, width) planes: rgb
+    sums, count, Welford mean and M2) resumes the adaptive loop for at most
+    `adaptive_chunk` more samples per tile and returns the updated six."""
     _check_args(width, height, spp, max_depth, mode, nee, mis, sampler_spec)
     sc = as_scene(scene_or_spheres)
     s = sc.spheres
-    dev = _require_cuda(*_tensors(sc), *_tensors(camera))
+    dev = _require_cuda(*dataclass_tensors(sc), *dataclass_tensors(camera))
     if sc.mesh is not None and sc.bvh is None:
         raise ValueError("the CUDA megakernel renders a mesh through its BVH; "
                          "build the scene with make_scene(use_bvh=True)")
+    plan = _adaptive_plan(width, height, spp, mode, dev, adaptive_tol, adaptive_min_spp,
+                          return_spp_map, return_ray_count, adaptive_state,
+                          adaptive_chunk)
     n_sl, n_tl = sc.nee_light_counts(nee)
     lib = build.load()
     planes = scene_planes(s).contiguous()
@@ -349,7 +523,10 @@ def render_cuda(
     kind, kx, ky, nbits = _sampler_args(sampler_spec)
     ptr = lambda t: None if t is None else t.data_ptr()
     nodes = lambda planes: 0 if planes[0] is None else planes[0].shape[1]
-    out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    out = (None if plan.resume
+           else torch.empty((height, width, 3), dtype=torch.float32, device=dev))
+    rays = (torch.zeros((height, width), dtype=torch.float32, device=dev)
+            if return_ray_count else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.grt_render(
@@ -363,13 +540,16 @@ def render_cuda(
             int(y_offset) & 0xFFFFFFFF, int(row_stride) & 0xFFFFFFFF,
             max_depth, float(t_min), float(t_max), MODES[mode],
             int(russian_roulette_depth), float(sky_intensity), float(clamp),
-            spp, out.data_ptr(), stream,
+            spp, ptr(out), ptr(rays), ptr(plan.state),
+            plan.tile_rows, plan.min_spp, plan.chunk, plan.tol, stream,
         )
     build.check(rc, "megakernel")
     route = "mesh_bvh" if n_tris else "sphere_bvh" if nodes(sbvh) else "brute"
     route += ("+nee" if nee else "") + ("" if kind == 0 else "+" + sampler_spec[0])
+    route += ("+adaptive" if plan.state is not None else "") + ("+rays" if rays is not None
+                                                                 else "")
     LAUNCHES["megakernel:" + route] += 1
-    return out
+    return _outputs(out, plan, spp, return_spp_map, rays)
 
 
 def hash_probe_reference(values: torch.Tensor, salts, sample_index: int,

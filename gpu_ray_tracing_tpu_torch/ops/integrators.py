@@ -223,12 +223,17 @@ def trace_path(
     frame_seed_u32=None,
     sampler_spec: tuple | None = None,
     light_pick: str = "lane",
-) -> torch.Tensor:
+    count_rays: bool = False,
+):
     """Path-trace a batch of rays on the counter stream; returns linear RGB
-    of shape dirs.shape.  Draws are pure functions of (pixel seed, bounce,
-    salt): salts 16+3i..18+3i scatter, 1000+i Russian roulette,
-    2000+37i+7g+{0,1,2} NEE toward light ordinal g (sphere lights first,
-    then triangle lights).
+    of shape dirs.shape, or (rgb, rays) with `count_rays=True`: rays is a
+    per-ray f32 count of the rays traced, one closest-hit walk per live
+    bounce plus one per NEE shadow ray whose light sample is valid, counted
+    before its visibility test (the megakernel's counters; vertices inside a
+    sphere light run no NEE and count none).  Draws are pure functions of
+    (pixel seed, bounce, salt): salts 16+3i..18+3i scatter, 1000+i Russian
+    roulette, 2000+37i+7g+{0,1,2} NEE toward light ordinal g (sphere lights
+    first, then triangle lights).
 
     `nee=True` samples every light from each diffuse hit when there are at
     most 4, else one picked light weighted by the count.  `light_pick`
@@ -265,6 +270,7 @@ def trace_path(
     prev_diffuse = torch.zeros(batch_shape, dtype=torch.bool, device=dev)
     prev_cos = torch.zeros(batch_shape, dtype=torch.float32, device=dev)
     lights, tl = sc.lights, sc.tri_lights
+    rays_box = [torch.zeros(batch_shape, dtype=torch.float32, device=dev)]
 
     if mis:
         # Exact light identity of the primitive a ray hits (sphere lights
@@ -288,6 +294,8 @@ def trace_path(
         return vis
 
     for i in range(max_depth):
+        if count_rays:
+            rays_box[0] = rays_box[0] + live.to(torch.float32)
         if mis:
             hit, albedo, kind, param, mesh_won = intersect_scene(
                 o, d, sc, t_min, t_max, want_mesh_wins=True)
@@ -298,6 +306,8 @@ def trace_path(
         u2 = rng_ops.uniform_hash(pixel_seeds, base + 1)
         if sampler_spec is not None and i == 0:
             # The first-bounce scatter pair (salt 6): strata of the sphere.
+            # 2 pi stays outside the remap: jitted trace_path runs its
+            # bounces in a while loop, and XLA folds no constant into it.
             u1, u2 = rng_ops.sampler_uniforms(
                 u1, u2, pixel_ids, sample_index, frame_seed_u32, sampler_spec,
                 rot_salt=rng_ops._SCATTER_ROT_SALT)
@@ -374,6 +384,10 @@ def trace_path(
 
             def add(result, ok, omega, window, wgt, le):
                 valid = nee_ok & ok
+                if count_rays:
+                    # One shadow ray per lane whose sample is valid, counted
+                    # before the visibility test.
+                    rays_box[0] = rays_box[0] + valid.to(torch.float32)
                 valid = valid & shadow_visible(valid, pnt, omega, window * (1.0 - 1e-3))
                 if mis:
                     wgt = _mis_nee_weight(wgt, last)
@@ -461,4 +475,4 @@ def trace_path(
             )
             live = live & survive
     # Exhausted rays contribute black (the parity quirk is not ported).
-    return result
+    return (result, rays_box[0]) if count_rays else result

@@ -1,12 +1,15 @@
 """Render configuration (port of gpu_ray_tracing_tpu/utils/config.py).
 
 The same frozen dataclass with the same fields and cross-field checks.  The
-backends are the port's own: 'torch' is the plain PyTorch integrator (the
-counterpart of 'jax'; runs on any device) and 'cuda' is the hand-written
-megakernel (the counterpart of 'pallas').  NEE/MIS and the stratified and
-Sobol samplers run on both.  The modes the port does not carry yet raise
-NotImplementedError and name their ROADMAP.md item: adaptive sampling
-(K1f), the wavefront backend (K2), and the threefry and wgsl streams.
+backends are the port's own: 'cuda', the default, is the hand-written
+megakernel (the counterpart of 'pallas'), so an entry point given nothing
+else renders on the card and raises without one; 'torch' is how a caller
+asks for the plain PyTorch integrator (the counterpart of 'jax'), which
+runs on the device the scene lies on.  NEE/MIS and the stratified and
+Sobol samplers run on both; adaptive sampling is a megakernel mode, as in
+the JAX package.  The modes the port does not carry yet raise
+NotImplementedError and name their ROADMAP.md item: the wavefront backend
+(K2), and the threefry and wgsl streams.
 """
 
 from __future__ import annotations
@@ -34,9 +37,9 @@ class RenderConfig:
     spp: int = 1
     max_depth: int = 30
     integrator: Literal["path", "normal", "albedo", "depth"] = "path"
-    # 'torch' = plain PyTorch integrator (reference path; runs anywhere)
     # 'cuda'  = hand-written sm_90a megakernel (ops/cuda/megakernel.cu)
-    backend: Literal["torch", "cuda"] = "torch"
+    # 'torch' = plain PyTorch integrator (reference path; runs anywhere)
+    backend: Literal["torch", "cuda"] = "cuda"
     rng: Literal["hash", "threefry", "wgsl"] = "hash"
     parity: bool = False
     sky_intensity: float = 1.0
@@ -118,11 +121,6 @@ class RenderConfig:
             raise NotImplementedError(
                 f"rng={self.rng!r} is not ported yet (ROADMAP Queue 1 item 2; "
                 "only the counter-based 'hash' stream is)"
-            )
-        if self.adaptive_tol > 0.0:
-            raise NotImplementedError(
-                "adaptive sampling is not ported yet (ROADMAP Queue 1 item 10, "
-                "kernel K1f)"
             )
 
     @property

@@ -182,7 +182,7 @@ def test_sphere_bvh_scene_matches_jax():
     kw = dict(width=64, height=40, max_depth=6)
     want = np.asarray(J.render(js, J.CameraSettings.default(), J.RenderConfig(**kw),
                                frame_seed=jnp.uint32(2)))
-    got = T.render(ts, T.CameraSettings.default(), T.RenderConfig(**kw), frame_seed=2)
+    got = T.render(ts, T.CameraSettings.default(), T.RenderConfig(backend="torch", **kw), frame_seed=2)
     m = T.images_match(got, want, 0.02, 2e-3)
     assert m.ok, m
 

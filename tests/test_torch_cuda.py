@@ -259,3 +259,117 @@ def test_cornell_matches_render_reference(dev):
               nee=True, mis=True, frame_seed=13)
     _assert_match(mk.render_cuda(sc, cam, **kw), mk.render_reference(sc, cam, **kw),
                   0.015, 1e-3)
+
+
+# --- progressive and adaptive rendering, ray counters (K1f) ------------------
+
+
+def _tile_mismatch(a, b):
+    """Tiles whose spp-map counts differ: the map is constant within each
+    (32 x 128) tile, so each tile is read at its first pixel."""
+    return int((a[::32, ::128] != b[::32, ::128]).sum())
+
+
+@pytest.mark.parametrize("case", ["base", "cornell"])
+def test_adaptive_kernel_matches_render_reference(dev, case):
+    """The adaptive kernel against its plain version on the card: the spp
+    maps equal per tile (a tile whose test sits within rounding of its
+    limit may flip with the order of the reduction: at most 1), the images
+    over the pixels of equal-count tiles at the scene's contract."""
+    if case == "base":
+        sc, w, h = T.base_scene(device=dev), 160, 40
+        cam = T.derive_camera(BASE_CAMERA, w, h).to(dev)
+        kw = dict(spp=16, max_depth=6, frame_seed=3)
+        contract = (0.01, 2e-4)
+    else:  # chaotic: parity_check's contract for this scene
+        sc, w, h = T.cornell_box_scene().to(dev), 128, 96
+        cam = T.derive_camera(T.cornell_camera(), w, h).to(dev)
+        kw = dict(spp=16, max_depth=8, frame_seed=3, nee=True, mis=True, sky_intensity=0.0)
+        contract = (0.015, 1e-3)
+    kw = dict(kw, width=w, height=h, t_min=1e-3, adaptive_tol=0.03, adaptive_min_spp=4,
+              return_spp_map=True)
+    img, smap = mk.render_cuda(sc, cam, **kw)
+    pimg, pmap = mk.render_reference(sc, cam, **kw)
+    assert _tile_mismatch(smap, pmap) <= 1
+    same = smap == pmap
+    _assert_match(img[same][None], pimg[same][None], *contract)
+    assert smap.min() >= 4 and smap.max() <= 16
+
+
+def test_adaptive_resume_is_bit_exact(dev):
+    """Through the public entry points: four adaptive_progressive_step
+    chunks of 4 equal the one-shot render() bit for bit, a fifth changes
+    nothing, and with a huge tolerance the image is the fixed spp=4 render
+    (the prefix property)."""
+    scene = T.one_weekend_scene(0)
+    cfg = T.RenderConfig(width=256, height=96, spp=16, max_depth=8, adaptive_tol=0.03,
+                         adaptive_min_spp=4)
+    cam = T.CameraSettings.default()
+    one = T.render(scene, cam, cfg, frame_seed=1)
+    st = T.init_adaptive_accum(cfg.height, cfg.width, device=dev)
+    for _ in range(4):
+        st = T.adaptive_progressive_step(st, scene, cam, cfg, frame_seed=1, spp_per_step=4)
+    assert torch.equal(st.image, one)
+    assert st.count.min() >= 4 and st.count.max() <= 16
+    st5 = T.adaptive_progressive_step(st, scene, cam, cfg, frame_seed=1, spp_per_step=4)
+    assert torch.equal(st5.count, st.count) and torch.equal(st5.image, one)
+    wide = T.render(scene, cam, dataclasses.replace(cfg, adaptive_tol=1e6), frame_seed=1)
+    fixed = T.render(scene, cam, dataclasses.replace(cfg, spp=4, adaptive_tol=0.0),
+                     frame_seed=1)
+    assert torch.equal(wide, fixed)
+
+
+def test_ray_counters_are_exact(dev):
+    """The kernel's counters against the plain version's per pixel on the
+    diffuse scene of tests/test_pallas.py:707-717 (48 x 32, 4 spp, depth
+    3), the analytic cases through 'cuda', and the counter changes no
+    pixel of the image."""
+    scene = T.make_scene(T.make_spheres([
+        ((0, -1000.0, 0), 1000.0, T.LAMBERTIAN, (0.7, 0.7, 0.7), 0.0),
+        ((-0.6, 0.35, -2.2), 0.35, T.LAMBERTIAN, (0.8, 0.3, 0.3), 0.0),
+    ]))
+    cfg = T.RenderConfig(width=48, height=32, spp=4, max_depth=3)
+    got = T.count_traced_rays(scene, BASE_CAMERA, cfg, frame_seed=7, return_map=True)
+    cam = T.derive_camera(BASE_CAMERA, 48, 32).to(dev)
+    kw = dict(width=48, height=32, spp=4, max_depth=3, t_min=1e-3, frame_seed=7)
+    img, want = mk.render_reference(scene.to(dev), cam, return_ray_count=True, **kw)
+    assert torch.equal(got["map"], want)
+    assert got["rays_traced"] == float(want.double().sum())
+    assert torch.equal(mk.render_cuda(scene.to(dev), cam, return_ray_count=True, **kw)[0],
+                       mk.render_cuda(scene.to(dev), cam, **kw))
+    ground = T.make_spheres([((0, -1000.0, 0), 1000.0, T.LAMBERTIAN, (0.5, 0.5, 0.5), 0.0)])
+    up = T.CameraSettings.make([0.0, 2.0, 0.0], [0.0, 10.0, 0.0], [0.0, 0.0, 1.0],
+                               20.0, 0.0, 10.0)
+    down = T.CameraSettings.make([0.0, 2.0, 0.0], [0.0, 0.0, 0.0], [0.0, 0.0, 1.0],
+                                 40.0, 0.0, 10.0)
+    lit = T.make_scene(T.make_spheres([
+        ((0, -1000.0, 0), 1000.0, T.LAMBERTIAN, (0.5, 0.5, 0.5), 0.0),
+        ((0.0, 50.0, 0.0), 5.0, T.EMISSIVE, (1.0, 1.0, 1.0), 4.0),
+    ]))
+    for sc, c, per, extra in ((ground, up, 1, dict(max_depth=6)),
+                              (ground, down, 2, dict(max_depth=2)),
+                              (lit, down, 3, dict(max_depth=2, nee=True, sky_intensity=0.0))):
+        r = T.count_traced_rays(sc, c, T.RenderConfig(width=48, height=32, spp=4, **extra),
+                                frame_seed=3)
+        assert r["rays_traced"] == per * r["primary_rays"], (per, r)
+
+
+def test_progressive_matches_one_shot(dev):
+    """Four 1-spp progressive steps on the card equal render(spp=4) at
+    atol 1e-5, one launch each; reset restarts the count; two steps of 2
+    give the same image at 2e-5."""
+    scene, cam = T.one_weekend_scene(0), T.CameraSettings.default()
+    cfg = T.RenderConfig(width=160, height=90, spp=4, max_depth=8)
+    mk.LAUNCHES.clear()
+    st = T.init_accum(cfg.height, cfg.width)
+    for _ in range(4):
+        st = T.progressive_step(st, scene, cam, cfg, frame_seed=5)
+    assert dict(mk.LAUNCHES) == {"megakernel:brute": 4} and int(st.count) == 4
+    assert st.rgb.device.type == "cuda" and st.count.device.type == "cpu"
+    torch.testing.assert_close(st.rgb, T.render(scene, cam, cfg, frame_seed=5),
+                               atol=1e-5, rtol=0)
+    assert int(T.progressive_step(st, scene, cam, cfg, frame_seed=5, reset=True).count) == 1
+    two = T.init_accum(cfg.height, cfg.width)
+    for _ in range(2):
+        two = T.progressive_step(two, scene, cam, cfg, frame_seed=5, spp_per_step=2)
+    torch.testing.assert_close(two.rgb, st.rgb, atol=2e-5, rtol=0)

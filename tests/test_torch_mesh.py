@@ -190,7 +190,7 @@ def test_mesh_render_matches_jax(integrator, smooth):
     jcs, tcs = _cameras()
     kw = dict(width=64, height=48, max_depth=5, integrator=integrator)
     want = np.asarray(J.render(js, jcs, J.RenderConfig(**kw), frame_seed=jnp.uint32(1)))
-    got = T.render(ts, tcs, T.RenderConfig(**kw), frame_seed=1)
+    got = T.render(ts, tcs, T.RenderConfig(backend="torch", **kw), frame_seed=1)
     assert np.isfinite(got.numpy()).all()
     m = T.images_match(got, want, 0.02, 2e-3)
     assert m.ok, m
@@ -200,7 +200,7 @@ def test_make_scene_mesh_renders_like_the_converted_scene():
     """The port's own make_scene builds the same scene as JAX's: the
     render of each is the same image."""
     jcs, tcs = _cameras()
-    cfg = T.RenderConfig(width=32, height=24, spp=1, max_depth=4)
+    cfg = T.RenderConfig(width=32, height=24, spp=1, max_depth=4, backend="torch")
     a = T.render(_pallas_test_scene(T, tmesh, True), tcs, cfg, frame_seed=3)
     b = T.render(T.from_reference(_pallas_test_scene(J, jmesh, True)), tcs, cfg, frame_seed=3)
     assert torch.equal(a, b)
@@ -222,7 +222,8 @@ def test_golden_mesh_ico():
     """The mesh_ico_48x36 golden through backend='torch', at
     test_goldens.py's thresholds for it."""
     img = T.render(_mesh_ico_scene(), MESH_CAMERA,
-                   T.RenderConfig(width=48, height=36, spp=2, max_depth=4), frame_seed=11)
+                   T.RenderConfig(width=48, height=36, spp=2, max_depth=4,
+                                  backend="torch"), frame_seed=11)
     m = T.images_match(img, np.load(os.path.join(GOLDEN_DIR, "mesh_ico_48x36.npy")),
                        0.005, 1e-4)
     assert m.ok, m

@@ -186,7 +186,8 @@ def test_cornell_matches_jax_pieces_over_four_samples():
                             samples=range(4), nee=True, mis=True)
     _assert_match(got, want, 0.015, 1e-3)
     torch_frame = T.render(T.cornell_box_scene(), T.cornell_camera(), T.RenderConfig(
-        width=48, height=48, spp=4, max_depth=6, sky_intensity=0.0, nee=True, mis=True),
+        width=48, height=48, spp=4, max_depth=6, sky_intensity=0.0, nee=True, mis=True,
+        backend="torch"),
         frame_seed=13)
     assert torch.equal(torch_frame, got)
 
@@ -198,7 +199,7 @@ def test_cornell_matches_jax_pieces_over_four_samples():
                                         ("nee_mis_48x36.npy", True)])
 def test_nee_goldens(golden, mis):
     cfg = T.RenderConfig(width=48, height=36, spp=4, max_depth=6, sky_intensity=0.0,
-                         nee=True, mis=mis, russian_roulette_depth=3)
+                         nee=True, mis=mis, russian_roulette_depth=3, backend="torch")
     img = T.render(_t_nee_scene(), T_BASE_CAMERA, cfg, frame_seed=9)
     _assert_match(img, _golden(golden), 0.005, 1e-4)
 
@@ -224,7 +225,7 @@ def test_nee_validation_errors():
         tmk.render_reference(T.base_scene(), cam, nee=True, **kw)
     with pytest.raises(ValueError, match="emissive lights"):
         T.render(T.base_scene(), T_BASE_CAMERA,
-                 T.RenderConfig(width=8, height=8, max_depth=2, nee=True))
+                 T.RenderConfig(width=8, height=8, max_depth=2, nee=True, backend="torch"))
     glow = _t_many_lights_scene()
     no_tri = T.Scene(spheres=glow.spheres, mesh=glow.mesh, bvh=glow.bvh, lights=glow.lights)
     assert no_tri.mesh_has_emissive

@@ -46,7 +46,8 @@ def _jax_render(cfg_kw, seed, backend="jax", scene=None, camera=BASE_CAMERA):
 
 def _torch_render(cfg_kw, seed, scene=None, camera=T_BASE_CAMERA):
     scene = T.base_scene() if scene is None else scene
-    return T.render(scene, camera, T.RenderConfig(**cfg_kw), frame_seed=seed)
+    return T.render(scene, camera, T.RenderConfig(**{"backend": "torch", **cfg_kw}),
+                    frame_seed=seed)
 
 
 def _assert_match(a, b, flip_frac, mean_tol):

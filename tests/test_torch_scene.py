@@ -143,7 +143,7 @@ def test_emissive_scenes_convert_and_render_without_nee(which):
     want = np.asarray(J.render(js, BASE_CAMERA, J.RenderConfig(**kw), frame_seed=jnp.uint32(9)))
     got = T.render(ts, T.CameraSettings.make([0.0, 0.0, 1.0], [0.0, 0.0, -1.0],
                                              [0.0, 1.0, 0.0], 60.0, 0.0, 2.0),
-                   T.RenderConfig(**kw), frame_seed=9)
+                   T.RenderConfig(backend="torch", **kw), frame_seed=9)
     assert got.max() > 1.0  # a light is seen
     m = T.images_match(got, want, 0.02, 2e-3)
     assert m.ok, m
@@ -221,14 +221,15 @@ def test_degenerate_camera_raises():
 @pytest.mark.parametrize("kw,item", [
     (dict(backend="wavefront"), "item 13"),
     (dict(nee=True), None),
-    (dict(rng="threefry"), "item 2"),
-    (dict(rng="wgsl", parity=True), "item 2"),
+    (dict(rng="threefry", backend="torch"), "item 2"),
+    (dict(rng="wgsl", parity=True, backend="torch"), "item 2"),
     (dict(sampler="sobol"), None),
-    (dict(backend="cuda", adaptive_tol=0.05), "K1f"),
+    (dict(backend="cuda", adaptive_tol=0.05), None),
 ])
 def test_config_names_the_roadmap_item_of_unported_modes(kw, item):
     """Unported modes raise naming their item; ported ones (item None: NEE
-    since K1b, the samplers since K1e) are accepted."""
+    since K1b, the samplers since K1e, adaptive sampling since K1f) are
+    accepted."""
     if item is None:
         cfg = T.RenderConfig(**kw)
         assert all(getattr(cfg, k) == v for k, v in kw.items())
@@ -240,7 +241,7 @@ def test_config_names_the_roadmap_item_of_unported_modes(kw, item):
 @pytest.mark.parametrize("kw", [
     dict(width=0), dict(spp=0), dict(max_depth=0), dict(parity=True),
     dict(mis=True), dict(clamp=-1.0), dict(clamp=1.0, integrator="normal"),
-    dict(adaptive_tol=0.1), dict(regenerate="on"), dict(backend="pallas"),
+    dict(adaptive_tol=0.1, backend="torch"), dict(regenerate="on"), dict(backend="pallas"),
     dict(backend="cuda", rng="threefry"),
 ])
 def test_config_cross_field_checks(kw):
