@@ -5,9 +5,9 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the megakernel from gpu_ray_tracing_tpu_torch/ops/cuda/megakernel.cu
-with nvcc, then drives the port's main paths on the card in phases, one JSON
-line each:
+It builds gpu_ray_tracing_tpu_torch/ops/cuda/megakernel.cu (the render kernels
+of both engines) and probes.cu with nvcc, side by side, then drives the port's
+main paths on the card in phases, one JSON line each:
 
   1. device       the card, its compute capability and power limit
   2. build        nvcc version, build seconds, the kernel's registers
@@ -72,12 +72,38 @@ line each:
                   analytic cases, and at the main path's size rays traced, the
                   kernel with the counter on and off, bounce Mrays/s
 
+ 20. wavefront_vs_plain  the wavefront bounce kernel (K2) vs its plain version
+                  (wavefront_bounce_reference) on the One-Weekend 320x180 state
+                  after ray generation, 6 bounces, each fed the kernel's previous
+                  state: rays whose live flag differs <= 1%, the state planes and
+                  the finished samples of agreeing rays within 2e-4 mean; again
+                  on _nee_scene (nee+mis) and with per-ray (sample, bounce); then
+                  render_wavefront vs render_wavefront_reference, 320x180, 4 spp,
+                  depth 30, at 1% / 2e-4
+ 21. wavefront_path  the main frame through render(backend='wavefront'),
+                  regenerate off: timed as phase 6, bit-equal to phase 6's frame,
+                  with its bounce launches, compactions, host syncs and live rays
+                  per bounce; regenerate on: timed, <= 3e-5 from the first, twice
+                  for the run-to-run difference; both split into device time by
+                  kernel and idle time (torch.profiler); per-ray against per-warp-
+                  row compaction and the sort keys, timed; and small frames on
+                  the other routes, each bit-equal to render_cuda
+ 22. fma_peak     the FP32 probe (K3) vs its plain version at 32 rounds, then
+                  timed on a card-filling grid: TFLOP/s per mix and chain count
+                  and the share of the nominal 67
+ 23. bf16_probe   the f32 / packed-bf16 probe (K4) vs its plain version at 32
+                  rounds, then microseconds per launch on the 32x128 tile and on
+                  a card-filling grid, product and compare forms
+
 Every phase that launches the megakernel gates its launch count on its own
 route key (megakernel:brute, :sphere_bvh, :mesh_bvh, suffixed +nee,
-+sobol/+stratified, +adaptive and +rays when the launch ran them).  Then
-the kernels line (the megakernel once per path: brute, sphere_bvh,
-mesh_bvh, mesh_bvh+nee, brute+nee, brute+sobol, brute+adaptive,
-mesh_bvh+nee+adaptive, and the two probes), each row with its least time
++sobol/+stratified, +adaptive and +rays when the launch ran them); the
+wavefront bounce kernel counts under wavefront:<route>[+regen][+rays], its
+ray generation under wavefront_raygen, the probes under fma_peak and
+bf16_probe.  Then the kernels line (the megakernel once per path: brute,
+sphere_bvh, mesh_bvh, mesh_bvh+nee, brute+nee, brute+sobol, brute+adaptive,
+mesh_bvh+nee+adaptive, the hash and sampler probes, wavefront:brute,
+wavefront:brute+regen, fma_peak and bf16_probe), each row with its least time
 on the card (`bound_ms`, from the rays its counters measured at that row's
 shape), the card's `nvidia-smi` name and power limit, and last
 {"ok": true, "device": {...}}.  A failed gate exits nonzero before that line.
@@ -108,7 +134,11 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(REPO, "tests", "goldens")
 KERNEL_SOURCE = "gpu_ray_tracing_tpu_torch/ops/cuda/megakernel.cu"
+PROBES_SOURCE = "gpu_ray_tracing_tpu_torch/ops/cuda/probes.cu"
 REPLACES = "gpu_ray_tracing_tpu/ops/pallas/megakernel.py:1420"
+WAVEFRONT_REPLACES = "gpu_ray_tracing_tpu/ops/pallas/wavefront.py:87"
+FMA_PEAK_REPLACES = "benchmarks/vpu_roofline.py:135"
+BF16_PROBE_REPLACES = "benchmarks/bf16_probe.py:45"
 # The probes launch the kernel's hash and sampler functions alone: the
 # draws of `_kernel` (megakernel.py:1509) and its sampler remaps (:1517).
 PROBE_REPLACES = {"hash_probe": "gpu_ray_tracing_tpu/ops/pallas/megakernel.py:1509",
@@ -124,8 +154,10 @@ NIGHT_CAMERA = dict(look_from=[0.0, 1.3, 4.0], look_at=[0.0, 0.7, -1.0], vup=[0.
                     field_of_view=45.0, defocus_angle=0.0, focus_distance=10.0)
 
 # The least time of a kernel row, from the H100 SXM's peak rates at 700 W:
-# FP32 outside the tensor cores, and HBM.
+# FP32 and BF16 outside the tensor cores (data sheet; the BF16 rate from
+# NVIDIA's H100 architecture white paper, twice FP32's), and HBM.
 FP32_PEAK = 67e12
+BF16_PEAK = 133.8e12
 HBM_RATE = 3.35e12
 # FP32 operations of one primitive test, counted from the JAX kernel's code
 # (a fused multiply-add as 2; compares and selects not counted):
@@ -260,6 +292,85 @@ def bound(T, mk, sc, rays_traced: float, out_bytes: int) -> dict:
                 library_ms=None)
 
 
+def bounce_vs_plain(wf, sc, cam, w: int, h: int, *, regen: bool, bounces: int = 6,
+                    **engine_kw) -> dict:
+    """The wavefront kernels against their plain versions on the (w x h)
+    state after ray generation: `bounces` bounces, each fed the KERNEL's
+    previous state so that a flipped ray does not compound.  Per bounce:
+    the share of live rays whose live flag differs afterwards, and over the
+    agreeing rays the mean |difference| of the state planes (rays that go
+    on) and of the finished samples (rays that ended).  With `regen` the
+    rays mix samples 0-2 and start at bounce 0 or 1."""
+    dev, n = sc.device, w * h
+    eng = wf.Engine(sc, cam, 3, 30, 1e-3, total_width=w, **engine_kw)
+    plain = wf.Engine(sc, cam, 3, 30, 1e-3, total_width=w, plain=True, **engine_kw)
+    state_f, state_i = wf.new_state(n, regen, dev)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    state_i[wf.PID], state_i[wf.PIX] = ids, ids
+    if regen:
+        state_i[wf.SMP] = ids % 3
+    pf, pi = state_f.clone(), state_i.clone()
+    wf.wavefront_raygen(eng, state_f, state_i, n, regen=regen, sample=1)
+    wf.wavefront_raygen(plain, pf, pi, n, regen=regen, sample=1)
+    raygen_err = float((state_f - pf).abs().max())
+    if regen:
+        state_i[wf.BNC] = ids % 2
+    samples = 3 if regen else 1
+    out = torch.zeros((samples * n, 3), device=dev)
+    p_out = torch.zeros_like(out)
+    rows = []
+    for b in range(bounces):
+        before = state_f[wf.LIVE] > 0.5
+        slot = state_i[wf.PIX].long() + (state_i[wf.SMP].long() * n if regen else 0)
+        pf, pi = state_f.clone(), state_i.clone()
+        kw = dict(regen=regen, sample=1, bounce=b, sample_base=0, n_pixels=n)
+        wf.wavefront_bounce(eng, state_f, state_i, n, out=out, **kw)
+        wf.wavefront_bounce(plain, pf, pi, n, out=p_out, **kw)
+        live_k, live_p = state_f[wf.LIVE] > 0.5, pf[wf.LIVE] > 0.5
+        agree = before & (live_k == live_p)
+        on, ended = agree & live_k, agree & ~live_k
+        planes = float((state_f[:wf.LIVE, on] - pf[:wf.LIVE, on]).abs().mean()) if on.any() \
+            else 0.0
+        done = float((out[slot[ended]] - p_out[slot[ended]]).abs().mean()) if ended.any() \
+            else 0.0
+        rows.append(dict(bounce=b, live=int(before.sum()),
+                         live_differ=float((before & (live_k != live_p)).sum() /
+                                           max(int(before.sum()), 1)),
+                         planes_mean_abs=planes, finished_mean_abs=done))
+    return dict(raygen_max_abs=raygen_err, bounces=rows,
+                ok=raygen_err <= 1e-5 and all(
+                    r["live_differ"] <= 0.01 and r["planes_mean_abs"] < 2e-4
+                    and r["finished_mean_abs"] < 2e-4 for r in rows))
+
+
+def device_breakdown(fn) -> dict:
+    """Device milliseconds of one call of fn by kernel (torch.profiler): the
+    wavefront bounce kernel, its ray generation, and everything else (the
+    torch kernels of the compaction, the fold and the copies); and from the
+    same call the span from the first kernel's start to the last one's end
+    and the share of it in which no kernel ran.  The profiler slows the
+    host, so the idle share is that of a profiled frame."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups = {"bounce_kernel_ms": 0.0, "raygen_kernel_ms": 0.0, "other_kernels_ms": 0.0}
+    first, last = float("inf"), 0.0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        key = ("bounce_kernel_ms" if "wavefront_bounce_kernel" in ev.name else
+               "raygen_kernel_ms" if "wavefront_raygen_kernel" in ev.name else
+               "other_kernels_ms")
+        groups[key] += ev.time_range.elapsed_us() / 1e3
+        first, last = min(first, ev.time_range.start), max(last, ev.time_range.end)
+    span = (last - first) / 1e3
+    return dict(groups, profiled_device_span_ms=span,
+                device_idle_share=1.0 - sum(groups.values()) / span)
+
+
 def lit_scenes(T) -> dict:
     """The lit scenes of benchmarks/parity_check.py (_nee_scene,
     _many_lights_scene) and the CLI's night scene (cli.py:116-123)."""
@@ -296,6 +407,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--main-path-only", action="store_true",
                     help="build, time the main path over 20 frames, print one JSON line")
+    ap.add_argument("--save-frame", metavar="PATH",
+                    help="with --main-path-only: save the timed frame as a .npy file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
@@ -304,6 +417,9 @@ def main() -> int:
     import gpu_ray_tracing_tpu_torch as T
     from gpu_ray_tracing_tpu_torch.ops.cuda import build
     from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as mk
+    if not args.main_path_only:
+        from gpu_ray_tracing_tpu_torch.ops.cuda import wavefront as wf
+        from gpu_ray_tracing_tpu_torch.utils import roofline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -324,16 +440,27 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.load()
-    info = build.build_info()
-    emit({"phase": "build", "nvcc": info.nvcc_version, "compiled": info.compiled,
-          "nvcc_seconds": info.seconds, "load_seconds": time.perf_counter() - t0,
-          "flags": " ".join(build.NVCC_FLAGS), "ptxas": ptxas_instances(info.ptxas_report)})
-    gate("build", info.compiled, "the library was not compiled from the checkout")
+    if args.main_path_only:
+        # Only what every checkout of the port has: the A/B runs this
+        # script inside an older checkout too.
+        build.load()
+        infos = {"megakernel": build.build_info()}
+    else:
+        infos = build.build_all()
+    info = infos["megakernel"]
+    emit({"phase": "build", "nvcc": info.nvcc_version,
+          "compiled": {k: v.compiled for k, v in infos.items()},
+          "nvcc_seconds": {k: v.seconds for k, v in infos.items()},
+          "load_seconds": time.perf_counter() - t0, "flags": " ".join(build.NVCC_FLAGS),
+          "ptxas": [ln for v in infos.values() for ln in ptxas_instances(v.ptxas_report)]})
+    gate("build", all(v.compiled for v in infos.values()),
+         "a library was not compiled from the checkout")
     if args.main_path_only:
         ms, img, launches = time_main_path(T, mk, 20)
         emit({"phase": "main_path_only", "repo": REPO, "ms_per_frame": ms, "repeats": 20,
               "mean": float(img.mean()), "launches": launches, "card": smi})
+        if args.save_frame:
+            np.save(args.save_frame, img.cpu().numpy())
         return 0
 
     # 3. hash probe
@@ -453,6 +580,7 @@ def main() -> int:
     cfg = T.RenderConfig(width=w, height=h, spp=spp, max_depth=30, backend="cuda")
     main_scene, main_cam = T.one_weekend_scene(0), T.CameraSettings.default()
     frame_ms, img, launches = time_main_path(T, mk, 5)
+    main_img = img
     finite = bool(torch.isfinite(img).all())
     mean = float(img.mean())
     shape_ok = tuple(img.shape) == (h, w, 3)
@@ -834,6 +962,228 @@ def main() -> int:
     gate("ray_count", counters_exact, "the kernel's counters differ from the plain version's")
     gate("ray_count", all(analytic), f"analytic cases: {analytic}")
 
+    # 20. the wavefront kernels (K2) against their plain versions
+    cam20 = T.derive_camera(main_cam, 320, 180).to(dev)
+    nee_cfg = T.RenderConfig(width=320, height=240, spp=4, max_depth=8, sky_intensity=0.0,
+                             nee=True, mis=True, russian_roulette_depth=3)
+    nee_cam = T.derive_camera(base_cam, 320, 240).to(dev)
+    for case, sc, cam, w, h, regen, eng_kw in (
+        ("one_weekend", main_dev, cam20, 320, 180, False, {}),
+        ("nee_mis", lit["nee"].to(dev), nee_cam, 320, 240, False,
+         dict(nee=True, mis=True, sky_intensity=0.0, russian_roulette_depth=3)),
+        ("one_weekend_per_ray", main_dev, cam20, 320, 180, True, {}),
+        ("nee_mis_per_ray", lit["nee"].to(dev), nee_cam, 320, 240, True,
+         dict(nee=True, mis=True, sky_intensity=0.0, russian_roulette_depth=3)),
+    ):
+        mk.LAUNCHES.clear()
+        r = bounce_vs_plain(wf, sc, cam, w, h, regen=regen, **eng_kw)
+        emit({"phase": "wavefront_vs_plain", "case": case, "size": [w, h], "per_ray": regen,
+              "launches": dict(mk.LAUNCHES), "limits": [0.01, 2e-4], **r})
+        gate("wavefront_vs_plain", r["ok"], f"{case}: {r}")
+        gate("wavefront_vs_plain", sum(v for k, v in mk.LAUNCHES.items()
+                                       if k.startswith("wavefront:")) == 6,
+             f"{case}: expected 6 bounce launches, counted {dict(mk.LAUNCHES)}")
+    kw20 = dict(width=320, height=180, spp=4, max_depth=30, t_min=1e-3, frame_seed=3)
+    for regen in (False, True):
+        wf.render_wavefront(main_dev, cam20, regenerate=regen, **kw20)
+        k_ms, k_img = cuda_ms(lambda: wf.render_wavefront(main_dev, cam20, regenerate=regen,
+                                                          **kw20), 3)
+        p_ms, p_img = cuda_ms(lambda: wf.render_wavefront_reference(
+            main_dev, cam20, regenerate=regen, **kw20), 1)
+        m = T.images_match(k_img, p_img, 0.01, 2e-4)
+        emit({"phase": "wavefront_vs_plain", "case": "engine", "regenerate": regen,
+              "size": [320, 180], "spp": 4, "max_depth": 30, "flip_frac": m.flip_frac,
+              "mean_abs": m.mean_abs, "max_abs": m.max_abs, "kernel_ms": k_ms,
+              "plain_ms": p_ms, "card": smi, "ok": m.ok})
+        gate("wavefront_vs_plain", m.ok, f"engine, regenerate {regen}: {m}")
+
+    # 21. the main frame through backend='wavefront', regenerate off and on
+    wave = {}
+    for mode in ("off", "on"):
+        wcfg = T.RenderConfig(width=1280, height=720, spp=16, max_depth=30,
+                              backend="wavefront", regenerate=mode)
+        run = lambda: T.render(main_scene, main_cam, wcfg, frame_seed=7)
+        mk.LAUNCHES.clear()
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w_ms, w_img = cuda_ms(run, 5)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 5
+        w_launches, stats = dict(mk.LAUNCHES), dict(wf.LAST_RUN)
+        again = run()
+        busy = device_breakdown(run)
+        p_ms, p_img = cuda_ms(lambda: wf.render_wavefront_reference(
+            main_dev, cam6, regenerate=mode == "on", **kw_main), 1)
+        route = "wavefront:brute" + ("+regen" if mode == "on" else "")
+        live = stats.pop("live_per_iteration")
+        m21 = T.images_match(w_img, p_img, 0.01, 2e-4)
+        wave[mode] = dict(ms=w_ms, img=w_img, launches=w_launches, plain_ms=p_ms, route=route,
+                          max_abs=m21.max_abs, stats=stats)
+        vs_mega = float((w_img - main_img).abs().max())
+        emit({"phase": "wavefront_path", "regenerate": mode, "size": [1280, 720], "spp": 16,
+              "max_depth": 30, "ms_per_frame": w_ms, "host_ms_per_frame": host_ms,
+              "megakernel_ms_per_frame": frame_ms, "max_abs_vs_megakernel": vs_mega,
+              "bit_equal_to_megakernel": bool(torch.equal(w_img, main_img)),
+              "max_abs_between_two_runs": float((again - w_img).abs().max()),
+              "finite": bool(torch.isfinite(w_img).all()), "launches": w_launches,
+              "per_frame": stats, "live_rays_per_iteration": live,
+              "live_share_per_iteration": [v / (1280 * 720 * (16 if mode == "off" else 1))
+                                           for v in live],
+              **busy,
+              "plain_ms": p_ms, "vs_plain": {"flip_frac": m21.flip_frac,
+                                              "mean_abs": m21.mean_abs,
+                                              "max_abs": m21.max_abs, "limits": [0.01, 2e-4]},
+              "card": smi})
+        gate("wavefront_path", bool(torch.isfinite(w_img).all()), f"{mode}: not finite")
+        gate("wavefront_path", m21.ok, f"{mode}: against the plain engine's frame: {m21}")
+        gate("wavefront_path", w_launches == {route: 7 * stats["bounce_launches"],
+                                              "wavefront_raygen": 7 * stats["raygen_launches"]}
+             and stats["bounce_launches"] > 0,
+             f"{mode}: 7 frames of {stats['bounce_launches']} bounce launches, counted "
+             f"{w_launches}")
+        gate("wavefront_path", stats["live_ray_bounces"] == main_rays,
+             f"{mode}: {stats['live_ray_bounces']} live ray-bounces, the megakernel traced "
+             f"{main_rays} rays")
+        gate("wavefront_path", float((again - w_img).abs().max()) == 0.0,
+             f"{mode}: two runs differ")
+        if mode == "off":
+            gate("wavefront_path", bool(torch.equal(w_img, main_img)),
+                 f"regenerate off differs from the megakernel's frame by {vs_mega}")
+        else:
+            gate("wavefront_path", vs_mega <= 3e-5,
+                 f"regenerate on differs from the megakernel's frame by {vs_mega}")
+    # Scheduling choices, timed on the same frame (the image does not change).
+    variants = {}
+    for label, extra in (("off", {}),
+                         ("off,sort=live", dict(sort="live")),
+                         ("off,compact_threshold=0.5", dict(compact_threshold=0.5)),
+                         ("off,sort=live,compact_threshold=0.5",
+                          dict(sort="live", compact_threshold=0.5)),
+                         ("off,sort=live,compact_threshold=0.25",
+                          dict(sort="live", compact_threshold=0.25)),
+                         ("off,compact_threshold=0", dict(compact_threshold=0.0)),
+                         ("on", dict(regenerate=True)),
+                         ("on,sort=live", dict(regenerate=True, sort="live")),
+                         ("on,sort=octant-flat", dict(regenerate=True, sort="octant-flat")),
+                         ("on,sort=live,compact_threshold=0.5",
+                          dict(regenerate=True, sort="live", compact_threshold=0.5)),
+                         ("on,compact_threshold=0",
+                          dict(regenerate=True, compact_threshold=0.0))):
+        wf.render_wavefront(main_dev, cam6, **kw_main, **extra)
+        v_ms, v_img = cuda_ms(lambda: wf.render_wavefront(main_dev, cam6, **kw_main, **extra), 3)
+        variants[label] = dict(ms=v_ms, host_syncs=wf.LAST_RUN["host_syncs"],
+                               bounce_launches=wf.LAST_RUN["bounce_launches"],
+                               compactions=wf.LAST_RUN["compactions"],
+                               equal=bool(torch.equal(v_img, main_img)))
+    # The sort on a BVH route: config 3's frame (a sphere BVH, depth 50).
+    sc3, cam3, kw3 = paths["config3"]["inputs"]
+    for label, extra in (("config3,off,sort=octant", {}), ("config3,off,sort=live",
+                                                           dict(sort="live"))):
+        ref3 = mk.render_cuda(sc3, cam3, **kw3)
+        wf.render_wavefront(sc3, cam3, **kw3, **extra)
+        v_ms, v_img = cuda_ms(lambda: wf.render_wavefront(sc3, cam3, **kw3, **extra), 3)
+        variants[label] = dict(ms=v_ms, host_syncs=wf.LAST_RUN["host_syncs"],
+                               bounce_launches=wf.LAST_RUN["bounce_launches"],
+                               compactions=wf.LAST_RUN["compactions"],
+                               equal=bool(torch.equal(v_img, ref3)))
+    emit({"phase": "wavefront_path", "scheduling": variants, "card": smi})
+    gate("wavefront_path", all(v["equal"] for v in variants.values()),
+         f"a scheduling option changed the image: {variants}")
+    # The other routes at small sizes, each bit-equal to render_cuda.
+    lit_kw = dict(nee=True, mis=True, sky_intensity=0.0)
+    small = {}
+    mk.LAUNCHES.clear()
+    for case, sc, cam_s, w, h, kw in (
+        ("sphere_bvh", final, main_cam, 320, 180, dict(spp=2, max_depth=50)),
+        ("icosphere4", mesh_scene(4), mesh_cam, 320, 240, dict(spp=2, max_depth=8)),
+        ("cornell_nee_mis", T.cornell_box_scene(), T.cornell_camera(), 128, 96,
+         dict(spp=4, max_depth=8, **lit_kw)),
+        ("many_lights", lit["many_lights"], base_cam, 320, 240,
+         dict(spp=4, max_depth=4, **lit_kw)),
+        ("sobol", main_scene, main_cam, 160, 90, dict(spp=4, max_depth=8,
+                                                      sampler_spec=("sobol", 5))),
+        ("clamp", lit["night"], T.CameraSettings.make(**NIGHT_CAMERA), 160, 90,
+         dict(spp=4, max_depth=8, nee=True, mis=True, clamp=0.5)),
+        ("odd_50x31", main_scene, main_cam, 50, 31, dict(spp=3, max_depth=12, sample_index=5)),
+    ):
+        sc = T.as_scene(sc).to(dev)
+        cam = T.derive_camera(cam_s, w, h).to(dev)
+        kw = dict(width=w, height=h, t_min=1e-3, frame_seed=3, **kw)
+        want, want_rays = mk.render_cuda(sc, cam, return_ray_count=True, **kw)
+        got, rays = wf.render_wavefront(sc, cam, return_ray_count=True, **kw)
+        small[case] = dict(image_equal=bool(torch.equal(got, want)),
+                           ray_counts_equal=bool(torch.equal(rays, want_rays)),
+                           image_equal_without_counter=bool(torch.equal(
+                               wf.render_wavefront(sc, cam, **kw), want)))
+        if not kw.get("clamp"):
+            small[case]["regenerate_max_abs"] = float(
+                (wf.render_wavefront(sc, cam, regenerate=True, **kw) - want).abs().max())
+    emit({"phase": "wavefront_path", "routes_vs_render_cuda": small,
+          "launches": {k: v for k, v in mk.LAUNCHES.items() if k.startswith("wavefront")}})
+    for case, r in small.items():
+        gate("wavefront_path", r["image_equal"] and r["ray_counts_equal"]
+             and r["image_equal_without_counter"], f"{case}: {r}")
+        gate("wavefront_path", r.get("regenerate_max_abs", 0.0) <= 3e-5, f"{case}: {r}")
+
+    # 22. the FP32 probe (K3): against its plain version, then timed
+    xs = torch.linspace(0.5, 1.5, 256 * 128, device=dev).reshape(256, 128)
+    peak_errs = {}
+    for mix in roofline.MIXES:
+        for chains in roofline.CHAINS:
+            got = roofline.fma_peak(xs, 32, mix, chains)
+            want = roofline.fma_peak_reference(xs, 32, mix, chains)
+            peak_errs[f"{mix}x{chains}"] = float(((got - want).abs() / want.abs()).max())
+    mk.LAUNCHES.clear()
+    peak = roofline.measure_peak()
+    peak_launches = mk.LAUNCHES["fma_peak"]
+    best = peak["best"]
+    x_card = torch.full((peak["n"],), 1.0, dtype=torch.float32, device=dev)
+    peak_plain_ms, peak_plain = cuda_ms(lambda: roofline.fma_peak_reference(
+        x_card, peak["rounds"], "fma", best["fma"]["chains"]), 1)
+    peak_full = roofline.fma_peak(x_card, peak["rounds"], "fma", best["fma"]["chains"])
+    peak_full_err = float(((peak_full - peak_plain).abs() / peak_plain.abs()).max())
+    emit({"phase": "fma_peak", "max_rel_err_vs_plain_32_rounds": peak_errs,
+          "limits": {"slab": 1.2e-7, "fma": 1e-5}, "n": peak["n"], "rounds": peak["rounds"],
+          "runs": peak["runs"], "best_tflops": {m: best[m]["tflops"] for m in best},
+          "best_share_of_nominal": {m: best[m]["share_of_nominal"] for m in best},
+          "nominal_tflops": roofline.NOMINAL_FP32 / 1e12, "launches": peak_launches,
+          "max_rel_err_vs_plain_full_rounds": peak_full_err, "plain_ms": peak_plain_ms,
+          "card": smi})
+    gate("fma_peak", all(v <= (1.2e-7 if k.startswith("slab") else 1e-5)
+                         for k, v in peak_errs.items()) and peak_full_err <= 1e-5,
+         f"the kernel differs from its plain version: {peak_errs}, {peak_full_err}")
+    gate("fma_peak", all(r["share_of_nominal"] <= 1.05 for r in peak["runs"]),
+         "a rate above 105% of the nominal peak: the operations are miscounted")
+    gate("fma_peak", peak_launches == 6 * (peak["repeats"] + 1),
+         f"expected {6 * (peak['repeats'] + 1)} launches, counted {peak_launches}")
+
+    # 23. the f32 / packed-bf16 probe (K4)
+    slab_errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for compare in (False, True):
+            got = roofline.slab_dtype(xs[:32], 32, dt, compare)
+            want = roofline.slab_dtype_reference(xs[:32], 32, dt, compare)
+            slab_errs[f"{str(dt).split('.')[1]},compare={compare}"] = float(
+                (got - want).abs().max())
+    mk.LAUNCHES.clear()
+    slab = roofline.bf16_probe()
+    slab_launches = mk.LAUNCHES["bf16_probe"]
+    card_run = next(r for r in slab["runs"] if r["size"] == "card" and not r["compare"])
+    x_slab = torch.linspace(0.5, 1.5, card_run["n"], dtype=torch.float32, device=dev)
+    slab_plain_ms, slab_plain = cuda_ms(lambda: roofline.slab_dtype_reference(
+        x_slab, slab["rounds"], torch.bfloat16), 1)
+    slab_full_err = float((roofline.slab_dtype(x_slab, slab["rounds"], torch.bfloat16)
+                           - slab_plain).abs().max())
+    emit({"phase": "bf16_probe", "max_abs_err_vs_plain_32_rounds": slab_errs,
+          "rounds": slab["rounds"], "runs": slab["runs"], "launches": slab_launches,
+          "max_abs_err_vs_plain_full_rounds": slab_full_err, "plain_ms": slab_plain_ms,
+          "card": smi})
+    gate("bf16_probe", all(v == 0.0 for v in slab_errs.values()) and slab_full_err == 0.0,
+         f"the kernel differs from its plain version: {slab_errs}, {slab_full_err}")
+    gate("bf16_probe", slab_launches == 8 * (slab["repeats"] + 1),
+         f"expected {8 * (slab['repeats'] + 1)} launches, counted {slab_launches}")
+
     def rays_of(sc, cam, kw):
         return float(mk.render_cuda(sc, cam, return_ray_count=True, **kw)[1].double().sum())
 
@@ -872,6 +1222,47 @@ def main() -> int:
              library_ms=None)
         for name, p in probes.items()
     ]
+    # K2: the wavefront bounce kernel on the main frame.  Its least time is
+    # the megakernel's (the same rays and primitive tests) or the state
+    # traffic: every live ray reads 16 words of state (18 with per-ray sample
+    # and bounce) and writes 14 (15) per bounce.
+    for mode, words in (("off", 16 + 14), ("on", 18 + 15)):
+        wv = wave[mode]
+        t_ops = main_bound["bound_ms"]
+        t_bytes = wv["stats"]["live_ray_bounces"] * words * 4 / HBM_RATE * 1e3
+        rows.append(dict(kernel, name=wv["route"], path=wv["route"],
+                         replaces=WAVEFRONT_REPLACES,
+                         launches=wv["launches"].get(wv["route"], 0),
+                         max_abs_err=wv["max_abs"], ms=wv["ms"], plain_ms=wv["plain_ms"],
+                         bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes else "bytes",
+                         state_traffic_ms=t_bytes, rays_traced=main_rays,
+                         bound_is_lower_bound=False, library_ms=None))
+    # K3 and K4: their counted operations over the nominal peak for their
+    # type (K4's body: 9 operations a round and element; the row times the
+    # packed bf16 kernel, so it divides by the non-tensor BF16 peak, and
+    # carries the f32 kernel's time and bound beside it).
+    fma_best = best["fma"]
+    rows.append(dict(route="cuda", source=PROBES_SOURCE, replaces=FMA_PEAK_REPLACES,
+                     name="fma_peak", path=f"fma x{fma_best['chains']}",
+                     launches=peak_launches, max_abs_err=peak_full_err, ms=fma_best["ms"],
+                     plain_ms=peak_plain_ms, bound_ms=fma_best["flops"] / FP32_PEAK * 1e3,
+                     bound_by="operations", library_ms=None,
+                     measured_tflops={m: best[m]["tflops"] for m in best}))
+    rows.append(dict(route="cuda", source=PROBES_SOURCE, replaces=BF16_PROBE_REPLACES,
+                     name="bf16_probe", path="bf16, card-filling grid",
+                     launches=slab_launches, max_abs_err=slab_full_err,
+                     ms=card_run["bf16_us"] / 1e3, plain_ms=slab_plain_ms,
+                     bound_ms=9 * slab["rounds"] * card_run["n"] / BF16_PEAK * 1e3,
+                     bound_by="operations", library_ms=None,
+                     f32_ms=card_run["f32_us"] / 1e3,
+                     f32_bound_ms=9 * slab["rounds"] * card_run["n"] / FP32_PEAK * 1e3))
+    # The main path's bound at the FP32 rate K3 measured on the traversal
+    # mix, beside the nominal one (the nominal stays `bound_ms`).
+    for row in rows:
+        if row["name"] in ("megakernel:brute", "wavefront:brute", "wavefront:brute+regen"):
+            row["bound_ms_at_measured_slab_rate"] = (
+                main_rays * ray_flops(T.as_scene(main_dev)) / (best["slab"]["tflops"] * 1e12) * 1e3)
     emit({"kernels": rows})
     if failures:
         for f in failures:

@@ -5,8 +5,10 @@ or sphere BVH) and triangle meshes behind a BVH, lit by the sky or by
 sphere and triangle lights (next-event estimation with MIS), under the
 independent, stratified or Sobol sampler, in one shot, progressively, or
 adaptively per tile, with a hand-written sm_90a megakernel (backend='cuda',
-the default) or the plain PyTorch integrator (backend='torch').  It
-imports torch and numpy, never jax.
+the default), the wavefront engine's sm_90a kernels (backend='wavefront',
+one launch per bounce over compacted rays, with ray regeneration) or their
+plain PyTorch versions (backend='torch', 'wavefront_torch').  It imports
+torch and numpy, never jax.
 
     from gpu_ray_tracing_tpu_torch import (
         CameraSettings, RenderConfig, one_weekend_scene, render)
@@ -85,6 +87,10 @@ from gpu_ray_tracing_tpu_torch.ops.bvh import (
     validate_bvh,
 )
 from gpu_ray_tracing_tpu_torch.ops.cuda.megakernel import render_cuda, render_reference
+from gpu_ray_tracing_tpu_torch.ops.cuda.wavefront import (
+    render_wavefront,
+    render_wavefront_reference,
+)
 from gpu_ray_tracing_tpu_torch.utils.checkpoint import (
     checkpoint_path,
     load_accum,
@@ -105,7 +111,8 @@ __all__ = [
     "init_accum", "init_adaptive_accum", "load_accum", "load_obj", "make_mesh",
     "make_scene", "make_spheres", "merge_meshes", "one_weekend_scene", "orbit_pitch",
     "orbit_yaw", "progressive_step", "render", "render_animation", "render_cuda",
-    "render_fingerprint", "render_progressive", "render_reference", "save_accum",
+    "render_fingerprint", "render_progressive", "render_reference", "render_wavefront",
+    "render_wavefront_reference", "save_accum",
     "stack_camera_track", "strafe", "torus", "transform_mesh", "trefoil",
     "tri_light_id_per_face", "validate_bvh", "validate_camera", "zoom",
 ]

@@ -17,9 +17,21 @@ with config.nee/mis and config.sampler, through the config's backend:
                    current CUDA device.  It has no backward, so inputs that
                    require grad raise.  adaptive_tol > 0 runs its adaptive
                    spp loop.
+  backend='wavefront'  the wavefront engine on the card (render_wavefront:
+                   one kernel launch per bounce over compacted rays), the
+                   counterpart of JAX's 'wavefront'.  It needs a CUDA device
+                   and raises without one, like 'cuda'.  The path integrator
+                   only: the AOV integrators go to the megakernel.
+                   config.regenerate ('on', or 'auto' when more than one
+                   sample is traced) keeps one persistent ray pool across
+                   the samples.  With regeneration off its image equals
+                   'cuda''s bit for bit.
   backend='torch'  the plain PyTorch integrator (render_reference with
                    light_pick='lane'), on the device the scene lies on; the
                    counterpart of 'jax'.
+  backend='wavefront_torch'  the wavefront engine's plain version
+                   (render_wavefront_reference), on the device the scene
+                   lies on: how the CPU tests ask for the wavefront engine.
 
 Above 4 lights the two backends pick the NEE light differently, as JAX's
 'jax' and 'pallas' do: 'torch' per lane, 'cuda' once per (sample,
@@ -42,14 +54,19 @@ from gpu_ray_tracing_tpu_torch.ops.accumulate import (
     init_accum,
 )
 from gpu_ray_tracing_tpu_torch.ops.cuda.megakernel import render_cuda, render_reference
+from gpu_ray_tracing_tpu_torch.ops.cuda.wavefront import (
+    render_wavefront,
+    render_wavefront_reference,
+)
 from gpu_ray_tracing_tpu_torch.utils.config import RenderConfig
 
 
-def _cuda_device() -> torch.device:
+def _cuda_device(backend: str) -> torch.device:
     if not torch.cuda.is_available():
+        plain = "wavefront_torch" if backend == "wavefront" else "torch"
         raise RuntimeError(
-            "backend='cuda' needs an NVIDIA GPU and none is visible; use "
-            "backend='torch' for the plain PyTorch integrator"
+            f"backend={backend!r} needs an NVIDIA GPU and none is visible; use "
+            f"backend={plain!r} for its plain PyTorch version"
         )
     return torch.device("cuda", torch.cuda.current_device())
 
@@ -72,6 +89,9 @@ def _render(scene, camera: Camera, config: RenderConfig, *, frame_seed: int,
     one-shot renders set it, the fold-based progressive steps never do
     (they need exact per-sample counts)."""
     sc = as_scene(scene)
+    if config.backend in ("wavefront", "wavefront_torch") and config.integrator == "path":
+        return _render_wavefront(sc, camera, config, frame_seed=frame_seed,
+                                 sample_index=sample_index, spp=spp, **extra)
     kwargs = dict(
         width=config.width, height=config.height, sample_index=sample_index,
         frame_seed=frame_seed, max_depth=config.max_depth, t_min=config.t_min,
@@ -82,10 +102,31 @@ def _render(scene, camera: Camera, config: RenderConfig, *, frame_seed: int,
         adaptive_tol=config.adaptive_tol if adaptive else 0.0,
         adaptive_min_spp=config.adaptive_min_spp, **extra,
     )
-    if config.backend == "cuda":
-        device = _cuda_device()
+    if config.backend in ("cuda", "wavefront"):
+        device = _cuda_device(config.backend)
         return render_cuda(sc.to(device), camera.to(device), **kwargs)
     return render_reference(sc, camera.to(sc.device), light_pick="lane", **kwargs)
+
+
+def _render_wavefront(sc, camera: Camera, config: RenderConfig, *, frame_seed: int,
+                      sample_index: int, spp: int, **extra):
+    """The wavefront engine over samples sample_index .. sample_index + spp
+    - 1 (the JAX package's dispatch, api.py:193-211): on the card for
+    'wavefront', its plain version on the scene's device for
+    'wavefront_torch'."""
+    kwargs = dict(
+        width=config.width, height=config.height, sample_index=sample_index,
+        frame_seed=frame_seed, max_depth=config.max_depth, t_min=config.t_min,
+        t_max=config.t_max, russian_roulette_depth=config.russian_roulette_depth,
+        sky_intensity=config.sky_intensity, nee=config.nee, mis=config.mis,
+        clamp=config.clamp, spp=spp, sampler_spec=config.sampler_spec,
+        regenerate=(config.regenerate == "on"
+                    or (config.regenerate == "auto" and spp > 1)), **extra,
+    )
+    if config.backend == "wavefront":
+        device = _cuda_device(config.backend)
+        return render_wavefront(sc.to(device), camera.to(device), **kwargs)
+    return render_wavefront_reference(sc, camera.to(sc.device), **kwargs)
 
 
 def render(scene, camera: Camera | CameraSettings, config: RenderConfig, *,
@@ -205,8 +246,8 @@ def count_traced_rays(scene, camera: Camera | CameraSettings, config: RenderConf
     """Count the rays a render of `config` traces (measured, not inferred):
     closest-hit walks per live bounce plus NEE shadow rays whose light
     sample is valid, summed over all samples; an AOV integrator traces one
-    per sample.  The kernel's counters on 'cuda', the plain version's on
-    'torch'.  Returns `rays_traced` (a host f64 sum: a frame total can pass
+    per sample.  The megakernel's counters on 'cuda' and 'wavefront', the
+    plain version's on 'torch' and 'wavefront_torch'.  Returns `rays_traced` (a host f64 sum: a frame total can pass
     f32's exact-integer range), `primary_rays` (width * height * spp), the
     frame's width, height and spp, and with return_map=True the (H, W)
     per-pixel count plane as `map`."""
@@ -215,6 +256,13 @@ def count_traced_rays(scene, camera: Camera | CameraSettings, config: RenderConf
             "count_traced_rays requires rng='hash' (the counter stream is "
             "what makes the count engine-invariant)"
         )
+    # The wavefront backends count through the megakernel (or its plain
+    # version): the count is engine-invariant, and the regenerating pool
+    # keeps no per-sample count.
+    config = dataclasses.replace(
+        config, regenerate="off",
+        backend={"wavefront": "cuda", "wavefront_torch": "torch"}.get(config.backend,
+                                                                      config.backend))
     ray_map = _render(scene, _camera(camera, config), config, frame_seed=_seed(frame_seed),
                       spp=config.spp, adaptive=True, return_ray_count=True)[-1]
     result = {

@@ -1,10 +1,10 @@
 """The native BVH builder, bound with ctypes.
 
-The source is the repository's one copy, gpu_ray_tracing_tpu/native/
-bvh_builder.cpp (binned SAH, threaded depth-first layout), compiled here by
-path with g++ at first use into gpu_ray_tracing_tpu_torch/_build/.  This
-binding is the port's own: importing the JAX package's binding would import
-jax.  As there, `available()` reports whether the library compiled and
+The source is the port's own copy, bvh_builder.cpp beside this file (binned
+SAH, threaded depth-first layout; the same code as the JAX package's, so
+both build bit-equal trees), compiled with g++ at first use into
+gpu_ray_tracing_tpu_torch/_build/.  The port reads no file of the JAX
+package and does not import its binding.  As there, `available()` reports whether the library compiled and
 loaded; `ops/bvh.build_bvh(method='auto')` then takes it, else the numpy
 builder.  The library is rebuilt when the source is newer, and a file lock
 keeps concurrent processes from building at once.
@@ -20,9 +20,9 @@ import threading
 
 import numpy as np
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(os.path.dirname(_PKG), "gpu_ray_tracing_tpu", "native",
-                      "bvh_builder.cpp")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_PKG = os.path.dirname(_HERE)
+SOURCE = os.path.join(_HERE, "bvh_builder.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIBRARY = os.path.join(BUILD_DIR, "libbvh_builder.so")
 

@@ -6,9 +6,9 @@ box is missed or its leaf is done (-1 ends the walk).  One integer cursor
 per ray walks it with no stack: the plain version in ops/intersect.py and
 the CUDA megakernel's per-thread walk both read this layout.
 
-The build is host code.  `method='native'` is the repository's binned-SAH
-builder (gpu_ray_tracing_tpu/native/bvh_builder.cpp, compiled by the
-port's own ctypes binding in gpu_ray_tracing_tpu_torch/native/);
+The build is host code.  `method='native'` is the binned-SAH builder
+(gpu_ray_tracing_tpu_torch/native/bvh_builder.cpp, the port's own copy,
+compiled and bound with ctypes by gpu_ray_tracing_tpu_torch/native/);
 `'numpy'` is the median split below; `'auto'` takes the native builder
 when it compiled, as in the JAX package.  Both emit the same layout, and
 each is bit-equal to the JAX package's build of the same method.

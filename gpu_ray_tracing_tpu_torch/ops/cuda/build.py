@@ -1,16 +1,19 @@
-"""Build ops/cuda/megakernel.cu at first use and bind it with ctypes.
+"""Build the CUDA sources of ops/cuda/ at first use and bind them with ctypes.
 
-`nvcc` compiles the source into a shared library with a plain C interface
-under gpu_ray_tracing_tpu_torch/_build/, which is then loaded with ctypes
-(the pattern of the JAX package's native/__init__.py).  This route needs
-neither ninja nor PyTorch's headers, so a build takes seconds.  The library
-is rebuilt when the source is newer, and a file lock keeps concurrent
-processes from building at once.  There is no fallback: a missing compiler
-or a failed build raises.
+`nvcc` compiles each source (megakernel.cu: the render kernels of both
+engines; probes.cu: the FP32 and bf16 probes) into a shared library with a
+plain C interface under gpu_ray_tracing_tpu_torch/_build/, which is then
+loaded with ctypes (the pattern of the JAX package's native/__init__.py).
+This route needs neither ninja nor PyTorch's headers, so a build takes
+seconds.  A library is rebuilt when its source is newer, and a file lock
+keeps concurrent processes from building at once; `build_all` compiles the
+stale ones side by side, one nvcc each.  There is no fallback: a missing
+compiler or a failed build raises.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import fcntl
@@ -21,9 +24,7 @@ import threading
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "megakernel.cu")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "_build")
-LIBRARY = os.path.join(BUILD_DIR, "libgrt_megakernel.so")
 
 #: No fast math (IEEE divide and sqrt, full-range sin/cos) and no FMA
 #: contraction, so that rounding stays close to the reference's.
@@ -37,22 +38,44 @@ _c_int = ctypes.c_int
 _c_uint = ctypes.c_uint
 _c_float = ctypes.c_float
 
-_SIGNATURES = {
+# The scene, light and sampler arguments grt_render and grt_wavefront_bounce
+# share (after grt_render's camera).
+_SCENE_ARGS = [
+    _c_ptr, _c_int,  # sphere planes, n
+    _c_ptr, _c_ptr, _c_int,  # sphere BVH planes, nodes
+    _c_ptr, _c_int, _c_int,  # mesh table, triangles, smooth
+    _c_ptr, _c_ptr, _c_int,  # mesh BVH planes, nodes
+    _c_ptr, _c_int, _c_ptr, _c_int,  # light planes, L, tri-light planes, T
+    _c_int, _c_int,  # nee, mis
+    _c_int, _c_int, _c_int, _c_int,  # sampler kind, kx, ky, nbits
+]
+
+_MEGAKERNEL_SIGNATURES = {
     "grt_render": (
         _c_int,
-        [_c_ptr, _c_ptr, _c_int,  # camera, sphere planes, n
-         _c_ptr, _c_ptr, _c_int,  # sphere BVH planes, nodes
-         _c_ptr, _c_int, _c_int,  # mesh table, triangles, smooth
-         _c_ptr, _c_ptr, _c_int,  # mesh BVH planes, nodes
-         _c_ptr, _c_int, _c_ptr, _c_int,  # light planes, L, tri-light planes, T
-         _c_int, _c_int,  # nee, mis
-         _c_int, _c_int, _c_int, _c_int,  # sampler kind, kx, ky, nbits
+        [_c_ptr, *_SCENE_ARGS,  # camera, scene
          _c_int, _c_int, _c_uint, _c_uint, _c_uint,
          _c_uint, _c_int, _c_float, _c_float, _c_int, _c_int, _c_float,
          _c_float, _c_int,  # ... clamp, spp
          _c_ptr, _c_ptr, _c_ptr,  # out, rays, adaptive state
          _c_int, _c_int, _c_int, _c_float,  # tile rows, min spp, chunk, tol
          _c_ptr],  # stream
+    ),
+    "grt_wavefront_bounce": (
+        _c_int,
+        [*_SCENE_ARGS,
+         _c_uint, _c_int, _c_float, _c_float, _c_int,  # frame seed, depth, t_min, t_max, rr
+         _c_float, _c_float,  # sky intensity, clamp
+         _c_ptr, _c_ptr, _c_int, _c_int,  # state f32, state i32, stride, slots
+         _c_int, _c_uint, _c_int, _c_uint, _c_int,  # regen, sample, bounce, base, pixels
+         _c_ptr, _c_ptr, _c_ptr],  # out, rays out, stream
+    ),
+    "grt_wavefront_raygen": (
+        _c_int,
+        [_c_ptr, _c_int, _c_int, _c_int, _c_int,  # camera, sampler kind, kx, ky, nbits
+         _c_uint, _c_uint,  # frame seed, total width
+         _c_ptr, _c_ptr, _c_int, _c_int,  # state f32, state i32, stride, slots
+         _c_int, _c_uint, _c_ptr, _c_ptr],  # regen, sample, take, stream
     ),
     "grt_hash_probe": (
         _c_int,
@@ -67,10 +90,34 @@ _SIGNATURES = {
     "grt_error_string": (ctypes.c_char_p, [_c_int]),
 }
 
+_PROBES_SIGNATURES = {
+    # x, out, n, rounds, mix, chains, stream
+    "grt_fma_peak": (_c_int, [_c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr]),
+    # x, out, n, rounds, bf16, compare, stream
+    "grt_slab_dtype": (_c_int, [_c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr]),
+    "grt_error_string": (ctypes.c_char_p, [_c_int]),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Target:
+    source: str
+    library: str
+    signatures: dict
+
+
+TARGETS = {
+    "megakernel": _Target(os.path.join(_HERE, "megakernel.cu"),
+                          os.path.join(BUILD_DIR, "libgrt_megakernel.so"),
+                          _MEGAKERNEL_SIGNATURES),
+    "probes": _Target(os.path.join(_HERE, "probes.cu"),
+                      os.path.join(BUILD_DIR, "libgrt_probes.so"), _PROBES_SIGNATURES),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class BuildInfo:
-    """What the last load did: the library, whether it was compiled in this
+    """What a load did: the library, whether it was compiled in this
     process, the seconds that took, and the compiler's own report."""
 
     library: str
@@ -81,8 +128,8 @@ class BuildInfo:
 
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-_info: BuildInfo | None = None
+_libs: dict[str, ctypes.CDLL] = {}
+_infos: dict[str, BuildInfo] = {}
 
 
 def nvcc() -> str:
@@ -99,7 +146,7 @@ def nvcc() -> str:
             return path
     raise RuntimeError(
         "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/bin); "
-        "the CUDA megakernel must be compiled from ops/cuda/megakernel.cu"
+        "the CUDA kernels must be compiled from ops/cuda/*.cu"
     )
 
 
@@ -110,64 +157,89 @@ def _nvcc_version(path: str) -> str:
     return lines[-1] if lines else out
 
 
-def _compile(path: str) -> tuple[float, str]:
-    """Compile SOURCE into LIBRARY (atomically); returns (seconds, ptxas report)."""
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+def _compile(path: str, target: _Target) -> tuple[float, str]:
+    """Compile a target's source into its library (atomically); returns
+    (seconds, ptxas report)."""
+    tmp = f"{target.library}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [path, *NVCC_FLAGS, "-o", tmp, SOURCE],
+        [path, *NVCC_FLAGS, "-o", tmp, target.source],
         capture_output=True, text=True, timeout=900,
     )
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed (rc={proc.returncode}) building {SOURCE}:\n"
+            f"nvcc failed (rc={proc.returncode}) building {target.source}:\n"
             f"{proc.stderr[-4000:]}"
         )
-    os.replace(tmp, LIBRARY)
+    os.replace(tmp, target.library)
     return seconds, (proc.stdout + proc.stderr).strip()
 
 
-def _stale() -> bool:
-    return (not os.path.exists(LIBRARY)
-            or os.path.getmtime(LIBRARY) < os.path.getmtime(SOURCE))
+def _stale(target: _Target) -> bool:
+    return (not os.path.exists(target.library)
+            or os.path.getmtime(target.library) < os.path.getmtime(target.source))
 
 
-def load() -> ctypes.CDLL:
-    """The bound megakernel library, compiled first if missing or stale."""
-    global _lib, _info
+def _build(name: str, path: str) -> tuple[bool, float, str]:
+    """Compile target `name` if missing or stale, under its file lock;
+    returns (compiled, seconds, ptxas report)."""
+    target = TARGETS[name]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, f"build_{name}.lock"), "w") as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)
+        try:
+            if _stale(target):
+                return (True, *_compile(path, target))
+            return False, 0.0, ""
+        finally:
+            fcntl.flock(lock_file, fcntl.LOCK_UN)
+
+
+def _bind(name: str, path: str, built: tuple[bool, float, str]) -> ctypes.CDLL:
+    target = TARGETS[name]
+    lib = ctypes.CDLL(target.library)
+    for fn_name, (restype, argtypes) in target.signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    _infos[name] = BuildInfo(target.library, built[0], built[1], _nvcc_version(path), built[2])
+    _libs[name] = lib
+    return lib
+
+
+def load(name: str = "megakernel") -> ctypes.CDLL:
+    """The bound library of target `name` ('megakernel' or 'probes'),
+    compiled first if missing or stale."""
     with _lock:
-        if _lib is not None:
-            return _lib
+        if name in _libs:
+            return _libs[name]
         path = nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        compiled, seconds, report = False, 0.0, ""
-        with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock_file:
-            fcntl.flock(lock_file, fcntl.LOCK_EX)
-            try:
-                if _stale():
-                    seconds, report = _compile(path)
-                    compiled = True
-            finally:
-                fcntl.flock(lock_file, fcntl.LOCK_UN)
-        lib = ctypes.CDLL(LIBRARY)
-        for name, (restype, argtypes) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype = restype
-            fn.argtypes = argtypes
-        _info = BuildInfo(LIBRARY, compiled, seconds, _nvcc_version(path), report)
-        _lib = lib
-        return _lib
+        return _bind(name, path, _build(name, path))
 
 
-def build_info() -> BuildInfo:
-    """Build details of the loaded library (loads it first)."""
-    load()
-    return _info
+def build_all() -> dict[str, BuildInfo]:
+    """Load every target, compiling the stale ones side by side (one nvcc
+    per source, all started together); returns their build details."""
+    with _lock:
+        missing = [name for name in TARGETS if name not in _libs]
+        if missing:
+            path = nvcc()
+            with concurrent.futures.ThreadPoolExecutor(len(missing)) as pool:
+                built = list(pool.map(lambda name: _build(name, path), missing))
+            for name, b in zip(missing, built):
+                _bind(name, path, b)
+        return dict(_infos)
 
 
-def check(rc: int, what: str) -> None:
+def build_info(name: str = "megakernel") -> BuildInfo:
+    """Build details of a loaded library (loads it first)."""
+    load(name)
+    return _infos[name]
+
+
+def check(rc: int, what: str, name: str = "megakernel") -> None:
     """Raise if a launcher returned a CUDA error code."""
     if rc != 0:
-        msg = load().grt_error_string(rc).decode(errors="replace")
+        msg = load(name).grt_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what} failed to launch: CUDA error {rc} ({msg})")

@@ -707,27 +707,16 @@ __device__ __forceinline__ void load_cam(const float* src, Cam& c) {
   c.lens = c.v[DEFOCUS_ANGLE] > 0.0f;
 }
 
-// One sample of pixel (x, global row y): ray generation, then one closest
-// hit (AOV modes) or the bounce loop, then the clamp; returns its RGB.
-// kNee selects next-event estimation at compile time: the NEE code (light
-// sampling, shadow queries, MIS) costs registers, and without it the
-// instance keeps the register budget of the path it replaces.  kCount adds
-// the rays this sample traced to `rays` (megakernel.py:951, :1071, :1374,
-// :1416): one per live bounce and one per NEE shadow ray whose light sample
-// is valid, counted before its visibility test; an AOV sample traces one.
-template <bool kNee, bool kCount>
-__device__ __forceinline__ Vec3 trace_sample(const Params& p, const Cam& cm, int x,
-                                             unsigned int y, unsigned int pid,
+// Ray generation for sample s_abs of pixel (x, global row y)
+// (megakernel.py:1507-1548): jitter from salts 1-2 (the sampler's pair 5),
+// uniform-disk lens point from salts 3-4 (pair 7), direction not
+// normalized.  `seed` is hash_pixel_seeds(pid, s_abs, frame seed), `base0`
+// the pixel's sample-0 seed.
+__device__ __forceinline__ void generate_ray(const Sampler& sm, const Cam& cm, int x,
+                                             unsigned int y, unsigned int seed,
                                              unsigned int base0, unsigned int s_abs,
-                                             unsigned int& rays) {
+                                             Vec3& o, Vec3& d) {
   const float* cam = cm.v;
-  const Sampler& sm = p.sampler;
-  const LightSet& ls = p.lights;
-  const int n_lights = ls.L + ls.T;
-  const unsigned int seed = hash_pixel_seeds(pid, s_abs, p.frame_seed);
-  // Ray generation (megakernel.py:1507-1548): jitter from salts 1-2 (the
-  // sampler's pair 5), uniform-disk lens point from salts 3-4 (pair 7),
-  // direction not normalized.
   float jx = uniform_hash(seed, 1u), jy = uniform_hash(seed, 2u);
   sampler_uniforms(sm, base0, s_abs, 5u, jx, jy, 0.5f);
   // The pixel center and lens point round as the reference renders them
@@ -739,7 +728,7 @@ __device__ __forceinline__ Vec3 trace_sample(const Params& p, const Cam& cm, int
   pc.x = fmaf(cam[PDV + 0], fy, fmaf(cam[PDU + 0], fx, cam[UPPER_LEFT + 0]));
   pc.y = fmaf(cam[PDV + 1], fy, fmaf(cam[PDU + 1], fx, cam[UPPER_LEFT + 1]));
   pc.z = fmaf(cam[PDV + 2], fy, fmaf(cam[PDU + 2], fx, cam[UPPER_LEFT + 2]));
-  Vec3 o = {cam[CENTER + 0], cam[CENTER + 1], cam[CENTER + 2]};
+  o = {cam[CENTER + 0], cam[CENTER + 1], cam[CENTER + 2]};
   if (cm.lens) {
     float u3 = uniform_hash(seed, 3u), ang = uniform_hash(seed, 4u);
     sampler_uniforms(sm, base0, s_abs, 7u, u3, ang, 0.0f, kTwoPi);
@@ -750,11 +739,165 @@ __device__ __forceinline__ Vec3 trace_sample(const Params& p, const Cam& cm, int
     o.y = fmaf(pyd, cam[DISK_V + 1], fmaf(pxd, cam[DISK_U + 1], o.y));
     o.z = fmaf(pyd, cam[DISK_V + 2], fmaf(pxd, cam[DISK_U + 2], o.z));
   }
-  Vec3 d = {pc.x - o.x, pc.y - o.y, pc.z - o.z};
+  d = {pc.x - o.x, pc.y - o.y, pc.z - o.z};
+}
 
-  float r = 0.0f, g = 0.0f, b = 0.0f;
+// What one path carries from bounce to bounce: the ray, its throughput,
+// the radiance gathered so far, whether the vertex it left ran NEE
+// (prev_diffuse) and the cosine of its scatter direction there (prev_cos,
+// for MIS).
+struct PathState {
+  Vec3 o, d;
+  float tr, tg, tb;
+  float r, g, b;
+  bool prev_diffuse;
+  float prev_cos;
+};
+
+// One bounce of one path: `_path_bounce` (megakernel.py:874-1417).  Both
+// engines call it, the megakernel in its bounce loop and the wavefront
+// kernel once per launch (as `_wf_kernel` calls `_path_bounce` on the TPU),
+// so a path computes the same arithmetic in the same order in either.  It
+// keys on (seed, base0, s_abs, pick_seed, bounce i): `seed` is
+// hash_pixel_seeds(pid, s_abs, frame seed), `base0` the pixel's sample-0
+// seed, `pick_seed` = s_abs ^ wgsl_hash(frame seed) (the > 4-light pick).
+// It returns whether the path goes on; one that ended has gathered its last
+// radiance.
+// kNee selects next-event estimation at compile time: the NEE code (light
+// sampling, shadow queries, MIS) costs registers, and without it the
+// instance keeps the register budget of the path it replaces.  kCount adds
+// the rays this bounce traced to `rays` (megakernel.py:951, :1071, :1374,
+// :1416): one for the closest-hit walk and one per NEE shadow ray whose
+// light sample is valid, counted before its visibility test.
+template <bool kNee, bool kCount>
+__device__ __forceinline__ bool path_bounce(const Params& p, PathState& st,
+                                            unsigned int seed, unsigned int base0,
+                                            unsigned int s_abs, unsigned int pick_seed,
+                                            int i, unsigned int& rays) {
+  const Sampler& sm = p.sampler;
+  const LightSet& ls = p.lights;
+  const int n_lights = ls.L + ls.T;
+  const Vec3 o = st.o, d = st.d;
+  if (kCount) ++rays;
+  const Hit h = closest_hit(p.geo, p.t_min, p.t_max, o, d);
+  if (!h.hit) {
+    const Vec3 sk = sky(d);
+    st.r = st.r + st.tr * sk.x * p.sky_intensity;
+    st.g = st.g + st.tg * sk.y * p.sky_intensity;
+    st.b = st.b + st.tb * sk.z * p.sky_intensity;
+    return false;
+  }
+  if (h.kind >= 2.5f) {
+    // Emissive: radiate albedo * param and end the path.  Under NEE a
+    // BSDF ray from a diffuse vertex counts it at the MIS weight, or
+    // not at all without MIS (NEE sampled that light already).
+    float w = 1.0f;
+    if (kNee && st.prev_diffuse)
+      w = p.mis ? mis_emission_weight(p, h, o, st.prev_cos) : 0.0f;
+    st.r = st.r + st.tr * h.ar * (h.param * w);
+    st.g = st.g + st.tg * h.ag * (h.param * w);
+    st.b = st.b + st.tb * h.ab * (h.param * w);
+    return false;
+  }
+  const bool lambertian = h.kind < 0.5f;
+  // A point inside a sphere light cannot cone-sample it; such vertices
+  // fall back to BSDF sampling (megakernel.py:1061-1070).
+  bool inside_any = false;
+  if (kNee && lambertian) {
+    for (int l = 0; l < ls.L; ++l) {
+      const Vec3 dc = {ls.sph(LCX, l) - h.p.x, ls.sph(LCY, l) - h.p.y,
+                       ls.sph(LCZ, l) - h.p.z};
+      const float lr = ls.sph(LRAD, l);
+      inside_any |= fdot3(dc.x, dc.y, dc.z, dc.x, dc.y, dc.z) <= lr * lr * 1.0001f;
+    }
+  }
+  if (kNee && lambertian && !inside_any) {
+    // Next-event estimation (megakernel.py:1040-1374): with at most 4
+    // lights every light, sphere lights first, salts 2000+37i+7g+{1,2}
+    // (at bounce 0 the sampler's pair 8+g); above 4 one light per
+    // (sample, bounce), weighted by the count.
+    const unsigned int salt0 = 2000u + 37u * (unsigned int)i;
+    const bool last = i == p.max_depth - 1;
+    const int n_terms = n_lights <= 4 ? n_lights : 1;
+    int picked = -1;
+    if (n_lights > 4) {
+      const unsigned int bounce_seed = hash2(pick_seed, 3000u + (unsigned int)i);
+      picked = (int)(hash2(bounce_seed, 0u) % (unsigned int)n_lights);
+    }
+    for (int k = 0; k < n_terms; ++k) {
+      const int gl = picked >= 0 ? picked : k;
+      const unsigned int salt = salt0 + (picked >= 0 ? 0u : 7u * (unsigned int)k);
+      float u1n = uniform_hash(seed, salt + 1u), u2n = uniform_hash(seed, salt + 2u);
+      if (i == 0 && picked < 0) sampler_uniforms(sm, base0, s_abs, 8u + k, u1n, u2n);
+      const LightSample ln = gl < ls.L
+                                 ? sphere_light_sample(ls, gl, h.p, h.n, u1n, u2n)
+                                 : tri_light_sample(ls, gl - ls.L, h.p, h.n, u1n, u2n);
+      if (!ln.ok) continue;
+      if (kCount) ++rays;
+      if (occluded(p.geo, p.t_min, h.p, ln.w, ln.reach * 0.999f)) continue;
+      float wgt = ln.wgt * (picked >= 0 ? (float)n_lights : 1.0f);
+      if (p.mis && !last) wgt = wgt / fmaf(wgt, wgt, 1.0f);
+      st.r = st.r + st.tr * h.ar * ln.le.x * wgt;
+      st.g = st.g + st.tg * h.ag * ln.le.y * wgt;
+      st.b = st.b + st.tb * h.ab * ln.le.z * wgt;
+    }
+  }
+  float su1 = uniform_hash(seed, 16u + 3u * (unsigned int)i);
+  float su2 = uniform_hash(seed, 17u + 3u * (unsigned int)i);
+  if (i == 0) sampler_uniforms(sm, base0, s_abs, 6u, su1, su2);
+  Vec3 nd, att;
+  if (!scatter(h, d, su1, su2, seed, 16u + 3u * (unsigned int)i, &nd, &att)) return false;
+  st.tr = st.tr * att.x;
+  st.tg = st.tg * att.y;
+  st.tb = st.tb * att.z;
+  st.prev_diffuse = lambertian && !inside_any;
+  if (kNee && p.mis) {
+    // cos(scatter direction, normal) at this diffuse vertex: its BSDF
+    // pdf is prev_cos / pi, which the next emission weight needs.
+    const float nd2 = fmaxf(fdot3(nd.x, nd.y, nd.z, nd.x, nd.y, nd.z), 1e-20f);
+    const float cos_s = fdot3(nd.x, nd.y, nd.z, h.n.x, h.n.y, h.n.z) * (1.0f / sqrtf(nd2));
+    st.prev_cos = st.prev_diffuse ? fmaxf(cos_s, 0.0f) : 0.0f;
+  }
+  st.o = h.p;
+  st.d = nd;
+  if (p.rr_depth > 0 && i >= p.rr_depth) {
+    // Russian roulette, salt 1000+i (megakernel.py:1397-1408).
+    const float u_rr = uniform_hash(seed, 1000u + (unsigned int)i);
+    const float pmax = fminf(fmaxf(fmaxf(st.tr, fmaxf(st.tg, st.tb)), 0.05f), 1.0f);
+    if (!(u_rr < pmax)) return false;
+    const float inv_p = 1.0f + (1.0f / pmax - 1.0f);
+    st.tr = st.tr * inv_p;
+    st.tg = st.tg * inv_p;
+    st.tb = st.tb * inv_p;
+  }
+  return true;
+}
+
+// The per-sample clamp (megakernel.py:1647-1654): scales a finished
+// sample's radiance so that its largest channel is at most p.clamp.
+__device__ __forceinline__ void clamp_sample(const Params& p, float& r, float& g, float& b) {
+  if (p.clamp > 0.0f) {
+    const float m = fmaxf(r, fmaxf(g, b));
+    const float scale = fminf(1.0f, p.clamp / fmaxf(m, 1e-12f));
+    r = r * scale, g = g * scale, b = b * scale;
+  }
+}
+
+// One sample of pixel (x, global row y): ray generation, then one closest
+// hit (AOV modes) or the bounce loop, then the clamp; returns its RGB.  An
+// AOV sample traces one ray.
+template <bool kNee, bool kCount>
+__device__ __forceinline__ Vec3 trace_sample(const Params& p, const Cam& cm, int x,
+                                             unsigned int y, unsigned int pid,
+                                             unsigned int base0, unsigned int s_abs,
+                                             unsigned int& rays) {
+  const unsigned int seed = hash_pixel_seeds(pid, s_abs, p.frame_seed);
+  PathState st;
+  generate_ray(p.sampler, cm, x, y, seed, base0, s_abs, st.o, st.d);
   if (p.mode != PATH) {
     // Bounce-free AOV modes (megakernel.py:1550-1576).
+    const Vec3 o = st.o, d = st.d;
+    float r, g, b;
     if (kCount) ++rays;
     const Hit h = closest_hit(p.geo, p.t_min, p.t_max, o, d);
     const Vec3 sk = sky(d);
@@ -769,115 +912,19 @@ __device__ __forceinline__ Vec3 trace_sample(const Params& p, const Cam& cm, int
     }
     return {r, g, b};
   }
-  // The bounce loop of `_path_bounce` (megakernel.py:874-1417).  The
-  // thread leaves the loop when its path ends: the per-thread form of
-  // the tile early exit (megakernel.py:1609-1614).  prev_diffuse and
-  // prev_cos describe the vertex the ray left (for MIS).
-  float tr = 1.0f, tg = 1.0f, tb = 1.0f;
-  bool prev_diffuse = false;
-  float prev_cos = 0.0f;
-  const unsigned int pick_seed = s_abs ^ wgsl_hash(p.frame_seed);
-  for (int i = 0; i < p.max_depth; ++i) {
-    if (kCount) ++rays;
-    const Hit h = closest_hit(p.geo, p.t_min, p.t_max, o, d);
-    if (!h.hit) {
-      const Vec3 sk = sky(d);
-      r = r + tr * sk.x * p.sky_intensity;
-      g = g + tg * sk.y * p.sky_intensity;
-      b = b + tb * sk.z * p.sky_intensity;
-      break;
-    }
-    if (h.kind >= 2.5f) {
-      // Emissive: radiate albedo * param and end the path.  Under NEE a
-      // BSDF ray from a diffuse vertex counts it at the MIS weight, or
-      // not at all without MIS (NEE sampled that light already).
-      float w = 1.0f;
-      if (kNee && prev_diffuse) w = p.mis ? mis_emission_weight(p, h, o, prev_cos) : 0.0f;
-      r = r + tr * h.ar * (h.param * w);
-      g = g + tg * h.ag * (h.param * w);
-      b = b + tb * h.ab * (h.param * w);
-      break;
-    }
-    const bool lambertian = h.kind < 0.5f;
-    // A point inside a sphere light cannot cone-sample it; such vertices
-    // fall back to BSDF sampling (megakernel.py:1061-1070).
-    bool inside_any = false;
-    if (kNee && lambertian) {
-      for (int l = 0; l < ls.L; ++l) {
-        const Vec3 dc = {ls.sph(LCX, l) - h.p.x, ls.sph(LCY, l) - h.p.y,
-                         ls.sph(LCZ, l) - h.p.z};
-        const float lr = ls.sph(LRAD, l);
-        inside_any |= fdot3(dc.x, dc.y, dc.z, dc.x, dc.y, dc.z) <= lr * lr * 1.0001f;
-      }
-    }
-    if (kNee && lambertian && !inside_any) {
-      // Next-event estimation (megakernel.py:1040-1374): with at most 4
-      // lights every light, sphere lights first, salts 2000+37i+7g+{1,2}
-      // (at bounce 0 the sampler's pair 8+g); above 4 one light per
-      // (sample, bounce), weighted by the count.
-      const unsigned int salt0 = 2000u + 37u * (unsigned int)i;
-      const bool last = i == p.max_depth - 1;
-      const int n_terms = n_lights <= 4 ? n_lights : 1;
-      int picked = -1;
-      if (n_lights > 4) {
-        const unsigned int bounce_seed = hash2(pick_seed, 3000u + (unsigned int)i);
-        picked = (int)(hash2(bounce_seed, 0u) % (unsigned int)n_lights);
-      }
-      for (int k = 0; k < n_terms; ++k) {
-        const int gl = picked >= 0 ? picked : k;
-        const unsigned int salt = salt0 + (picked >= 0 ? 0u : 7u * (unsigned int)k);
-        float u1n = uniform_hash(seed, salt + 1u), u2n = uniform_hash(seed, salt + 2u);
-        if (i == 0 && picked < 0) sampler_uniforms(sm, base0, s_abs, 8u + k, u1n, u2n);
-        const LightSample ln = gl < ls.L
-                                   ? sphere_light_sample(ls, gl, h.p, h.n, u1n, u2n)
-                                   : tri_light_sample(ls, gl - ls.L, h.p, h.n, u1n, u2n);
-        if (!ln.ok) continue;
-        if (kCount) ++rays;
-        if (occluded(p.geo, p.t_min, h.p, ln.w, ln.reach * 0.999f)) continue;
-        float wgt = ln.wgt * (picked >= 0 ? (float)n_lights : 1.0f);
-        if (p.mis && !last) wgt = wgt / fmaf(wgt, wgt, 1.0f);
-        r = r + tr * h.ar * ln.le.x * wgt;
-        g = g + tg * h.ag * ln.le.y * wgt;
-        b = b + tb * h.ab * ln.le.z * wgt;
-      }
-    }
-    float su1 = uniform_hash(seed, 16u + 3u * (unsigned int)i);
-    float su2 = uniform_hash(seed, 17u + 3u * (unsigned int)i);
-    if (i == 0) sampler_uniforms(sm, base0, s_abs, 6u, su1, su2);
-    Vec3 nd, att;
-    if (!scatter(h, d, su1, su2, seed, 16u + 3u * (unsigned int)i, &nd, &att)) break;
-    tr = tr * att.x;
-    tg = tg * att.y;
-    tb = tb * att.z;
-    prev_diffuse = lambertian && !inside_any;
-    if (kNee && p.mis) {
-      // cos(scatter direction, normal) at this diffuse vertex: its BSDF
-      // pdf is prev_cos / pi, which the next emission weight needs.
-      const float nd2 = fmaxf(fdot3(nd.x, nd.y, nd.z, nd.x, nd.y, nd.z), 1e-20f);
-      const float cos_s = fdot3(nd.x, nd.y, nd.z, h.n.x, h.n.y, h.n.z) * (1.0f / sqrtf(nd2));
-      prev_cos = prev_diffuse ? fmaxf(cos_s, 0.0f) : 0.0f;
-    }
-    o = h.p;
-    d = nd;
-    if (p.rr_depth > 0 && i >= p.rr_depth) {
-      // Russian roulette, salt 1000+i (megakernel.py:1397-1408).
-      const float u_rr = uniform_hash(seed, 1000u + (unsigned int)i);
-      const float pmax = fminf(fmaxf(fmaxf(tr, fmaxf(tg, tb)), 0.05f), 1.0f);
-      if (!(u_rr < pmax)) break;
-      const float inv_p = 1.0f + (1.0f / pmax - 1.0f);
-      tr = tr * inv_p;
-      tg = tg * inv_p;
-      tb = tb * inv_p;
-    }
-  }
-  // A path that exhausts max_depth contributes what it gathered so far
+  // The bounce loop.  The thread leaves it when its path ends: the
+  // per-thread form of the tile early exit (megakernel.py:1609-1614).  A
+  // path that exhausts max_depth contributes what it gathered so far
   // (black for the exhausted segment).
-  if (p.clamp > 0.0f) {  // per-sample clamp (megakernel.py:1647-1654)
-    const float m = fmaxf(r, fmaxf(g, b));
-    const float scale = fminf(1.0f, p.clamp / fmaxf(m, 1e-12f));
-    r = r * scale, g = g * scale, b = b * scale;
-  }
-  return {r, g, b};
+  st.tr = st.tg = st.tb = 1.0f;
+  st.r = st.g = st.b = 0.0f;
+  st.prev_diffuse = false;
+  st.prev_cos = 0.0f;
+  const unsigned int pick_seed = s_abs ^ wgsl_hash(p.frame_seed);
+  for (int i = 0; i < p.max_depth; ++i)
+    if (!path_bounce<kNee, kCount>(p, st, seed, base0, s_abs, pick_seed, i, rays)) break;
+  clamp_sample(p, st.r, st.g, st.b);
+  return {st.r, st.g, st.b};
 }
 
 // Global row and pixel id of a local pixel (megakernel.py:1492-1505): the
@@ -1037,6 +1084,137 @@ __global__ void __launch_bounds__(kAdaptiveThreads) render_adaptive_kernel(const
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wavefront engine's kernels (K2).  Replaces the Pallas TPU kernel
+// gpu_ray_tracing_tpu/ops/pallas/wavefront.py `_wf_kernel` (launched by
+// `render_wavefront`): one `path_bounce` for every ray of a compacted ray
+// array, the state kept in device memory between launches.
+//
+// One thread per ray slot over structure-of-arrays planes, (kWfPlanes,
+// stride) f32 and (2 or 4, stride) i32, updated in place (a thread touches
+// only its own slot, so nothing is double-buffered).  A dead slot returns at
+// once: the per-thread form of the TPU kernel's all-dead-tile passthrough.
+// The TPU kernel emitted radiance deltas per bounce; here a path carries its
+// running radiance in its state, so every sum has the megakernel's order
+// ((r + a) + b, never r + (a + b)) and the image equals the megakernel's bit
+// for bit, and writes its sample's total, clamped, into slot
+// `pix [+ (sample - sample_base) n_pixels]` of `out` when it ends or
+// exhausts max_depth.  Each (pixel, sample) ends exactly once, so the write
+// is a plain store and the image is the same in every run; the host folds
+// the samples in sample order (ops/cuda/wavefront.py).
+//
+// What bounds it on this card: the same arithmetic as the megakernel's
+// bounce (the sphere scan or BVH walk), plus the state traffic the
+// megakernel keeps in registers: up to 15 planes read and written per live
+// ray and bounce.  Compaction (host side) keeps warps full of live rays.
+enum WfPlane {
+  WOX = 0, WOY, WOZ, WDX, WDY, WDZ, WTR, WTG, WTB, WRR, WRG, WRB, WPD, WPC, WLIVE, WRAYS,
+  kWfPlanes
+};
+enum WfInt { WPID = 0, WPIX, WSMP, WBNC };
+
+struct Wavefront {
+  float* f;         // (kWfPlanes, stride) state planes
+  int* i;           // (2, stride) pid, pix; under regeneration (4, stride): + sample, bounce
+  int stride;       // slots a plane holds
+  int n;            // slots this launch covers
+  unsigned int sample;  // without regeneration: every ray's sample ...
+  int bounce;           // ... and bounce
+  unsigned int sample_base;  // under regeneration: the flush slot's sample origin
+  int n_pixels;              // ... and its stride, the frame's local pixels
+  float* out;       // (slots, 3) finished samples
+  float* rays_out;  // (slots,) rays each finished sample traced, or null
+};
+
+// One bounce of every live ray.  kRegen reads sample and bounce per ray
+// (rays of one launch mix them), else both are launch scalars.
+template <bool kNee, bool kCount, bool kRegen>
+__global__ void __launch_bounds__(256) wavefront_bounce_kernel(const Params p,
+                                                               const Wavefront w) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= w.n) return;
+  float* const f = w.f + t;
+  const size_t ps = (size_t)w.stride;
+  if (!(f[WLIVE * ps] > 0.5f)) return;
+  const unsigned int pid = (unsigned int)w.i[WPID * ps + t];
+  const unsigned int s_abs = kRegen ? (unsigned int)w.i[WSMP * ps + t] : w.sample;
+  const int i = kRegen ? w.i[WBNC * ps + t] : w.bounce;
+  PathState st;
+  st.o = {f[WOX * ps], f[WOY * ps], f[WOZ * ps]};
+  st.d = {f[WDX * ps], f[WDY * ps], f[WDZ * ps]};
+  st.tr = f[WTR * ps], st.tg = f[WTG * ps], st.tb = f[WTB * ps];
+  st.r = f[WRR * ps], st.g = f[WRG * ps], st.b = f[WRB * ps];
+  st.prev_diffuse = f[WPD * ps] > 0.5f;
+  st.prev_cos = f[WPC * ps];
+  const unsigned int seed = hash_pixel_seeds(pid, s_abs, p.frame_seed);
+  const unsigned int base0 = hash_pixel_seeds(pid, 0u, p.frame_seed);
+  const unsigned int pick_seed = s_abs ^ wgsl_hash(p.frame_seed);
+  unsigned int rays = 0u;
+  const bool live = path_bounce<kNee, kCount>(p, st, seed, base0, s_abs, pick_seed, i, rays);
+  float n_rays = 0.0f;
+  if (kCount) n_rays = f[WRAYS * ps] + (float)rays;
+  if (kRegen) w.i[WBNC * ps + t] = i + 1;
+  if (!live || i + 1 >= p.max_depth) {
+    // The sample is finished: clamp it and hand it to the image.
+    clamp_sample(p, st.r, st.g, st.b);
+    size_t slot = (size_t)w.i[WPIX * ps + t];
+    if (kRegen) slot += (size_t)(s_abs - w.sample_base) * (size_t)w.n_pixels;
+    w.out[slot * 3 + 0] = st.r;
+    w.out[slot * 3 + 1] = st.g;
+    w.out[slot * 3 + 2] = st.b;
+    if (kCount) w.rays_out[slot] = n_rays;
+    f[WLIVE * ps] = 0.0f;
+    return;
+  }
+  f[WOX * ps] = st.o.x, f[WOY * ps] = st.o.y, f[WOZ * ps] = st.o.z;
+  f[WDX * ps] = st.d.x, f[WDY * ps] = st.d.y, f[WDZ * ps] = st.d.z;
+  f[WTR * ps] = st.tr, f[WTG * ps] = st.tg, f[WTB * ps] = st.tb;
+  f[WRR * ps] = st.r, f[WRG * ps] = st.g, f[WRB * ps] = st.b;
+  f[WPD * ps] = st.prev_diffuse ? 1.0f : 0.0f;
+  f[WPC * ps] = st.prev_cos;
+  if (kCount) f[WRAYS * ps] = n_rays;
+}
+
+// Primary rays for the slots of a ray array (all, or those `take` flags):
+// the megakernel's own ray generation, so a wavefront path starts from the
+// same bits.  A slot's pixel is (pid mod total_width, pid / total_width) of
+// the whole frame; a slot whose pix is negative holds no ray and is born
+// dead.  Replaces the XLA ray generation `render_wavefront` calls
+// (wavefront.py:506, :682) and the in-kernel one of megakernel.py:1507.
+__global__ void __launch_bounds__(256) wavefront_raygen_kernel(const Params p,
+                                                               const Wavefront w,
+                                                               unsigned int total_width,
+                                                               bool regen,
+                                                               const int* __restrict__ take) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= w.n) return;
+  if (take != nullptr && take[t] == 0) return;
+  float* const f = w.f + t;
+  const size_t ps = (size_t)w.stride;
+  if (regen) w.i[WBNC * ps + t] = 0;
+  f[WRR * ps] = f[WRG * ps] = f[WRB * ps] = 0.0f;
+  f[WPD * ps] = f[WPC * ps] = f[WRAYS * ps] = 0.0f;
+  f[WTR * ps] = f[WTG * ps] = f[WTB * ps] = 1.0f;
+  if (w.i[WPIX * ps + t] < 0) {
+    f[WOX * ps] = f[WOY * ps] = f[WOZ * ps] = 0.0f;
+    f[WDX * ps] = f[WDY * ps] = f[WDZ * ps] = 0.0f;
+    f[WLIVE * ps] = 0.0f;
+    return;
+  }
+  const unsigned int pid = (unsigned int)w.i[WPID * ps + t];
+  const unsigned int s_abs = regen ? (unsigned int)w.i[WSMP * ps + t] : w.sample;
+  const unsigned int seed = hash_pixel_seeds(pid, s_abs, p.frame_seed);
+  const unsigned int base0 = hash_pixel_seeds(pid, 0u, p.frame_seed);
+  Cam cm;
+  load_cam(p.cam, cm);
+  Vec3 o, d;
+  generate_ray(p.sampler, cm, (int)(pid % total_width), pid / total_width, seed, base0,
+               s_abs, o, d);
+  f[WOX * ps] = o.x, f[WOY * ps] = o.y, f[WOZ * ps] = o.z;
+  f[WDX * ps] = d.x, f[WDY * ps] = d.y, f[WDZ * ps] = d.z;
+  f[WLIVE * ps] = 1.0f;
+}
+
 // The hashes the kernel draws, for a bit-exactness probe against ops/rng.py.
 __global__ void hash_probe_kernel(const unsigned int* __restrict__ v, int n,
                                   const unsigned int* __restrict__ salts, int n_salts,
@@ -1075,6 +1253,28 @@ __global__ void sampler_probe_kernel(const unsigned int* __restrict__ pids,
   }
 }
 
+// The scene, light and sampler arguments every render entry point shares.
+Params scene_params(const float* cam, const float* scene, int n, const float* sbvh_f,
+                    const int* sbvh_i, int sbvh_m, const float* mesh, int n_tris,
+                    int smooth, const float* mbvh_f, const int* mbvh_i, int mbvh_m,
+                    const float* lights, int n_lights, const float* tri_lights,
+                    int n_tri_lights, int nee, int mis, int sampler, int kx, int ky,
+                    int nbits) {
+  Params p = {};
+  p.cam = cam;
+  p.geo.scene = scene;
+  p.geo.n = n;
+  p.geo.sphere_bvh = {sbvh_f, sbvh_i, sbvh_m};
+  p.geo.mesh = mesh;
+  p.geo.n_tris = n_tris;
+  p.geo.smooth = smooth != 0;
+  p.geo.mesh_bvh = {mbvh_f, mbvh_i, mbvh_m};
+  p.lights = {lights, nee ? n_lights : 0, tri_lights, nee ? n_tri_lights : 0};
+  p.mis = nee != 0 && mis != 0;
+  p.sampler = {sampler, kx, ky, nbits};
+  return p;
+}
+
 }  // namespace
 
 // Plain C interface for ctypes (ops/cuda/build.py).  Each launcher enqueues
@@ -1101,18 +1301,9 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
                           float t_max, int mode, int rr_depth, float sky_intensity,
                           float clamp, int spp, float* out, float* rays, float* state,
                           int tile_rows, int min_spp, int chunk, float tol, void* stream) {
-  Params p;
-  p.cam = cam;
-  p.geo.scene = scene;
-  p.geo.n = n;
-  p.geo.sphere_bvh = {sbvh_f, sbvh_i, sbvh_m};
-  p.geo.mesh = mesh;
-  p.geo.n_tris = n_tris;
-  p.geo.smooth = smooth != 0;
-  p.geo.mesh_bvh = {mbvh_f, mbvh_i, mbvh_m};
-  p.lights = {lights, nee ? n_lights : 0, tri_lights, nee ? n_tri_lights : 0};
-  p.mis = nee != 0 && mis != 0;
-  p.sampler = {sampler, kx, ky, nbits};
+  Params p = scene_params(cam, scene, n, sbvh_f, sbvh_i, sbvh_m, mesh, n_tris, smooth,
+                          mbvh_f, mbvh_i, mbvh_m, lights, n_lights, tri_lights,
+                          n_tri_lights, nee, mis, sampler, kx, ky, nbits);
   p.width = width;
   p.height = height;
   p.sample_index = sample_index;
@@ -1153,6 +1344,79 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
     if (count) render_kernel<false, true><<<grid, block, 0, s>>>(p);
     else render_kernel<false, false><<<grid, block, 0, s>>>(p);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One wavefront bounce over slots [0, n) of the state planes (`state_f`
+// (16, stride) f32, `state_i` (2 or 4, stride) i32), in place.  The scene
+// arguments are grt_render's.  With `regen` each ray reads its own sample
+// and bounce (state_i rows 2 and 3) and a finished sample goes to slot
+// pix + (sample - sample_base) n_pixels of `out`; without it the launch
+// scalars `sample` and `bounce` apply and the slot is pix.  `rays_out`, when
+// not null, receives the rays each finished sample traced.
+extern "C" int grt_wavefront_bounce(
+    const float* scene, int n, const float* sbvh_f, const int* sbvh_i, int sbvh_m,
+    const float* mesh, int n_tris, int smooth, const float* mbvh_f, const int* mbvh_i,
+    int mbvh_m, const float* lights, int n_lights, const float* tri_lights,
+    int n_tri_lights, int nee, int mis, int sampler, int kx, int ky, int nbits,
+    unsigned int frame_seed, int max_depth, float t_min, float t_max, int rr_depth,
+    float sky_intensity, float clamp, float* state_f, int* state_i, int stride, int n_slots,
+    int regen, unsigned int sample, int bounce, unsigned int sample_base, int n_pixels,
+    float* out, float* rays_out, void* stream) {
+  Params p = scene_params(nullptr, scene, n, sbvh_f, sbvh_i, sbvh_m, mesh, n_tris, smooth,
+                          mbvh_f, mbvh_i, mbvh_m, lights, n_lights, tri_lights,
+                          n_tri_lights, nee, mis, sampler, kx, ky, nbits);
+  p.frame_seed = frame_seed;
+  p.max_depth = max_depth;
+  p.t_min = t_min;
+  p.t_max = t_max;
+  p.mode = PATH;
+  p.rr_depth = rr_depth;
+  p.sky_intensity = sky_intensity;
+  p.clamp = clamp;
+  const Wavefront w = {state_f, state_i, stride, n_slots, sample, bounce, sample_base,
+                       n_pixels, out, rays_out};
+  if (n_slots <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int block = 256;
+  const int grid = (n_slots + block - 1) / block;
+  const bool count = rays_out != nullptr;
+#define GRT_WF_LAUNCH(NEE, COUNT, REGEN) \
+  wavefront_bounce_kernel<NEE, COUNT, REGEN><<<grid, block, 0, s>>>(p, w)
+  if (nee) {
+    if (count) {
+      if (regen) GRT_WF_LAUNCH(true, true, true); else GRT_WF_LAUNCH(true, true, false);
+    } else {
+      if (regen) GRT_WF_LAUNCH(true, false, true); else GRT_WF_LAUNCH(true, false, false);
+    }
+  } else {
+    if (count) {
+      if (regen) GRT_WF_LAUNCH(false, true, true); else GRT_WF_LAUNCH(false, true, false);
+    } else {
+      if (regen) GRT_WF_LAUNCH(false, false, true); else GRT_WF_LAUNCH(false, false, false);
+    }
+  }
+#undef GRT_WF_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Primary rays into slots [0, n) of the wavefront state (those `take`
+// flags when it is not null): see wavefront_raygen_kernel.
+extern "C" int grt_wavefront_raygen(const float* cam, int sampler, int kx, int ky, int nbits,
+                                    unsigned int frame_seed, unsigned int total_width,
+                                    float* state_f, int* state_i, int stride, int n_slots,
+                                    int regen, unsigned int sample, const int* take,
+                                    void* stream) {
+  Params p = {};
+  p.cam = cam;
+  p.sampler = {sampler, kx, ky, nbits};
+  p.frame_seed = frame_seed;
+  const Wavefront w = {state_f, state_i, stride, n_slots, sample, 0, 0u, 0, nullptr, nullptr};
+  if (n_slots <= 0) return 0;
+  const int block = 256;
+  wavefront_raygen_kernel<<<(n_slots + block - 1) / block, block, 0,
+                            static_cast<cudaStream_t>(stream)>>>(p, w, total_width,
+                                                                 regen != 0, take);
   return static_cast<int>(cudaGetLastError());
 }
 

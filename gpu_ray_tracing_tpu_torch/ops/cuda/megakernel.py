@@ -439,6 +439,51 @@ def dataclass_tensors(obj) -> list[torch.Tensor]:
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class PackedScene:
+    """A scene as the kernels read it: `args`, the scene, light and sampler
+    arguments every render entry point of the library takes, in C order
+    (pointers into `tensors`, which this object keeps alive), and `route`,
+    the launch-count key of the geometry and options ("brute",
+    "sphere_bvh" or "mesh_bvh", suffixed "+nee" and "+<sampler>")."""
+
+    args: tuple
+    tensors: tuple
+    route: str
+
+
+def pack_scene(sc: Scene, nee: bool, mis: bool, sampler_spec: tuple | None) -> PackedScene:
+    """Pack a Scene on a CUDA device into the kernels' plane layouts, as
+    render_pallas's XLA code does around its launch."""
+    if sc.mesh is not None and sc.bvh is None:
+        raise ValueError("the CUDA kernels render a mesh through its BVH; "
+                         "build the scene with make_scene(use_bvh=True)")
+    n_sl, n_tl = sc.nee_light_counts(nee)
+    planes = scene_planes(sc.spheres).contiguous()
+    sbvh = bvh_planes(sc.sphere_bvh) if sc.sphere_bvh is not None else (None, None)
+    if sc.mesh is not None:
+        table = mesh_table(sc.mesh, sc.global_tri_light_ids() if nee else None)
+        mbvh = bvh_planes(sc.bvh)
+        n_tris, smooth = sc.mesh.num_triangles, int(sc.mesh.smooth)
+    else:
+        table, mbvh, n_tris, smooth = None, (None, None), 0, 0
+    lplanes = lights_planes(sc.lights).contiguous() if n_sl else None
+    tplanes = tri_lights_planes(sc.tri_lights) if n_tl else None
+    kind, kx, ky, nbits = _sampler_args(sampler_spec)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    nodes = lambda planes: 0 if planes[0] is None else planes[0].shape[1]
+    args = (
+        planes.data_ptr(), sc.spheres.count,
+        ptr(sbvh[0]), ptr(sbvh[1]), nodes(sbvh),
+        ptr(table), n_tris, smooth, ptr(mbvh[0]), ptr(mbvh[1]), nodes(mbvh),
+        ptr(lplanes), n_sl, ptr(tplanes), n_tl, int(nee), int(mis and nee),
+        kind, kx, ky, nbits,
+    )
+    route = "mesh_bvh" if n_tris else "sphere_bvh" if nodes(sbvh) else "brute"
+    route += ("+nee" if nee else "") + ("" if kind == 0 else "+" + sampler_spec[0])
+    return PackedScene(args, (planes, *sbvh, table, *mbvh, lplanes, tplanes), route)
+
+
 def _require_cuda(*tensors: torch.Tensor) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA megakernel needs an NVIDIA GPU; none is visible")
@@ -499,30 +544,14 @@ def render_cuda(
     `adaptive_chunk` more samples per tile and returns the updated six."""
     _check_args(width, height, spp, max_depth, mode, nee, mis, sampler_spec)
     sc = as_scene(scene_or_spheres)
-    s = sc.spheres
     dev = _require_cuda(*dataclass_tensors(sc), *dataclass_tensors(camera))
-    if sc.mesh is not None and sc.bvh is None:
-        raise ValueError("the CUDA megakernel renders a mesh through its BVH; "
-                         "build the scene with make_scene(use_bvh=True)")
     plan = _adaptive_plan(width, height, spp, mode, dev, adaptive_tol, adaptive_min_spp,
                           return_spp_map, return_ray_count, adaptive_state,
                           adaptive_chunk)
-    n_sl, n_tl = sc.nee_light_counts(nee)
+    packed = pack_scene(sc, nee, mis, sampler_spec)
     lib = build.load()
-    planes = scene_planes(s).contiguous()
     cam = camera_vector(camera).contiguous()
-    sbvh = bvh_planes(sc.sphere_bvh) if sc.sphere_bvh is not None else (None, None)
-    if sc.mesh is not None:
-        table = mesh_table(sc.mesh, sc.global_tri_light_ids() if nee else None)
-        mbvh = bvh_planes(sc.bvh)
-        n_tris, smooth = sc.mesh.num_triangles, int(sc.mesh.smooth)
-    else:
-        table, mbvh, n_tris, smooth = None, (None, None), 0, 0
-    lplanes = lights_planes(sc.lights).contiguous() if n_sl else None
-    tplanes = tri_lights_planes(sc.tri_lights) if n_tl else None
-    kind, kx, ky, nbits = _sampler_args(sampler_spec)
     ptr = lambda t: None if t is None else t.data_ptr()
-    nodes = lambda planes: 0 if planes[0] is None else planes[0].shape[1]
     out = (None if plan.resume
            else torch.empty((height, width, 3), dtype=torch.float32, device=dev))
     rays = (torch.zeros((height, width), dtype=torch.float32, device=dev)
@@ -530,11 +559,7 @@ def render_cuda(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.grt_render(
-            cam.data_ptr(), planes.data_ptr(), s.count,
-            ptr(sbvh[0]), ptr(sbvh[1]), nodes(sbvh),
-            ptr(table), n_tris, smooth, ptr(mbvh[0]), ptr(mbvh[1]), nodes(mbvh),
-            ptr(lplanes), n_sl, ptr(tplanes), n_tl, int(nee), int(mis and nee),
-            kind, kx, ky, nbits,
+            cam.data_ptr(), *packed.args,
             width, height,
             int(sample_index) & 0xFFFFFFFF, int(frame_seed) & 0xFFFFFFFF,
             int(y_offset) & 0xFFFFFFFF, int(row_stride) & 0xFFFFFFFF,
@@ -544,11 +569,8 @@ def render_cuda(
             plan.tile_rows, plan.min_spp, plan.chunk, plan.tol, stream,
         )
     build.check(rc, "megakernel")
-    route = "mesh_bvh" if n_tris else "sphere_bvh" if nodes(sbvh) else "brute"
-    route += ("+nee" if nee else "") + ("" if kind == 0 else "+" + sampler_spec[0])
-    route += ("+adaptive" if plan.state is not None else "") + ("+rays" if rays is not None
-                                                                 else "")
-    LAUNCHES["megakernel:" + route] += 1
+    route = packed.route + ("+adaptive" if plan.state is not None else "")
+    LAUNCHES["megakernel:" + route + ("+rays" if rays is not None else "")] += 1
     return _outputs(out, plan, spp, return_spp_map, rays)
 
 

@@ -18,6 +18,8 @@ contracts a*b+c into one fused multiply-add, the plain version does too
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from gpu_ray_tracing_tpu_torch.models.scene import as_scene, sphere_light_ids
@@ -205,6 +207,314 @@ def _mis_nee_weight(wgt, last: bool):
     return wgt if last else wgt / fma(wgt, wgt, torch.ones_like(wgt))
 
 
+@dataclasses.dataclass
+class PathState:
+    """What a batch of paths carries from bounce to bounce: the rays, their
+    throughput and the radiance gathered so far ((..., 3) f32), the `live`
+    mask, whether the vertex a ray left ran NEE (`prev_diffuse`) and the
+    cosine of its scatter direction there (`prev_cos`, for MIS), the rays
+    traced so far (f32; None when not counted), and the constants of the
+    stream: each ray's pixel seed and, for the samplers, its pixel id."""
+
+    o: torch.Tensor
+    d: torch.Tensor
+    throughput: torch.Tensor
+    result: torch.Tensor
+    live: torch.Tensor
+    prev_diffuse: torch.Tensor
+    prev_cos: torch.Tensor
+    rays: torch.Tensor | None
+    pixel_seeds: torch.Tensor
+    pixel_ids: torch.Tensor | None = None
+
+
+def initial_path_state(origins, dirs, pixel_seeds, pixel_ids=None, *,
+                       count_rays: bool = False) -> PathState:
+    """The state of fresh primary rays: unit throughput, no radiance, live."""
+    batch_shape, dev = dirs.shape[:-1], dirs.device
+    return PathState(
+        o=origins, d=dirs,
+        throughput=torch.ones((*batch_shape, 3), dtype=torch.float32, device=dev),
+        result=torch.zeros((*batch_shape, 3), dtype=torch.float32, device=dev),
+        live=torch.ones(batch_shape, dtype=torch.bool, device=dev),
+        prev_diffuse=torch.zeros(batch_shape, dtype=torch.bool, device=dev),
+        prev_cos=torch.zeros(batch_shape, dtype=torch.float32, device=dev),
+        rays=(torch.zeros(batch_shape, dtype=torch.float32, device=dev)
+              if count_rays else None),
+        pixel_seeds=pixel_seeds, pixel_ids=pixel_ids,
+    )
+
+
+class PathContext:
+    """The scene and options of a path trace, checked once: what
+    `path_bounce` needs besides the state.  See `trace_path` for the
+    meaning of every option."""
+
+    def __init__(self, scene, max_depth: int, t_min: float, t_max: float, *,
+                 russian_roulette_depth: int = 0, sky_intensity: float = 1.0,
+                 nee: bool = False, mis: bool = False, frame_seed_u32=None,
+                 sampler_spec: tuple | None = None, light_pick: str = "lane",
+                 count_rays: bool = False, need_ids: bool = False):
+        self.sc = sc = as_scene(scene)
+        if mis and not nee:
+            raise ValueError("mis=True is a weighting of NEE; it requires nee=True")
+        self.n_sl, self.n_tl = sc.nee_light_counts(nee)
+        self.total = self.n_sl + self.n_tl
+        if light_pick not in ("lane", "sample"):
+            raise ValueError(f"light_pick must be 'lane' or 'sample', got {light_pick!r}")
+        if sampler_spec is not None and need_ids:
+            raise ValueError("sampler_spec= needs pixel_ids=, sample_index= and "
+                             "frame_seed_u32=")
+        self.pick_per_sample = nee and self.total > 4 and light_pick == "sample"
+        self.max_depth, self.t_min, self.t_max = max_depth, t_min, t_max
+        self.rr_depth = russian_roulette_depth
+        self.sky_intensity = sky_intensity
+        self.nee, self.mis = nee, mis
+        self.frame_seed_u32 = frame_seed_u32
+        self.sampler_spec = sampler_spec
+        self.count_rays = count_rays
+        if mis:
+            # Exact light identity of the primitive a ray hits (sphere lights
+            # first, then triangle lights).
+            self.lid_sphere = sphere_light_ids(sc.spheres)
+            if sc.mesh is not None:
+                self.lid_tri = sc.global_tri_light_ids().long()
+
+
+def _either(cond, a, b):
+    """`a if cond else b` for a Python bool, a per-ray select for a mask."""
+    if isinstance(cond, torch.Tensor):
+        return torch.where(cond[..., None] if a.dim() > cond.dim() else cond, a, b)
+    return a if cond else b
+
+
+def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
+    """One bounce of every path of `st`: the body of `trace_path`'s loop.
+    `i` (the bounce) and `s` (the absolute sample index) are Python ints, or
+    per-ray integer tensors when the rays of a batch mix them (the
+    regenerating wavefront pool); either way each ray draws the same stream.
+    Dead rays pass through unchanged."""
+    sc, dev = ctx.sc, st.d.device
+    t_min, t_max, max_depth = ctx.t_min, ctx.t_max, ctx.max_depth
+    nee, mis, total, n_sl, n_tl = ctx.nee, ctx.mis, ctx.total, ctx.n_sl, ctx.n_tl
+    sampler_spec, frame_seed_u32 = ctx.sampler_spec, ctx.frame_seed_u32
+    pixel_seeds, pixel_ids = st.pixel_seeds, st.pixel_ids
+    batch_shape = st.d.shape[:-1]
+    o, d, throughput, result = st.o, st.d, st.throughput, st.result
+    live, prev_diffuse, prev_cos = st.live, st.prev_diffuse, st.prev_cos
+    lights, tl = sc.lights, sc.tri_lights
+    rays_box = [st.rays]
+    per_ray = isinstance(i, torch.Tensor)
+    first = i == 0
+
+    def shadow_visible(ok, pnt, omega, window):
+        """Lanes of `ok` with no hit in (t_min, window): the any-hit query,
+        driven only by lanes whose sample is otherwise valid."""
+        vis = torch.zeros_like(ok)
+        idx = torch.nonzero(ok.reshape(-1)).squeeze(1)
+        if idx.numel():
+            t = nearest_t_scene(pnt.reshape(-1, 3)[idx], omega.reshape(-1, 3)[idx],
+                                sc, t_min, t_max)
+            vis.reshape(-1)[idx] = t >= window.reshape(-1)[idx]
+        return vis
+
+    def remapped(u1, u2, rot_salt):
+        """The first-bounce remap of a draw pair under the sampler."""
+        if sampler_spec is None or (not per_ray and not first):
+            return u1, u2
+        r1, r2 = rng_ops.sampler_uniforms(
+            u1, u2, pixel_ids, s, frame_seed_u32, sampler_spec, rot_salt=rot_salt)
+        return _either(first, r1, u1), _either(first, r2, u2)
+
+    if ctx.count_rays:
+        rays_box[0] = rays_box[0] + live.to(torch.float32)
+    if mis:
+        hit, albedo, kind, param, mesh_won = intersect_scene(
+            o, d, sc, t_min, t_max, want_mesh_wins=True)
+    else:
+        hit, albedo, kind, param = intersect_scene(o, d, sc, t_min, t_max)
+    base = 16 + 3 * i
+    # The first-bounce scatter pair (salt 6): strata of the sphere.  2 pi
+    # stays outside the remap: jitted trace_path runs its bounces in a
+    # while loop, and XLA folds no constant into it.
+    u1, u2 = remapped(rng_ops.uniform_hash(pixel_seeds, base),
+                      rng_ops.uniform_hash(pixel_seeds, base + 1),
+                      rng_ops._SCATTER_ROT_SALT)
+    unit_vec = rng_ops.unit_vector_from_uniforms(u1, u2)
+    u_reflect = rng_ops.uniform_hash(pixel_seeds, base + 2)
+    new_dir, attenuation, ok = scatter(
+        d, hit.normal, hit.front_face, albedo, kind, param, unit_vec, u_reflect
+    )
+
+    missed = live & ~hit.hit
+    result = torch.where(
+        missed[..., None], result + throughput * sky_color(d) * ctx.sky_intensity,
+        result,
+    )
+    emissive = live & hit.hit & (kind == EMISSIVE)
+    if mis:
+        # Power heuristic for a BSDF ray that left a diffuse vertex and
+        # hit light l: w_b = 1 / (1 + r^2), r = p_nee / p_b as seen from
+        # the previous vertex o.
+        hit_lid = ctx.lid_sphere[hit.idx.clamp(0, sc.spheres.count - 1)]
+        if sc.mesh is not None:
+            hit_lid = torch.where(
+                mesh_won, ctx.lid_tri[hit.idx.clamp(0, sc.mesh.num_triangles - 1)], hit_lid)
+        omc = torch.zeros(batch_shape, dtype=torch.float32, device=dev)
+        for l in range(n_sl):
+            dlo = o - lights.centers[l]
+            d2o = torch.clamp(dot3(dlo, dlo), min=1e-12)
+            r_l = lights.radii[l]
+            omc = torch.where(hit_lid == l, _one_minus_cos_max(r_l * r_l, d2o), omc)
+        r_ratio = 1.0 / torch.clamp(2.0 * omc * prev_cos, min=1e-12)
+        if n_tl:
+            delta = hit.point - o
+            d2h = torch.clamp(dot3(delta, delta), min=1e-12)
+            d3h = d2h * torch.sqrt(d2h)
+            for j in range(n_tl):
+                ndot = torch.abs(dot3(delta, tl.normal[j]))
+                r_tri = (torch.pi * d3h) / torch.clamp(ndot * tl.area[j] * prev_cos,
+                                                       min=1e-12)
+                r_ratio = torch.where(hit_lid == n_sl + j, r_tri, r_ratio)
+        if total > 4:
+            r_ratio = r_ratio / float(total)
+        w_emis = torch.where(
+            prev_diffuse,
+            torch.where(hit_lid >= 0, 1.0 / fma(r_ratio, r_ratio, torch.ones_like(r_ratio)),
+                        0.0),
+            1.0,
+        )
+    else:
+        w_emis = torch.where(prev_diffuse, 0.0, 1.0) if nee else torch.ones_like(prev_cos)
+    result = torch.where(
+        emissive[..., None], result + throughput * albedo * (param * w_emis)[..., None],
+        result,
+    )
+
+    inside_any = torch.zeros(batch_shape, dtype=torch.bool, device=dev)
+    if nee:
+        pnt, nrm = hit.point, hit.normal
+        for l in range(n_sl):
+            dcl = lights.centers[l] - pnt
+            r_l = lights.radii[l]
+            inside_any = inside_any | (dot3(dcl, dcl) <= r_l * r_l * 1.0001)
+        nee_ok = live & hit.hit & (kind == LAMBERTIAN) & ~inside_any
+        salt0 = 2000 + 37 * i
+        last = i == max_depth - 1
+
+        def draws(g: int):
+            u1n = rng_ops.uniform_hash(pixel_seeds, salt0 + 7 * g + 1)
+            u2n = rng_ops.uniform_hash(pixel_seeds, salt0 + 7 * g + 2)
+            if total <= 4:
+                u1n, u2n = remapped(u1n, u2n, rng_ops._NEE_ROT_SALT_BASE + g)
+            return u1n, u2n
+
+        def add(result, ok, omega, window, wgt, le):
+            valid = nee_ok & ok
+            if ctx.count_rays:
+                # One shadow ray per lane whose sample is valid, counted
+                # before the visibility test.
+                rays_box[0] = rays_box[0] + valid.to(torch.float32)
+            valid = valid & shadow_visible(valid, pnt, omega, window * (1.0 - 1e-3))
+            if mis:
+                wgt = _either(last, wgt, _mis_nee_weight(wgt, False))
+            return torch.where(valid[..., None],
+                               result + throughput * albedo * le * wgt[..., None], result)
+
+        def sphere_term(result, li, u1n, u2n, weight):
+            omega, t_l, ok, wgt0 = _sphere_candidate(
+                pnt, nrm, lights.centers[li], lights.radii[li], u1n, u2n)
+            return add(result, ok, omega, t_l, wgt0 * weight, lights.emission[li])
+
+        def tri_term(result, ji, u1n, u2n, weight):
+            omega, dist, ok, wgt0 = _tri_candidate(
+                pnt, nrm, tl.v0[ji], tl.e1[ji], tl.e2[ji], tl.normal[ji], tl.area[ji],
+                u1n, u2n)
+            return add(result, ok, omega, dist, wgt0 * weight, tl.emission[ji])
+
+        if total <= 4:
+            # Every light, sphere lights first, weight 1.
+            for l in range(n_sl):
+                u1n, u2n = draws(l)
+                li = torch.full(batch_shape, l, dtype=torch.long, device=dev)
+                result = sphere_term(result, li, u1n, u2n, 1.0)
+            for j in range(n_tl):
+                u1n, u2n = draws(n_sl + j)
+                ji = torch.full(batch_shape, j, dtype=torch.long, device=dev)
+                result = tri_term(result, ji, u1n, u2n, 1.0)
+        else:
+            # One light, weighted by the count.
+            u1n, u2n = draws(0)
+            if ctx.pick_per_sample:
+                pick_seed = rng_ops.as_u32(s, dev) ^ rng_ops.wgsl_hash(
+                    rng_ops.as_u32(frame_seed_u32, dev))
+                bounce_seed = rng_ops.hash2(pick_seed, 3000 + i)
+                g = rng_ops.hash2(bounce_seed, 0) % total
+                gi = g.to(torch.long).expand(batch_shape)
+            else:
+                u_l = rng_ops.uniform_hash(pixel_seeds, salt0)
+                gi = torch.clamp((u_l * float(total)).long(), 0, total - 1)
+            if n_tl == 0:
+                result = sphere_term(result, gi, u1n, u2n, float(total))
+            else:
+                # Both candidates from the picked ordinal, selected
+                # per lane before the one shadow query.
+                is_sph = gi < n_sl
+                if n_sl:
+                    li = torch.clamp(gi, 0, n_sl - 1)
+                    s_om, s_t, s_ok, s_w = _sphere_candidate(
+                        pnt, nrm, lights.centers[li], lights.radii[li], u1n, u2n)
+                    s_le = lights.emission[li]
+                ji = torch.clamp(gi - n_sl, 0, n_tl - 1)
+                t_om, t_dist, t_ok, t_w = _tri_candidate(
+                    pnt, nrm, tl.v0[ji], tl.e1[ji], tl.e2[ji], tl.normal[ji],
+                    tl.area[ji], u1n, u2n)
+                if n_sl:
+                    sel = is_sph[..., None]
+                    omega = torch.where(sel, s_om, t_om)
+                    window = torch.where(is_sph, s_t, t_dist)
+                    ok_l = torch.where(is_sph, s_ok, t_ok)
+                    wgt0 = torch.where(is_sph, s_w, t_w)
+                    le = torch.where(sel, s_le, tl.emission[ji])
+                else:
+                    omega, window, ok_l, wgt0, le = t_om, t_dist, t_ok, t_w, tl.emission[ji]
+                result = add(result, ok_l, omega, window, wgt0 * float(total), le)
+
+    # Absorbed rays (metal below the surface) contribute black.
+    scattered = live & hit.hit & ok & (kind != EMISSIVE)
+    throughput = torch.where(scattered[..., None], throughput * attenuation, throughput)
+    o = torch.where(scattered[..., None], hit.point, o)
+    d = torch.where(scattered[..., None], new_dir, d)
+    live = scattered
+    # Only lanes that ran NEE suppress (or MIS-weight) BSDF-hit emission.
+    prev_diffuse = scattered & (kind == LAMBERTIAN) & ~inside_any
+    if mis:
+        nd2 = torch.clamp(dot3(new_dir, new_dir), min=1e-20)
+        cos_s = dot3(new_dir, hit.normal) * torch.rsqrt(nd2)
+        prev_cos = torch.where(prev_diffuse, torch.clamp(cos_s, min=0.0), 0.0)
+
+    roulette = i >= ctx.rr_depth if ctx.rr_depth > 0 else False
+    if per_ray or roulette:
+        if ctx.rr_depth > 0:
+            # Survive with p = max channel throughput (clamped), divide by p.
+            u_rr = rng_ops.uniform_hash(pixel_seeds, 1000 + i)
+            p = torch.clamp(torch.amax(throughput, dim=-1), 0.05, 1.0)
+            survive = u_rr < p
+            if per_ray:
+                survive = survive | ~roulette
+                scale = torch.where(roulette, 1.0 / p, 1.0)
+            else:
+                scale = 1.0 / p
+            throughput = torch.where(
+                (live & survive)[..., None], throughput * scale[..., None],
+                throughput,
+            )
+            live = live & survive
+    return PathState(o=o, d=d, throughput=throughput, result=result, live=live,
+                     prev_diffuse=prev_diffuse, prev_cos=prev_cos, rays=rays_box[0],
+                     pixel_seeds=pixel_seeds, pixel_ids=pixel_ids)
+
+
 def trace_path(
     origins: torch.Tensor,
     dirs: torch.Tensor,
@@ -245,234 +555,20 @@ def trace_path(
     first-bounce scatter pair (salt 6) and, in the <= 4-light loop, light
     g's first-bounce NEE pair (salt 8+g); it needs `pixel_ids`,
     `sample_index` and `frame_seed_u32`.
+
+    The loop body is `path_bounce`, which the wavefront engine's plain
+    version runs one bounce at a time.
     """
-    sc = as_scene(scene)
-    if mis and not nee:
-        raise ValueError("mis=True is a weighting of NEE; it requires nee=True")
-    n_sl, n_tl = sc.nee_light_counts(nee)
-    total = n_sl + n_tl
-    if light_pick not in ("lane", "sample"):
-        raise ValueError(f"light_pick must be 'lane' or 'sample', got {light_pick!r}")
-    if sampler_spec is not None and (pixel_ids is None or sample_index is None
-                                     or frame_seed_u32 is None):
-        raise ValueError("sampler_spec= needs pixel_ids=, sample_index= and "
-                         "frame_seed_u32=")
-    pick_per_sample = nee and total > 4 and light_pick == "sample"
-    if pick_per_sample and (sample_index is None or frame_seed_u32 is None):
+    ctx = PathContext(
+        scene, max_depth, t_min, t_max, russian_roulette_depth=russian_roulette_depth,
+        sky_intensity=sky_intensity, nee=nee, mis=mis, frame_seed_u32=frame_seed_u32,
+        sampler_spec=sampler_spec, light_pick=light_pick, count_rays=count_rays,
+        need_ids=pixel_ids is None or sample_index is None or frame_seed_u32 is None)
+    if ctx.pick_per_sample and (sample_index is None or frame_seed_u32 is None):
         raise ValueError("light_pick='sample' needs sample_index= and frame_seed_u32=")
-
-    batch_shape = dirs.shape[:-1]
-    dev = dirs.device
-    o, d = origins, dirs
-    throughput = torch.ones((*batch_shape, 3), dtype=torch.float32, device=dev)
-    result = torch.zeros((*batch_shape, 3), dtype=torch.float32, device=dev)
-    live = torch.ones(batch_shape, dtype=torch.bool, device=dev)
-    prev_diffuse = torch.zeros(batch_shape, dtype=torch.bool, device=dev)
-    prev_cos = torch.zeros(batch_shape, dtype=torch.float32, device=dev)
-    lights, tl = sc.lights, sc.tri_lights
-    rays_box = [torch.zeros(batch_shape, dtype=torch.float32, device=dev)]
-
-    if mis:
-        # Exact light identity of the primitive a ray hits (sphere lights
-        # first, then triangle lights).
-        lid_sphere = sphere_light_ids(sc.spheres)
-        if sc.mesh is not None:
-            lid_tri = sc.global_tri_light_ids().long()
-    if pick_per_sample:
-        pick_seed = rng_ops.as_u32(sample_index, dev) ^ rng_ops.wgsl_hash(
-            rng_ops.as_u32(frame_seed_u32, dev))
-
-    def shadow_visible(ok, pnt, omega, window):
-        """Lanes of `ok` with no hit in (t_min, window): the any-hit query,
-        driven only by lanes whose sample is otherwise valid."""
-        vis = torch.zeros_like(ok)
-        idx = torch.nonzero(ok.reshape(-1)).squeeze(1)
-        if idx.numel():
-            t = nearest_t_scene(pnt.reshape(-1, 3)[idx], omega.reshape(-1, 3)[idx],
-                                sc, t_min, t_max)
-            vis.reshape(-1)[idx] = t >= window.reshape(-1)[idx]
-        return vis
-
+    st = initial_path_state(origins, dirs, pixel_seeds, pixel_ids, count_rays=count_rays)
+    # Every ray runs the full trip count with its `live` mask.
     for i in range(max_depth):
-        if count_rays:
-            rays_box[0] = rays_box[0] + live.to(torch.float32)
-        if mis:
-            hit, albedo, kind, param, mesh_won = intersect_scene(
-                o, d, sc, t_min, t_max, want_mesh_wins=True)
-        else:
-            hit, albedo, kind, param = intersect_scene(o, d, sc, t_min, t_max)
-        base = 16 + 3 * i
-        u1 = rng_ops.uniform_hash(pixel_seeds, base)
-        u2 = rng_ops.uniform_hash(pixel_seeds, base + 1)
-        if sampler_spec is not None and i == 0:
-            # The first-bounce scatter pair (salt 6): strata of the sphere.
-            # 2 pi stays outside the remap: jitted trace_path runs its
-            # bounces in a while loop, and XLA folds no constant into it.
-            u1, u2 = rng_ops.sampler_uniforms(
-                u1, u2, pixel_ids, sample_index, frame_seed_u32, sampler_spec,
-                rot_salt=rng_ops._SCATTER_ROT_SALT)
-        unit_vec = rng_ops.unit_vector_from_uniforms(u1, u2)
-        u_reflect = rng_ops.uniform_hash(pixel_seeds, base + 2)
-        new_dir, attenuation, ok = scatter(
-            d, hit.normal, hit.front_face, albedo, kind, param, unit_vec, u_reflect
-        )
-
-        missed = live & ~hit.hit
-        result = torch.where(
-            missed[..., None], result + throughput * sky_color(d) * sky_intensity,
-            result,
-        )
-        emissive = live & hit.hit & (kind == EMISSIVE)
-        if mis:
-            # Power heuristic for a BSDF ray that left a diffuse vertex and
-            # hit light l: w_b = 1 / (1 + r^2), r = p_nee / p_b as seen from
-            # the previous vertex o.
-            hit_lid = lid_sphere[hit.idx.clamp(0, sc.spheres.count - 1)]
-            if sc.mesh is not None:
-                hit_lid = torch.where(
-                    mesh_won, lid_tri[hit.idx.clamp(0, sc.mesh.num_triangles - 1)], hit_lid)
-            omc = torch.zeros(batch_shape, dtype=torch.float32, device=dev)
-            for l in range(n_sl):
-                dlo = o - lights.centers[l]
-                d2o = torch.clamp(dot3(dlo, dlo), min=1e-12)
-                r_l = lights.radii[l]
-                omc = torch.where(hit_lid == l, _one_minus_cos_max(r_l * r_l, d2o), omc)
-            r_ratio = 1.0 / torch.clamp(2.0 * omc * prev_cos, min=1e-12)
-            if n_tl:
-                delta = hit.point - o
-                d2h = torch.clamp(dot3(delta, delta), min=1e-12)
-                d3h = d2h * torch.sqrt(d2h)
-                for j in range(n_tl):
-                    ndot = torch.abs(dot3(delta, tl.normal[j]))
-                    r_tri = (torch.pi * d3h) / torch.clamp(ndot * tl.area[j] * prev_cos,
-                                                           min=1e-12)
-                    r_ratio = torch.where(hit_lid == n_sl + j, r_tri, r_ratio)
-            if total > 4:
-                r_ratio = r_ratio / float(total)
-            w_emis = torch.where(
-                prev_diffuse,
-                torch.where(hit_lid >= 0, 1.0 / fma(r_ratio, r_ratio, torch.ones_like(r_ratio)),
-                            0.0),
-                1.0,
-            )
-        else:
-            w_emis = torch.where(prev_diffuse, 0.0, 1.0) if nee else torch.ones_like(prev_cos)
-        result = torch.where(
-            emissive[..., None], result + throughput * albedo * (param * w_emis)[..., None],
-            result,
-        )
-
-        inside_any = torch.zeros(batch_shape, dtype=torch.bool, device=dev)
-        if nee:
-            pnt, nrm = hit.point, hit.normal
-            for l in range(n_sl):
-                dcl = lights.centers[l] - pnt
-                r_l = lights.radii[l]
-                inside_any = inside_any | (dot3(dcl, dcl) <= r_l * r_l * 1.0001)
-            nee_ok = live & hit.hit & (kind == LAMBERTIAN) & ~inside_any
-            salt0 = 2000 + 37 * i
-            last = i == max_depth - 1
-
-            def draws(g: int):
-                u1n = rng_ops.uniform_hash(pixel_seeds, salt0 + 7 * g + 1)
-                u2n = rng_ops.uniform_hash(pixel_seeds, salt0 + 7 * g + 2)
-                if sampler_spec is not None and i == 0 and total <= 4:
-                    u1n, u2n = rng_ops.sampler_uniforms(
-                        u1n, u2n, pixel_ids, sample_index, frame_seed_u32, sampler_spec,
-                        rot_salt=rng_ops._NEE_ROT_SALT_BASE + g)
-                return u1n, u2n
-
-            def add(result, ok, omega, window, wgt, le):
-                valid = nee_ok & ok
-                if count_rays:
-                    # One shadow ray per lane whose sample is valid, counted
-                    # before the visibility test.
-                    rays_box[0] = rays_box[0] + valid.to(torch.float32)
-                valid = valid & shadow_visible(valid, pnt, omega, window * (1.0 - 1e-3))
-                if mis:
-                    wgt = _mis_nee_weight(wgt, last)
-                return torch.where(valid[..., None],
-                                   result + throughput * albedo * le * wgt[..., None], result)
-
-            def sphere_term(result, li, u1n, u2n, weight):
-                omega, t_l, ok, wgt0 = _sphere_candidate(
-                    pnt, nrm, lights.centers[li], lights.radii[li], u1n, u2n)
-                return add(result, ok, omega, t_l, wgt0 * weight, lights.emission[li])
-
-            def tri_term(result, ji, u1n, u2n, weight):
-                omega, dist, ok, wgt0 = _tri_candidate(
-                    pnt, nrm, tl.v0[ji], tl.e1[ji], tl.e2[ji], tl.normal[ji], tl.area[ji],
-                    u1n, u2n)
-                return add(result, ok, omega, dist, wgt0 * weight, tl.emission[ji])
-
-            if total <= 4:
-                # Every light, sphere lights first, weight 1.
-                for l in range(n_sl):
-                    u1n, u2n = draws(l)
-                    li = torch.full(batch_shape, l, dtype=torch.long, device=dev)
-                    result = sphere_term(result, li, u1n, u2n, 1.0)
-                for j in range(n_tl):
-                    u1n, u2n = draws(n_sl + j)
-                    ji = torch.full(batch_shape, j, dtype=torch.long, device=dev)
-                    result = tri_term(result, ji, u1n, u2n, 1.0)
-            else:
-                # One light, weighted by the count.
-                u1n, u2n = draws(0)
-                if pick_per_sample:
-                    bounce_seed = rng_ops.hash2(pick_seed, 3000 + i)
-                    g = rng_ops.hash2(bounce_seed, 0) % total
-                    gi = torch.full(batch_shape, int(g), dtype=torch.long, device=dev)
-                else:
-                    u_l = rng_ops.uniform_hash(pixel_seeds, salt0)
-                    gi = torch.clamp((u_l * float(total)).long(), 0, total - 1)
-                if n_tl == 0:
-                    result = sphere_term(result, gi, u1n, u2n, float(total))
-                else:
-                    # Both candidates from the picked ordinal, selected
-                    # per lane before the one shadow query.
-                    is_sph = gi < n_sl
-                    if n_sl:
-                        li = torch.clamp(gi, 0, n_sl - 1)
-                        s_om, s_t, s_ok, s_w = _sphere_candidate(
-                            pnt, nrm, lights.centers[li], lights.radii[li], u1n, u2n)
-                        s_le = lights.emission[li]
-                    ji = torch.clamp(gi - n_sl, 0, n_tl - 1)
-                    t_om, t_dist, t_ok, t_w = _tri_candidate(
-                        pnt, nrm, tl.v0[ji], tl.e1[ji], tl.e2[ji], tl.normal[ji],
-                        tl.area[ji], u1n, u2n)
-                    if n_sl:
-                        sel = is_sph[..., None]
-                        omega = torch.where(sel, s_om, t_om)
-                        window = torch.where(is_sph, s_t, t_dist)
-                        ok = torch.where(is_sph, s_ok, t_ok)
-                        wgt0 = torch.where(is_sph, s_w, t_w)
-                        le = torch.where(sel, s_le, tl.emission[ji])
-                    else:
-                        omega, window, ok, wgt0, le = t_om, t_dist, t_ok, t_w, tl.emission[ji]
-                    result = add(result, ok, omega, window, wgt0 * float(total), le)
-
-        # Absorbed rays (metal below the surface) contribute black.
-        scattered = live & hit.hit & ok & (kind != EMISSIVE)
-        throughput = torch.where(scattered[..., None], throughput * attenuation, throughput)
-        o = torch.where(scattered[..., None], hit.point, o)
-        d = torch.where(scattered[..., None], new_dir, d)
-        live = scattered
-        # Only lanes that ran NEE suppress (or MIS-weight) BSDF-hit emission.
-        prev_diffuse = scattered & (kind == LAMBERTIAN) & ~inside_any
-        if mis:
-            nd2 = torch.clamp(dot3(new_dir, new_dir), min=1e-20)
-            cos_s = dot3(new_dir, hit.normal) * torch.rsqrt(nd2)
-            prev_cos = torch.where(prev_diffuse, torch.clamp(cos_s, min=0.0), 0.0)
-
-        if russian_roulette_depth > 0 and i >= russian_roulette_depth:
-            # Survive with p = max channel throughput (clamped), divide by p.
-            u_rr = rng_ops.uniform_hash(pixel_seeds, 1000 + i)
-            p = torch.clamp(torch.amax(throughput, dim=-1), 0.05, 1.0)
-            survive = u_rr < p
-            throughput = torch.where(
-                (live & survive)[..., None], throughput * (1.0 / p)[..., None],
-                throughput,
-            )
-            live = live & survive
+        st = path_bounce(ctx, st, i, sample_index)
     # Exhausted rays contribute black (the parity quirk is not ported).
-    return (result, rays_box[0]) if count_rays else result
+    return (st.result, st.rays) if count_rays else st.result

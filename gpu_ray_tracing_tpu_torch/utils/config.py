@@ -3,13 +3,16 @@
 The same frozen dataclass with the same fields and cross-field checks.  The
 backends are the port's own: 'cuda', the default, is the hand-written
 megakernel (the counterpart of 'pallas'), so an entry point given nothing
-else renders on the card and raises without one; 'torch' is how a caller
-asks for the plain PyTorch integrator (the counterpart of 'jax'), which
-runs on the device the scene lies on.  NEE/MIS and the stratified and
-Sobol samplers run on both; adaptive sampling is a megakernel mode, as in
-the JAX package.  The modes the port does not carry yet raise
-NotImplementedError and name their ROADMAP.md item: the wavefront backend
-(K2), and the threefry and wgsl streams.
+else renders on the card and raises without one; 'wavefront' is the
+wavefront engine on the card (one kernel launch per bounce over compacted
+rays; it raises without a card too); 'torch' is how a caller asks for the
+plain PyTorch integrator (the counterpart of 'jax') and 'wavefront_torch'
+for the wavefront engine's plain version, which run on the device the scene
+lies on.  NEE/MIS and the stratified and Sobol samplers run on all four;
+adaptive sampling is a megakernel mode and ray regeneration a wavefront
+mode, as in the JAX package.  The modes the port does not carry yet raise
+NotImplementedError and name their ROADMAP.md item: the threefry and wgsl
+streams.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from typing import Literal
 
 from gpu_ray_tracing_tpu_torch.ops.rng import sobol_nbits, strata_shape
 
-_BACKENDS = ("torch", "cuda")
+_BACKENDS = ("torch", "cuda", "wavefront", "wavefront_torch")
+_WAVEFRONT = ("wavefront", "wavefront_torch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +42,10 @@ class RenderConfig:
     max_depth: int = 30
     integrator: Literal["path", "normal", "albedo", "depth"] = "path"
     # 'cuda'  = hand-written sm_90a megakernel (ops/cuda/megakernel.cu)
+    # 'wavefront' = the wavefront engine's sm_90a kernels (ops/cuda/wavefront.py)
     # 'torch' = plain PyTorch integrator (reference path; runs anywhere)
-    backend: Literal["torch", "cuda"] = "cuda"
+    # 'wavefront_torch' = the wavefront engine's plain version (runs anywhere)
+    backend: Literal["torch", "cuda", "wavefront", "wavefront_torch"] = "cuda"
     rng: Literal["hash", "threefry", "wgsl"] = "hash"
     parity: bool = False
     sky_intensity: float = 1.0
@@ -55,11 +61,6 @@ class RenderConfig:
     t_max: float = 3.4e35
 
     def __post_init__(self):
-        if self.backend == "wavefront":
-            raise NotImplementedError(
-                "backend='wavefront' is not ported yet (ROADMAP Queue 1 "
-                "item 13, kernel K2)"
-            )
         if self.backend not in _BACKENDS:
             raise ValueError(
                 f"backend must be one of {_BACKENDS}, got {self.backend!r}"
@@ -67,7 +68,7 @@ class RenderConfig:
         if self.integrator not in ("path", "normal", "albedo", "depth"):
             raise ValueError(f"unknown integrator {self.integrator!r}")
         # The cross-field checks of the JAX RenderConfig, 'pallas' read as
-        # 'cuda'.
+        # 'cuda' and 'wavefront' as either wavefront backend.
         if self.width <= 0 or self.height <= 0:
             raise ValueError(f"invalid resolution {self.width}x{self.height}")
         if self.spp <= 0:
@@ -76,7 +77,7 @@ class RenderConfig:
             raise ValueError(f"max_depth must be positive, got {self.max_depth}")
         if self.parity and self.rng != "wgsl":
             raise ValueError("parity=True requires rng='wgsl'")
-        if self.backend == "cuda" and self.rng != "hash":
+        if self.backend in ("cuda", *_WAVEFRONT) and self.rng != "hash":
             raise ValueError(f"backend={self.backend!r} requires rng='hash'")
         if self.sampler != "independent" and self.rng != "hash":
             raise ValueError(
@@ -110,11 +111,14 @@ class RenderConfig:
             raise ValueError(
                 f"adaptive_min_spp must be >= 2, got {self.adaptive_min_spp}"
             )
-        if self.regenerate != "off":
-            # Only the wavefront engine regenerates, and it is not ported.
+        if self.regenerate not in ("auto", "on", "off"):
+            raise ValueError(f"unknown regenerate mode {self.regenerate!r}")
+        if self.regenerate != "off" and self.backend not in _WAVEFRONT:
+            # Silently ignoring the request would time the wrong engine.
             raise ValueError(
                 f"regenerate={self.regenerate!r} is a wavefront-engine mode; "
-                f"backend={self.backend!r} ignores it — set regenerate='off'"
+                f"backend={self.backend!r} ignores it — set "
+                "backend='wavefront' or regenerate='off'"
             )
         # Modes the port does not carry yet.
         if self.rng != "hash":

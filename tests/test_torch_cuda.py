@@ -373,3 +373,127 @@ def test_progressive_matches_one_shot(dev):
     for _ in range(2):
         two = T.progressive_step(two, scene, cam, cfg, frame_seed=5, spp_per_step=2)
     torch.testing.assert_close(two.rgb, st.rgb, atol=2e-5, rtol=0)
+
+
+# --- the wavefront engine (K2) and the probes (K3, K4) ----------------------
+
+
+def _wavefront_routes(dev):
+    lit = dict(nee=True, mis=True, sky_intensity=0.0)
+    final = T.make_scene(T.one_weekend_scene(0, grid_min=-11, grid_max=11))
+    return {
+        "brute": (T.one_weekend_scene(0), T.CameraSettings.default(), 160, 90,
+                  dict(spp=3, max_depth=12, sample_index=5)),
+        "odd_size": (T.one_weekend_scene(0), T.CameraSettings.default(), 50, 31,
+                     dict(spp=2, max_depth=8)),
+        "sphere_bvh_rr": (final, T.CameraSettings.default(), 128, 72,
+                          dict(spp=2, max_depth=20, russian_roulette_depth=3)),
+        "mesh": (*_mesh_scene(dev, True), 96, 72, dict(spp=2, max_depth=6)),
+        "cornell_two_lights": (T.cornell_box_scene(), T.cornell_camera(), 64, 48,
+                               dict(spp=4, max_depth=6, **lit)),
+        "many_lights": (_many_lights_scene(), T.CameraSettings.make(
+            [0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0], 60.0, 0.0, 2.0), 96, 72,
+                        dict(spp=2, max_depth=4, **lit)),
+        "sobol": (T.one_weekend_scene(0), T.CameraSettings.default(), 96, 54,
+                  dict(spp=4, max_depth=8, sampler_spec=("sobol", 4))),
+        "clamp": (T.cornell_box_scene(), T.cornell_camera(), 64, 48,
+                  dict(spp=2, max_depth=6, clamp=0.5, **lit)),
+    }
+
+
+@pytest.mark.parametrize("route", ["brute", "odd_size", "sphere_bvh_rr", "mesh",
+                                   "cornell_two_lights", "many_lights", "sobol", "clamp"])
+def test_wavefront_equals_megakernel_bit_for_bit(dev, route):
+    """backend='wavefront' with regeneration off: render_cuda's image and
+    ray-count plane bit for bit, whatever the sort and compaction
+    threshold; with regeneration on within 3e-5, and the same in two runs."""
+    from gpu_ray_tracing_tpu_torch.ops.cuda import wavefront as wf
+
+    scene, cam_s, w, h, kw = _wavefront_routes(dev)[route]
+    scene = T.as_scene(scene).to(dev)
+    cam = cam_s if isinstance(cam_s, T.Camera) else T.derive_camera(cam_s, w, h)
+    cam = cam.to(dev)
+    kw = dict(width=w, height=h, t_min=1e-3, frame_seed=3, **kw)
+    want, want_rays = mk.render_cuda(scene, cam, return_ray_count=True, **kw)
+    before = sum(v for k, v in mk.LAUNCHES.items() if k.startswith("wavefront:"))
+    got, rays = wf.render_wavefront(scene, cam, return_ray_count=True, **kw)
+    assert sum(v for k, v in mk.LAUNCHES.items() if k.startswith("wavefront:")) > before
+    assert torch.equal(got, want) and torch.equal(rays, want_rays)
+    assert torch.equal(wf.render_wavefront(scene, cam, sort="spatial", compact_threshold=0.5,
+                                           **kw),
+                       want)
+    band = wf.render_wavefront(scene, cam, **{**kw, "height": h // 3}, y_offset=2,
+                               row_stride=3, total_width=w)
+    assert torch.equal(band, want[2::3][: h // 3])
+    if not kw.get("clamp"):
+        a = wf.render_wavefront(scene, cam, regenerate=True, **kw)
+        b = wf.render_wavefront(scene, cam, regenerate=True, **kw)
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, want, atol=3e-5, rtol=1e-5)
+
+
+def test_wavefront_bounce_matches_its_plain_version(dev):
+    """One launch of wavefront_bounce_kernel against
+    wavefront_bounce_reference on the same state: the live masks differ on
+    at most 1% of the rays, and the state of agreeing rays by 2e-4 on
+    average."""
+    from gpu_ray_tracing_tpu_torch.ops.cuda import wavefront as wf
+
+    w, h = 160, 90
+    scene, cam = _one_weekend(dev, w, h)
+    n = w * h
+    engines = [wf.Engine(scene, cam, 3, 30, 1e-3, total_width=w, plain=plain)
+               for plain in (False, True)]
+    states = []
+    for eng in engines:
+        state_f, state_i = wf.new_state(n, False, dev)
+        state_i[wf.PID] = torch.arange(n, dtype=torch.int32, device=dev)
+        state_i[wf.PIX] = state_i[wf.PID]
+        out = torch.zeros((n, 3), device=dev)
+        wf.wavefront_raygen(eng, state_f, state_i, n, regen=False, sample=1)
+        wf.wavefront_bounce(eng, state_f, state_i, n, regen=False, sample=1, bounce=0, out=out)
+        states.append((state_f, out))
+    (kf, kout), (pf, pout) = states
+    live_k, live_p = kf[wf.LIVE] > 0.5, pf[wf.LIVE] > 0.5
+    assert float((live_k != live_p).float().mean()) <= 0.01
+    both = live_k & live_p
+    assert float((kf[:, both] - pf[:, both]).abs().mean()) < 2e-4
+    assert float((kout - pout).abs().mean()) < 2e-4
+
+
+def test_wavefront_refuses_cpu_tensors(dev):
+    from gpu_ray_tracing_tpu_torch.ops.cuda import wavefront as wf
+
+    cam = T.derive_camera(T.CameraSettings.default(), 16, 8)
+    with pytest.raises((ValueError, RuntimeError)):
+        wf.render_wavefront(T.one_weekend_scene(0), cam, width=16, height=8, max_depth=2,
+                            t_min=1e-3)
+
+
+@pytest.mark.parametrize("mix", ["slab", "fma"])
+@pytest.mark.parametrize("chains", [1, 2, 4])
+def test_fma_peak_kernel_matches_its_plain_version(dev, mix, chains):
+    """K3 at 32 rounds: the slab mix is built without contraction and the
+    multiply-add mix calls fmaf where the plain version calls
+    ops/rounding.fma, so both are exact."""
+    from gpu_ray_tracing_tpu_torch.utils import roofline
+
+    x = torch.linspace(0.5, 1.5, 4096, device=dev)
+    before = mk.LAUNCHES["fma_peak"]
+    got = roofline.fma_peak(x, 32, mix, chains)
+    assert mk.LAUNCHES["fma_peak"] == before + 1
+    assert torch.equal(got, roofline.fma_peak_reference(x, 32, mix, chains))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("compare", [False, True])
+def test_slab_dtype_kernel_matches_its_plain_version(dev, dtype, compare):
+    """K4 at 32 rounds: exact in f32 and in packed bf16 (both round every
+    operation)."""
+    from gpu_ray_tracing_tpu_torch.utils import roofline
+
+    x = torch.linspace(0.5, 1.5, 4096, device=dev)
+    got = roofline.slab_dtype(x, 32, dtype, compare)
+    assert torch.equal(got, roofline.slab_dtype_reference(x, 32, dtype, compare))
+    with pytest.raises(ValueError, match="even"):
+        roofline.slab_dtype(x[:5].contiguous(), 4, dtype, compare)

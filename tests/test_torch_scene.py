@@ -219,7 +219,7 @@ def test_degenerate_camera_raises():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(backend="wavefront"), "item 13"),
+    (dict(backend="wavefront", regenerate="on"), None),
     (dict(nee=True), None),
     (dict(rng="threefry", backend="torch"), "item 2"),
     (dict(rng="wgsl", parity=True, backend="torch"), "item 2"),
@@ -228,8 +228,8 @@ def test_degenerate_camera_raises():
 ])
 def test_config_names_the_roadmap_item_of_unported_modes(kw, item):
     """Unported modes raise naming their item; ported ones (item None: NEE
-    since K1b, the samplers since K1e, adaptive sampling since K1f) are
-    accepted."""
+    since K1b, the samplers since K1e, adaptive sampling since K1f, the
+    wavefront engine with its ray regeneration since K2) are accepted."""
     if item is None:
         cfg = T.RenderConfig(**kw)
         assert all(getattr(cfg, k) == v for k, v in kw.items())
@@ -270,3 +270,33 @@ def test_port_imports_no_jax():
                                     or (words[:1] in (["import"], ["from"]) and len(words) > 1
                                         and words[1].startswith(("jax.", "gpu_ray_tracing_tpu.")))), (
                             name, line)
+
+
+def test_port_opens_no_file_of_the_jax_package():
+    """The port keeps its own copy of what it needs: building a BVH scene
+    (the native builder compiles from the port's own bvh_builder.cpp) and
+    rendering open no file inside gpu_ray_tracing_tpu/, and no compiler is
+    handed a path there."""
+    code = """
+import os, sys
+ref = os.path.join(os.getcwd(), 'gpu_ray_tracing_tpu') + os.sep
+bad = []
+def hook(event, args):
+    if event == 'open' and isinstance(args[0], str) and os.path.abspath(args[0]).startswith(ref):
+        bad.append(args[0])
+    if event == 'subprocess.Popen' and any(ref in str(a) for a in args[1]):
+        bad.append(list(args[1]))
+sys.addaudithook(hook)
+import gpu_ray_tracing_tpu_torch as T
+from gpu_ray_tracing_tpu_torch import native
+port = os.path.join(os.getcwd(), 'gpu_ray_tracing_tpu_torch') + os.sep
+assert native.SOURCE.startswith(port) and os.path.exists(native.SOURCE), native.SOURCE
+scene = T.make_scene(T.one_weekend_scene(0), sphere_bvh=True)
+cfg = T.RenderConfig(width=8, height=8, spp=1, max_depth=2, backend='wavefront_torch')
+T.render(scene, T.CameraSettings.default(), cfg)
+assert not bad, bad
+print('ok')
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
