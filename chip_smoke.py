@@ -10,7 +10,8 @@ of both engines) and probes.cu with nvcc, side by side, then drives the port's
 main paths on the card in phases, one JSON line each:
 
   1. device       the card, its compute capability and power limit
-  2. build        nvcc version, build seconds, the kernel's registers
+  2. build        nvcc version, build seconds, each kernel instance's registers,
+                  stack and spills, render_kernel's beside the parent's
   3. hash_probe   the kernel's hashes vs ops/rng.py on 1M u32 values: bit-exact;
      sampler_probe  the kernel's stratified (4,4) and Sobol (nbits 5) remaps at
                   pair ids 5-8 on 1M (pixel id, sample) pairs: bit-exact
@@ -23,7 +24,8 @@ main paths on the card in phases, one JSON line each:
   6. main_path    render(one_weekend_scene(0), CameraSettings.default(),
                   1280x720, 16 spp, depth 30, backend='cuda'): 2 warm-up and
                   5 timed frames (CUDA events), launch counts, output checks,
-                  and the same frame from the plain version
+                  the kernel alone with its bounce Mrays/s (the rays its
+                  counters measure), and the same frame from the plain version
   7. sphere_bvh   the 487-sphere One-Weekend final scene (a sphere BVH),
                   320x180, 4 spp, depth 50: the walk vs the plain version's
                   scan of the same spheres, flip <= 2% and mean < 2e-3, and
@@ -94,6 +96,13 @@ main paths on the card in phases, one JSON line each:
  23. bf16_probe   the f32 / packed-bf16 probe (K4) vs its plain version at 32
                   rounds, then microseconds per launch on the 32x128 tile and on
                   a card-filling grid, product and compare forms
+ 24. regen_schedule  render_kernel's per-warp path regeneration against
+                  render(backend='wavefront', regenerate='off') bit for bit,
+                  ray counts included, on small frames that stress its
+                  schedule: 50x31 at 3 spp, spp 1, 5, 16 and 37, a row band
+                  (y_offset 1, row_stride 2), NEE+MIS with Russian roulette,
+                  Sobol, stratified, the sphere BVH and a mesh; each launched
+                  twice, the two frames identical
 
 Every phase that launches the megakernel gates its launch count on its own
 route key (megakernel:brute, :sphere_bvh, :mesh_bvh, suffixed +nee,
@@ -112,10 +121,16 @@ no result.  It needs no network and starts no process that outlives it.
 
     python3 chip_smoke.py --main-path-only
 
-runs phases 1 and 2, then times phase 6's frame over 20 frames and prints
-one JSON line.  Copied into another checkout and run there, it times that
-checkout's package: run two checkouts in turns (A, B, B, A) within one
-machine to compare two builds of the kernel.
+runs phases 1 and 2, then times phase 6's frame over 20 frames through
+render() and the kernel alone over 10, the kernel alone on the routes of
+configs 3 and 4, the lit path, the night scene and a 1-spp progressive step,
+and prints one JSON line; with `--save-frame PATH` it also saves the frame as
+a .npy file.  "The kernel alone" is the device time of render_cuda calls
+queued behind a spin kernel, so the host's packing per call does not show.
+Copied into
+another checkout and run there, it times that checkout's package: run two
+checkouts in turns (A, B, B, A) within one machine to compare two builds of
+the kernel, and compare their saved frames bit for bit.
 """
 
 from __future__ import annotations
@@ -168,6 +183,11 @@ HBM_RATE = 3.35e12
 SPHERE_FLOPS = 23
 BOX_FLOPS = 23
 TRI_FLOPS = 45
+# `-Xptxas -v` of the one-thread-per-pixel render_kernel<nee, count> this
+# tree replaced (commit 2fc7558, nvcc 12.9, on the H100): registers, stack
+# bytes and spill-store bytes per instance.
+PARENT_RENDER_KERNEL = {"<0,0>": [80, 200, 132], "<0,1>": [80, 200, 140],
+                        "<1,0>": [120, 72, 0], "<1,1>": [122, 72, 0]}
 
 failures: list[str] = []
 
@@ -216,6 +236,18 @@ def cuda_ms(fn, repeats: int) -> tuple[float, object]:
     return start.elapsed_time(end) / repeats, out
 
 
+def kernel_ms(mk, scene, cam, kw: dict, repeats: int) -> float:
+    """The kernel alone: device ms of render_cuda(scene, cam, **kw), scene
+    and camera on the card, one warm-up call, then the mean of `repeats`
+    calls queued behind a ~0.1 s spin kernel.  The host packs a scene in
+    about a millisecond a call, so the queue fills before the card reaches
+    it and the events see no host time."""
+    mk.render_cuda(scene, cam, **kw)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    return cuda_ms(lambda: mk.render_cuda(scene, cam, **kw), repeats)[0]
+
+
 def against_plain(T, mk, run, scene, cam, kw, flip: float, mean_tol: float,
                   warmup: int = 1, plain=None) -> dict:
     """Reset the launch counts, call `run` (a kernel path) `warmup` times
@@ -248,6 +280,83 @@ def time_main_path(T, mk, repeats: int) -> tuple[float, torch.Tensor, dict]:
         T.render(scene, cam, cfg, frame_seed=7)
     ms, img = cuda_ms(lambda: T.render(scene, cam, cfg, frame_seed=7), repeats)
     return ms, img, dict(mk.LAUNCHES)
+
+
+def time_main_kernel(T, mk, repeats: int) -> dict:
+    """The main path's kernel alone (kernel_ms over `repeats` launches),
+    the rays its counters measure for the frame, and bounce Mrays/s from
+    the two."""
+    dev = torch.device("cuda", 0)
+    scene = T.one_weekend_scene(0).to(dev)
+    cam = T.derive_camera(T.CameraSettings.default(), 1280, 720).to(dev)
+    kw = dict(width=1280, height=720, spp=16, max_depth=30, t_min=1e-3, frame_seed=7)
+    ms = kernel_ms(mk, scene, cam, kw, repeats)
+    rays = float(mk.render_cuda(scene, cam, return_ray_count=True, **kw)[1].double().sum())
+    return dict(kernel_ms=ms, rays_traced=rays, bounce_mrays_per_s=rays / (ms * 1e3))
+
+
+def mesh_scene(T, subdivisions: int):
+    """benchmarks/parity_check.py::_mesh_scene, and run.py's config 4 at
+    subdivisions=6."""
+    ground = T.make_spheres([((0, -1000.0, 0), 1000.0, T.LAMBERTIAN, (0.5, 0.5, 0.5), 0.0)])
+    ico = T.icosphere(subdivisions, albedo=(0.75, 0.6, 0.45), smooth=True)
+    return T.make_scene(ground, T.transform_mesh(ico, 0.8, (0.0, 0.8, 0.0)))
+
+
+def time_routes(T, mk, repeats: int) -> dict:
+    """The kernel alone (kernel_ms over `repeats` launches) on the frames
+    of phases 9, 10, 12 and 11's night case, and on one 1-spp step of
+    phase 18, each with its phase's seed: {route: ms}."""
+    dev = torch.device("cuda", 0)
+    ow, lk = T.CameraSettings.default(), dict(nee=True, mis=True)
+    frames = {
+        "config3": (T.make_scene(T.one_weekend_scene(0, grid_min=-11, grid_max=11)), ow,
+                    1280, 720, dict(spp=1, max_depth=50, frame_seed=3)),
+        "config4": (mesh_scene(T, 6), T.CameraSettings.make(**MESH_CAMERA), 640, 480,
+                    dict(spp=1, max_depth=8, frame_seed=4)),
+        "cornell_nee_mis": (T.cornell_box_scene(), T.cornell_camera(), 1280, 720,
+                            dict(spp=16, max_depth=30, frame_seed=0, sky_intensity=0.0, **lk)),
+        "night": (lit_scenes(T)["night"], T.CameraSettings.make(**NIGHT_CAMERA), 320, 180,
+                  dict(spp=4, max_depth=30, frame_seed=3, **lk)),
+        "progressive_step": (T.one_weekend_scene(0), ow, 1280, 720,
+                             dict(spp=1, max_depth=30, frame_seed=7, sample_index=5)),
+    }
+    out = {}
+    for name, (scene, cam_s, w, h, kw) in frames.items():
+        cam = T.derive_camera(cam_s, w, h).to(dev)
+        out[name] = kernel_ms(mk, scene.to(dev), cam, dict(width=w, height=h, t_min=1e-3, **kw),
+                              repeats)
+    return out
+
+
+def regen_schedule(T, mk, wf, cases) -> list[dict]:
+    """render_kernel against the wavefront engine with regeneration off
+    (the same path_bounce, one launch per bounce, sample by sample: bit-
+    equal to the one-thread-per-pixel kernel it replaced) on each case
+    (name, scene on the card, camera on the card, render_cuda keywords):
+    image and ray counts bit for bit, with and without the counters, and
+    two launches identical.  Returns one row a case."""
+    rows = []
+    for name, sc, cam, kw in cases:
+        mk.LAUNCHES.clear()
+        got, rays = mk.render_cuda(sc, cam, return_ray_count=True, **kw)
+        again, rays_again = mk.render_cuda(sc, cam, return_ray_count=True, **kw)
+        no_counter = mk.render_cuda(sc, cam, **kw)
+        launches = dict(mk.LAUNCHES)
+        want, want_rays = wf.render_wavefront(sc, cam, regenerate=False,
+                                              return_ray_count=True, **kw)
+        r = dict(case=name, size=[kw["width"], kw["height"]], spp=kw["spp"],
+                 image_equal=bool(torch.equal(got, want)),
+                 ray_counts_equal=bool(torch.equal(rays, want_rays)),
+                 image_equal_without_counter=bool(torch.equal(no_counter, want)),
+                 two_runs_identical=bool(torch.equal(got, again)
+                                         and torch.equal(rays, rays_again)),
+                 max_abs=float((got - want).abs().max()),
+                 rays_traced=float(rays.double().sum()), launches=launches)
+        r["ok"] = (r["image_equal"] and r["ray_counts_equal"] and r["image_equal_without_counter"]
+                   and r["two_runs_identical"] and sum(launches.values()) == 3)
+        rows.append(r)
+    return rows
 
 
 def adaptive_match(T, img, smap, plain_img, plain_map, flip: float, mean_tol: float):
@@ -452,12 +561,15 @@ def main() -> int:
           "compiled": {k: v.compiled for k, v in infos.items()},
           "nvcc_seconds": {k: v.seconds for k, v in infos.items()},
           "load_seconds": time.perf_counter() - t0, "flags": " ".join(build.NVCC_FLAGS),
-          "ptxas": [ln for v in infos.values() for ln in ptxas_instances(v.ptxas_report)]})
+          "ptxas": [ln for v in infos.values() for ln in ptxas_instances(v.ptxas_report)],
+          "render_kernel_parent_regs_stack_spills": PARENT_RENDER_KERNEL})
     gate("build", all(v.compiled for v in infos.values()),
          "a library was not compiled from the checkout")
     if args.main_path_only:
         ms, img, launches = time_main_path(T, mk, 20)
         emit({"phase": "main_path_only", "repo": REPO, "ms_per_frame": ms, "repeats": 20,
+              **time_main_kernel(T, mk, 10), "kernel_repeats": 10,
+              "routes_kernel_ms": time_routes(T, mk, 10),
               "mean": float(img.mean()), "launches": launches, "card": smi})
         if args.save_frame:
             np.save(args.save_frame, img.cpu().numpy())
@@ -505,12 +617,6 @@ def main() -> int:
     mesh_cam = T.CameraSettings.make(**MESH_CAMERA)
     ground = T.make_spheres([((0, -1000.0, 0), 1000.0, T.LAMBERTIAN, (0.5, 0.5, 0.5), 0.0)])
 
-    def mesh_scene(subdivisions: int):
-        """benchmarks/parity_check.py::_mesh_scene, and run.py's config 4
-        at subdivisions=6."""
-        ico = T.icosphere(subdivisions, albedo=(0.75, 0.6, 0.45), smooth=True)
-        return T.make_scene(ground, T.transform_mesh(ico, 0.8, (0.0, 0.8, 0.0)))
-
     lit = lit_scenes(T)
     cases = [
         ("base_normal_64x48.npy", T.base_scene(), base_cam,
@@ -519,7 +625,7 @@ def main() -> int:
          dict(width=64, height=48, spp=4, max_depth=8), 42, 0.005, 1e-4),
         ("one_weekend_48x27.npy", T.one_weekend_scene(0), T.CameraSettings.default(),
          dict(width=48, height=27, spp=2, max_depth=6), 3, 0.01, 2e-4),
-        ("mesh_ico_48x36.npy", mesh_scene(2), mesh_cam,
+        ("mesh_ico_48x36.npy", mesh_scene(T, 2), mesh_cam,
          dict(width=48, height=36, spp=2, max_depth=4), 11, 0.005, 1e-4),
         ("nee_light_48x36.npy", lit["nee"], base_cam,
          dict(width=48, height=36, spp=4, max_depth=6, sky_intensity=0.0, nee=True,
@@ -590,9 +696,10 @@ def main() -> int:
         main_scene.to(dev), cam6, width=w, height=h, spp=spp, max_depth=30,
         t_min=cfg.t_min, frame_seed=7), 1)
     m6 = T.images_match(img, plain_img, 0.01, 2e-4)
+    main_kernel = time_main_kernel(T, mk, 5)
     emit({"phase": "main_path", "size": [w, h], "spp": spp, "max_depth": 30,
           "shape": list(img.shape), "finite": finite, "mean": mean,
-          "launches": launches, "ms_per_frame": frame_ms,
+          "launches": launches, "ms_per_frame": frame_ms, **main_kernel,
           "primary_mrays_per_s": w * h * spp / (frame_ms * 1e3),
           "plain_ms": plain_ms, "vs_plain_flip_frac": m6.flip_frac,
           "vs_plain_mean_abs": m6.mean_abs, "vs_plain_max_abs": m6.max_abs,
@@ -637,7 +744,7 @@ def main() -> int:
          f"expected 6 brute-scan launches, counted {brute['launches']}")
 
     # 8. the mesh kernel against the plain version
-    ico4 = mesh_scene(4).to(dev)
+    ico4 = mesh_scene(T, 4).to(dev)
     w8, h8 = 320, 240
     cam8 = T.derive_camera(mesh_cam, w8, h8).to(dev)
     kw8 = dict(width=w8, height=h8, spp=2, max_depth=8, t_min=1e-3, frame_seed=8)
@@ -661,23 +768,25 @@ def main() -> int:
         ("config3", "sphere_bvh", final, T.CameraSettings.default(),
          T.RenderConfig(width=1280, height=720, spp=1, max_depth=50, backend="cuda"), 3,
          0.02, 2e-3),
-        ("config4", "mesh_bvh", mesh_scene(6), mesh_cam,
+        ("config4", "mesh_bvh", mesh_scene(T, 6), mesh_cam,
          T.RenderConfig(width=640, height=480, spp=1, max_depth=8, backend="cuda"), 4,
          0.01, 2e-4),
     ):
         kw = dict(width=cfg.width, height=cfg.height, spp=cfg.spp, max_depth=cfg.max_depth,
                   t_min=cfg.t_min, frame_seed=seed)
-        r = against_plain(
-            T, mk, lambda: T.render(scene, cam, cfg, frame_seed=seed), scene.to(dev),
-            T.derive_camera(cam, cfg.width, cfg.height).to(dev), kw, flip, mean_tol, warmup=2)
+        inputs = (scene.to(dev), T.derive_camera(cam, cfg.width, cfg.height).to(dev), kw)
+        r = against_plain(T, mk, lambda: T.render(scene, cam, cfg, frame_seed=seed), *inputs,
+                          flip, mean_tol, warmup=2)
         m = r["match"]
-        paths[phase] = dict(r, route=route, inputs=(scene.to(dev), T.derive_camera(
-            cam, cfg.width, cfg.height).to(dev), kw))
+        # The kernel alone, as phases 12-13 time it: render() of these short
+        # frames is host-bound.
+        k_ms = kernel_ms(mk, *inputs, 5)
+        paths[phase] = dict(r, route=route, kernel_ms=k_ms, inputs=inputs)
         emit({"phase": phase, "size": [cfg.width, cfg.height], "spp": cfg.spp,
               "max_depth": cfg.max_depth, "spheres": scene.spheres.count,
               "triangles": 0 if scene.mesh is None else scene.mesh.num_triangles,
               "finite": r["finite"], "mean": r["mean"], "launches": r["launches"],
-              "ms_per_frame": r["ms"],
+              "ms_per_frame": r["ms"], "kernel_ms": k_ms,
               "primary_mrays_per_s": cfg.width * cfg.height * cfg.spp / (r["ms"] * 1e3),
               "plain_ms": r["plain_ms"], "vs_plain_flip_frac": m.flip_frac,
               "vs_plain_mean_abs": m.mean_abs, "vs_plain_max_abs": m.max_abs,
@@ -706,13 +815,15 @@ def main() -> int:
         r = against_plain(T, mk, lambda: mk.render_cuda(sc, cam, **kw), sc, cam, kw,
                           0.01, 2e-4)
         m = r["match"]
-        nee_runs[case] = dict(r, route=route, inputs=(sc, cam, kw))
+        k_ms = kernel_ms(mk, sc, cam, kw, 5)
+        nee_runs[case] = dict(r, route=route, kernel_ms=k_ms, inputs=(sc, cam, kw))
         emit({"phase": "nee_vs_plain", "case": case, "size": [cfg.width, cfg.height],
               "spp": cfg.spp, "max_depth": cfg.max_depth, "lights": [
                   0 if sc.lights is None else sc.lights.count,
                   0 if sc.tri_lights is None else sc.tri_lights.count],
               "flip_frac": m.flip_frac, "mean_abs": m.mean_abs, "max_abs": m.max_abs,
-              "kernel_ms": r["ms"], "plain_ms": r["plain_ms"], "launches": r["launches"],
+              "ms": r["ms"], "kernel_ms": k_ms, "plain_ms": r["plain_ms"],
+              "launches": r["launches"],
               "card": smi, "ok": m.ok})
         gate("nee_vs_plain", m.ok, f"{case}: {m}")
         gate("nee_vs_plain", r["launches"] == {"megakernel:" + route: 6},
@@ -739,13 +850,13 @@ def main() -> int:
                           cam_dev, kw, flip, mean_tol, warmup=2)
         # The kernel alone, scene and camera already on the card: short
         # frames are host-bound in render() (PERF.md section 5).
-        kernel_ms, _ = cuda_ms(lambda: mk.render_cuda(sc_dev, cam_dev, **kw), 5)
+        k_ms = kernel_ms(mk, sc_dev, cam_dev, kw, 5)
         m = r["match"]
-        paths[route] = dict(r, route=route, kernel_ms=kernel_ms, inputs=(sc_dev, cam_dev, kw))
+        paths[route] = dict(r, route=route, kernel_ms=k_ms, inputs=(sc_dev, cam_dev, kw))
         emit({"phase": phase, "route": route, "size": [cfg.width, cfg.height],
               "spp": cfg.spp, "max_depth": cfg.max_depth, "sampler": cfg.sampler,
               "nee": cfg.nee, "mis": cfg.mis, "finite": r["finite"], "mean": r["mean"],
-              "launches": r["launches"], "ms_per_frame": r["ms"], "kernel_ms": kernel_ms,
+              "launches": r["launches"], "ms_per_frame": r["ms"], "kernel_ms": k_ms,
               "primary_mrays_per_s": cfg.width * cfg.height * cfg.spp / (r["ms"] * 1e3),
               "plain_ms": r["plain_ms"], "vs_plain_flip_frac": m.flip_frac,
               "vs_plain_mean_abs": m.mean_abs, "vs_plain_max_abs": m.max_abs,
@@ -1096,7 +1207,7 @@ def main() -> int:
     mk.LAUNCHES.clear()
     for case, sc, cam_s, w, h, kw in (
         ("sphere_bvh", final, main_cam, 320, 180, dict(spp=2, max_depth=50)),
-        ("icosphere4", mesh_scene(4), mesh_cam, 320, 240, dict(spp=2, max_depth=8)),
+        ("icosphere4", mesh_scene(T, 4), mesh_cam, 320, 240, dict(spp=2, max_depth=8)),
         ("cornell_nee_mis", T.cornell_box_scene(), T.cornell_camera(), 128, 96,
          dict(spp=4, max_depth=8, **lit_kw)),
         ("many_lights", lit["many_lights"], base_cam, 320, 240,
@@ -1184,6 +1295,38 @@ def main() -> int:
     gate("bf16_probe", slab_launches == 8 * (slab["repeats"] + 1),
          f"expected {8 * (slab['repeats'] + 1)} launches, counted {slab_launches}")
 
+    # 24. render_kernel's schedule: frames and options that stress the
+    # per-warp pool, each bit-equal to the wavefront engine without
+    # regeneration, ray counts included, and repeatable
+    def case(name, scene, cam_s, w, h, **kw):
+        return (name, T.as_scene(scene).to(dev), T.derive_camera(cam_s, w, h).to(dev),
+                dict(width=w, height=h, t_min=1e-3, frame_seed=3, **kw))
+
+    ow_cam = T.CameraSettings.default()
+    regen_rows = regen_schedule(T, mk, wf, [
+        case("odd_50x31_spp3", main_scene, ow_cam, 50, 31, spp=3, max_depth=12,
+             sample_index=5),
+        case("spp1", main_scene, ow_cam, 320, 180, spp=1, max_depth=30),
+        case("spp5", main_scene, ow_cam, 160, 90, spp=5, max_depth=30),
+        case("spp16", main_scene, ow_cam, 160, 90, spp=16, max_depth=30),
+        case("spp37_50x31", main_scene, ow_cam, 50, 31, spp=37, max_depth=30),
+        case("band_y1_stride2", main_scene, ow_cam, 320, 90, spp=4, max_depth=30,
+             y_offset=1, row_stride=2),
+        case("nee_mis_rr", lit["nee"], base_cam, 160, 120, spp=4, max_depth=8,
+             russian_roulette_depth=3, **lit_kw),
+        case("cornell_nee_mis", T.cornell_box_scene(), T.cornell_camera(), 128, 96, spp=4,
+             max_depth=30, **lit_kw),
+        case("sobol", main_scene, ow_cam, 160, 90, spp=8, max_depth=30,
+             sampler_spec=("sobol", 3)),
+        case("stratified", main_scene, ow_cam, 160, 90, spp=16, max_depth=30,
+             sampler_spec=("stratified", 4, 4)),
+        case("sphere_bvh", final, ow_cam, 160, 90, spp=2, max_depth=50),
+        case("icosphere4", mesh_scene(T, 4), mesh_cam, 160, 120, spp=2, max_depth=8),
+    ])
+    emit({"phase": "regen_schedule", "cases": regen_rows, "card": smi})
+    for r in regen_rows:
+        gate("regen_schedule", r["ok"], f"{r['case']}: {r}")
+
     def rays_of(sc, cam, kw):
         return float(mk.render_cuda(sc, cam, return_ray_count=True, **kw)[1].double().sum())
 
@@ -1192,7 +1335,8 @@ def main() -> int:
     rows = [
         dict(kernel, name="megakernel:brute", path="brute",
              launches=launches.get("megakernel:brute", 0),
-             max_abs_err=m6.max_abs, ms=frame_ms, plain_ms=plain_ms, **main_bound),
+             max_abs_err=m6.max_abs, ms=frame_ms, plain_ms=plain_ms, **main_bound,
+             kernel_ms=main_kernel["kernel_ms"]),
     ]
     for p in (paths["config3"], paths["config4"], paths["mesh_bvh+nee"], nee_runs["night"],
               paths["brute+sobol"]):
@@ -1201,7 +1345,7 @@ def main() -> int:
         rows.append(dict(kernel, name="megakernel:" + p["route"], path=p["route"],
                          launches=p["launches"].get("megakernel:" + p["route"], 0),
                          max_abs_err=p["match"].max_abs, ms=p["ms"], plain_ms=p["plain_ms"],
-                         **b))
+                         kernel_ms=p.get("kernel_ms"), **b))
     # The adaptive rows: the main frame (phase 17) and the Cornell box, the
     # NEE instance (phase 15).
     cb = adaptive_runs["cornell"]

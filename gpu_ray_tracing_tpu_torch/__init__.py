@@ -97,12 +97,12 @@ from gpu_ray_tracing_tpu_torch.utils.checkpoint import (
     render_fingerprint,
     save_accum,
 )
-from gpu_ray_tracing_tpu_torch.utils.config import RenderConfig
+from gpu_ray_tracing_tpu_torch.utils.config import REFERENCE_CONFIG, RenderConfig
 from gpu_ray_tracing_tpu_torch.utils.parity import images_match
 
 __all__ = [
     "AccumState", "AdaptiveAccumState", "BVH", "Camera", "CameraSettings", "DIELECTRIC",
-    "EMISSIVE", "LAMBERTIAN", "Lights", "METAL", "RenderConfig", "SPHERE_BVH_THRESHOLD",
+    "EMISSIVE", "LAMBERTIAN", "Lights", "METAL", "REFERENCE_CONFIG", "RenderConfig", "SPHERE_BVH_THRESHOLD",
     "Scene", "Spheres", "TriLights", "TriangleMesh", "adaptive_progressive_step",
     "as_scene", "base_scene", "box", "build_bvh", "build_mesh_bvh", "build_sphere_bvh",
     "bunny_stand_in", "checkpoint_path", "cornell_box_scene", "cornell_camera",

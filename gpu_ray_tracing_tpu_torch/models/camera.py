@@ -99,11 +99,27 @@ def _libm_tanf():
     return fn
 
 
-def _tan(x: torch.Tensor) -> torch.Tensor:
+class _Tan(torch.autograd.Function):
     """tan of an f32 scalar, rounded as the C library's tanf rounds it:
     jnp.tan on XLA:CPU calls tanf, which is not correctly rounded, and
-    one ulp of the viewport flips grazing hits in the goldens."""
-    return torch.tensor(_libm_tanf()(float(x)), dtype=torch.float32, device=x.device)
+    one ulp of the viewport flips grazing hits in the goldens.  The
+    derivative is jnp.tan's, 1 + tan^2 of the value returned."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        y = torch.tensor(_libm_tanf()(float(x.detach())), dtype=torch.float32,
+                         device=x.device)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        (y,) = ctx.saved_tensors
+        return grad * (1.0 + y * y)
+
+
+def _tan(x: torch.Tensor) -> torch.Tensor:
+    return _Tan.apply(x)
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:

@@ -59,7 +59,7 @@ _MEGAKERNEL_SIGNATURES = {
          _c_float, _c_int,  # ... clamp, spp
          _c_ptr, _c_ptr, _c_ptr,  # out, rays, adaptive state
          _c_int, _c_int, _c_int, _c_float,  # tile rows, min spp, chunk, tol
-         _c_ptr],  # stream
+         _c_ptr, _c_ptr],  # pixel-group cursor, stream
     ),
     "grt_wavefront_bounce": (
         _c_int,

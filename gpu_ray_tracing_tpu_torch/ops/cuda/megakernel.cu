@@ -1,5 +1,6 @@
-// Path-tracing megakernel for Hopper (sm_90a): one thread per pixel, or one
-// block per tile for the adaptive spp loop.
+// Path-tracing megakernel for Hopper (sm_90a): warps that regenerate paths
+// (render_kernel), one thread per pixel for the AOV modes, or one block per
+// tile for the adaptive spp loop.
 //
 // Replaces the Pallas TPU kernel gpu_ray_tracing_tpu/ops/pallas/megakernel.py
 // `_kernel` (launched by `render_pallas`) on its K1a-K1f paths: spheres by
@@ -11,10 +12,11 @@
 // and Owen-scrambled Sobol samplers (K1e); the fixed spp loop, the
 // normal/albedo/depth AOV modes, Russian roulette and the per-sample clamp;
 // the adaptive spp loop with its exact resume, the spp map and the in-kernel
-// ray counters (K1f).  In the fixed loop each thread runs ray generation,
-// the bounce loop and the spp mean for its pixel and writes one RGB triple
-// (and its ray count); the adaptive loop keeps its six state planes in
-// device memory (render_adaptive_kernel below).
+// ray counters (K1f).  In the fixed loop a warp's lanes trace (pixel,
+// sample) items of its pixels, each lane taking the next item as soon as
+// its path ends, and fold each pixel's samples in sample order into one RGB
+// triple (and its ray count); the adaptive loop keeps its six state planes
+// in device memory (render_adaptive_kernel below).
 //
 // What bounds it on this card: arithmetic on small scenes, scattered loads
 // on large ones.  The brute scan tests every sphere (~25 flops each, N = 197
@@ -25,11 +27,13 @@
 // node and triangle loads scatter through L1/L2 (a 81,920-face mesh table
 // is 10 MB, inside the 50 MB L2).  NEE adds one shadow query per light and
 // diffuse vertex; it ends at the first blocker, and only threads whose
-// sample is otherwise valid start one.  Divergence is the other cost: a
-// thread whose path ended idles until its warp's deepest path ends.  This
-// version is simple: it stages nothing in shared memory and is built with
-// -fmad=false and without fast math, so the compiler contracts nothing on
-// its own.  Fused multiply-adds appear only where written (fmaf), where the
+// sample is otherwise valid start one.  Divergence is the other cost: in a
+// loop of one thread per pixel a thread whose path ended idles until its
+// warp's deepest path ends, which render_kernel avoids by regenerating
+// paths per warp.  It stages only its finished samples in shared memory,
+// the scene not at all, and it is built with -fmad=false and without fast
+// math, so the compiler contracts nothing on its own.  Fused multiply-adds
+// appear only where written (fmaf), where the
 // reference's own rounding (XLA:CPU contracts a*b+c, and the goldens carry
 // that) decides grazing hits, self-intersections and shadow rays: the ray
 // generation, the sphere quadratic, Moller-Trumbore, hit points and the
@@ -40,6 +44,8 @@
 // sample index, frame seed, salt), bit-exact with ops/rng.py.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -658,6 +664,7 @@ struct Params {
   int spp;     // the fixed loop's count; the adaptive loop's budget
   float* out;  // (height, width, 3), or null (adaptive resume)
   float* rays;  // (height, width) rays-traced plane, or null
+  int* cursor;  // render_kernel's next pixel group, zero at launch
 };
 
 // The adaptive spp loop (K1f): its tile, stopping test and state planes.
@@ -934,9 +941,10 @@ __device__ __forceinline__ unsigned int global_row(const Params& p, int y_local)
   return (unsigned int)y_local * p.row_stride + p.y_offset;
 }
 
-// The fixed spp loop: one thread per pixel, the mean of p.spp samples.
-template <bool kNee, bool kCount>
-__global__ void __launch_bounds__(256) render_kernel(const Params p) {
+// The fixed spp loop of the AOV modes: one thread per pixel, the mean of
+// p.spp samples of one ray each (nothing to regenerate).
+template <bool kCount>
+__global__ void __launch_bounds__(256) render_aov_kernel(const Params p) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y_local = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= p.width || y_local >= p.height) return;
@@ -949,8 +957,8 @@ __global__ void __launch_bounds__(256) render_kernel(const Params p) {
   unsigned int rays = 0u;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   for (int s = 0; s < p.spp; ++s) {
-    const Vec3 c = trace_sample<kNee, kCount>(p, cm, x, y, pid, base0,
-                                              p.sample_index + (unsigned int)s, rays);
+    const Vec3 c = trace_sample<false, kCount>(p, cm, x, y, pid, base0,
+                                               p.sample_index + (unsigned int)s, rays);
     acc_r = acc_r + c.x;
     acc_g = acc_g + c.y;
     acc_b = acc_b + c.z;
@@ -962,6 +970,206 @@ __global__ void __launch_bounds__(256) render_kernel(const Params p) {
   out[1] = acc_g / inv;
   out[2] = acc_b / inv;
   if (kCount) p.rays[pix] = (float)rays;
+}
+
+// The path integrator's fixed spp loop, with per-warp path regeneration.
+//
+// Replaces `_kernel` (gpu_ray_tracing_tpu/ops/pallas/megakernel.py:1420) on
+// its fixed-spp path.  The TPU kernel runs one pixel tile per grid step and
+// leaves a tile's bounce loop when all its paths have ended (:1609-1614);
+// the first port ran one thread per pixel, looping over its samples, so a
+// warp's sample lasted as long as the deepest of its 32 paths.  At the main
+// path's depth 30 the live share per bounce falls 1.0, 0.83, 0.32, 0.17 ...
+// 0.003 (PERF.md): a mean path of 2.7 bounces against a warp's longest of
+// about 12, so about a fifth of the lanes did useful work.
+//
+// Here a lane whose path has ended takes the next work item at once.  An
+// item is one (pixel, sample).  A warp takes groups of 32 consecutive local
+// pixels from a global cursor (one atomicAdd by lane 0 a group; the wrapper
+// zeroes the cursor before each launch), so warps that drew cheap groups
+// take more and the grid drains together.  It streams its groups' items in
+// the order (group, sample, pixel): item k is pixel k mod 32 of row k / 32,
+// and a row is one sample of one group; lane q mod 32 holds the id of the
+// warp's q-th group.  At the top of each loop iteration, where every lane of
+// the warp arrives, the idle lanes take the next items in lane order
+// (__ballot_sync and __popc of the lanes below: no atomics in the warp),
+// generate their rays with the same seeds as trace_sample, and every lane
+// with a path runs one path_bounce.  A path ends as trace_sample's does
+// (path_bounce returns false, or max_depth bounces), is clamped, and stores
+// its RGB and ray count into its item's slot of a ring in shared memory, 16
+// rows of 32 slots (8 KB) a warp.  Then the warp folds every finished row,
+// oldest first: lane j adds slot j of the row to pixel j's running sums, so
+// each pixel folds its samples in sample order from 0.0f, as the
+// one-thread-per-pixel loop did, and after the last sample writes sum / spp
+// and the ray count (summed as unsigned ints).  A lane may run up to 16 rows
+// ahead of the oldest unfolded row, so a deep path stalls no one until the
+// ring is full.  An item's result depends only on its (pixel, sample), so
+// the frame is the same bit for bit whichever warp drew which group.
+//
+// What bounds it on this card: the closest-hit arithmetic of every traced
+// ray (23 flops a sphere test; the main path's 39.5 M rays over 197
+// spheres are 2.67 ms at the nominal 67 TFLOP/s and 6.5 ms at the 27.5
+// TFLOP/s the slab-mix probe measures).  Divergence between lanes that
+// start a path and lanes deep in one is the remaining loss.
+constexpr int kRegenWarps = 4;   // warps a block
+constexpr int kRingRows = 16;    // rows of 32 items a warp holds (a power of 2)
+constexpr int kRingSlots = kRingRows * 32;
+
+template <bool kNee, bool kCount>
+__global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(const Params p) {
+  // Slot of an item: r, g, b as bits, then the rays it traced + 1 (0: open).
+  __shared__ uint4 ring_all[kRegenWarps][kRingSlots];
+  constexpr unsigned int kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  uint4* const ring = ring_all[threadIdx.x >> 5];
+  const unsigned int lanes_below = (1u << lane) - 1u;
+  const int n_pix = p.width * p.height;
+  const int n_groups = (n_pix + 31) >> 5;
+  const int group_items = 32 * p.spp;
+  for (int k = lane; k < kRingSlots; k += 32) ring[k].w = 0u;
+  __syncwarp();
+  const unsigned int frame_hash = wgsl_hash(p.frame_seed);
+
+  // Warp-uniform: the groups drawn and whether the cursor ran out, the next
+  // item to hand out, and the oldest row not yet folded with its sample and
+  // the index of its group.
+  int opened = 0, next = 0, fold = 0, fold_s = 0, fold_q = 0;
+  bool exhausted = false;
+  int my_group = 0;
+  // The lane's path: its item, seeds, bounce and state.
+  bool active = false;
+  int item = 0, i = 0;
+  unsigned int seed = 0u, base0 = 0u, s_abs = 0u, rays = 0u;
+  PathState st;
+  // Pixel `lane` of the group being folded: its running sums.
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  unsigned int acc_rays = 0u;
+  while (true) {
+    // Refill: draw groups while the idle lanes need items, then hand them
+    // the next items in lane order, at most 16 rows past the oldest.
+    const unsigned int idle = __ballot_sync(kFull, !active);
+    int limit = min(next + __popc(idle), (fold + kRingRows) * 32);
+    while (!exhausted && opened * group_items < limit) {
+      int g = 0;
+      if (lane == 0) g = atomicAdd(p.cursor, 1);
+      g = __shfl_sync(kFull, g, 0);
+      if (g >= n_groups) {
+        exhausted = true;
+      } else {
+        if (lane == (opened & 31)) my_group = g;
+        ++opened;
+      }
+    }
+    limit = min(limit, opened * group_items);
+    if (exhausted && fold == opened * p.spp) break;
+    const int k = next + __popc(idle & lanes_below);
+    const int q = k / group_items;
+    const int group = __shfl_sync(kFull, my_group, q & 31);
+    if (!active && k < limit) {
+      const int pix = group * 32 + (k & 31);
+      if (pix >= n_pix) {
+        // No pixel: the frame's ragged last group.
+        ring[k & (kRingSlots - 1)] = make_uint4(0u, 0u, 0u, 1u);
+      } else {
+        const int x = pix % p.width;
+        const unsigned int y = global_row(p, pix / p.width);
+        const unsigned int pid = y * (unsigned int)p.width + (unsigned int)x;
+        s_abs = p.sample_index + (unsigned int)((k >> 5) - q * p.spp);
+        seed = hash_pixel_seeds(pid, s_abs, p.frame_seed);
+        base0 = hash_pixel_seeds(pid, 0u, p.frame_seed);
+        Cam cm;
+        load_cam(p.cam, cm);
+        generate_ray(p.sampler, cm, x, y, seed, base0, s_abs, st.o, st.d);
+        st.tr = st.tg = st.tb = 1.0f;
+        st.r = st.g = st.b = 0.0f;
+        st.prev_diffuse = false;
+        st.prev_cos = 0.0f;
+        item = k;
+        i = 0;
+        rays = 0u;
+        active = true;
+      }
+    }
+    next = limit;
+    // One bounce of every path; a path that ends hands its sample to its slot.
+    if (active) {
+      const bool live =
+          path_bounce<kNee, kCount>(p, st, seed, base0, s_abs, s_abs ^ frame_hash, i, rays);
+      if (!live || ++i >= p.max_depth) {
+        clamp_sample(p, st.r, st.g, st.b);
+        ring[item & (kRingSlots - 1)] = make_uint4(
+            __float_as_uint(st.r), __float_as_uint(st.g), __float_as_uint(st.b), rays + 1u);
+        active = false;
+      }
+    }
+    __syncwarp();
+    // Fold the finished rows, oldest first; each pixel in sample order.
+    while (fold < opened * p.spp) {
+      uint4* const slot = ring + (fold & (kRingRows - 1)) * 32 + lane;
+      const uint4 v = *slot;
+      const int fold_group = __shfl_sync(kFull, my_group, fold_q & 31);
+      if (__ballot_sync(kFull, v.w != 0u) != kFull) break;
+      slot->w = 0u;
+      acc_r = acc_r + __uint_as_float(v.x);
+      acc_g = acc_g + __uint_as_float(v.y);
+      acc_b = acc_b + __uint_as_float(v.z);
+      acc_rays += v.w - 1u;
+      if (++fold_s == p.spp) {
+        const int pix = fold_group * 32 + lane;
+        if (pix < n_pix) {
+          const float inv = (float)p.spp;  // the mean is sum / spp (megakernel.py:1789)
+          float* out = p.out + (size_t)pix * 3;
+          out[0] = acc_r / inv;
+          out[1] = acc_g / inv;
+          out[2] = acc_b / inv;
+          if (kCount) p.rays[pix] = (float)acc_rays;
+        }
+        acc_r = acc_g = acc_b = 0.0f;
+        acc_rays = 0u;
+        fold_s = 0;
+        ++fold_q;
+      }
+      ++fold;
+    }
+    if (fold_q >= 32) {
+      // Rebase the counters by 32 groups, which keeps every slot, ring row
+      // and group lane, so that item indices stay small (fold_q < 48 here:
+      // a pass folds at most the ring's 16 rows).
+      opened -= 32;
+      fold_q -= 32;
+      fold -= 32 * p.spp;
+      next -= 32 * group_items;
+      item -= 32 * group_items;
+    }
+    __syncwarp();
+  }
+}
+
+// Launch render_kernel on a persistent grid: as many blocks as fit on the
+// card at once (fewer for a small frame), the ring in the largest shared
+// memory carve-out.
+template <bool kNee, bool kCount>
+cudaError_t launch_render(const Params& p, cudaStream_t s) {
+  const auto kernel = render_kernel<kNee, kCount>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRegenWarps * 32, 0);
+  if (e != cudaSuccess) return e;
+  const long long n_pix = (long long)p.width * p.height;
+  // A path takes at least one bounce, and a warp's item indices (less than
+  // 66 groups past its rebase) fit an int.
+  if (p.cursor == nullptr || p.max_depth < 1 || n_pix > 0x7fffffffLL ||
+      (long long)(64 + kRingRows) * 32 * p.spp > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const long long wanted = ((n_pix + 31) / 32 + kRegenWarps - 1) / kRegenWarps;
+  const int grid = (int)std::max(1LL, std::min(wanted, (long long)std::max(per_sm, 1) * sms));
+  kernel<<<grid, kRegenWarps * 32, 0, s>>>(p);
+  return cudaGetLastError();
 }
 
 constexpr int kAdaptiveThreads = 256;
@@ -1288,7 +1496,8 @@ Params scene_params(const float* cam, const float* scene, int n, const float* sb
 // The outputs: `out` (height, width, 3) and, when not null, `rays`
 // (height, width), the rays traced per pixel.  With `state` (6, height,
 // width) the adaptive loop runs (spp is its budget) and updates the state;
-// `out` is then optional (the one-shot mean).
+// `out` is then optional (the one-shot mean).  The path integrator's fixed
+// loop needs `cursor`, one int in device memory set to 0.
 extern "C" int grt_render(const float* cam, const float* scene, int n,
                           const float* sbvh_f, const int* sbvh_i, int sbvh_m,
                           const float* mesh, int n_tris, int smooth,
@@ -1300,7 +1509,8 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
                           unsigned int row_stride, int max_depth, float t_min,
                           float t_max, int mode, int rr_depth, float sky_intensity,
                           float clamp, int spp, float* out, float* rays, float* state,
-                          int tile_rows, int min_spp, int chunk, float tol, void* stream) {
+                          int tile_rows, int min_spp, int chunk, float tol, int* cursor,
+                          void* stream) {
   Params p = scene_params(cam, scene, n, sbvh_f, sbvh_i, sbvh_m, mesh, n_tris, smooth,
                           mbvh_f, mbvh_i, mbvh_m, lights, n_lights, tri_lights,
                           n_tri_lights, nee, mis, sampler, kx, ky, nbits);
@@ -1320,6 +1530,7 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
   p.spp = spp;
   p.out = out;
   p.rays = rays;
+  p.cursor = cursor;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool count = rays != nullptr;
   if (state != nullptr) {
@@ -1335,16 +1546,17 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
     }
     return static_cast<int>(cudaGetLastError());
   }
-  const dim3 block(32, 8);
-  const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  if (nee) {
-    if (count) render_kernel<true, true><<<grid, block, 0, s>>>(p);
-    else render_kernel<true, false><<<grid, block, 0, s>>>(p);
-  } else {
-    if (count) render_kernel<false, true><<<grid, block, 0, s>>>(p);
-    else render_kernel<false, false><<<grid, block, 0, s>>>(p);
+  if (mode != PATH) {
+    const dim3 block(32, 8);
+    const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
+    if (count) render_aov_kernel<true><<<grid, block, 0, s>>>(p);
+    else render_aov_kernel<false><<<grid, block, 0, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  if (nee) return static_cast<int>(count ? launch_render<true, true>(p, s)
+                                         : launch_render<true, false>(p, s));
+  return static_cast<int>(count ? launch_render<false, true>(p, s)
+                                : launch_render<false, false>(p, s));
 }
 
 // One wavefront bounce over slots [0, n) of the state planes (`state_f`

@@ -556,6 +556,9 @@ def render_cuda(
            else torch.empty((height, width, 3), dtype=torch.float32, device=dev))
     rays = (torch.zeros((height, width), dtype=torch.float32, device=dev)
             if return_ray_count else None)
+    # The path kernel's pixel-group cursor, zero at launch.
+    cursor = (torch.zeros(1, dtype=torch.int32, device=dev)
+              if plan.state is None and mode == "path" else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.grt_render(
@@ -566,7 +569,7 @@ def render_cuda(
             max_depth, float(t_min), float(t_max), MODES[mode],
             int(russian_roulette_depth), float(sky_intensity), float(clamp),
             spp, ptr(out), ptr(rays), ptr(plan.state),
-            plan.tile_rows, plan.min_spp, plan.chunk, plan.tol, stream,
+            plan.tile_rows, plan.min_spp, plan.chunk, plan.tol, ptr(cursor), stream,
         )
     build.check(rc, "megakernel")
     route = packed.route + ("+adaptive" if plan.state is not None else "")

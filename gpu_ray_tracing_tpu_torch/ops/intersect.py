@@ -197,11 +197,20 @@ def intersect_bvh(origins, dirs, mesh, bvh, t_min: float, t_max: float) -> Hit:
     costs the sum of the rays' visits, not their maximum times the ray
     count.  A leaf's faces are tested together: the winner is the first
     face of least t, which is what a sequential shrinking-window scan
-    keeps.  No gradient flows through the walk.
+    keeps.
+
+    Gradients are straight-through, as in JAX's intersect_bvh: the walk
+    runs on detached inputs and fixes which face wins, then the winner's t
+    is recomputed with one differentiable Moller-Trumbore of that face
+    (the same function of the same inputs, so the same value), and the hit
+    record is built from it.
     """
     batch_shape = origins.shape[:-1]
-    o = origins.reshape(-1, 3)
-    d = dirs.reshape(-1, 3)
+    o_diff = origins.reshape(-1, 3)
+    d_diff = dirs.reshape(-1, 3)
+    mesh_diff = mesh
+    o, d = o_diff.detach(), d_diff.detach()
+    mesh = mesh.map(torch.Tensor.detach)
     p = o.shape[0]
     dev = o.device
     inv_d = 1.0 / torch.where(torch.abs(d) < 1e-20, 1e-20, d)
@@ -247,4 +256,7 @@ def intersect_bvh(origins, dirs, mesh, bvh, t_min: float, t_max: float) -> Hit:
 
     any_hit = idx_out >= 0
     idx = torch.where(any_hit, idx_out, 0)
-    return _mesh_hit_record(o, d, mesh, t_out, idx, any_hit, batch_shape)
+    t_re, _, _, _ = _moller_trumbore(o_diff, d_diff, mesh_diff.v0[idx], mesh_diff.e1[idx],
+                                     mesh_diff.e2[idx], t_min, t_max)
+    t_best = torch.where(any_hit, t_re, t_max)
+    return _mesh_hit_record(o_diff, d_diff, mesh_diff, t_best, idx, any_hit, batch_shape)

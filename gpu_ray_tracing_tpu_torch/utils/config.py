@@ -96,8 +96,9 @@ class RenderConfig:
             )
         if self.clamp > 0.0 and self.regenerate != "off":
             raise ValueError(
-                "clamp > 0 is unsupported with ray regeneration (the pool "
-                "accumulates per-bounce deltas; no per-sample total exists)"
+                "clamp > 0 is refused with ray regeneration, as the reference's "
+                "RenderConfig refuses it (the JAX package clamps only sample-major "
+                "renders); set regenerate='off' to clamp"
             )
         if self.adaptive_tol < 0.0:
             raise ValueError(f"adaptive_tol must be >= 0, got {self.adaptive_tol}")
@@ -137,3 +138,18 @@ class RenderConfig:
         if self.sampler == "sobol":
             return ("sobol", sobol_nbits(self.spp))
         return None
+
+    @property
+    def resolution(self) -> tuple[int, int]:
+        return (self.width, self.height)
+
+    @property
+    def num_pixels(self) -> int:
+        return self.width * self.height
+
+
+#: Reference defaults: 1280x720 window (lib.rs:24-25), 500-spp target
+#: (camera.rs:33), 30-bounce depth (camera.rs:34).
+REFERENCE_CONFIG = RenderConfig(
+    width=1280, height=720, spp=500, max_depth=30, integrator="path"
+)

@@ -27,6 +27,10 @@ from gpu_ray_tracing_tpu_torch.ops import integrators as ti
 from gpu_ray_tracing_tpu_torch.ops import rays as tr
 from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as tmk
 
+# The suite runs in several worker processes at once: one torch thread
+# each keeps them from oversubscribing the CPU.
+torch.set_num_threads(1)
+
 T_CAMERA = T.CameraSettings.make([0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0],
                                  60.0, 0.0, 2.0)
 # Four tiles of 32 x 128 across 160 x 40, three of them partial.

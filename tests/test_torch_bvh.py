@@ -24,6 +24,10 @@ from gpu_ray_tracing_tpu_torch.ops import intersect as tx
 from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as tmk
 from tests.test_torch_mesh import _random_rays, assert_hits_agree, assert_meshes_equal
 
+# The suite runs in several worker processes at once: one torch thread
+# each keeps them from oversubscribing the CPU.
+torch.set_num_threads(1)
+
 BVH_FIELDS = ("bbox_min", "bbox_max", "miss_link", "leaf_start", "leaf_count")
 SPHERE_FIELDS = ("centers", "radii", "albedo", "mat_kind", "mat_param")
 TMIN, TMAX = 1e-3, 3.4e35

@@ -22,6 +22,10 @@ import torch
 import gpu_ray_tracing_tpu_torch as T
 from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as mk
 
+# The suite runs in several worker processes at once: one torch thread
+# each keeps them from oversubscribing the CPU.
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -354,25 +358,72 @@ def test_ray_counters_are_exact(dev):
         assert r["rays_traced"] == per * r["primary_rays"], (per, r)
 
 
-def test_progressive_matches_one_shot(dev):
-    """Four 1-spp progressive steps on the card equal render(spp=4) at
-    atol 1e-5, one launch each; reset restarts the count; two steps of 2
-    give the same image at 2e-5."""
+@pytest.mark.parametrize("w, h, spp, depth, seed", [(160, 90, 4, 8, 5), (320, 180, 16, 30, 7)])
+def test_progressive_matches_one_shot(dev, w, h, spp, depth, seed):
+    """spp 1-spp progressive steps on the card, one launch each, equal
+    render(spp) at atol 1e-5; reset restarts the count; steps of 2 give the
+    same image at 2e-5."""
     scene, cam = T.one_weekend_scene(0), T.CameraSettings.default()
-    cfg = T.RenderConfig(width=160, height=90, spp=4, max_depth=8)
+    cfg = T.RenderConfig(width=w, height=h, spp=spp, max_depth=depth)
     mk.LAUNCHES.clear()
     st = T.init_accum(cfg.height, cfg.width)
-    for _ in range(4):
-        st = T.progressive_step(st, scene, cam, cfg, frame_seed=5)
-    assert dict(mk.LAUNCHES) == {"megakernel:brute": 4} and int(st.count) == 4
+    for _ in range(spp):
+        st = T.progressive_step(st, scene, cam, cfg, frame_seed=seed)
+    assert dict(mk.LAUNCHES) == {"megakernel:brute": spp} and int(st.count) == spp
     assert st.rgb.device.type == "cuda" and st.count.device.type == "cpu"
-    torch.testing.assert_close(st.rgb, T.render(scene, cam, cfg, frame_seed=5),
+    torch.testing.assert_close(st.rgb, T.render(scene, cam, cfg, frame_seed=seed),
                                atol=1e-5, rtol=0)
-    assert int(T.progressive_step(st, scene, cam, cfg, frame_seed=5, reset=True).count) == 1
+    assert int(T.progressive_step(st, scene, cam, cfg, frame_seed=seed, reset=True).count) == 1
     two = T.init_accum(cfg.height, cfg.width)
-    for _ in range(2):
-        two = T.progressive_step(two, scene, cam, cfg, frame_seed=5, spp_per_step=2)
+    for _ in range(spp // 2):
+        two = T.progressive_step(two, scene, cam, cfg, frame_seed=seed, spp_per_step=2)
     torch.testing.assert_close(two.rgb, st.rgb, atol=2e-5, rtol=0)
+
+
+# --- render_kernel's per-warp path regeneration ------------------------------
+
+
+def _regen_routes():
+    ground = T.make_spheres([((0, -1000.0, 0), 1000.0, T.LAMBERTIAN, (0.5, 0.5, 0.5), 0.0)])
+    ico4 = T.transform_mesh(T.icosphere(4, albedo=(0.75, 0.6, 0.45), smooth=True), 0.8,
+                            (0.0, 0.8, 0.0))
+    mesh_cam = T.CameraSettings.make([0.0, 1.2, 3.0], [0.0, 0.7, 0.0], [0.0, 1.0, 0.0], 60.0,
+                                     0.0, 2.0)
+    return {
+        "one_weekend": (T.one_weekend_scene(0), T.CameraSettings.default(), 320, 180, {}),
+        "odd_50x31": (T.one_weekend_scene(0), T.CameraSettings.default(), 50, 31, {}),
+        "sphere_bvh": (T.make_scene(T.one_weekend_scene(0, grid_min=-11, grid_max=11)),
+                       T.CameraSettings.default(), 320, 180, {}),
+        "icosphere4": (T.make_scene(ground, ico4), mesh_cam, 320, 180, {}),
+        "cornell_nee_mis": (T.cornell_box_scene(), T.cornell_camera(), 320, 180,
+                            dict(nee=True, mis=True, sky_intensity=0.0)),
+    }
+
+
+@pytest.mark.parametrize("spp", [1, 3, 16, 37])
+@pytest.mark.parametrize("route", ["one_weekend", "odd_50x31", "sphere_bvh", "icosphere4",
+                                   "cornell_nee_mis"])
+def test_regenerating_kernel_equals_wavefront_without_regeneration(dev, route, spp):
+    """render() through render_kernel, whose lanes take a new (pixel,
+    sample) as soon as their path ends, equals render(backend='wavefront',
+    regenerate='off'), which traces each sample's paths bounce by bounce,
+    bit for bit at depth 30; so do the ray counts, and two launches are
+    identical."""
+    from gpu_ray_tracing_tpu_torch.ops.cuda import wavefront as wf
+
+    scene, cam_s, w, h, extra = _regen_routes()[route]
+    cfg = T.RenderConfig(width=w, height=h, spp=spp, max_depth=30, **extra)
+    got = T.render(scene, cam_s, cfg, frame_seed=7)
+    want = T.render(scene, cam_s, dataclasses.replace(cfg, backend="wavefront"), frame_seed=7)
+    assert torch.equal(got, want)
+    sc, cam = T.as_scene(scene).to(dev), T.derive_camera(cam_s, w, h).to(dev)
+    kw = dict(width=w, height=h, spp=spp, max_depth=30, t_min=cfg.t_min, frame_seed=7,
+              nee=cfg.nee, mis=cfg.mis, sky_intensity=cfg.sky_intensity)
+    a, rays_a = mk.render_cuda(sc, cam, return_ray_count=True, **kw)
+    b, rays_b = mk.render_cuda(sc, cam, return_ray_count=True, **kw)
+    _, want_rays = wf.render_wavefront(sc, cam, return_ray_count=True, **kw)
+    assert torch.equal(a, got) and torch.equal(a, b)
+    assert torch.equal(rays_a, want_rays) and torch.equal(rays_a, rays_b)
 
 
 # --- the wavefront engine (K2) and the probes (K3, K4) ----------------------

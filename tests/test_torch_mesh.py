@@ -25,6 +25,10 @@ from gpu_ray_tracing_tpu_torch.models import mesh as tmesh
 from gpu_ray_tracing_tpu_torch.ops import intersect as tx
 from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as tmk
 
+# The suite runs in several worker processes at once: one torch thread
+# each keeps them from oversubscribing the CPU.
+torch.set_num_threads(1)
+
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 MESH_FIELDS = ("v0", "e1", "e2", "normals", "albedo", "mat_kind", "mat_param",
                "n0", "n1", "n2")

@@ -29,6 +29,10 @@ from gpu_ray_tracing_tpu_torch.ops import integrators as ti
 from gpu_ray_tracing_tpu_torch.ops import rays as tr
 from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as tmk
 
+# The suite runs in several worker processes at once: one torch thread
+# each keeps them from oversubscribing the CPU.
+torch.set_num_threads(1)
+
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 TMIN, TMAX = 1e-3, 3.4e35
 T_BASE_CAMERA = T.CameraSettings.make([0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0],

@@ -23,6 +23,10 @@ from gpu_ray_tracing_tpu_torch.utils import roofline
 _cache_dir = jax.config.jax_compilation_cache_dir
 from benchmarks import bf16_probe, vpu_roofline  # noqa: E402
 
+# The suite runs in several worker processes at once: one torch thread
+# each keeps them from oversubscribing the CPU.
+torch.set_num_threads(1)
+
 jax.config.update("jax_compilation_cache_dir", _cache_dir)
 
 ROUNDS = 24

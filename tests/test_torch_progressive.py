@@ -19,6 +19,10 @@ from gpu_ray_tracing_tpu.models import camera as jcam
 from gpu_ray_tracing_tpu.ops import accumulate as jacc
 from gpu_ray_tracing_tpu.utils import checkpoint as jckpt
 
+# The suite runs in several worker processes at once: one torch thread
+# each keeps them from oversubscribing the CPU.
+torch.set_num_threads(1)
+
 J_CAMERA = J.CameraSettings(
     look_from=jnp.asarray([0.0, 0.0, 1.0]), look_at=jnp.asarray([0.0, 0.0, -1.0]),
     vup=jnp.asarray([0.0, 1.0, 0.0]), field_of_view=jnp.float32(60.0),

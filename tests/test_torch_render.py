@@ -33,6 +33,10 @@ from gpu_ray_tracing_tpu_torch.ops import rays as tr
 from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as tmk
 from tests.test_api import BASE_CAMERA
 
+# The suite runs in several worker processes at once: one torch thread
+# each keeps them from oversubscribing the CPU.
+torch.set_num_threads(1)
+
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 T_BASE_CAMERA = T.CameraSettings.make(
     [0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0], 60.0, 0.0, 2.0)
@@ -207,6 +211,22 @@ def test_row_bands_compose_to_the_frame():
 
 
 # --- no fallback -------------------------------------------------------------
+
+
+def test_ctypes_signatures_match_the_c_interface():
+    """Every extern "C" function of the CUDA sources takes as many
+    arguments as build.py declares for it (ctypes would pass a missing
+    pointer as garbage, and there is no compiler here to say so)."""
+    import re
+
+    from gpu_ray_tracing_tpu_torch.ops.cuda import build
+
+    for target in build.TARGETS.values():
+        src = open(target.source).read()
+        found = dict(re.findall(r'extern "C" [\w\s\*]+?\b(grt_\w+)\(([^)]*)\)', src))
+        assert set(found) == set(target.signatures), target.source
+        for name, params in found.items():
+            assert len(params.split(",")) == len(target.signatures[name][1]), name
 
 
 def test_cuda_backend_raises_without_a_gpu():

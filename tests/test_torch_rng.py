@@ -14,6 +14,10 @@ from gpu_ray_tracing_tpu.ops import rng as jrng
 from gpu_ray_tracing_tpu_torch.ops import rng as trng
 from gpu_ray_tracing_tpu_torch.ops.rays import hash_pixel_ids
 
+# The suite runs in several worker processes at once: one torch thread
+# each keeps them from oversubscribing the CPU.
+torch.set_num_threads(1)
+
 # Salt families of the stream: raygen 1-4, scatter 16+3i..18+3i, Russian
 # roulette 1000+i (i = bounce, up to the reference's depth 30).
 SALT_FAMILIES = {

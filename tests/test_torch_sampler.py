@@ -26,6 +26,10 @@ from gpu_ray_tracing_tpu_torch.ops import rays as tr
 from gpu_ray_tracing_tpu_torch.ops import rng as trng
 from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as tmk
 
+# The suite runs in several worker processes at once: one torch thread
+# each keeps them from oversubscribing the CPU.
+torch.set_num_threads(1)
+
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 # Pair ids: AA jitter 5, first-bounce scatter 6, lens 7, NEE lights 8-12.
 SALTS = [5, 6, 7, 8, 9, 10, 11, 12]

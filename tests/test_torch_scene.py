@@ -16,6 +16,10 @@ from gpu_ray_tracing_tpu.ops.pallas import megakernel as jmk
 from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as tmk
 from tests.test_api import BASE_CAMERA
 
+# The suite runs in several worker processes at once: one torch thread
+# each keeps them from oversubscribing the CPU.
+torch.set_num_threads(1)
+
 SPHERE_FIELDS = ("centers", "radii", "albedo", "mat_kind", "mat_param")
 MESH_FIELDS = ("v0", "e1", "e2", "normals", "albedo", "mat_kind", "mat_param",
                "n0", "n1", "n2")
@@ -247,6 +251,32 @@ def test_config_names_the_roadmap_item_of_unported_modes(kw, item):
 def test_config_cross_field_checks(kw):
     with pytest.raises(ValueError):
         T.RenderConfig(**kw)
+
+
+def test_clamp_with_regeneration_is_refused_with_the_references_contract():
+    """Both packages refuse clamp > 0 with ray regeneration; the port's
+    message gives the reference's contract, not a reason about its own pool
+    (which writes each finished sample's clamped total once)."""
+    kw = dict(clamp=1.0, regenerate="on")
+    with pytest.raises(ValueError):
+        J.RenderConfig(backend="wavefront", **kw)
+    for backend in ("wavefront", "wavefront_torch"):
+        with pytest.raises(ValueError, match="as the reference's RenderConfig refuses it") as e:
+            T.RenderConfig(backend=backend, **kw)
+        assert "per-bounce" not in str(e.value)
+    assert T.RenderConfig(backend="wavefront", clamp=1.0).clamp == 1.0
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(width=50, height=31), dict(width=1920, height=1080)])
+def test_resolution_num_pixels_and_reference_config_match_jax(kw):
+    t, j = T.RenderConfig(**kw), J.RenderConfig(**kw)
+    assert t.resolution == j.resolution and t.num_pixels == j.num_pixels
+    assert isinstance(t.num_pixels, int)
+    from gpu_ray_tracing_tpu.utils.config import REFERENCE_CONFIG as JREF
+    for f in ("width", "height", "spp", "max_depth", "integrator", "rng", "sampler", "nee",
+              "clamp", "t_min", "t_max", "sky_intensity", "russian_roulette_depth"):
+        assert getattr(T.REFERENCE_CONFIG, f) == getattr(JREF, f), f
+    assert T.REFERENCE_CONFIG.resolution == (1280, 720) and "REFERENCE_CONFIG" in T.__all__
 
 
 def test_port_imports_no_jax():

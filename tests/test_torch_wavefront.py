@@ -34,6 +34,10 @@ from gpu_ray_tracing_tpu_torch import convert
 from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as tmk
 from gpu_ray_tracing_tpu_torch.ops.cuda import wavefront as twf
 
+# The suite runs in several worker processes at once: one torch thread
+# each keeps them from oversubscribing the CPU.
+torch.set_num_threads(1)
+
 T_CAMERA = T.CameraSettings.make([0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0],
                                  60.0, 0.0, 2.0)
 MESH_CAMERA = T.CameraSettings.make([0.0, 1.0, 3.0], [0.0, 0.5, 0.0], [0.0, 1.0, 0.0],
