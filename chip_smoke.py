@@ -11,7 +11,8 @@ main paths on the card in phases, one JSON line each:
 
   1. device       the card, its compute capability and power limit
   2. build        nvcc version, build seconds, each kernel instance's registers,
-                  stack and spills, render_kernel's beside the parent's
+                  stack and spills, render_kernel's and render_adaptive_kernel's
+                  beside the kernels they replaced
   3. hash_probe   the kernel's hashes vs ops/rng.py on 1M u32 values: bit-exact;
      sampler_probe  the kernel's stratified (4,4) and Sobol (nbits 5) remaps at
                   pair ids 5-8 on 1M (pixel id, sample) pairs: bit-exact
@@ -66,7 +67,9 @@ main paths on the card in phases, one JSON line each:
                   fixed spp=4 frame bit for bit (the prefix property)
  17. adaptive_path  that frame one-shot, timed, with its spp map's mean/min/max,
                   beside the fixed 32-spp frame in the same call, and held to
-                  its plain version as phase 15 holds the small frames
+                  its plain version as phase 15 holds the small frames; then
+                  (adaptive_clusters) it and phase 15's Cornell box, kernel
+                  alone, with a tile on 1, 2, 4, 8 and 16 blocks
  18. progressive_path  16 progressive_step calls at the main path's size: ms a
                   step, the state vs render(spp=16) at atol 1e-5, 16 launches,
                   reset, and two steps of 8 at atol 2e-5
@@ -103,6 +106,16 @@ main paths on the card in phases, one JSON line each:
                   (y_offset 1, row_stride 2), NEE+MIS with Russian roulette,
                   Sobol, stratified, the sphere BVH and a mesh; each launched
                   twice, the two frames identical
+ 25. adaptive_schedule  render_adaptive_kernel (a thread block cluster per
+                  tile, warps that regenerate paths) against an oracle that
+                  does not depend on its schedule: every tile whose spp map
+                  reads k equals render_cuda(spp=k) there bit for bit, ray
+                  counts included, on ragged frames (50x31, 200x70), a row
+                  band, NEE+MIS with Russian roulette, the Cornell box,
+                  Sobol, stratified, the sphere BVH, icosphere(4) and the
+                  normal AOV (64-row tiles); each launched twice and with a
+                  tile on 1 and on 16 blocks, all identical; resume in chunks
+                  of 1, 3 and 8 equal to one shot on three of them
 
 Every phase that launches the megakernel gates its launch count on its own
 route key (megakernel:brute, :sphere_bvh, :mesh_bvh, suffixed +nee,
@@ -111,7 +124,8 @@ wavefront bounce kernel counts under wavefront:<route>[+regen][+rays], its
 ray generation under wavefront_raygen, the probes under fma_peak and
 bf16_probe.  Then the kernels line (the megakernel once per path: brute,
 sphere_bvh, mesh_bvh, mesh_bvh+nee, brute+nee, brute+sobol, brute+adaptive,
-mesh_bvh+nee+adaptive, the hash and sampler probes, wavefront:brute,
+mesh_bvh+nee+adaptive (with the kernel alone and its cluster size), the hash
+and sampler probes, wavefront:brute,
 wavefront:brute+regen, fma_peak and bf16_probe), each row with its least time
 on the card (`bound_ms`, from the rays its counters measured at that row's
 shape), the card's `nvidia-smi` name and power limit, and last
@@ -124,8 +138,10 @@ no result.  It needs no network and starts no process that outlives it.
 runs phases 1 and 2, then times phase 6's frame over 20 frames through
 render() and the kernel alone over 10, the kernel alone on the routes of
 configs 3 and 4, the lit path, the night scene and a 1-spp progressive step,
-and prints one JSON line; with `--save-frame PATH` it also saves the frame as
-a .npy file.  "The kernel alone" is the device time of render_cuda calls
+the adaptive main frame (phase 17's) and the adaptive Cornell box (phase
+15's), and prints one JSON line; with `--save-frame PATH` it also saves the
+frame as a .npy file, and each adaptive frame's image, spp map, ray counts
+and six state planes in PATH's stem + "_adaptive.npz".  "The kernel alone" is the device time of render_cuda calls
 queued behind a spin kernel, so the host's packing per call does not show.
 Copied into
 another checkout and run there, it times that checkout's package: run two
@@ -188,6 +204,10 @@ TRI_FLOPS = 45
 # bytes and spill-store bytes per instance.
 PARENT_RENDER_KERNEL = {"<0,0>": [80, 200, 132], "<0,1>": [80, 200, 140],
                         "<1,0>": [120, 72, 0], "<1,1>": [122, 72, 0]}
+# The same for the one-block-per-tile render_adaptive_kernel<nee, count>
+# this tree replaced (commit 7dcd714, built with these flags on the H100).
+PARENT_ADAPTIVE_KERNEL = {"<0,0>": [80, 184, 200], "<0,1>": [80, 192, 208],
+                          "<1,0>": [128, 96, 20], "<1,1>": [128, 96, 24]}
 
 failures: list[str] = []
 
@@ -355,6 +375,110 @@ def regen_schedule(T, mk, wf, cases) -> list[dict]:
                  rays_traced=float(rays.double().sum()), launches=launches)
         r["ok"] = (r["image_equal"] and r["ray_counts_equal"] and r["image_equal_without_counter"]
                    and r["two_runs_identical"] and sum(launches.values()) == 3)
+        rows.append(r)
+    return rows
+
+
+def adaptive_frames(T) -> dict:
+    """The adaptive frames the A/B times: phase 17's main frame (One-Weekend
+    1280x720, budget 32, tol 0.03, min 8, depth 30, seed 7) and phase 15's
+    Cornell box (128x96, nee+mis, sky 0, tol 0.5, budget 32, min 4, depth
+    8, seed 3), scene and camera on the card: {name: (scene, camera,
+    render_cuda keywords)}."""
+    dev = torch.device("cuda", 0)
+    ow = T.derive_camera(T.CameraSettings.default(), 1280, 720).to(dev)
+    cb = T.derive_camera(T.cornell_camera(), 128, 96).to(dev)
+    return {
+        "adaptive_main": (T.one_weekend_scene(0).to(dev), ow, dict(
+            width=1280, height=720, spp=32, max_depth=30, t_min=1e-3, frame_seed=7,
+            adaptive_tol=0.03, adaptive_min_spp=8)),
+        "adaptive_cornell": (T.cornell_box_scene().to(dev), cb, dict(
+            width=128, height=96, spp=32, max_depth=8, t_min=1e-3, frame_seed=3,
+            adaptive_tol=0.5, adaptive_min_spp=4, nee=True, mis=True, sky_intensity=0.0)),
+    }
+
+
+def time_adaptive(T, mk, repeats: int, arrays: dict | None = None) -> dict:
+    """The adaptive kernel alone (kernel_ms over `repeats` launches) on each
+    adaptive frame, with its spp map's mean and its rays; into `arrays`, when
+    given, each frame's image, spp map, ray counts and six state planes (the
+    one-shot render resumed from zero planes with chunk = budget)."""
+    out = {}
+    for name, (sc, cam, kw) in adaptive_frames(T).items():
+        ms = kernel_ms(mk, sc, cam, kw, repeats)
+        img, smap, rays = mk.render_cuda(sc, cam, return_spp_map=True, return_ray_count=True,
+                                         **kw)
+        zero = tuple(torch.zeros_like(smap) for _ in range(6))
+        state = mk.render_cuda(sc, cam, adaptive_state=zero, adaptive_chunk=kw["spp"], **kw)
+        out[name] = dict(kernel_ms=ms, spp_mean=float(smap.mean()),
+                         rays_traced=float(rays.double().sum()))
+        if arrays is not None:
+            arrays[name + "_image"] = img.cpu().numpy()
+            arrays[name + "_spp_map"] = smap.cpu().numpy()
+            arrays[name + "_rays"] = rays.cpu().numpy()
+            arrays[name + "_state"] = torch.stack(state).cpu().numpy()
+    return out
+
+
+def adaptive_schedule(T, mk, cases, chunks=(1, 3, 8)) -> list[dict]:
+    """render_adaptive_kernel against an oracle that does not depend on its
+    schedule, on each case (name, scene on the card, camera on the card,
+    render_cuda keywords with the adaptive options, whether to resume): a
+    tile whose spp map reads k holds samples 0..k-1 summed in sample order
+    and divided by k, which is what the fixed kernel computes, so every
+    tile must equal render_cuda(spp=k) there bit for bit, ray counts
+    included.  Each frame is launched twice (identical), and again with a
+    tile on one block and on 16 (identical to the launcher's choice); with
+    `resume`, chunks of 1, 3 and 8 must end in the one-shot's six planes.
+    Returns one row a case."""
+    rows = []
+    for name, sc, cam, kw, resume in cases:
+        mk.LAUNCHES.clear()
+        got = mk.render_cuda(sc, cam, return_spp_map=True, return_ray_count=True, **kw)
+        cluster = mk.adaptive_cluster()
+        again = mk.render_cuda(sc, cam, return_spp_map=True, return_ray_count=True, **kw)
+        forced = {}
+        for blocks in (1, 16):
+            mk.adaptive_cluster(blocks)
+            forced[blocks] = mk.render_cuda(sc, cam, return_spp_map=True,
+                                            return_ray_count=True, **kw)
+        mk.adaptive_cluster(0)
+        launches = dict(mk.LAUNCHES)
+        img, smap, rays = got
+        tile_rows = mk.TILE_ROWS if kw.get("mode", "path") == "path" else mk.AOV_TILE_ROWS
+        tiles = smap[::tile_rows, ::mk.TILE_COLS]
+        per_tile = tiles.repeat_interleave(tile_rows, 0).repeat_interleave(mk.TILE_COLS, 1)
+        fixed_kw = {k: v for k, v in kw.items()
+                    if k not in ("spp", "adaptive_tol", "adaptive_min_spp")}
+        oracle = {}
+        for k in sorted({int(v) for v in tiles.flatten().tolist()}):
+            f_img, f_rays = mk.render_cuda(sc, cam, spp=k, return_ray_count=True, **fixed_kw)
+            m = smap == k
+            oracle[k] = bool(torch.equal(f_img[m], img[m]) and torch.equal(f_rays[m], rays[m]))
+        same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+        r = dict(case=name, size=[kw["width"], kw["height"]], budget=kw["spp"],
+                 cluster_blocks=cluster, tile_spp=tiles.flatten().tolist(),
+                 spp_map_tile_constant=bool(torch.equal(smap, per_tile[:smap.shape[0],
+                                                                      :smap.shape[1]])),
+                 oracle_by_count=oracle, two_runs_identical=same(got, again),
+                 one_block_identical=same(got, forced[1]),
+                 sixteen_blocks_identical=same(got, forced[16]),
+                 rays_traced=float(rays.double().sum()), launches=launches)
+        ok = (all(oracle.values()) and r["spp_map_tile_constant"] and r["two_runs_identical"]
+              and r["one_block_identical"] and r["sixteen_blocks_identical"] and cluster >= 1)
+        if resume:
+            zero = tuple(torch.zeros_like(smap) for _ in range(6))
+            one = mk.render_cuda(sc, cam, adaptive_state=zero, adaptive_chunk=kw["spp"], **kw)
+            r["one_shot_count_is_spp_map"] = bool(torch.equal(one[3], smap))
+            r["one_shot_red_mean_equals_frame"] = bool(torch.equal(one[0] / one[3], img[..., 0]))
+            for chunk in chunks:
+                st = zero
+                for _ in range(-(-kw["spp"] // chunk) + 1):
+                    st = mk.render_cuda(sc, cam, adaptive_state=st, adaptive_chunk=chunk, **kw)
+                r[f"chunk_{chunk}_equals_one_shot"] = same(st, one)
+                ok = ok and r[f"chunk_{chunk}_equals_one_shot"]
+            ok = ok and r["one_shot_count_is_spp_map"]
+        r["ok"] = bool(ok)
         rows.append(r)
     return rows
 
@@ -562,17 +686,21 @@ def main() -> int:
           "nvcc_seconds": {k: v.seconds for k, v in infos.items()},
           "load_seconds": time.perf_counter() - t0, "flags": " ".join(build.NVCC_FLAGS),
           "ptxas": [ln for v in infos.values() for ln in ptxas_instances(v.ptxas_report)],
-          "render_kernel_parent_regs_stack_spills": PARENT_RENDER_KERNEL})
+          "render_kernel_parent_regs_stack_spills": PARENT_RENDER_KERNEL,
+          "render_adaptive_kernel_parent_regs_stack_spills": PARENT_ADAPTIVE_KERNEL})
     gate("build", all(v.compiled for v in infos.values()),
          "a library was not compiled from the checkout")
     if args.main_path_only:
         ms, img, launches = time_main_path(T, mk, 20)
+        arrays = {} if args.save_frame else None
         emit({"phase": "main_path_only", "repo": REPO, "ms_per_frame": ms, "repeats": 20,
               **time_main_kernel(T, mk, 10), "kernel_repeats": 10,
               "routes_kernel_ms": time_routes(T, mk, 10),
+              "adaptive_kernel": time_adaptive(T, mk, 5, arrays), "adaptive_repeats": 5,
               "mean": float(img.mean()), "launches": launches, "card": smi})
         if args.save_frame:
             np.save(args.save_frame, img.cpu().numpy())
+            np.savez(os.path.splitext(args.save_frame)[0] + "_adaptive.npz", **arrays)
         return 0
 
     # 3. hash probe
@@ -903,7 +1031,8 @@ def main() -> int:
         # and written.
         adaptive_runs[case] = dict(route=route, launches=ad_l, ms=k_ms, plain_ms=p_ms,
                                    match=mm, scene=sc, rays=float(rays.double().sum()),
-                                   out_bytes=(3 + 1 + 2 * 6) * 4 * w * h)
+                                   out_bytes=(3 + 1 + 2 * 6) * 4 * w * h,
+                                   cluster=mk.adaptive_cluster())
         emit({"phase": "adaptive_vs_plain", "case": case, "route": route, "size": [w, h],
               "budget": 32, "max_depth": 8, "tol": tol, "min_spp": 4,
               "tiles": int(smap[::32, ::128].numel()), "tiles_differ": tiles_differ,
@@ -911,7 +1040,7 @@ def main() -> int:
               "spp_mean": float(smap.mean()), "spp_min": float(smap.min()),
               "spp_max": float(smap.max()), "flip_frac": mm.flip_frac,
               "mean_abs": mm.mean_abs, "max_abs": mm.max_abs, "limits": [flip, 2e-4],
-              "kernel_ms": k_ms,
+              "kernel_ms": k_ms, "cluster_blocks": adaptive_runs[case]["cluster"],
               "plain_ms": p_ms, "launches": ad_l, "card": smi,
               "ok": mm.ok and tiles_differ <= 1 and early})
         gate("adaptive_vs_plain", tiles_differ <= 1, f"{case}: {tiles_differ} tiles differ")
@@ -953,6 +1082,7 @@ def main() -> int:
         T.render(main_scene, main_cam, ad_cfg, frame_seed=7)
     ad_ms, ad_img = cuda_ms(lambda: T.render(main_scene, main_cam, ad_cfg, frame_seed=7), 5)
     ad_launches = dict(mk.LAUNCHES)
+    ad_cluster = mk.adaptive_cluster()
     T.render(main_scene, main_cam, fixed32, frame_seed=7)
     fx_ms, fx_img = cuda_ms(lambda: T.render(main_scene, main_cam, fixed32, frame_seed=7), 5)
     main_dev = main_scene.to(dev)
@@ -976,13 +1106,23 @@ def main() -> int:
           "vs_plain_tiles": int(smap[::32, ::128].numel()),
           "vs_plain_tiles_differ": ad_tiles_differ, "vs_plain_flip_frac": m17.flip_frac,
           "vs_plain_mean_abs": m17.mean_abs, "vs_plain_max_abs": m17.max_abs,
-          "vs_plain_limits": [0.01, 2e-4], "card": smi})
+          "vs_plain_limits": [0.01, 2e-4], "cluster_blocks": ad_cluster, "card": smi})
     gate("adaptive_path", ad_launches == {"megakernel:brute+adaptive": 7},
          f"expected 7 brute+adaptive launches, counted {ad_launches}")
     gate("adaptive_path", bool(torch.isfinite(ad_img).all()), "the adaptive frame is not finite")
     gate("adaptive_path", bool(torch.equal(ad_img, k_img)), "render() differs from render_cuda")
     gate("adaptive_path", ad_tiles_differ <= 1, f"{ad_tiles_differ} tiles differ from plain")
     gate("adaptive_path", m17.ok, f"vs plain: {m17}")
+    # The adaptive frames' kernel alone by blocks a tile (every size renders
+    # the same bits; 0 is the launcher's choice).
+    sweep = {}
+    for blocks in (0, 1, 2, 4, 8, 16):
+        mk.adaptive_cluster(blocks)
+        sweep[blocks] = {name: kernel_ms(mk, sc, cam, kw, 3)
+                         for name, (sc, cam, kw) in adaptive_frames(T).items()}
+        sweep[blocks]["blocks_used"] = mk.adaptive_cluster()
+    mk.adaptive_cluster(0)
+    emit({"phase": "adaptive_clusters", "kernel_ms_by_blocks_a_tile": sweep, "card": smi})
 
     # 18. the reference's own loop: 16 progressive steps at the main size,
     # as a user calls it (scene on the host, camera settings), and again
@@ -1327,6 +1467,39 @@ def main() -> int:
     for r in regen_rows:
         gate("regen_schedule", r["ok"], f"{r['case']}: {r}")
 
+    # 25. render_adaptive_kernel's schedule: frames and options that stress
+    # its clusters and per-warp regeneration, each tile against the fixed
+    # kernel at the tile's count, bit for bit, ray counts included
+    ad_kw = dict(adaptive_tol=0.08, adaptive_min_spp=3)
+    sched_rows = adaptive_schedule(T, mk, [
+        case("ragged_50x31", main_scene, ow_cam, 50, 31, spp=12, max_depth=12,
+             **ad_kw) + (True,),
+        case("ragged_200x70", main_scene, ow_cam, 200, 70, spp=16, max_depth=30,
+             sample_index=5, **ad_kw) + (True,),
+        case("band_y1_stride2", main_scene, ow_cam, 320, 90, spp=12, max_depth=30,
+             y_offset=1, row_stride=2, **ad_kw) + (False,),
+        case("nee_mis_rr", lit["nee"], base_cam, 160, 120, spp=16, max_depth=8,
+             russian_roulette_depth=3, adaptive_tol=0.3, adaptive_min_spp=2,
+             **lit_kw) + (True,),
+        case("cornell_nee_mis", T.cornell_box_scene(), T.cornell_camera(), 128, 96, spp=16,
+             max_depth=30, adaptive_tol=0.5, adaptive_min_spp=4, **lit_kw) + (False,),
+        case("sobol", main_scene, ow_cam, 160, 90, spp=16, max_depth=30,
+             sampler_spec=("sobol", 4), **ad_kw) + (False,),
+        case("stratified", main_scene, ow_cam, 160, 90, spp=16, max_depth=30,
+             sampler_spec=("stratified", 4, 4), **ad_kw) + (False,),
+        case("sphere_bvh", final, ow_cam, 160, 90, spp=8, max_depth=50, **ad_kw) + (False,),
+        case("icosphere4", mesh_scene(T, 4), mesh_cam, 160, 120, spp=8, max_depth=8,
+             **ad_kw) + (False,),
+        case("aov_normal", main_scene, ow_cam, 300, 140, spp=8, max_depth=8, mode="normal",
+             adaptive_tol=0.02, adaptive_min_spp=2) + (False,),
+    ])
+    emit({"phase": "adaptive_schedule", "cases": sched_rows, "card": smi})
+    for r in sched_rows:
+        gate("adaptive_schedule", r["ok"], f"{r['case']}: {r}")
+        gate("adaptive_schedule", any(k.endswith("+adaptive+rays") for k in r["launches"]),
+             f"{r['case']}: no adaptive launch counted: {r['launches']}")
+    ad_alone = time_adaptive(T, mk, 5)
+
     def rays_of(sc, cam, kw):
         return float(mk.render_cuda(sc, cam, return_ray_count=True, **kw)[1].double().sum())
 
@@ -1352,10 +1525,14 @@ def main() -> int:
     rows.append(dict(kernel, name="megakernel:brute+adaptive", path="brute+adaptive",
                      launches=ad_launches.get("megakernel:brute+adaptive", 0),
                      max_abs_err=m17.max_abs, ms=ad_ms, plain_ms=ad_plain_ms,
+                     kernel_ms=ad_alone["adaptive_main"]["kernel_ms"],
+                     cluster_blocks=ad_cluster,
                      **bound(T, mk, main_dev, ad_rays, (3 + 2 * 6) * 4 * 1280 * 720)))
     rows.append(dict(kernel, name="megakernel:" + cb["route"], path=cb["route"],
                      launches=cb["launches"].get("megakernel:" + cb["route"], 0),
                      max_abs_err=cb["match"].max_abs, ms=cb["ms"], plain_ms=cb["plain_ms"],
+                     kernel_ms=ad_alone["adaptive_cornell"]["kernel_ms"],
+                     cluster_blocks=cb["cluster"],
                      **bound(T, mk, cb["scene"], cb["rays"], cb["out_bytes"])))
     n_salts, n_pairs = len(salts), len(pairs)
     probe_bytes = {"hash_probe": 4 * (values.size * (1 + 2 + 2 * n_salts) + n_salts),

@@ -19,7 +19,7 @@ import math
 import numpy as np
 import torch
 
-from gpu_ray_tracing_tpu_torch.ops.rounding import cross, dot3
+from gpu_ray_tracing_tpu_torch.ops.rounding import cos_sin, cross, dot3, sqrt
 
 
 def _f32(x, device=None) -> torch.Tensor:
@@ -125,7 +125,7 @@ def _tan(x: torch.Tensor) -> torch.Tensor:
 def _norm(v: torch.Tensor) -> torch.Tensor:
     # jnp.linalg.norm and jnp.cross are jitted: XLA:CPU rounds their
     # products as fused multiply-adds, and so does the port (ops/rounding).
-    return torch.sqrt(dot3(v, v))
+    return sqrt(dot3(v, v))
 
 
 def validate_camera(settings: CameraSettings) -> None:
@@ -233,7 +233,7 @@ def elevate(settings: CameraSettings, amount) -> CameraSettings:
 
 def _rotate_y(v: torch.Tensor, angle) -> torch.Tensor:
     angle = _f32(angle, v.device)
-    c, s = torch.cos(angle), torch.sin(angle)
+    c, s = cos_sin(angle, f64_on_card=False)
     x, y, z = v[0], v[1], v[2]
     return torch.stack([c * x + s * z, y, -s * x + c * z])
 
@@ -256,7 +256,7 @@ def orbit_pitch(settings: CameraSettings, angle) -> CameraSettings:
     right = _normalize(torch.linalg.cross(fwd, _y_axis(fwd)))
     # Rodrigues rotation of fwd around `right`.
     angle = _f32(angle, fwd.device)
-    c, s = torch.cos(angle), torch.sin(angle)
+    c, s = cos_sin(angle, f64_on_card=False)
     rotated = (fwd * c + torch.linalg.cross(right, fwd) * s
                + right * torch.dot(right, fwd) * (1.0 - c))
     rotated = _normalize(rotated)

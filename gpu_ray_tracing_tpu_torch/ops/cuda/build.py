@@ -87,6 +87,7 @@ _MEGAKERNEL_SIGNATURES = {
         [_c_ptr, _c_ptr, _c_int, _c_ptr, _c_int, _c_uint, _c_int, _c_int, _c_int,
          _c_int, _c_ptr, _c_ptr, _c_ptr],
     ),
+    "grt_adaptive_cluster": (_c_int, [_c_int]),
     "grt_error_string": (ctypes.c_char_p, [_c_int]),
 }
 

@@ -1,6 +1,6 @@
 // Path-tracing megakernel for Hopper (sm_90a): warps that regenerate paths
-// (render_kernel), one thread per pixel for the AOV modes, or one block per
-// tile for the adaptive spp loop.
+// (render_kernel), one thread per pixel for the AOV modes, or a thread block
+// cluster per tile for the adaptive spp loop (render_adaptive_kernel).
 //
 // Replaces the Pallas TPU kernel gpu_ray_tracing_tpu/ops/pallas/megakernel.py
 // `_kernel` (launched by `render_pallas`) on its K1a-K1f paths: spheres by
@@ -16,7 +16,8 @@
 // sample) items of its pixels, each lane taking the next item as soon as
 // its path ends, and fold each pixel's samples in sample order into one RGB
 // triple (and its ray count); the adaptive loop keeps its six state planes
-// in device memory (render_adaptive_kernel below).
+// in device memory, and its warps regenerate paths the same way within a
+// run of samples (render_adaptive_kernel below).
 //
 // What bounds it on this card: arithmetic on small scenes, scattered loads
 // on large ones.  The brute scan tests every sphere (~25 flops each, N = 197
@@ -43,6 +44,7 @@
 // Counter-based RNG: every draw is a pure function of (global pixel id,
 // sample index, frame seed, salt), bit-exact with ops/rng.py.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -890,48 +892,31 @@ __device__ __forceinline__ void clamp_sample(const Params& p, float& r, float& g
   }
 }
 
-// One sample of pixel (x, global row y): ray generation, then one closest
-// hit (AOV modes) or the bounce loop, then the clamp; returns its RGB.  An
-// AOV sample traces one ray.
-template <bool kNee, bool kCount>
-__device__ __forceinline__ Vec3 trace_sample(const Params& p, const Cam& cm, int x,
-                                             unsigned int y, unsigned int pid,
-                                             unsigned int base0, unsigned int s_abs,
-                                             unsigned int& rays) {
+// One sample of pixel (x, global row y) in a bounce-free AOV mode
+// (megakernel.py:1550-1576): ray generation and one closest hit; `rays`
+// counts the one ray.
+template <bool kCount>
+__device__ __forceinline__ Vec3 aov_sample(const Params& p, const Cam& cm, int x,
+                                           unsigned int y, unsigned int pid,
+                                           unsigned int base0, unsigned int s_abs,
+                                           unsigned int& rays) {
   const unsigned int seed = hash_pixel_seeds(pid, s_abs, p.frame_seed);
-  PathState st;
-  generate_ray(p.sampler, cm, x, y, seed, base0, s_abs, st.o, st.d);
-  if (p.mode != PATH) {
-    // Bounce-free AOV modes (megakernel.py:1550-1576).
-    const Vec3 o = st.o, d = st.d;
-    float r, g, b;
-    if (kCount) ++rays;
-    const Hit h = closest_hit(p.geo, p.t_min, p.t_max, o, d);
-    const Vec3 sk = sky(d);
-    if (p.mode == DEPTH) {
-      r = g = b = h.hit ? h.t * sqrtf(d.x * d.x + d.y * d.y + d.z * d.z) : 0.0f;
-    } else if (!h.hit) {
-      r = sk.x, g = sk.y, b = sk.z;
-    } else if (p.mode == ALBEDO) {
-      r = h.ar, g = h.ag, b = h.ab;
-    } else {
-      r = 0.5f * (h.n.x + 1.0f), g = 0.5f * (h.n.y + 1.0f), b = 0.5f * (h.n.z + 1.0f);
-    }
-    return {r, g, b};
+  Vec3 o, d;
+  generate_ray(p.sampler, cm, x, y, seed, base0, s_abs, o, d);
+  float r, g, b;
+  if (kCount) ++rays;
+  const Hit h = closest_hit(p.geo, p.t_min, p.t_max, o, d);
+  const Vec3 sk = sky(d);
+  if (p.mode == DEPTH) {
+    r = g = b = h.hit ? h.t * sqrtf(d.x * d.x + d.y * d.y + d.z * d.z) : 0.0f;
+  } else if (!h.hit) {
+    r = sk.x, g = sk.y, b = sk.z;
+  } else if (p.mode == ALBEDO) {
+    r = h.ar, g = h.ag, b = h.ab;
+  } else {
+    r = 0.5f * (h.n.x + 1.0f), g = 0.5f * (h.n.y + 1.0f), b = 0.5f * (h.n.z + 1.0f);
   }
-  // The bounce loop.  The thread leaves it when its path ends: the
-  // per-thread form of the tile early exit (megakernel.py:1609-1614).  A
-  // path that exhausts max_depth contributes what it gathered so far
-  // (black for the exhausted segment).
-  st.tr = st.tg = st.tb = 1.0f;
-  st.r = st.g = st.b = 0.0f;
-  st.prev_diffuse = false;
-  st.prev_cos = 0.0f;
-  const unsigned int pick_seed = s_abs ^ wgsl_hash(p.frame_seed);
-  for (int i = 0; i < p.max_depth; ++i)
-    if (!path_bounce<kNee, kCount>(p, st, seed, base0, s_abs, pick_seed, i, rays)) break;
-  clamp_sample(p, st.r, st.g, st.b);
-  return {st.r, st.g, st.b};
+  return {r, g, b};
 }
 
 // Global row and pixel id of a local pixel (megakernel.py:1492-1505): the
@@ -957,8 +942,8 @@ __global__ void __launch_bounds__(256) render_aov_kernel(const Params p) {
   unsigned int rays = 0u;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   for (int s = 0; s < p.spp; ++s) {
-    const Vec3 c = trace_sample<false, kCount>(p, cm, x, y, pid, base0,
-                                               p.sample_index + (unsigned int)s, rays);
+    const Vec3 c = aov_sample<kCount>(p, cm, x, y, pid, base0,
+                                      p.sample_index + (unsigned int)s, rays);
     acc_r = acc_r + c.x;
     acc_g = acc_g + c.y;
     acc_b = acc_b + c.z;
@@ -993,11 +978,11 @@ __global__ void __launch_bounds__(256) render_aov_kernel(const Params p) {
 // warp's q-th group.  At the top of each loop iteration, where every lane of
 // the warp arrives, the idle lanes take the next items in lane order
 // (__ballot_sync and __popc of the lanes below: no atomics in the warp),
-// generate their rays with the same seeds as trace_sample, and every lane
-// with a path runs one path_bounce.  A path ends as trace_sample's does
-// (path_bounce returns false, or max_depth bounces), is clamped, and stores
-// its RGB and ray count into its item's slot of a ring in shared memory, 16
-// rows of 32 slots (8 KB) a warp.  Then the warp folds every finished row,
+// generate their rays from the (pixel, sample) seeds, and every lane with a
+// path runs one path_bounce.  A path ends when path_bounce returns false or
+// after max_depth bounces, is clamped, and stores its RGB and ray count
+// into its item's slot of a ring in shared memory, 16 rows of 32 slots
+// (8 KB) a warp.  Then the warp folds every finished row,
 // oldest first: lane j adds slot j of the row to pixel j's running sums, so
 // each pixel folds its samples in sample order from 0.0f, as the
 // one-thread-per-pixel loop did, and after the last sample writes sum / spp
@@ -1172,34 +1157,181 @@ cudaError_t launch_render(const Params& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-constexpr int kAdaptiveThreads = 256;
-
-// The adaptive spp loop (`_adaptive_tools` and its two loops,
-// megakernel.py:1659-1776), one block per (tile_rows x 128) tile of the
-// local frame.  Thread t owns the tile's pixels t, t + 256, ... in
-// row-major order, so a warp traces neighbouring pixels of one row; pad
-// pixels outside the frame are neither traced nor counted.  The six state
-// planes live in global memory and are the resume ABI: the tile continues
-// at its carried count k0 (tile-constant; read at the tile's first pixel)
-// and takes samples while
+// The adaptive spp loop (K1f): `_adaptive_tools` and its two loops,
+// megakernel.py:1659-1776, for each (tile_rows x 128) tile of the local
+// frame.  The six state planes live in global memory and are the resume
+// ABI: a tile continues at its carried count k0 (tile-constant; read at the
+// tile's first pixel) and takes samples while
 //   (k < min_spp) | ((k < spp) & (mean(m2)/max(k-1,1)/k > (mean(mlum) tol + 1e-4)^2))
-// and k < k0 + chunk, the means taken over the tile's in-frame pixels.  A
-// one-shot render is this loop from zero planes with chunk = spp, so a
-// chunked run takes the same samples and ends in the same bits.  The tile
-// sums are a fixed-order tree in shared memory, with no atomics, so a tile
-// stops at the same sample in every run.  Thread 0 decides and broadcasts
-// through shared memory: the trip count is uniform in the block, which
-// keeps __syncthreads() legal.  With `out` set it writes sum / k (the
-// one-shot mean, megakernel.py:1776); `rays` accumulates per pixel.
+// and k < k0 + chunk, the means taken over the tile's in-frame pixels (pad
+// pixels outside the frame are neither traced nor counted).  A one-shot
+// render is this loop from zero planes with chunk = spp, so a chunked run
+// takes the same samples and ends in the same bits.  With `out` set it
+// writes sum / k (the one-shot mean, megakernel.py:1776); `rays`
+// accumulates per pixel.
+//
+// The TPU kernel runs a tile per grid step, all of its pixels in lockstep.
+// The first port gave a tile one 256-thread block, each thread tracing 16
+// of its pixels one after another and the block meeting at a barrier and a
+// shared-memory tree every sample: a 32-sample tile kept one SM's share of
+// 8 warps busy for the whole frame, lanes whose path had ended waited for
+// their warp's deepest, and a 3-tile frame ran on 3 SMs.  Here:
+//   - A tile is a thread block cluster of C blocks (1 to 16, on up to C
+//     SMs; the launcher picks C from the tile count and the card's resident
+//     blocks).  The cluster shares one pixel cursor in the
+//     shared memory of its block 0 (distributed shared memory).
+//   - Within a run of samples, warps regenerate paths as render_kernel's
+//     do: a lane whose path has ended takes its pixel's next sample, and a
+//     lane whose pixel is done takes the cursor's next pixel (one atomicAdd
+//     on block 0's cursor by lane 0 for all the warp's idle lanes, handed
+//     out in lane order).  The lane that finishes a sample does the pixel's
+//     Welford update and its sums, so each pixel still adds its samples in
+//     sample order, from 0.0f.
+//   - The samples below min_spp need no decision (k < min_spp always means
+//     "more"), so they run as one batch: a lane traces a pixel's batch back
+//     to back, with no barrier between samples.  After them, one sample a
+//     run, and between runs the cluster meets (cluster.sync(), after a
+//     fence: the planes were written by other SMs, and the cluster reads
+//     them through L2 only, ld/st.global.cg).  Block 0 then sums the tile:
+//     partial t (t < 256) is the sum, in increasing q, of the in-frame
+//     pixels q = t, t + 256, ... read back from the planes, the 256 partials
+//     go through the fixed tree by halves, thread 0 decides, and the other
+//     blocks read the decision from block 0's shared memory after a second
+//     cluster.sync().  The sums, the decision, the image, the planes and the
+//     ray counts are those of the one-block kernel bit for bit, whatever C
+//     and whichever lane traced which sample.
+// What bounds it on this card: the fixed kernel's arithmetic (the rays
+// traced), plus one cluster barrier pair and a 256-thread tree per sample
+// step after min_spp, and the tail of each run (the tile's deepest path
+// when C blocks share 4,096 pixels).
+constexpr int kAdaptiveThreads = 256;    // threads a block; partial sums a tile
+constexpr int kMaxAdaptiveCluster = 16;  // blocks a tile (above 8: non-portable)
+
+// The tile a block works on: its corner, width and in-frame pixel count
+// (pixel q of the tile is column q mod cols of row q / cols).
+struct AdaptiveTile {
+  int x0, y0, cols, n_items;
+};
+
+// Samples k .. k + nb - 1 of every in-frame pixel of the tile, by this
+// warp and the cluster's others, lanes taking pixels from `cursor` (block
+// 0's, zero at the run's start).
 template <bool kNee, bool kCount>
-__global__ void __launch_bounds__(kAdaptiveThreads) render_adaptive_kernel(const Params p,
-                                                                           const Adaptive a) {
+__device__ __forceinline__ void adaptive_samples(const Params& p, const Adaptive& a,
+                                                 const AdaptiveTile& tile, int* cursor,
+                                                 int k, int nb) {
+  constexpr unsigned int kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned int lanes_below = (1u << lane) - 1u;
+  const size_t plane = (size_t)p.width * p.height;
+  float* const s_r = a.state;
+  float* const s_g = a.state + plane;
+  float* const s_b = a.state + 2 * plane;
+  float* const s_ml = a.state + 4 * plane;
+  float* const s_m2 = a.state + 5 * plane;
+  Cam cm;
+  load_cam(p.cam, cm);
+  const unsigned int frame_hash = wgsl_hash(p.frame_seed);
+  // Warp-uniform: whether the cursor ran out.  The lane's pixel (`have`
+  // while it has samples left to trace), its next sample `sub`, and the
+  // path in flight.
+  bool exhausted = false, have = false, active = false;
+  int sub = 0, i = 0, x = 0;
+  unsigned int y = 0u, pid = 0u, base0 = 0u, seed = 0u, s_abs = 0u, rays = 0u;
+  size_t pix = 0;
+  PathState st;
+  while (true) {
+    // Refill: the lanes without a pixel take the cursor's next ones.
+    const unsigned int idle = __ballot_sync(kFull, !have);
+    if (idle != 0u && !exhausted) {
+      int first = 0;
+      if (lane == 0) first = atomicAdd(cursor, __popc(idle));
+      first = __shfl_sync(kFull, first, 0);
+      exhausted = first + __popc(idle) >= tile.n_items;
+      const int q = first + __popc(idle & lanes_below);
+      if (!have && q < tile.n_items) {
+        const int y_local = tile.y0 + q / tile.cols;
+        x = tile.x0 + q % tile.cols;
+        y = global_row(p, y_local);
+        pid = y * (unsigned int)p.width + (unsigned int)x;
+        base0 = hash_pixel_seeds(pid, 0u, p.frame_seed);
+        pix = (size_t)y_local * p.width + x;
+        have = true;
+        sub = 0;
+      }
+    }
+    if (__ballot_sync(kFull, have) == 0u) break;
+    // Start the lane's next sample: a path, or a whole bounce-free AOV sample.
+    bool done = false;
+    Vec3 c = {0.0f, 0.0f, 0.0f};
+    if (have && !active) {
+      s_abs = p.sample_index + (unsigned int)(k + sub);
+      rays = 0u;
+      if (p.mode != PATH) {
+        c = aov_sample<kCount>(p, cm, x, y, pid, base0, s_abs, rays);
+        done = true;
+      } else {
+        seed = hash_pixel_seeds(pid, s_abs, p.frame_seed);
+        generate_ray(p.sampler, cm, x, y, seed, base0, s_abs, st.o, st.d);
+        st.tr = st.tg = st.tb = 1.0f;
+        st.r = st.g = st.b = 0.0f;
+        st.prev_diffuse = false;
+        st.prev_cos = 0.0f;
+        i = 0;
+        active = true;
+      }
+    }
+    if (active) {
+      const bool live =
+          path_bounce<kNee, kCount>(p, st, seed, base0, s_abs, s_abs ^ frame_hash, i, rays);
+      if (!live || ++i >= p.max_depth) {
+        clamp_sample(p, st.r, st.g, st.b);
+        c = {st.r, st.g, st.b};
+        active = false;
+        done = true;
+      }
+    }
+    if (done) {
+      // Sample k + sub of the pixel: Welford update of its luminance
+      // (megakernel.py:1676-1682; M2 as one fused multiply-add, as XLA:CPU
+      // contracts it in the reference's run) and the raw sums.
+      const float lum = (c.x + c.y + c.z) * (1.0f / 3.0f);
+      const float ml = __ldcg(s_ml + pix);
+      const float dl = lum - ml;
+      const float ml1 = ml + dl / (float)(k + sub + 1);
+      __stcg(s_m2 + pix, fmaf(dl, lum - ml1, __ldcg(s_m2 + pix)));
+      __stcg(s_ml + pix, ml1);
+      __stcg(s_r + pix, __ldcg(s_r + pix) + c.x);
+      __stcg(s_g + pix, __ldcg(s_g + pix) + c.y);
+      __stcg(s_b + pix, __ldcg(s_b + pix) + c.z);
+      if (kCount) __stcg(p.rays + pix, __ldcg(p.rays + pix) + (float)rays);
+      if (++sub == nb) have = false;
+    }
+    __syncwarp();
+  }
+}
+
+template <bool kNee, bool kCount>
+__global__ void __launch_bounds__(kAdaptiveThreads, 2) render_adaptive_kernel(const Params p,
+                                                                              const Adaptive a) {
+  namespace cg = cooperative_groups;
   __shared__ float red_m2[kAdaptiveThreads];
   __shared__ float red_ml[kAdaptiveThreads];
-  __shared__ int go;
+  __shared__ int go;      // block 0's: the tile takes another sample
+  __shared__ int cursor;  // block 0's: the run's next in-frame pixel
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n_ranks = (int)cluster.num_blocks();
+  int* const cursor0 = cluster.map_shared_rank(&cursor, 0);
+  int* const go0 = cluster.map_shared_rank(&go, 0);
   const int t = threadIdx.x;
-  const int x0 = blockIdx.x * 128;
-  const int y0 = blockIdx.y * a.tile_rows;
+  AdaptiveTile tile;
+  tile.x0 = (int)(blockIdx.x / n_ranks) * 128;
+  tile.y0 = blockIdx.y * a.tile_rows;
+  const int rows = min(a.tile_rows, p.height - tile.y0);
+  tile.cols = min(128, p.width - tile.x0);
+  tile.n_items = rows * tile.cols;
+  const float n_valid = fmaxf((float)tile.n_items, 1.0f);
   const size_t plane = (size_t)p.width * p.height;
   float* const s_r = a.state;
   float* const s_g = a.state + plane;
@@ -1207,89 +1339,121 @@ __global__ void __launch_bounds__(kAdaptiveThreads) render_adaptive_kernel(const
   float* const s_k = a.state + 3 * plane;
   float* const s_ml = a.state + 4 * plane;
   float* const s_m2 = a.state + 5 * plane;
-  const int rows = min(a.tile_rows, p.height - y0);
-  const int cols = min(128, p.width - x0);
-  const float n_valid = fmaxf((float)(rows * cols), 1.0f);
-  const int k0 = (int)s_k[(size_t)y0 * p.width + x0];
-  Cam cm;
-  load_cam(p.cam, cm);
-
-  // Partial sums of the thread's in-frame pixels, in a fixed order.
-  float pm2 = 0.0f, pml = 0.0f;
-  for (int q = t; q < a.tile_rows * 128; q += kAdaptiveThreads) {
-    const int row = q >> 7, col = q & 127;
-    if (row >= rows || col >= cols) continue;
-    const size_t pix = (size_t)(y0 + row) * p.width + (x0 + col);
-    pm2 = pm2 + s_m2[pix];
-    pml = pml + s_ml[pix];
-  }
+  // Read before the first cluster barrier; the planes' counts are written
+  // after the last.
+  const int k0 = (int)s_k[(size_t)tile.y0 * p.width + tile.x0];
+  if (rank == 0 && t == 0) cursor = 0;
+  cluster.sync();
   int k = k0;
+  const int batch = min(a.min_spp, k0 + a.chunk) - k0;
+  if (batch > 0) {
+    adaptive_samples<kNee, kCount>(p, a, tile, cursor0, k, batch);
+    k += batch;
+  }
   while (true) {
-    red_m2[t] = pm2;
-    red_ml[t] = pml;
-    __syncthreads();
-    for (int w = kAdaptiveThreads / 2; w > 0; w >>= 1) {
-      if (t < w) {
-        red_m2[t] = red_m2[t] + red_m2[t + w];
-        red_ml[t] = red_ml[t] + red_ml[t + w];
+    __threadfence();
+    cluster.sync();
+    if (rank == 0) {
+      if (t == 0) cursor = 0;
+      // Partial t: the tile's in-frame pixels t, t + 256, ... in order.
+      float pm2 = 0.0f, pml = 0.0f;
+      for (int q = t; q < a.tile_rows * 128; q += kAdaptiveThreads) {
+        const int row = q >> 7, col = q & 127;
+        if (row >= rows || col >= tile.cols) continue;
+        const size_t pix = (size_t)(tile.y0 + row) * p.width + (tile.x0 + col);
+        pm2 = pm2 + __ldcg(s_m2 + pix);
+        pml = pml + __ldcg(s_ml + pix);
       }
+      red_m2[t] = pm2;
+      red_ml[t] = pml;
       __syncthreads();
+      for (int w = kAdaptiveThreads / 2; w > 0; w >>= 1) {
+        if (t < w) {
+          red_m2[t] = red_m2[t] + red_m2[t + w];
+          red_ml[t] = red_ml[t] + red_ml[t + w];
+        }
+        __syncthreads();
+      }
+      if (t == 0) {
+        const float kf = (float)k;
+        const float stderr2 = red_m2[0] / n_valid / fmaxf(kf - 1.0f, 1.0f) / kf;
+        const float scale = fmaf(red_ml[0] / n_valid, a.tol, 1e-4f);
+        const bool more = (k < a.min_spp) | ((k < p.spp) & (stderr2 > scale * scale));
+        go = more & (k < k0 + a.chunk);
+      }
     }
-    if (t == 0) {
-      const float kf = (float)k;
-      const float stderr2 = red_m2[0] / n_valid / fmaxf(kf - 1.0f, 1.0f) / kf;
-      const float scale = fmaf(red_ml[0] / n_valid, a.tol, 1e-4f);
-      const bool more = (k < a.min_spp) | ((k < p.spp) & (stderr2 > scale * scale));
-      go = more & (k < k0 + a.chunk);
-    }
-    __syncthreads();
-    if (!go) break;
-    // Sample k of every in-frame pixel: Welford update of the pixel's
-    // luminance (megakernel.py:1676-1682) and the raw sums.
-    const unsigned int s_abs = p.sample_index + (unsigned int)k;
-    const float k1f = (float)(k + 1);
-    pm2 = 0.0f;
-    pml = 0.0f;
-    for (int q = t; q < a.tile_rows * 128; q += kAdaptiveThreads) {
-      const int row = q >> 7, col = q & 127;
-      if (row >= rows || col >= cols) continue;
-      const int x = x0 + col, y_local = y0 + row;
-      const unsigned int y = global_row(p, y_local);
-      const unsigned int pid = y * (unsigned int)p.width + (unsigned int)x;
-      const unsigned int base0 = hash_pixel_seeds(pid, 0u, p.frame_seed);
-      unsigned int rays = 0u;
-      const Vec3 c = trace_sample<kNee, kCount>(p, cm, x, y, pid, base0, s_abs, rays);
-      const size_t pix = (size_t)y_local * p.width + x;
-      const float lum = (c.x + c.y + c.z) * (1.0f / 3.0f);
-      const float ml = s_ml[pix];
-      const float dl = lum - ml;
-      const float ml1 = ml + dl / k1f;
-      // M2 rounds as one fused multiply-add: XLA:CPU contracts it in the
-      // reference's run.
-      const float m21 = fmaf(dl, lum - ml1, s_m2[pix]);
-      s_ml[pix] = ml1;
-      s_m2[pix] = m21;
-      s_r[pix] = s_r[pix] + c.x;
-      s_g[pix] = s_g[pix] + c.y;
-      s_b[pix] = s_b[pix] + c.z;
-      if (kCount) p.rays[pix] = p.rays[pix] + (float)rays;
-      pm2 = pm2 + m21;
-      pml = pml + ml1;
-    }
+    cluster.sync();
+    if (!*go0) break;
+    adaptive_samples<kNee, kCount>(p, a, tile, cursor0, k, 1);
     ++k;
   }
   const float kf = (float)k;
-  for (int q = t; q < a.tile_rows * 128; q += kAdaptiveThreads) {
-    const int row = q >> 7, col = q & 127;
-    if (row >= rows || col >= cols) continue;
-    const size_t pix = (size_t)(y0 + row) * p.width + (x0 + col);
+  for (int q = rank * kAdaptiveThreads + t; q < tile.n_items; q += n_ranks * kAdaptiveThreads) {
+    const size_t pix = (size_t)(tile.y0 + q / tile.cols) * p.width + (tile.x0 + q % tile.cols);
     s_k[pix] = kf;
     if (p.out != nullptr) {
-      p.out[pix * 3 + 0] = s_r[pix] / kf;
-      p.out[pix * 3 + 1] = s_g[pix] / kf;
-      p.out[pix * 3 + 2] = s_b[pix] / kf;
+      p.out[pix * 3 + 0] = __ldcg(s_r + pix) / kf;
+      p.out[pix * 3 + 1] = __ldcg(s_g + pix) / kf;
+      p.out[pix * 3 + 2] = __ldcg(s_b + pix) / kf;
     }
   }
+  // Block 0's shared memory outlives every read of it.
+  cluster.sync();
+}
+
+// The adaptive kernel's blocks a tile: 0 lets the launcher choose; the
+// size of the last launch's clusters (grt_adaptive_cluster).
+int g_adaptive_cluster = 0;
+int g_adaptive_cluster_used = 0;
+
+// Launch render_adaptive_kernel on a grid of (tiles x C) blocks in
+// clusters of C: the fewest blocks a tile (a power of two, at most 16) with
+// which the frame's tiles fill the card's resident blocks, unless set.  A
+// tile on more blocks finishes sooner, while its runs' tails (the deepest
+// path of a sample, with 4,096 pixels over C x 256 lanes) and the blocks
+// waiting for a slot grow with C: on the H100 the 230-tile main frame ran
+// fastest on 2 blocks a tile and the 3-tile Cornell frame on 16 (PERF.md).
+// A cluster that cannot be placed is an error, never a smaller grid.
+template <bool kNee, bool kCount>
+cudaError_t launch_adaptive(const Params& p, const Adaptive& a, cudaStream_t s) {
+  const auto kernel = render_adaptive_kernel<kNee, kCount>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kAdaptiveThreads, 0);
+  if (e != cudaSuccess) return e;
+  const int gx = (p.width + 127) / 128;
+  const int gy = (p.height + a.tile_rows - 1) / a.tile_rows;
+  const long long resident = (long long)sms * per_sm;
+  int blocks = g_adaptive_cluster;
+  if (blocks == 0) {
+    blocks = 1;
+    while (blocks < kMaxAdaptiveCluster && (long long)gx * gy * blocks < resident) blocks *= 2;
+  }
+  if (blocks < 1 || blocks > kMaxAdaptiveCluster) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned int)blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned int)(gx * blocks), (unsigned int)gy, 1);
+  cfg.blockDim = dim3(kAdaptiveThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (e != cudaSuccess) return e;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  e = cudaLaunchKernelEx(&cfg, kernel, p, a);
+  if (e != cudaSuccess) return e;
+  g_adaptive_cluster_used = blocks;
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1535,16 +1699,10 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
   const bool count = rays != nullptr;
   if (state != nullptr) {
     const Adaptive a = {state, tile_rows, min_spp, chunk, tol};
-    const dim3 grid((width + 127) / 128, (height + tile_rows - 1) / tile_rows);
-    const int block = kAdaptiveThreads;
-    if (nee) {
-      if (count) render_adaptive_kernel<true, true><<<grid, block, 0, s>>>(p, a);
-      else render_adaptive_kernel<true, false><<<grid, block, 0, s>>>(p, a);
-    } else {
-      if (count) render_adaptive_kernel<false, true><<<grid, block, 0, s>>>(p, a);
-      else render_adaptive_kernel<false, false><<<grid, block, 0, s>>>(p, a);
-    }
-    return static_cast<int>(cudaGetLastError());
+    if (nee) return static_cast<int>(count ? launch_adaptive<true, true>(p, a, s)
+                                           : launch_adaptive<true, false>(p, a, s));
+    return static_cast<int>(count ? launch_adaptive<false, true>(p, a, s)
+                                  : launch_adaptive<false, false>(p, a, s));
   }
   if (mode != PATH) {
     const dim3 block(32, 8);
@@ -1655,6 +1813,15 @@ extern "C" int grt_sampler_probe(const unsigned int* pids, const unsigned int* s
                          static_cast<cudaStream_t>(stream)>>>(
       pids, samples, n, salts, n_salts, frame_seed, sm, out_u1, out_u2);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The adaptive kernel's blocks a tile, for measurement: `blocks` > 0 sets
+// the cluster size of later launches (1-16), 0 returns the choice to the
+// launcher, < 0 changes nothing.  Returns the size the last adaptive launch
+// used (0 before the first).
+extern "C" int grt_adaptive_cluster(int blocks) {
+  if (blocks >= 0) g_adaptive_cluster = blocks;
+  return g_adaptive_cluster_used;
 }
 
 extern "C" const char* grt_error_string(int code) {

@@ -4,8 +4,9 @@
 the Pallas `_kernel`: spheres by the brute scan or through a sphere BVH,
 triangle meshes behind a BVH (flat or smooth), next-event estimation toward
 sphere and triangle lights with MIS, the independent, stratified and Sobol
-samplers, the fixed spp loop (one thread per pixel), the AOV modes, Russian
-roulette and the clamp, and the adaptive spp loop (one block per tile) with
+samplers, the fixed spp loop (warps that regenerate paths; one thread per
+pixel for the AOV modes), Russian roulette and the clamp, and the adaptive
+spp loop (a cluster of blocks per tile, warps that regenerate paths) with
 its resume state, the spp map and the ray counters.  `render_reference` is
 its plain PyTorch version with the same signature, composed of ops/rays,
 ops/intersect, ops/materials and ops/integrators; the tests and the
@@ -537,7 +538,7 @@ def render_cuda(
     mesh must have its BVH (make_scene builds one).
 
     The options of render_pallas: `adaptive_tol > 0` makes spp a per-tile
-    budget (the adaptive kernel, one block per tile); `return_spp_map` and
+    budget (the adaptive kernel, a cluster of blocks per tile); `return_spp_map` and
     `return_ray_count` append the (height, width) samples-taken and
     rays-traced planes; `adaptive_state` (six (height, width) planes: rgb
     sums, count, Welford mean and M2) resumes the adaptive loop for at most
@@ -575,6 +576,18 @@ def render_cuda(
     route = packed.route + ("+adaptive" if plan.state is not None else "")
     LAUNCHES["megakernel:" + route + ("+rays" if rays is not None else "")] += 1
     return _outputs(out, plan, spp, return_spp_map, rays)
+
+
+def adaptive_cluster(blocks: int | None = None) -> int:
+    """The adaptive kernel's thread block cluster: the blocks (SMs) that
+    share a tile.  `blocks` 1-16 fixes it for later launches and 0 returns
+    the choice to the launcher (the fewest blocks a tile, in powers of two,
+    with which the frame's tiles fill the card's resident blocks); both are
+    for measurement, since every choice renders the same bits.  Returns the size the last adaptive
+    launch used (0 before the first)."""
+    if blocks is not None and not 0 <= blocks <= 16:
+        raise ValueError(f"a tile's cluster has 1-16 blocks (0: the launcher's), got {blocks}")
+    return build.load().grt_adaptive_cluster(-1 if blocks is None else int(blocks))
 
 
 def hash_probe_reference(values: torch.Tensor, salts, sample_index: int,

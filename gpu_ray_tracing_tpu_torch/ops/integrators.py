@@ -33,20 +33,40 @@ from gpu_ray_tracing_tpu_torch.ops.intersect import (
     nearest_t_spheres,
 )
 from gpu_ray_tracing_tpu_torch.ops.materials import scatter
-from gpu_ray_tracing_tpu_torch.ops.rounding import cross, dot3, fma
+from gpu_ray_tracing_tpu_torch.ops.rounding import (
+    cos_sin,
+    cross,
+    dot3,
+    fma,
+    sqrt,
+    xla_dot3,
+    xla_fma,
+)
 
 _WHITE = (1.0, 1.0, 1.0)
 _BLUE = (0.5, 0.7, 1.0)
 
 
 def sky_color(dirs: torch.Tensor) -> torch.Tensor:
-    """Vertical white->blue gradient on the unit direction (wgsl:293-296)."""
-    norm = torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True))
+    """Vertical white->blue gradient on the unit direction (wgsl:293-296),
+    rounded as jitted XLA:CPU rounds it on the CPU (the norm's squares and
+    the blend as fused multiply-adds) and as the kernel does on the card."""
+    norm = sqrt(xla_dot3(dirs, dirs))[..., None]
     unit = dirs / torch.clamp(norm, min=1e-20)
     a = 0.5 * (unit[..., 1:2] + 1.0)
     white = torch.tensor(_WHITE, dtype=torch.float32, device=dirs.device)
     blue = torch.tensor(_BLUE, dtype=torch.float32, device=dirs.device)
-    return (1.0 - a) * white + a * blue
+    return xla_fma(a, blue, (1.0 - a) * white)
+
+
+def _add_sky(result, throughput, sky, intensity: float):
+    """result + throughput * sky * intensity as jitted XLA:CPU rounds it on
+    the CPU: one fused multiply-add into the result, after dropping a
+    factor of 1."""
+    if intensity == 1.0:
+        return xla_fma(throughput, sky, result)
+    return xla_fma(throughput * sky, torch.tensor(intensity, dtype=torch.float32,
+                                                  device=sky.device), result)
 
 
 def _mesh_hit(origins, dirs, sc, t_min: float, t_max: float) -> Hit:
@@ -123,7 +143,7 @@ def shade_depth(origins, dirs, scene, t_min: float, t_max: float) -> torch.Tenso
     """First-hit metric distance (t * |d|), 3 equal channels; 0 on a miss."""
     hit, _, _, _ = intersect_scene(origins, dirs, scene, t_min, t_max)
     dist = torch.where(
-        hit.hit, hit.t * torch.sqrt(torch.sum(dirs * dirs, dim=-1)), 0.0
+        hit.hit, hit.t * sqrt(torch.sum(dirs * dirs, dim=-1)), 0.0
     )
     return dist[..., None].expand(*dist.shape, 3)
 
@@ -137,9 +157,12 @@ def clamp_radiance(rgb: torch.Tensor, clamp: float) -> torch.Tensor:
 def _one_minus_cos_max(r2, d2):
     """1 - cos(half-angle) of the cone a radius^2-r2 sphere subtends at
     squared distance d2, cancellation-free: (r2/d2) / (1 + sqrt(1 - r2/d2)),
-    capped at 1 (inside the sphere every consumer masks the lane)."""
+    capped at 1 (inside the sphere every consumer masks the lane).  Jitted
+    XLA rewrites (r2 / d2) / (1 + s) as r2 / (d2 (1 + s)), and so does the
+    port on the CPU; on the card it divides twice, as the kernel does."""
     q = r2 / d2
-    return torch.clamp(q / (1.0 + torch.sqrt(torch.clamp(1.0 - q, 1e-12, 1.0))), max=1.0)
+    s = 1.0 + sqrt(torch.clamp(1.0 - q, 1e-12, 1.0))
+    return torch.clamp(r2 / (d2 * s) if q.device.type == "cpu" else q / s, max=1.0)
 
 
 _X_AXIS = (1.0, 0.0, 0.0)
@@ -158,24 +181,23 @@ def _sphere_candidate(pnt, normal, lc, lr, u1n, u2n):
     inside = d2 <= r2 * 1.0001
     omc = _one_minus_cos_max(r2, d2s)
     cos_t = fma(-u1n, omc, torch.ones_like(omc))
-    sin_t = torch.sqrt(torch.clamp(fma(-cos_t, cos_t, torch.ones_like(cos_t)), min=0.0))
+    sin_t = sqrt(torch.clamp(fma(-cos_t, cos_t, torch.ones_like(cos_t)), min=0.0))
     phi = u2n * torch.tensor(2.0 * torch.pi, dtype=torch.float32)
-    wl = dc / torch.sqrt(d2s)[..., None]
+    wl = dc / sqrt(d2s)[..., None]
     pick = torch.abs(wl[..., 0:1]) > 0.9
     a_ax = torch.where(pick, torch.tensor(_Y_AXIS, device=pnt.device),
                        torch.tensor(_X_AXIS, device=pnt.device))
     u_ax = cross(a_ax, wl)
-    u_ax = u_ax / torch.clamp(torch.sqrt(dot3(u_ax, u_ax)), min=1e-12)[..., None]
+    u_ax = u_ax / torch.clamp(sqrt(dot3(u_ax, u_ax)), min=1e-12)[..., None]
     v_ax = cross(wl, u_ax)
-    # cos/sin rounded from f64: nearer XLA's f32 results than torch's own.
-    phi64 = phi.double()
-    cp = torch.cos(phi64).float() * sin_t
-    sp = torch.sin(phi64).float() * sin_t
+    cos_phi, sin_phi = cos_sin(phi)
+    cp = cos_phi * sin_t
+    sp = sin_phi * sin_t
     omega = fma(wl, cos_t[..., None], fma(u_ax, cp[..., None], v_ax * sp[..., None]))
     cos_i = dot3(normal, omega)
     h_l = dot3(dc, omega)
     disc_l = fma(h_l, h_l, -fma(-lr, lr, d2))
-    t_l = h_l - torch.sqrt(torch.clamp(disc_l, min=0.0))
+    t_l = h_l - sqrt(torch.clamp(disc_l, min=0.0))
     ok = (cos_i > 0.0) & ~inside & (disc_l > 0.0)
     return omega, t_l, ok, cos_i * 2.0 * omc
 
@@ -184,14 +206,14 @@ def _tri_candidate(pnt, normal, v0, e1, e2, nl, area, u1n, u2n):
     """Uniform-area sample on a triangle light (per-lane parameters):
     returns (omega, dist, ok, wgt0), wgt0 = cos_i cos_l area / (pi d^2),
     two-sided (|cos_l|)."""
-    su = torch.sqrt(u1n)
+    su = sqrt(u1n)
     b1 = 1.0 - su
     b2 = u2n * su
     p = fma(b2[..., None], e2, fma(b1[..., None], e1, v0))
     dc = p - pnt
     d2 = dot3(dc, dc)
     d2s = torch.clamp(d2, min=1e-12)
-    dist = torch.sqrt(d2s)
+    dist = sqrt(d2s)
     omega = dc / dist[..., None]
     cos_i = dot3(normal, omega)
     cos_l = torch.abs(dot3(nl, omega))
@@ -348,7 +370,7 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
 
     missed = live & ~hit.hit
     result = torch.where(
-        missed[..., None], result + throughput * sky_color(d) * ctx.sky_intensity,
+        missed[..., None], _add_sky(result, throughput, sky_color(d), ctx.sky_intensity),
         result,
     )
     emissive = live & hit.hit & (kind == EMISSIVE)
@@ -370,7 +392,7 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
         if n_tl:
             delta = hit.point - o
             d2h = torch.clamp(dot3(delta, delta), min=1e-12)
-            d3h = d2h * torch.sqrt(d2h)
+            d3h = d2h * sqrt(d2h)
             for j in range(n_tl):
                 ndot = torch.abs(dot3(delta, tl.normal[j]))
                 r_tri = (torch.pi * d3h) / torch.clamp(ndot * tl.area[j] * prev_cos,
@@ -387,7 +409,7 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
     else:
         w_emis = torch.where(prev_diffuse, 0.0, 1.0) if nee else torch.ones_like(prev_cos)
     result = torch.where(
-        emissive[..., None], result + throughput * albedo * (param * w_emis)[..., None],
+        emissive[..., None], xla_fma(throughput * albedo, (param * w_emis)[..., None], result),
         result,
     )
 
@@ -419,7 +441,8 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
             if mis:
                 wgt = _either(last, wgt, _mis_nee_weight(wgt, False))
             return torch.where(valid[..., None],
-                               result + throughput * albedo * le * wgt[..., None], result)
+                               xla_fma(throughput * albedo * le, wgt[..., None], result),
+                               result)
 
         def sphere_term(result, li, u1n, u2n, weight):
             omega, t_l, ok, wgt0 = _sphere_candidate(

@@ -17,7 +17,7 @@ import dataclasses
 import torch
 
 from gpu_ray_tracing_tpu_torch.models.spheres import Spheres
-from gpu_ray_tracing_tpu_torch.ops.rounding import cross, dot3, fma
+from gpu_ray_tracing_tpu_torch.ops.rounding import cross, dot3, fma, sqrt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +58,7 @@ def _sphere_roots(o, d, spheres: Spheres, t_min: float, t_max: float):
 
     disc_pos = disc > 0.0
     sqrt_disc = torch.where(
-        disc_pos, torch.sqrt(torch.where(disc_pos, disc, 1.0)), 0.0
+        disc_pos, sqrt(torch.where(disc_pos, disc, 1.0)), 0.0
     )
     inv_a = 1.0 / a
     root_near = (h - sqrt_disc) * inv_a  # (wgsl:195)
@@ -171,7 +171,7 @@ def _mesh_hit_record(o, d, mesh, t_best, idx, any_hit, batch_shape) -> Hit:
                                       0.0, 0.0)
         outward = ((1.0 - u - v)[:, None] * mesh.n0[idx] + u[:, None] * mesh.n1[idx]
                    + v[:, None] * mesh.n2[idx])
-        norm = torch.sqrt(torch.sum(outward * outward, dim=-1, keepdim=True))
+        norm = sqrt(torch.sum(outward * outward, dim=-1, keepdim=True))
         outward = outward / torch.clamp(norm, min=1e-20)
     else:
         outward = mesh.normals[idx]

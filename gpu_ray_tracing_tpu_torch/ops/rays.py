@@ -14,7 +14,7 @@ import torch
 
 from gpu_ray_tracing_tpu_torch.models.camera import Camera
 from gpu_ray_tracing_tpu_torch.ops import rng as rng_ops
-from gpu_ray_tracing_tpu_torch.ops.rounding import fma
+from gpu_ray_tracing_tpu_torch.ops.rounding import cos_sin, fma, sqrt
 
 _TWO_PI = 6.283185307179586
 
@@ -93,11 +93,10 @@ def generate_rays_for_ids(
         u3, u4, pid, sample_index, frame_seed_u32, sampler_spec,
         rot_salt=rng_ops._LENS_ROT_SALT, y_scale=_TWO_PI,
     )
-    radius = torch.sqrt(u3)
-    angle = angle.double()
-    # cos/sin rounded from f64: nearer XLA's f32 results than torch's own.
-    px = radius * torch.cos(angle).float()
-    py = radius * torch.sin(angle).float()
+    radius = sqrt(u3)
+    cos_a, sin_a = cos_sin(angle)
+    px = radius * cos_a
+    py = radius * sin_a
     lens = fma(py[..., None], camera.defocus_disk_v,
                fma(px[..., None], camera.defocus_disk_u, camera.center))
     # Pinhole when defocus_angle <= 0 (wgsl:319).

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from gpu_ray_tracing_tpu_torch.ops.rounding import fma
+from gpu_ray_tracing_tpu_torch.ops.rounding import cos_sin, fma, sqrt, xla_fma
 
 _MASK = 0xFFFFFFFF
 _XOR_SEED = 2747636419
@@ -230,8 +230,11 @@ def sampler_jitter(u1, u2, pixel_ids, sample_index, frame_seed_u32, spec):
 
 
 def unit_vector_from_uniforms(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
-    """Uniform unit vector from two U[0,1) draws; shape u1.shape + (3,)."""
+    """Uniform unit vector from two U[0,1) draws; shape u1.shape + (3,).
+    On the CPU rounded as jitted XLA:CPU rounds it (1 - z^2 as one fused
+    multiply-add, cos and sin as glibc's), on the card as the kernel does."""
     z = 2.0 * u1 - 1.0
     a = u2 * torch.tensor(2.0 * torch.pi, dtype=torch.float32)
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
-    return torch.stack([r * torch.cos(a), r * torch.sin(a), z], dim=-1)
+    r = sqrt(torch.clamp(xla_fma(-z, z, torch.ones_like(z)), min=0.0))
+    cos_a, sin_a = cos_sin(a, f64_on_card=False)
+    return torch.stack([r * cos_a, r * sin_a, z], dim=-1)

@@ -323,6 +323,90 @@ def test_adaptive_resume_is_bit_exact(dev):
     assert torch.equal(wide, fixed)
 
 
+def _adaptive_oracle_case(dev, route):
+    """(scene, camera, render_cuda keywords) of an adaptive frame whose
+    tiles stop at several counts."""
+    if route == "ragged_200x70":
+        sc, cam, w, h = _one_weekend(dev, 200, 70) + (200, 70)
+        kw = dict(spp=16, max_depth=30, sample_index=5, adaptive_tol=0.08,
+                  adaptive_min_spp=3)
+    else:  # ragged_150x45_nee: a sphere light, NEE+MIS, roulette, 2 x 2 ragged tiles
+        sc = _nee_scene().to(dev)
+        w, h = 150, 45
+        cam = T.derive_camera(BASE_CAMERA, w, h).to(dev)
+        kw = dict(spp=16, max_depth=8, russian_roulette_depth=3, adaptive_tol=0.3,
+                  adaptive_min_spp=2, nee=True, mis=True, sky_intensity=0.0)
+    return sc, cam, dict(kw, width=w, height=h, t_min=1e-3, frame_seed=3)
+
+
+@pytest.mark.parametrize("route", ["ragged_200x70", "ragged_150x45_nee"])
+def test_adaptive_tiles_equal_the_fixed_kernel_at_their_count(dev, route):
+    """The oracle of chip_smoke's phase 25, which does not depend on the
+    adaptive kernel's schedule: a tile whose spp map reads k holds samples
+    0..k-1 summed in sample order and divided by k, so it equals
+    render_cuda(spp=k) there bit for bit, ray counts included; two launches
+    are identical, and so is a tile spread over 16 blocks or kept on one."""
+    sc, cam, kw = _adaptive_oracle_case(dev, route)
+    got = mk.render_cuda(sc, cam, return_spp_map=True, return_ray_count=True, **kw)
+    img, smap, rays = got
+    counts = sorted({int(v) for v in smap.unique().tolist()})
+    assert len(counts) > 1, counts  # the tiles stop at several counts
+    fixed_kw = {k: v for k, v in kw.items() if not k.startswith("adaptive") and k != "spp"}
+    for k in counts:
+        f_img, f_rays = mk.render_cuda(sc, cam, spp=k, return_ray_count=True, **fixed_kw)
+        m = smap == k
+        assert torch.equal(f_img[m], img[m]), k
+        assert torch.equal(f_rays[m], rays[m]), k
+    try:
+        for blocks in (None, 1, 16):
+            if blocks is not None:
+                mk.adaptive_cluster(blocks)
+            again = mk.render_cuda(sc, cam, return_spp_map=True, return_ray_count=True, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), blocks
+    finally:
+        mk.adaptive_cluster(0)
+
+
+@pytest.mark.parametrize("chunk", [1, 5])
+def test_adaptive_resume_in_chunks_equals_one_shot(dev, chunk):
+    """The six state planes after resumed launches of `chunk` samples equal
+    the one-shot render's (a resume from zero planes with chunk = budget)
+    bit for bit, and its count plane is the one-shot spp map."""
+    sc, cam, kw = _adaptive_oracle_case(dev, "ragged_200x70")
+    zero = tuple(torch.zeros((kw["height"], kw["width"]), device=dev) for _ in range(6))
+    one = mk.render_cuda(sc, cam, adaptive_state=zero, adaptive_chunk=kw["spp"], **kw)
+    _, smap = mk.render_cuda(sc, cam, return_spp_map=True, **kw)
+    assert torch.equal(one[3], smap)
+    st = zero
+    for _ in range(-(-kw["spp"] // chunk) + 1):
+        st = mk.render_cuda(sc, cam, adaptive_state=st, adaptive_chunk=chunk, **kw)
+    for a, b in zip(st, one):
+        assert torch.equal(a, b)
+
+
+def test_adaptive_frame_with_fewer_tiles_than_a_clusters_blocks(dev):
+    """A 50 x 31 frame is one ragged tile: the launcher spreads it over a
+    cluster of 16 blocks, and the frame is the fixed kernel's at its count
+    and the same on one block."""
+    sc, cam = _one_weekend(dev, 50, 31)
+    kw = dict(width=50, height=31, spp=12, max_depth=12, t_min=1e-3, frame_seed=3,
+              adaptive_tol=0.08, adaptive_min_spp=3)
+    img, smap = mk.render_cuda(sc, cam, return_spp_map=True, **kw)
+    assert mk.adaptive_cluster() == 16
+    k = int(smap[0, 0])
+    assert bool((smap == k).all())
+    fixed_kw = {k2: v for k2, v in kw.items() if not k2.startswith("adaptive") and k2 != "spp"}
+    assert torch.equal(mk.render_cuda(sc, cam, spp=k, **fixed_kw), img)
+    try:
+        mk.adaptive_cluster(1)
+        assert torch.equal(mk.render_cuda(sc, cam, return_spp_map=True, **kw)[0], img)
+        assert mk.adaptive_cluster() == 1
+    finally:
+        mk.adaptive_cluster(0)
+    with pytest.raises(ValueError, match="1-16 blocks"):
+        mk.adaptive_cluster(17)
+
+
 def test_ray_counters_are_exact(dev):
     """The kernel's counters against the plain version's per pixel on the
     diffuse scene of tests/test_pallas.py:707-717 (48 x 32, 4 spp, depth

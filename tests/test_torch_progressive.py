@@ -166,9 +166,8 @@ def _settings_pair(seed):
     ("orbit_yaw", 0.3), ("orbit_pitch", 0.2),
 ])
 def test_motion_ops_match_jax(op, amount):
-    """dolly, strafe, elevate and zoom bit for bit; the orbits rotate by
-    cos/sin, which torch and XLA round differently in the last bit, so they
-    are held at allclose 1e-6."""
+    """Every motion op bit for bit; the orbits rotate by cos/sin, which the
+    port takes from glibc's cosf/sinf as XLA:CPU does."""
     for seed in range(8):
         js, ts = _settings_pair(seed)
         want = getattr(jcam, op)(js, jnp.float32(amount))
@@ -177,10 +176,7 @@ def test_motion_ops_match_jax(op, amount):
                   "focus_distance"):
             w, g = np.asarray(getattr(want, f)), getattr(got, f).numpy()
             assert g.dtype == np.float32, f
-            if op.startswith("orbit"):
-                np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
-            else:
-                assert np.array_equal(g, w), (op, seed, f, g, w)
+            assert np.array_equal(g, w), (op, seed, f, g, w)
 
 
 def test_render_animation_matches_jax():

@@ -194,21 +194,24 @@ def test_sobol_base_golden():
 
 def _jax_and_port_bounces(js, spec, depth, **kw):
     """48 x 36 frames of samples 0 and 4 through JAX's jitted raygen +
-    trace_path and through the port's: [(sample, port, jax)], (P, 3) each."""
+    trace_path and through the port's: [(sample, port, jax)], (P, 3) each.
+    The scene is an argument of the jitted trace, as JAX's `render` jits
+    it: closed over, it would be a constant that XLA folds in plain f32
+    (each sphere's |c|^2 - r^2), which no call of the library does."""
     w, h, seed = 48, 36, 9
     jc = J.derive_camera(pc.BASE_CAMERA, w, h)
     raygen = jax.jit(lambda s: jr.generate_rays_hash(jc, w, h, s, jnp.uint32(seed),
                                                      sampler_spec=spec))
-    trace = jax.jit(lambda o, d, s, p, si: ji.trace_path(
-        o, d, js, depth, 1e-3, 3.4e35, pixel_seeds=s, pixel_ids=p, sample_index=si,
+    trace = jax.jit(lambda sc, o, d, s, p, si: ji.trace_path(
+        o, d, sc, depth, 1e-3, 3.4e35, pixel_seeds=s, pixel_ids=p, sample_index=si,
         frame_seed_u32=jnp.uint32(seed), sampler_spec=spec, **kw))
     ids = np.arange(w * h, dtype=np.uint32)
     ts, tc = T.from_reference(js), T.from_reference(jc)
     out = []
     for sample in (0, 4):
         jo, jd, jseeds = raygen(jnp.uint32(sample))
-        want = np.asarray(trace(jo.reshape(-1, 3), jd.reshape(-1, 3), jseeds.reshape(-1), ids,
-                                jnp.uint32(sample)))
+        want = np.asarray(trace(js, jo.reshape(-1, 3), jd.reshape(-1, 3), jseeds.reshape(-1),
+                                ids, jnp.uint32(sample)))
         to, td, tseeds = tr.generate_rays_hash(tc, w, h, sample, seed, sampler_spec=spec)
         got = ti.trace_path(to.reshape(-1, 3), td.reshape(-1, 3), ts, depth, 1e-3, 3.4e35,
                             pixel_seeds=tseeds.reshape(-1), pixel_ids=torch.arange(w * h),
@@ -237,20 +240,24 @@ def test_stratified_first_bounce_matches_jax_pieces_bit_for_bit(spec):
 
 @pytest.mark.parametrize("scene", ["nee", "base"])
 @pytest.mark.parametrize("spec", [None, ("stratified", 3, 5), ("stratified", 2, 3)])
-def test_nee_and_sky_round_apart_from_jax_alike_for_every_sampler(spec, scene):
+def test_nee_and_sky_stay_within_one_ulp_of_jax_for_every_sampler(spec, scene):
     """Depth 2, samples 0 and 4: the bounce-0 NEE estimate (its cone angle
     is the stratified u2 times 2 pi) on _nee_scene with nee+mis and sky 0,
-    and the sky gradient on base_scene, are not bit-equal to JAX's jitted
-    pieces: up to 15% of pixels sit a few ulp apart (NEE up to 1.41e-5 on
-    radiance up to 20; sky up to 1.19e-7), never a flip.  The independent
-    sampler, which has no stratified remap and no angle fold to take,
-    shows the same gap, so it is not the stratified angle: it is the NEE
-    estimator's and the sky gradient's own rounding."""
+    and the sky gradient on base_scene, against JAX's jitted pieces.  The
+    port rounds the pieces as XLA:CPU does (glibc cosf/sinf and powf, a
+    correctly rounded sqrt, the fused multiply-adds of the sky, the unit
+    vector, the BSDFs and the radiance sums, XLA's r2 / (d2 (1 + s)) in the
+    cone's 1 - cos_max; test_torch_rounding.py holds each piece bit for
+    bit).  What is left is a last-bit residue inside the fused bounce:
+    measured NEE up to 2.68e-7 in at most 8.0% of pixels (1.41e-5 in 15%
+    before), sky 5.96e-8 in at most 0.29% (1.19e-7 in 15% before), never a
+    flip; each is held just above its reading."""
     if scene == "nee":
-        js, kw, limit = pc._nee_scene(), dict(nee=True, mis=True, sky_intensity=0.0), 1.5e-5
+        js, kw = pc._nee_scene(), dict(nee=True, mis=True, sky_intensity=0.0)
+        limit, share = 3e-7, 0.085
     else:
-        js, kw, limit = J.base_scene(), {}, 1.2e-7
+        js, kw, limit, share = J.base_scene(), {}, 6e-8, 0.004
     for sample, got, want in _jax_and_port_bounces(js, spec, 2, **kw):
         diff = np.abs(got - want).max(-1)
         assert diff.max() <= limit, (sample, diff.max())
-        assert (diff > 0).mean() <= 0.15, (sample, (diff > 0).mean())
+        assert (diff > 0).mean() <= share, (sample, (diff > 0).mean())
