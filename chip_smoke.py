@@ -6,8 +6,9 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds gpu_ray_tracing_tpu_torch/ops/cuda/megakernel.cu (the render kernels
-of both engines) and probes.cu with nvcc, side by side, then drives the port's
-main paths on the card in phases, one JSON line each:
+of both engines), wavefront.cu (the wavefront engine's device loop) and
+probes.cu with nvcc, side by side, then drives the port's main paths on the
+card in phases, one JSON line each:
 
   1. device       the card, its compute capability and power limit
   2. build        nvcc version, build seconds, each kernel instance's registers,
@@ -39,7 +40,10 @@ main paths on the card in phases, one JSON line each:
                   the plain version's frame at flip <= 2% and mean < 2e-3
  10. config4      BASELINE config 4 through render(): a smooth icosphere(6)
                   (81,920 faces) behind its BVH, 640x480, 1 spp, depth 8,
-                  held to the plain version at flip <= 1% and mean < 2e-4
+                  held to the plain version at flip <= 1% and mean < 2e-4;
+     config1      BASELINE config 1 through render(): base_scene, 800x600,
+                  1 spp, the normal AOV (render_aov_kernel), timed as config 3
+                  and held to the plain version at 1% / 2e-4
 
  11. nee_vs_plain  the NEE kernel vs its plain version at 1% / 2e-4: _nee_scene
                   (nee+mis, RR 3, sky 0, 320x240, 4 spp, depth 8), the 81-light
@@ -83,22 +87,38 @@ main paths on the card in phases, one JSON line each:
                   state: rays whose live flag differs <= 1%, the state planes and
                   the finished samples of agreeing rays within 2e-4 mean; again
                   on _nee_scene (nee+mis) and with per-ray (sample, bounce); then
-                  render_wavefront vs render_wavefront_reference, 320x180, 4 spp,
-                  depth 30, at 1% / 2e-4
+                  the device loop's partition (wavefront.cu), refill
+                  (wavefront_raygen_kernel) and step against their plain
+                  versions on a real 320x180 state, every sort, with and
+                  without regeneration: permutation, planes, ids and counts
+                  exactly, refilled rays within 1e-5; then render_wavefront
+                  vs render_wavefront_reference, 320x180, 4 spp, depth 30, at
+                  1% / 2e-4
  21. wavefront_path  the main frame through render(backend='wavefront'),
                   regenerate off: timed as phase 6, bit-equal to phase 6's frame,
-                  with its bounce launches, compactions, host syncs and live rays
-                  per bounce; regenerate on: timed, <= 3e-5 from the first, twice
-                  for the run-to-run difference; both split into device time by
-                  kernel and idle time (torch.profiler); per-ray against per-warp-
-                  row compaction and the sort keys, timed; and small frames on
-                  the other routes, each bit-equal to render_cuda
+                  with its bounce launches, compactions, host reads of the device
+                  (one a frame) and live rays per bounce; regenerate on: timed,
+                  <= 3e-5 from the first, twice for the run-to-run difference,
+                  host reads at most one every POLL_EVERY iterations plus one;
+                  both split into device time by kernel (bounce, ray generation,
+                  partition, step, other) and idle time (torch.profiler); the
+                  launches counted against the schedule the host must enqueue
+                  for the iterations the device counted; the loop's kernels
+                  timed at the main shape and held there to their plain
+                  versions (the 16 samples' 14.7 M-slot array and the
+                  921,600-slot pool, every sort: fill, partition, refill and
+                  step); the sort keys, compaction thresholds and sample
+                  batches, three runs each; and small frames on the other
+                  routes, each bit-equal to render_cuda
  22. fma_peak     the FP32 probe (K3) vs its plain version at 32 rounds, then
                   timed on a card-filling grid: TFLOP/s per mix and chain count
                   and the share of the nominal 67
  23. bf16_probe   the f32 / packed-bf16 probe (K4) vs its plain version at 32
                   rounds, then microseconds per launch on the 32x128 tile and on
-                  a card-filling grid, product and compare forms
+                  a card-filling grid, product and compare forms, each against
+                  its least time (9 operations a round, 10 with the compare,
+                  at the issue rate of the type) and against the old bound
+                  (9 operations a round over the type's FMA peak)
  24. regen_schedule  render_kernel's per-warp path regeneration against
                   render(backend='wavefront', regenerate='off') bit for bit,
                   ray counts included, on small frames that stress its
@@ -121,12 +141,14 @@ Every phase that launches the megakernel gates its launch count on its own
 route key (megakernel:brute, :sphere_bvh, :mesh_bvh, suffixed +nee,
 +sobol/+stratified, +adaptive and +rays when the launch ran them); the
 wavefront bounce kernel counts under wavefront:<route>[+regen][+rays], its
-ray generation under wavefront_raygen, the probes under fma_peak and
-bf16_probe.  Then the kernels line (the megakernel once per path: brute,
-sphere_bvh, mesh_bvh, mesh_bvh+nee, brute+nee, brute+sobol, brute+adaptive,
-mesh_bvh+nee+adaptive (with the kernel alone and its cluster size), the hash
-and sampler probes, wavefront:brute,
-wavefront:brute+regen, fma_peak and bf16_probe), each row with its least time
+ray generation under wavefront_raygen, the partition under
+wavefront_partition, the loop's step under wavefront_advance, the probes
+under fma_peak and bf16_probe.  Then the kernels line (the megakernel once
+per path: brute, sphere_bvh, mesh_bvh, mesh_bvh+nee, brute+nee, brute+sobol,
+brute+adaptive, mesh_bvh+nee+adaptive (with the kernel alone and its cluster
+size), the hash and sampler probes, wavefront:brute, wavefront:brute+regen,
+wavefront_partition, wavefront_raygen, wavefront_advance, fma_peak and
+bf16_probe), each row with its least time
 on the card (`bound_ms`, from the rays its counters measured at that row's
 shape), the card's `nvidia-smi` name and power limit, and last
 {"ok": true, "device": {...}}.  A failed gate exits nonzero before that line.
@@ -138,8 +160,9 @@ no result.  It needs no network and starts no process that outlives it.
 runs phases 1 and 2, then times phase 6's frame over 20 frames through
 render() and the kernel alone over 10, the kernel alone on the routes of
 configs 3 and 4, the lit path, the night scene and a 1-spp progressive step,
-the adaptive main frame (phase 17's) and the adaptive Cornell box (phase
-15's), and prints one JSON line; with `--save-frame PATH` it also saves the
+the adaptive main frame (phase 17's), the adaptive Cornell box (phase
+15's) and the main frame through backend='wavefront' with regeneration off
+and on (5 frames each), and prints one JSON line; with `--save-frame PATH` it also saves the
 frame as a .npy file, and each adaptive frame's image, spp map, ray counts
 and six state planes in PATH's stem + "_adaptive.npz".  "The kernel alone" is the device time of render_cuda calls
 queued behind a spin kernel, so the host's packing per call does not show.
@@ -168,6 +191,12 @@ KERNEL_SOURCE = "gpu_ray_tracing_tpu_torch/ops/cuda/megakernel.cu"
 PROBES_SOURCE = "gpu_ray_tracing_tpu_torch/ops/cuda/probes.cu"
 REPLACES = "gpu_ray_tracing_tpu/ops/pallas/megakernel.py:1420"
 WAVEFRONT_REPLACES = "gpu_ray_tracing_tpu/ops/pallas/wavefront.py:87"
+WAVEFRONT_SOURCE = "gpu_ray_tracing_tpu_torch/ops/cuda/wavefront.cu"
+# The XLA code of the JAX engine's jitted loops that the device loop's
+# kernels replace: the compaction under lax.cond in `one_sample`, and the
+# ray generation and refill of `_run_regen`.
+WAVEFRONT_LOOP_REPLACES = "gpu_ray_tracing_tpu/ops/pallas/wavefront.py:545"
+WAVEFRONT_RAYGEN_REPLACES = "gpu_ray_tracing_tpu/ops/pallas/wavefront.py:756"
 FMA_PEAK_REPLACES = "benchmarks/vpu_roofline.py:135"
 BF16_PROBE_REPLACES = "benchmarks/bf16_probe.py:45"
 # The probes launch the kernel's hash and sampler functions alone: the
@@ -300,6 +329,23 @@ def time_main_path(T, mk, repeats: int) -> tuple[float, torch.Tensor, dict]:
         T.render(scene, cam, cfg, frame_seed=7)
     ms, img = cuda_ms(lambda: T.render(scene, cam, cfg, frame_seed=7), repeats)
     return ms, img, dict(mk.LAUNCHES)
+
+
+def time_wavefront(T, main_img, repeats: int) -> dict:
+    """The main frame through render(backend='wavefront'), regeneration off
+    and on: one warm-up, then the mean ms of `repeats` frames (CUDA
+    events), and whether the frame equals the megakernel's `main_img` bit
+    for bit (off) or within 3e-5 (on)."""
+    scene, cam = T.one_weekend_scene(0), T.CameraSettings.default()
+    out = {}
+    for mode in ("off", "on"):
+        cfg = T.RenderConfig(width=1280, height=720, spp=16, max_depth=30,
+                             backend="wavefront", regenerate=mode)
+        T.render(scene, cam, cfg, frame_seed=7)
+        ms, img = cuda_ms(lambda: T.render(scene, cam, cfg, frame_seed=7), repeats)
+        out[mode] = dict(ms_per_frame=ms, max_abs_vs_megakernel=float(
+            (img - main_img).abs().max()), bit_equal=bool(torch.equal(img, main_img)))
+    return out
 
 
 def time_main_kernel(T, mk, repeats: int) -> dict:
@@ -576,26 +622,175 @@ def bounce_vs_plain(wf, sc, cam, w: int, h: int, *, regen: bool, bounces: int = 
                     and r["finished_mean_abs"] < 2e-4 for r in rows))
 
 
+def _clone_array(wf, arr):
+    """A copy of a wavefront RayArray (planes, counts, scratch)."""
+    twin = wf.RayArray.__new__(wf.RayArray)
+    twin.__dict__.update({k: v.clone() if isinstance(v, torch.Tensor) else v
+                          for k, v in arr.__dict__.items()})
+    return twin
+
+
+def _fill_match(arr, twin, count: int) -> dict:
+    """A stream fill on the card against its plain version: ids and counts
+    exactly, rays within 1e-5."""
+    ids = bool(torch.equal(arr.i[0, :, :count], twin.i[0, :, :count]))
+    counts = bool(torch.equal(arr.ctr, twin.ctr))
+    err = float((arr.f[0, :, :count] - twin.f[0, :, :count]).abs().max())
+    return dict(fill_ids_equal=ids, fill_counts_equal=counts, fill_max_abs=err,
+                fill_ok=ids and counts and err <= 1e-5)
+
+
+def partition_vs_plain(wf, sc, cam, w: int, h: int, spp: int = 4,
+                       sorts=None) -> list[dict]:
+    """The device loop's kernels against their plain versions on a real
+    state: One-Weekend (w x h), a batch of `spp` samples (or a pool over
+    them), filled from the stream on the card and, on a copy of the empty
+    array, by the plain fill; two iterations on the card, then one more
+    bounce; from that state the partition (wavefront.cu) and, under
+    regeneration, the refill (wavefront_raygen_kernel, mode 2) and the
+    step, each on the card and as its plain version on a copy.  Per sort
+    (`sorts`, default every one) and mode: the filled ids and counts
+    exactly and the filled rays within 1e-5 (the plain ray generation's
+    rounding on the card), the permutation and the gathered planes
+    exactly, the refilled ids exactly and their rays within 1e-5, the
+    counts exactly.  Launches made here count under the kernels' keys but
+    outside any timed run."""
+    dev, p = sc.device, w * h
+    frame = dict(p=p, width=w, height=h, y_offset=0, row_stride=1)
+    rows = []
+    for regen in (False, True):
+        for sort in sorts or wf.SORTS:
+            eng = wf.Engine(sc, cam, 3, 30, 1e-3, total_width=w)
+            plain = wf.Engine(sc, cam, 3, 30, 1e-3, total_width=w, plain=True)
+            cap = p if regen else spp * p
+            arr = wf.RayArray(cap, regen, sort, dev)
+            run = wf._Run(dev, 64)
+            out = torch.zeros((spp * p, 3), device=dev)
+            sched = wf.Schedule(1.1, 0.25, spp * p, p, regen=regen)
+            fresh = _clone_array(wf, arr)
+            wf.wavefront_fill(eng, arr, cap, frame, 0, run)
+            wf.wavefront_fill(plain, fresh, cap, frame, 0, wf._Run(dev, 1))
+            fill = _fill_match(arr, fresh, cap)
+            del fresh
+            for it in range(2):
+                wf._bounce_step(eng, arr, run, bounce=it, sample_base=0, n_pixels=p, out=out)
+                wf.wavefront_partition(eng, arr, sched, run)
+                if regen:
+                    wf.wavefront_refill(eng, arr, sched, frame, 0, run)
+                wf.wavefront_advance(eng, arr, sched, run, it)
+            wf._bounce_step(eng, arr, run, bounce=2, sample_base=0, n_pixels=p, out=out)
+            twin, twin_run = _clone_array(wf, arr), wf._Run(dev, 64)
+            twin_run.stats.copy_(run.stats)
+            twin_run.iter_live.copy_(run.iter_live)
+            pl = wf._plan(arr.ctr, sched)
+            wf.wavefront_partition(eng, arr, sched, run)
+            wf.wavefront_partition(plain, twin, sched, twin_run)
+            torch.cuda.synchronize()
+            n, m = pl.n, pl.n if regen else pl.live
+            o = pl.cur ^ int(pl.compact)
+            r = dict(sort=sort, regenerate=regen, slots=n, live=pl.live, compact=pl.compact,
+                     **fill, perm_equal=bool(torch.equal(arr.perm[:n], twin.perm[:n])),
+                     planes_equal=bool(torch.equal(arr.f[o, :, :m], twin.f[o, :, :m])
+                                       and torch.equal(arr.i[o, :, :m], twin.i[o, :, :m])),
+                     planes_max_abs=float((arr.f[o, :, :m] - twin.f[o, :, :m]).abs().max()))
+            if regen:
+                wf.wavefront_refill(eng, arr, sched, frame, 0, run)
+                wf.wavefront_refill(plain, twin, sched, frame, 0, twin_run)
+                torch.cuda.synchronize()
+                r["refilled"] = pl.k if pl.refill else 0
+                r["refill_ids_equal"] = bool(torch.equal(arr.i[o, :, :n], twin.i[o, :, :n]))
+                r["refill_max_abs"] = float((arr.f[o, :, :n] - twin.f[o, :, :n]).abs().max())
+            wf.wavefront_advance(eng, arr, sched, run, 2)
+            wf.wavefront_advance(plain, twin, sched, twin_run, 2)
+            r["counts_equal"] = bool(torch.equal(arr.ctr, twin.ctr)
+                                     and torch.equal(run.stats, twin_run.stats))
+            r["counts_max_abs"] = float(max((arr.ctr - twin.ctr).abs().max(),
+                                            (run.stats - twin_run.stats).abs().max()))
+            r["ok"] = (r["perm_equal"] and r["planes_equal"] and r["counts_equal"]
+                       and fill["fill_ok"] and r.get("refill_ids_equal", True)
+                       and r.get("refill_max_abs", 0.0) <= 1e-5 and pl.compact)
+            rows.append(r)
+    return rows
+
+
+def time_partition(wf, sc, cam, w: int, h: int, spp: int, repeats: int = 10) -> dict:
+    """The device loop's kernels at the main path's shape: a batch of `spp`
+    samples of the (w x h) frame filled and bounced once on the card, then
+    the first compaction (sort 'octant'), the stream fill and the step, each
+    timed on the card (CUDA events, the mean of `repeats` calls on a copy
+    of the state) and as its plain version once; with the least bytes each
+    must move.  The fill and the partition are held to their plain
+    versions' results on the same state (`match`: as partition_vs_plain)."""
+    dev, p = sc.device, w * h
+    frame = dict(p=p, width=w, height=h, y_offset=0, row_stride=1)
+    eng = wf.Engine(sc, cam, 7, 30, 1e-3, total_width=w)
+    plain = wf.Engine(sc, cam, 7, 30, 1e-3, total_width=w, plain=True)
+    arr = wf.RayArray(spp * p, False, "octant", dev)
+    run = wf._Run(dev, 30)
+    out = torch.zeros((spp * p, 3), device=dev)
+    sched = wf.Schedule(0.9)
+    fill_ms, _ = cuda_ms(lambda: wf.wavefront_fill(eng, arr, spp * p, frame, 0, run), repeats)
+    spare = _clone_array(wf, arr)
+    fill_plain_ms, _ = cuda_ms(lambda: wf.wavefront_fill(plain, spare, spp * p, frame, 0,
+                                                         wf._Run(dev, 1)), 1)
+    match = _fill_match(arr, spare, spp * p)
+    del spare
+    wf._bounce_step(eng, arr, run, bounce=0, sample_base=0, n_pixels=p, out=out)
+    torch.cuda.synchronize()
+    pl = wf._plan(arr.ctr, sched)
+    twin = _clone_array(wf, arr)
+    # Until the step, a partition reads the same counts and buffer: calling
+    # it again repeats the same work.
+    part_ms, _ = cuda_ms(lambda: wf.wavefront_partition(eng, arr, sched), repeats)
+    part_plain_ms, _ = cuda_ms(lambda: wf.wavefront_partition(plain, twin, sched), 1)
+    n, m, o = pl.n, pl.live, pl.cur ^ int(pl.compact)
+    match.update(perm_equal=bool(torch.equal(arr.perm[:n], twin.perm[:n])),
+                 planes_equal=bool(torch.equal(arr.f[o, :, :m], twin.f[o, :, :m])
+                                   and torch.equal(arr.i[o, :, :m], twin.i[o, :, :m])),
+                 planes_max_abs=float((arr.f[o, :, :m] - twin.f[o, :, :m]).abs().max()))
+    match["ok"] = (match["fill_ok"] and match["perm_equal"] and match["planes_equal"]
+                   and pl.compact)
+    adv_ms, _ = cuda_ms(lambda: wf.wavefront_advance(eng, arr, sched, run, 0), repeats)
+    adv_plain_ms, _ = cuda_ms(lambda: wf.wavefront_advance(plain, twin, sched, run, 0), 1)
+    # Keys read the live flag and the direction (16 bytes a slot); the
+    # permutation is written once (4); the gather reads and writes the
+    # live rays' 16 f32 and 3 i32 planes (76 bytes each way).
+    part_bytes = n * 16 + n * 4 + m * 76 * 2
+    fill_bytes = n * 76
+    return dict(slots=n, live=m, compact=pl.compact, match=match,
+                partition=dict(ms=part_ms, plain_ms=part_plain_ms,
+                               bound_ms=part_bytes / HBM_RATE * 1e3, bound_by="bytes"),
+                raygen=dict(ms=fill_ms, plain_ms=fill_plain_ms,
+                            bound_ms=fill_bytes / HBM_RATE * 1e3, bound_by="bytes"),
+                advance=dict(ms=adv_ms, plain_ms=adv_plain_ms,
+                             bound_ms=(4 * 8 + 8 * 6) / HBM_RATE * 1e3, bound_by="bytes"))
+
+
 def device_breakdown(fn) -> dict:
     """Device milliseconds of one call of fn by kernel (torch.profiler): the
-    wavefront bounce kernel, its ray generation, and everything else (the
-    torch kernels of the compaction, the fold and the copies); and from the
-    same call the span from the first kernel's start to the last one's end
-    and the share of it in which no kernel ran.  The profiler slows the
-    host, so the idle share is that of a profiled frame."""
+    wavefront bounce kernel, its ray generation (fill and refill), the
+    partition (wf_bounds/keys/scan/perm/gather kernels), the loop's step
+    (wf_advance_kernel), and everything else (the fold, the fills and
+    copies); and from the same call the span from the first kernel's start
+    to the last one's end and the share of it in which no kernel ran.  The
+    profiler slows the host, so the idle share is that of a profiled
+    frame."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    groups = {"bounce_kernel_ms": 0.0, "raygen_kernel_ms": 0.0, "other_kernels_ms": 0.0}
+    groups = {"bounce_kernel_ms": 0.0, "raygen_and_refill_kernel_ms": 0.0,
+              "partition_kernels_ms": 0.0, "advance_kernel_ms": 0.0, "other_kernels_ms": 0.0}
     first, last = float("inf"), 0.0
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
         key = ("bounce_kernel_ms" if "wavefront_bounce_kernel" in ev.name else
-               "raygen_kernel_ms" if "wavefront_raygen_kernel" in ev.name else
+               "raygen_and_refill_kernel_ms" if "wavefront_raygen_kernel" in ev.name else
+               "advance_kernel_ms" if "wf_advance_kernel" in ev.name else
+               "partition_kernels_ms" if "wf_" in ev.name else
                "other_kernels_ms")
         groups[key] += ev.time_range.elapsed_us() / 1e3
         first, last = min(first, ev.time_range.start), max(last, ev.time_range.end)
@@ -673,13 +868,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    if args.main_path_only:
-        # Only what every checkout of the port has: the A/B runs this
-        # script inside an older checkout too.
-        build.load()
-        infos = {"megakernel": build.build_info()}
-    else:
-        infos = build.build_all()
+    infos = build.build_all()
     info = infos["megakernel"]
     emit({"phase": "build", "nvcc": info.nvcc_version,
           "compiled": {k: v.compiled for k, v in infos.items()},
@@ -697,6 +886,7 @@ def main() -> int:
               **time_main_kernel(T, mk, 10), "kernel_repeats": 10,
               "routes_kernel_ms": time_routes(T, mk, 10),
               "adaptive_kernel": time_adaptive(T, mk, 5, arrays), "adaptive_repeats": 5,
+              "wavefront": time_wavefront(T, img, 5), "wavefront_repeats": 5,
               "mean": float(img.mean()), "launches": launches, "card": smi})
         if args.save_frame:
             np.save(args.save_frame, img.cpu().numpy())
@@ -888,11 +1078,15 @@ def main() -> int:
     gate("mesh_vs_plain", r8["launches"] == {"megakernel:mesh_bvh": 6},
          f"expected 6 mesh-BVH launches, counted {r8['launches']}")
 
-    # 9-10. BASELINE configs 3 and 4 at full size, through the public entry
-    # point (2 warm-up and 5 timed frames), each gated against the plain
-    # version of the same frame.
+    # 9-10. BASELINE configs 3 and 4 at full size, and config 1 (the normal
+    # AOV through render_aov_kernel), through the public entry point (2
+    # warm-up and 5 timed frames), each gated against the plain version of
+    # the same frame.
     paths = {}
     for phase, route, scene, cam, cfg, seed, flip, mean_tol in (
+        ("config1", "brute", T.as_scene(T.base_scene()), base_cam,
+         T.RenderConfig(width=800, height=600, spp=1, integrator="normal", backend="cuda"), 1,
+         0.01, 2e-4),
         ("config3", "sphere_bvh", final, T.CameraSettings.default(),
          T.RenderConfig(width=1280, height=720, spp=1, max_depth=50, backend="cuda"), 3,
          0.02, 2e-3),
@@ -902,6 +1096,8 @@ def main() -> int:
     ):
         kw = dict(width=cfg.width, height=cfg.height, spp=cfg.spp, max_depth=cfg.max_depth,
                   t_min=cfg.t_min, frame_seed=seed)
+        if cfg.integrator != "path":
+            kw["mode"] = cfg.integrator
         inputs = (scene.to(dev), T.derive_camera(cam, cfg.width, cfg.height).to(dev), kw)
         r = against_plain(T, mk, lambda: T.render(scene, cam, cfg, frame_seed=seed), *inputs,
                           flip, mean_tol, warmup=2)
@@ -1234,6 +1430,14 @@ def main() -> int:
         gate("wavefront_vs_plain", sum(v for k, v in mk.LAUNCHES.items()
                                        if k.startswith("wavefront:")) == 6,
              f"{case}: expected 6 bounce launches, counted {dict(mk.LAUNCHES)}")
+    # The device loop's partition, refill and step against their plain
+    # versions on a real state, every sort, with and without regeneration.
+    part_rows = partition_vs_plain(wf, main_dev, cam20, 320, 180)
+    emit({"phase": "wavefront_vs_plain", "case": "partition_refill_step", "size": [320, 180],
+          "rows": part_rows, "limits": {"perm_planes_ids_counts": "exact",
+                                        "filled_refilled_rays_max_abs": 1e-5}})
+    for r in part_rows:
+        gate("wavefront_vs_plain", r["ok"], f"partition/refill vs plain: {r}")
     kw20 = dict(width=320, height=180, spp=4, max_depth=30, t_min=1e-3, frame_seed=3)
     for regen in (False, True):
         wf.render_wavefront(main_dev, cam20, regenerate=regen, **kw20)
@@ -1254,9 +1458,9 @@ def main() -> int:
         wcfg = T.RenderConfig(width=1280, height=720, spp=16, max_depth=30,
                               backend="wavefront", regenerate=mode)
         run = lambda: T.render(main_scene, main_cam, wcfg, frame_seed=7)
-        mk.LAUNCHES.clear()
         for _ in range(2):
             run()
+        mk.LAUNCHES.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         w_ms, w_img = cuda_ms(run, 5)
@@ -1270,15 +1474,18 @@ def main() -> int:
         live = stats.pop("live_per_iteration")
         m21 = T.images_match(w_img, p_img, 0.01, 2e-4)
         wave[mode] = dict(ms=w_ms, img=w_img, launches=w_launches, plain_ms=p_ms, route=route,
-                          max_abs=m21.max_abs, stats=stats)
+                          max_abs=m21.max_abs, stats=stats, busy=busy)
         vs_mega = float((w_img - main_img).abs().max())
+        iterations = stats["bounce_launches"]
+        read_bound = 1 if mode == "off" else -(-iterations // wf.POLL_EVERY) + 1
         emit({"phase": "wavefront_path", "regenerate": mode, "size": [1280, 720], "spp": 16,
               "max_depth": 30, "ms_per_frame": w_ms, "host_ms_per_frame": host_ms,
               "megakernel_ms_per_frame": frame_ms, "max_abs_vs_megakernel": vs_mega,
               "bit_equal_to_megakernel": bool(torch.equal(w_img, main_img)),
               "max_abs_between_two_runs": float((again - w_img).abs().max()),
               "finite": bool(torch.isfinite(w_img).all()), "launches": w_launches,
-              "per_frame": stats, "live_rays_per_iteration": live,
+              "per_frame": stats, "host_reads_per_frame": stats["host_syncs"],
+              "host_reads_bound": read_bound, "live_rays_per_iteration": live,
               "live_share_per_iteration": [v / (1280 * 720 * (16 if mode == "off" else 1))
                                            for v in live],
               **busy,
@@ -1288,11 +1495,29 @@ def main() -> int:
               "card": smi})
         gate("wavefront_path", bool(torch.isfinite(w_img).all()), f"{mode}: not finite")
         gate("wavefront_path", m21.ok, f"{mode}: against the plain engine's frame: {m21}")
-        gate("wavefront_path", w_launches == {route: 7 * stats["bounce_launches"],
-                                              "wavefront_raygen": 7 * stats["raygen_launches"]}
-             and stats["bounce_launches"] > 0,
-             f"{mode}: 7 frames of {stats['bounce_launches']} bounce launches, counted "
-             f"{w_launches}")
+        # The launches counted in the 5 timed frames against the schedule
+        # the host must enqueue: without regeneration max_depth bounces and
+        # steps and max_depth - 1 partitions a sample batch, and one fill;
+        # with it POLL_EVERY iterations a poll up to the poll that reads the
+        # flag of the group in which the device counted its last iteration
+        # (one group behind), each a bounce, partition, refill and step,
+        # and one fill.  A missed or doubled launch breaks the count.
+        if mode == "off":
+            batches = -(-16 // stats["sample_batch"])
+            want = dict(bounce=30 * batches, raygen=batches, partition=29 * batches,
+                        advance=30 * batches)
+        else:
+            its = wf.POLL_EVERY * (-(-iterations // wf.POLL_EVERY) + 1)
+            want = dict(bounce=its, raygen=1 + its, partition=its, advance=its)
+        gate("wavefront_path", w_launches == {
+            route: 5 * want["bounce"], "wavefront_raygen": 5 * want["raygen"],
+            "wavefront_partition": 5 * want["partition"],
+            "wavefront_advance": 5 * want["advance"]}
+             and stats["enqueued"] == want and 0 < iterations <= want["bounce"],
+             f"{mode}: the schedule is {want} a frame, the device counted {iterations} "
+             f"iterations, 5 frames counted {w_launches}")
+        gate("wavefront_path", stats["host_syncs"] <= read_bound,
+             f"{mode}: {stats['host_syncs']} host reads a frame, bound {read_bound}")
         gate("wavefront_path", stats["live_ray_bounces"] == main_rays,
              f"{mode}: {stats['live_ray_bounces']} live ray-bounces, the megakernel traced "
              f"{main_rays} rays")
@@ -1304,29 +1529,51 @@ def main() -> int:
         else:
             gate("wavefront_path", vs_mega <= 3e-5,
                  f"regenerate on differs from the megakernel's frame by {vs_mega}")
-    # Scheduling choices, timed on the same frame (the image does not change).
+    # The device loop's kernels at the main path's shape, timed for the
+    # kernels line and held to their plain versions there: the 16 samples'
+    # 14,745,600-slot array and the 921,600-slot pool, every sort.
+    wf_parts = time_partition(wf, main_dev, cam6, 1280, 720, 16)
+    main_part = partition_vs_plain(wf, main_dev, cam6, 1280, 720, 16)
+    emit({"phase": "wavefront_path", "loop_kernels_at_main_shape": wf_parts,
+          "vs_plain_at_main_shape": main_part,
+          "limits": {"perm_planes_ids_counts": "exact", "filled_refilled_rays_max_abs": 1e-5},
+          "card": smi})
+    gate("wavefront_path", wf_parts["match"]["ok"],
+         f"timed fill/partition vs plain at the main shape: {wf_parts['match']}")
+    for r in main_part:
+        gate("wavefront_path", r["ok"], f"partition/refill vs plain at the main shape: {r}")
+    # Scheduling choices, timed on the same frame (the image does not
+    # change): three runs each of the sort keys, the compaction threshold
+    # and the sample batch (its slots, wf.SAMPLE_SLOTS, set for the call),
+    # both modes.
     variants = {}
-    for label, extra in (("off", {}),
-                         ("off,sort=live", dict(sort="live")),
-                         ("off,compact_threshold=0.5", dict(compact_threshold=0.5)),
-                         ("off,sort=live,compact_threshold=0.5",
-                          dict(sort="live", compact_threshold=0.5)),
-                         ("off,sort=live,compact_threshold=0.25",
-                          dict(sort="live", compact_threshold=0.25)),
-                         ("off,compact_threshold=0", dict(compact_threshold=0.0)),
-                         ("on", dict(regenerate=True)),
-                         ("on,sort=live", dict(regenerate=True, sort="live")),
-                         ("on,sort=octant-flat", dict(regenerate=True, sort="octant-flat")),
-                         ("on,sort=live,compact_threshold=0.5",
-                          dict(regenerate=True, sort="live", compact_threshold=0.5)),
-                         ("on,compact_threshold=0",
-                          dict(regenerate=True, compact_threshold=0.0))):
-        wf.render_wavefront(main_dev, cam6, **kw_main, **extra)
-        v_ms, v_img = cuda_ms(lambda: wf.render_wavefront(main_dev, cam6, **kw_main, **extra), 3)
-        variants[label] = dict(ms=v_ms, host_syncs=wf.LAST_RUN["host_syncs"],
-                               bounce_launches=wf.LAST_RUN["bounce_launches"],
-                               compactions=wf.LAST_RUN["compactions"],
-                               equal=bool(torch.equal(v_img, main_img)))
+    options = [("sort", v) for v in wf.SORTS] + [
+        ("compact_threshold", v) for v in (0.5, 0.25, 0.0)]
+    for regen in (False, True):
+        extras = [dict([o]) for o in options] + ([] if regen else [
+            dict(sample_batch=1), dict(sample_batch=4)])
+        for extra in extras:
+            label = ("on," if regen else "off,") + ",".join(f"{k}={v}" for k, v in extra.items())
+            kw_v = {k: v for k, v in extra.items() if k != "sample_batch"}
+            slots = extra.get("sample_batch", 0) * 1280 * 720 or wf.SAMPLE_SLOTS
+
+            def call():
+                default, wf.SAMPLE_SLOTS = wf.SAMPLE_SLOTS, slots
+                try:
+                    return wf.render_wavefront(main_dev, cam6, regenerate=regen, **kw_main,
+                                               **kw_v)
+                finally:
+                    wf.SAMPLE_SLOTS = default
+            call()
+            runs = [cuda_ms(call, 3) for _ in range(3)]
+            v_img = runs[0][1]
+            variants[label] = dict(ms=[r[0] for r in runs],
+                                   sample_batch=wf.LAST_RUN["sample_batch"],
+                                   host_syncs=wf.LAST_RUN["host_syncs"],
+                                   bounce_launches=wf.LAST_RUN["bounce_launches"],
+                                   compactions=wf.LAST_RUN["compactions"],
+                                   equal=bool(torch.equal(v_img, main_img)) if not regen
+                                   else float((v_img - main_img).abs().max()) <= 3e-5)
     # The sort on a BVH route: config 3's frame (a sphere BVH, depth 50).
     sc3, cam3, kw3 = paths["config3"]["inputs"]
     for label, extra in (("config3,off,sort=octant", {}), ("config3,off,sort=live",
@@ -1334,7 +1581,7 @@ def main() -> int:
         ref3 = mk.render_cuda(sc3, cam3, **kw3)
         wf.render_wavefront(sc3, cam3, **kw3, **extra)
         v_ms, v_img = cuda_ms(lambda: wf.render_wavefront(sc3, cam3, **kw3, **extra), 3)
-        variants[label] = dict(ms=v_ms, host_syncs=wf.LAST_RUN["host_syncs"],
+        variants[label] = dict(ms=[v_ms], host_syncs=wf.LAST_RUN["host_syncs"],
                                bounce_launches=wf.LAST_RUN["bounce_launches"],
                                compactions=wf.LAST_RUN["compactions"],
                                equal=bool(torch.equal(v_img, ref3)))
@@ -1426,10 +1673,25 @@ def main() -> int:
         x_slab, slab["rounds"], torch.bfloat16), 1)
     slab_full_err = float((roofline.slab_dtype(x_slab, slab["rounds"], torch.bfloat16)
                            - slab_plain).abs().max())
+    # Its least time: its operations a round at the issue rate of the type
+    # (roofline.slab_bound_ms), beside the old bound (9 operations a round
+    # and element over the FMA peak of the type).
+    slab_bounds = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for compare in (False, True):
+            run_c = next(r for r in slab["runs"] if r["size"] == "card"
+                         and r["compare"] == compare)
+            new_b = roofline.slab_bound_ms(run_c["n"], slab["rounds"], dt, compare)
+            old_b = (roofline.SLAB_OPS_PER_ROUND * slab["rounds"] * run_c["n"]
+                     / (BF16_PEAK if dt == torch.bfloat16 else FP32_PEAK) * 1e3)
+            ms = run_c["bf16_us" if dt == torch.bfloat16 else "f32_us"] / 1e3
+            slab_bounds[str(dt).split(".")[1] + (",compare" if compare else "")] = dict(
+                ms=ms, bound_ms=new_b, share_of_bound=new_b / ms, old_bound_ms=old_b,
+                share_of_old_bound=old_b / ms)
     emit({"phase": "bf16_probe", "max_abs_err_vs_plain_32_rounds": slab_errs,
           "rounds": slab["rounds"], "runs": slab["runs"], "launches": slab_launches,
           "max_abs_err_vs_plain_full_rounds": slab_full_err, "plain_ms": slab_plain_ms,
-          "card": smi})
+          "bounds_card_grid": slab_bounds, "card": smi})
     gate("bf16_probe", all(v == 0.0 for v in slab_errs.values()) and slab_full_err == 0.0,
          f"the kernel differs from its plain version: {slab_errs}, {slab_full_err}")
     gate("bf16_probe", slab_launches == 8 * (slab["repeats"] + 1),
@@ -1519,6 +1781,15 @@ def main() -> int:
                          launches=p["launches"].get("megakernel:" + p["route"], 0),
                          max_abs_err=p["match"].max_abs, ms=p["ms"], plain_ms=p["plain_ms"],
                          kernel_ms=p.get("kernel_ms"), **b))
+    # render_aov_kernel: BASELINE config 1, one primary ray a pixel.
+    sc1, cam1, kw1 = paths["config1"]["inputs"]
+    rows.append(dict(kernel, name="megakernel:brute+aov_normal", path="brute, normal AOV",
+                     launches=paths["config1"]["launches"].get("megakernel:brute", 0),
+                     max_abs_err=paths["config1"]["match"].max_abs, ms=paths["config1"]["ms"],
+                     plain_ms=paths["config1"]["plain_ms"],
+                     kernel_ms=paths["config1"]["kernel_ms"],
+                     **bound(T, mk, sc1, float(kw1["width"] * kw1["height"]),
+                             3 * 4 * kw1["width"] * kw1["height"])))
     # The adaptive rows: the main frame (phase 17) and the Cornell box, the
     # NEE instance (phase 15).
     cb = adaptive_runs["cornell"]
@@ -1545,24 +1816,51 @@ def main() -> int:
     ]
     # K2: the wavefront bounce kernel on the main frame.  Its least time is
     # the megakernel's (the same rays and primitive tests) or the state
-    # traffic: every live ray reads 16 words of state (18 with per-ray sample
-    # and bounce) and writes 14 (15) per bounce.
-    for mode, words in (("off", 16 + 14), ("on", 18 + 15)):
+    # traffic: every live ray reads 16 words of state (+ its sample, and
+    # under regeneration its bounce) and writes 14 (15) per bounce.  `ms` is
+    # the bounce kernels' device time a frame (the profiled frame) over
+    # their launches.
+    for mode, words in (("off", 17 + 14), ("on", 18 + 15)):
         wv = wave[mode]
         t_ops = main_bound["bound_ms"]
         t_bytes = wv["stats"]["live_ray_bounces"] * words * 4 / HBM_RATE * 1e3
+        frame_launches = wv["stats"]["enqueued"]["bounce"]
         rows.append(dict(kernel, name=wv["route"], path=wv["route"],
                          replaces=WAVEFRONT_REPLACES,
                          launches=wv["launches"].get(wv["route"], 0),
-                         max_abs_err=wv["max_abs"], ms=wv["ms"], plain_ms=wv["plain_ms"],
-                         bound_ms=max(t_ops, t_bytes),
+                         max_abs_err=wv["max_abs"],
+                         ms=wv["busy"]["bounce_kernel_ms"] / frame_launches,
+                         frame_ms=wv["ms"], bounce_kernels_ms_per_frame=wv["busy"][
+                             "bounce_kernel_ms"], plain_ms=wv["plain_ms"],
+                         bound_ms=max(t_ops, t_bytes) / frame_launches,
                          bound_by="operations" if t_ops >= t_bytes else "bytes",
+                         bound_ms_per_frame=max(t_ops, t_bytes),
                          state_traffic_ms=t_bytes, rays_traced=main_rays,
                          bound_is_lower_bound=False, library_ms=None))
-    # K3 and K4: their counted operations over the nominal peak for their
-    # type (K4's body: 9 operations a round and element; the row times the
-    # packed bf16 kernel, so it divides by the non-tensor BF16 peak, and
-    # carries the f32 kernel's time and bound beside it).
+    # The device loop's own kernels (wavefront.cu; the ray generation in
+    # megakernel.cu), timed at the main path's shape (time_partition);
+    # launches are the regeneration-off frames' of phase 21.
+    wv = wave["off"]
+    for row_name, key, source, replaces in (
+            ("wavefront_partition", "partition", WAVEFRONT_SOURCE, WAVEFRONT_LOOP_REPLACES),
+            ("wavefront_raygen", "raygen", KERNEL_SOURCE, WAVEFRONT_RAYGEN_REPLACES),
+            ("wavefront_advance", "advance", WAVEFRONT_SOURCE, WAVEFRONT_LOOP_REPLACES)):
+        t = wf_parts[key]
+        # The largest difference from the plain version at the main path's
+        # shapes (phase 21): planes gathered, rays filled and refilled,
+        # counts stepped.
+        fields = {"partition": ("planes_max_abs",), "raygen": ("fill_max_abs", "refill_max_abs"),
+                  "advance": ("counts_max_abs",)}[key]
+        err = max(r.get(f, 0.0) for r in main_part + [wf_parts["match"]] for f in fields)
+        rows.append(dict(route="cuda", source=source, replaces=replaces, name=row_name,
+                         path=f"main frame, {wf_parts['slots']} slots",
+                         launches=wv["launches"].get(row_name, 0), max_abs_err=err,
+                         ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                         bound_by=t["bound_by"], library_ms=None))
+    # K3: its counted operations over the nominal FP32 peak.  K4: its 9
+    # operations a round and element at the issue rate of the type; the row
+    # times the packed bf16 kernel and carries the f32 kernel's time and
+    # bound beside it.
     fma_best = best["fma"]
     rows.append(dict(route="cuda", source=PROBES_SOURCE, replaces=FMA_PEAK_REPLACES,
                      name="fma_peak", path=f"fma x{fma_best['chains']}",
@@ -1570,14 +1868,15 @@ def main() -> int:
                      plain_ms=peak_plain_ms, bound_ms=fma_best["flops"] / FP32_PEAK * 1e3,
                      bound_by="operations", library_ms=None,
                      measured_tflops={m: best[m]["tflops"] for m in best}))
+    k4 = slab_bounds["bfloat16"]
     rows.append(dict(route="cuda", source=PROBES_SOURCE, replaces=BF16_PROBE_REPLACES,
                      name="bf16_probe", path="bf16, card-filling grid",
                      launches=slab_launches, max_abs_err=slab_full_err,
-                     ms=card_run["bf16_us"] / 1e3, plain_ms=slab_plain_ms,
-                     bound_ms=9 * slab["rounds"] * card_run["n"] / BF16_PEAK * 1e3,
-                     bound_by="operations", library_ms=None,
-                     f32_ms=card_run["f32_us"] / 1e3,
-                     f32_bound_ms=9 * slab["rounds"] * card_run["n"] / FP32_PEAK * 1e3))
+                     ms=k4["ms"], plain_ms=slab_plain_ms, bound_ms=k4["bound_ms"],
+                     bound_by="operations", library_ms=None, old_bound_ms=k4["old_bound_ms"],
+                     f32_ms=slab_bounds["float32"]["ms"],
+                     f32_bound_ms=slab_bounds["float32"]["bound_ms"],
+                     f32_old_bound_ms=slab_bounds["float32"]["old_bound_ms"]))
     # The main path's bound at the FP32 rate K3 measured on the traversal
     # mix, beside the nominal one (the nominal stays `bound_ms`).
     for row in rows:

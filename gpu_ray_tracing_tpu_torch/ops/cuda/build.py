@@ -1,7 +1,8 @@
 """Build the CUDA sources of ops/cuda/ at first use and bind them with ctypes.
 
 `nvcc` compiles each source (megakernel.cu: the render kernels of both
-engines; probes.cu: the FP32 and bf16 probes) into a shared library with a
+engines; wavefront.cu: the wavefront engine's compaction and loop step;
+probes.cu: the FP32 and bf16 probes) into a shared library with a
 plain C interface under gpu_ray_tracing_tpu_torch/_build/, which is then
 loaded with ctypes (the pattern of the JAX package's native/__init__.py).
 This route needs neither ninja nor PyTorch's headers, so a build takes
@@ -37,6 +38,7 @@ _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_uint = ctypes.c_uint
 _c_float = ctypes.c_float
+_c_double = ctypes.c_double
 
 # The scene, light and sampler arguments grt_render and grt_wavefront_bounce
 # share (after grt_render's camera).
@@ -66,16 +68,20 @@ _MEGAKERNEL_SIGNATURES = {
         [*_SCENE_ARGS,
          _c_uint, _c_int, _c_float, _c_float, _c_int,  # frame seed, depth, t_min, t_max, rr
          _c_float, _c_float,  # sky intensity, clamp
-         _c_ptr, _c_ptr, _c_int, _c_int,  # state f32, state i32, stride, slots
-         _c_int, _c_uint, _c_int, _c_uint, _c_int,  # regen, sample, bounce, base, pixels
+         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,  # f0, f1, i0, i1, stride, slots
+         _c_ptr, _c_int, _c_int,  # counts, per-ray sample, regen
+         _c_uint, _c_int, _c_uint, _c_int,  # sample, bounce, sample base, pixels
          _c_ptr, _c_ptr, _c_ptr],  # out, rays out, stream
     ),
     "grt_wavefront_raygen": (
         _c_int,
         [_c_ptr, _c_int, _c_int, _c_int, _c_int,  # camera, sampler kind, kx, ky, nbits
          _c_uint, _c_uint,  # frame seed, total width
-         _c_ptr, _c_ptr, _c_int, _c_int,  # state f32, state i32, stride, slots
-         _c_int, _c_uint, _c_ptr, _c_ptr],  # regen, sample, take, stream
+         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,  # f0, f1, i0, i1, stride
+         _c_int, _c_int, _c_uint, _c_int, _c_int,  # per-ray sample, regen, sample, mode, count
+         _c_int, _c_int, _c_uint, _c_uint, _c_uint,  # pool, width, y offset, row stride, s0
+         _c_ptr, _c_double, _c_double, _c_int,  # counts, thresholds, stream length
+         _c_ptr, _c_ptr, _c_ptr, _c_ptr],  # perm, stats, bounds, stream
     ),
     "grt_hash_probe": (
         _c_int,
@@ -100,17 +106,43 @@ _PROBES_SIGNATURES = {
 }
 
 
+# The schedule's constants every kernel of the device loop takes
+# (wavefront.cuh::WfSched): thresholds, stream length, pool, regen, last.
+_SCHED_ARGS = [_c_double, _c_double, _c_int, _c_int, _c_int, _c_int]
+
+_WAVEFRONT_SIGNATURES = {
+    "grt_wf_partition": (
+        _c_int,
+        [_c_ptr, *_SCHED_ARGS,  # counts, schedule
+         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,  # f0, f1, i0, i1, i planes, stride
+         _c_int, _c_int, _c_int,  # sort, bounce bucket, live keys
+         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],  # keys, rank, hist, perm, bounds, stream
+    ),
+    "grt_wf_advance": (
+        _c_int,
+        [_c_ptr, *_SCHED_ARGS, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr],
+    ),
+    "grt_error_string": (ctypes.c_char_p, [_c_int]),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class _Target:
     source: str
     library: str
     signatures: dict
+    headers: tuple = ()
 
+
+_SHARED_HEADER = os.path.join(_HERE, "wavefront.cuh")
 
 TARGETS = {
     "megakernel": _Target(os.path.join(_HERE, "megakernel.cu"),
                           os.path.join(BUILD_DIR, "libgrt_megakernel.so"),
-                          _MEGAKERNEL_SIGNATURES),
+                          _MEGAKERNEL_SIGNATURES, (_SHARED_HEADER,)),
+    "wavefront": _Target(os.path.join(_HERE, "wavefront.cu"),
+                         os.path.join(BUILD_DIR, "libgrt_wavefront.so"),
+                         _WAVEFRONT_SIGNATURES, (_SHARED_HEADER,)),
     "probes": _Target(os.path.join(_HERE, "probes.cu"),
                       os.path.join(BUILD_DIR, "libgrt_probes.so"), _PROBES_SIGNATURES),
 }
@@ -179,7 +211,8 @@ def _compile(path: str, target: _Target) -> tuple[float, str]:
 
 def _stale(target: _Target) -> bool:
     return (not os.path.exists(target.library)
-            or os.path.getmtime(target.library) < os.path.getmtime(target.source))
+            or any(os.path.getmtime(target.library) < os.path.getmtime(src)
+                   for src in (target.source, *target.headers)))
 
 
 def _build(name: str, path: str) -> tuple[bool, float, str]:
@@ -210,8 +243,8 @@ def _bind(name: str, path: str, built: tuple[bool, float, str]) -> ctypes.CDLL:
 
 
 def load(name: str = "megakernel") -> ctypes.CDLL:
-    """The bound library of target `name` ('megakernel' or 'probes'),
-    compiled first if missing or stale."""
+    """The bound library of target `name` ('megakernel', 'wavefront' or
+    'probes'), compiled first if missing or stale."""
     with _lock:
         if name in _libs:
             return _libs[name]

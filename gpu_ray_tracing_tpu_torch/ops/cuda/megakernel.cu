@@ -49,6 +49,8 @@
 
 #include <algorithm>
 
+#include "wavefront.cuh"
+
 namespace {
 
 // Rows of the (16, N) scene planes (ops/cuda/megakernel.py::scene_planes).
@@ -1460,57 +1462,58 @@ cudaError_t launch_adaptive(const Params& p, const Adaptive& a, cudaStream_t s) 
 // The wavefront engine's kernels (K2).  Replaces the Pallas TPU kernel
 // gpu_ray_tracing_tpu/ops/pallas/wavefront.py `_wf_kernel` (launched by
 // `render_wavefront`): one `path_bounce` for every ray of a compacted ray
-// array, the state kept in device memory between launches.
+// array, the state kept in device memory between launches.  The loop
+// around them runs on the device too (wavefront.cu: the compaction and the
+// loop's step; wavefront.cuh: the counts they share).
 //
 // One thread per ray slot over structure-of-arrays planes, (kWfPlanes,
-// stride) f32 and (2 or 4, stride) i32, updated in place (a thread touches
-// only its own slot, so nothing is double-buffered).  A dead slot returns at
-// once: the per-thread form of the TPU kernel's all-dead-tile passthrough.
-// The TPU kernel emitted radiance deltas per bounce; here a path carries its
-// running radiance in its state, so every sum has the megakernel's order
-// ((r + a) + b, never r + (a + b)) and the image equals the megakernel's bit
-// for bit, and writes its sample's total, clamped, into slot
-// `pix [+ (sample - sample_base) n_pixels]` of `out` when it ends or
-// exhausts max_depth.  Each (pixel, sample) ends exactly once, so the write
-// is a plain store and the image is the same in every run; the host folds
-// the samples in sample order (ops/cuda/wavefront.py).
+// stride) f32 and (2-4, stride) i32, updated in place (a thread touches
+// only its own slot).  A dead slot is skipped: the per-thread form of the
+// TPU kernel's all-dead-tile passthrough.  The TPU kernel emitted radiance
+// deltas per bounce; here a path carries its running radiance in its state,
+// so every sum has the megakernel's order ((r + a) + b, never r + (a + b))
+// and the image equals the megakernel's bit for bit, and writes its
+// sample's total, clamped, into slot `pix [+ (sample - sample_base)
+// n_pixels]` of `out` when it ends or exhausts max_depth.  Each (pixel,
+// sample) ends exactly once, so the write is a plain store and the image is
+// the same in every run; the host folds the samples in sample order
+// (ops/cuda/wavefront.py).
+//
+// Driven by the device loop (`ctr` not null), a launch reads the array's
+// slot count and buffer from the counts, does nothing once the loop is
+// over, walks the slots with a card-filling grid (an empty launch costs
+// microseconds), and adds its surviving rays to the live count: one
+// atomicAdd of a block's sum, an integer, so the count is exact.
 //
 // What bounds it on this card: the same arithmetic as the megakernel's
 // bounce (the sphere scan or BVH walk), plus the state traffic the
 // megakernel keeps in registers: up to 15 planes read and written per live
-// ray and bounce.  Compaction (host side) keeps warps full of live rays.
-enum WfPlane {
-  WOX = 0, WOY, WOZ, WDX, WDY, WDZ, WTR, WTG, WTB, WRR, WRG, WRB, WPD, WPC, WLIVE, WRAYS,
-  kWfPlanes
-};
-enum WfInt { WPID = 0, WPIX, WSMP, WBNC };
-
+// ray and bounce.  Compaction (wavefront.cu) keeps warps full of live rays.
 struct Wavefront {
-  float* f;         // (kWfPlanes, stride) state planes
-  int* i;           // (2, stride) pid, pix; under regeneration (4, stride): + sample, bounce
+  float* f[2];      // two (kWfPlanes, stride) state buffers (the second: compactions)
+  int* i[2];        // (2, stride) pid, pix; + sample (smp), + bounce (regeneration)
   int stride;       // slots a plane holds
-  int n;            // slots this launch covers
-  unsigned int sample;  // without regeneration: every ray's sample ...
-  int bounce;           // ... and bounce
-  unsigned int sample_base;  // under regeneration: the flush slot's sample origin
+  int n;            // slots this launch covers, when ctr is null
+  int* ctr;         // the device loop's counts (wavefront.cuh), or null
+  bool smp;         // each ray reads its sample from its plane
+  unsigned int sample;  // else every ray's sample ...
+  int bounce;           // ... and, without regeneration, its bounce
+  unsigned int sample_base;  // with per-ray samples: the out slot's sample origin
   int n_pixels;              // ... and its stride, the frame's local pixels
   float* out;       // (slots, 3) finished samples
   float* rays_out;  // (slots,) rays each finished sample traced, or null
 };
 
-// One bounce of every live ray.  kRegen reads sample and bounce per ray
-// (rays of one launch mix them), else both are launch scalars.
+// One bounce of the ray in slot t, in place; returns whether it goes on.
 template <bool kNee, bool kCount, bool kRegen>
-__global__ void __launch_bounds__(256) wavefront_bounce_kernel(const Params p,
-                                                               const Wavefront w) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= w.n) return;
-  float* const f = w.f + t;
+__device__ __forceinline__ bool wavefront_bounce_slot(const Params& p, const Wavefront& w,
+                                                      float* fb, int* ib, int t) {
+  float* const f = fb + t;
   const size_t ps = (size_t)w.stride;
-  if (!(f[WLIVE * ps] > 0.5f)) return;
-  const unsigned int pid = (unsigned int)w.i[WPID * ps + t];
-  const unsigned int s_abs = kRegen ? (unsigned int)w.i[WSMP * ps + t] : w.sample;
-  const int i = kRegen ? w.i[WBNC * ps + t] : w.bounce;
+  if (!(f[WLIVE * ps] > 0.5f)) return false;
+  const unsigned int pid = (unsigned int)ib[WPID * ps + t];
+  const unsigned int s_abs = (kRegen || w.smp) ? (unsigned int)ib[WSMP * ps + t] : w.sample;
+  const int i = kRegen ? ib[WBNC * ps + t] : w.bounce;
   PathState st;
   st.o = {f[WOX * ps], f[WOY * ps], f[WOZ * ps]};
   st.d = {f[WDX * ps], f[WDY * ps], f[WDZ * ps]};
@@ -1525,18 +1528,18 @@ __global__ void __launch_bounds__(256) wavefront_bounce_kernel(const Params p,
   const bool live = path_bounce<kNee, kCount>(p, st, seed, base0, s_abs, pick_seed, i, rays);
   float n_rays = 0.0f;
   if (kCount) n_rays = f[WRAYS * ps] + (float)rays;
-  if (kRegen) w.i[WBNC * ps + t] = i + 1;
+  if (kRegen) ib[WBNC * ps + t] = i + 1;
   if (!live || i + 1 >= p.max_depth) {
     // The sample is finished: clamp it and hand it to the image.
     clamp_sample(p, st.r, st.g, st.b);
-    size_t slot = (size_t)w.i[WPIX * ps + t];
-    if (kRegen) slot += (size_t)(s_abs - w.sample_base) * (size_t)w.n_pixels;
+    size_t slot = (size_t)ib[WPIX * ps + t];
+    if (kRegen || w.smp) slot += (size_t)(s_abs - w.sample_base) * (size_t)w.n_pixels;
     w.out[slot * 3 + 0] = st.r;
     w.out[slot * 3 + 1] = st.g;
     w.out[slot * 3 + 2] = st.b;
     if (kCount) w.rays_out[slot] = n_rays;
     f[WLIVE * ps] = 0.0f;
-    return;
+    return false;
   }
   f[WOX * ps] = st.o.x, f[WOY * ps] = st.o.y, f[WOZ * ps] = st.o.z;
   f[WDX * ps] = st.d.x, f[WDY * ps] = st.d.y, f[WDZ * ps] = st.d.z;
@@ -1545,46 +1548,143 @@ __global__ void __launch_bounds__(256) wavefront_bounce_kernel(const Params p,
   f[WPD * ps] = st.prev_diffuse ? 1.0f : 0.0f;
   f[WPC * ps] = st.prev_cos;
   if (kCount) f[WRAYS * ps] = n_rays;
+  return true;
 }
 
-// Primary rays for the slots of a ray array (all, or those `take` flags):
-// the megakernel's own ray generation, so a wavefront path starts from the
-// same bits.  A slot's pixel is (pid mod total_width, pid / total_width) of
-// the whole frame; a slot whose pix is negative holds no ray and is born
-// dead.  Replaces the XLA ray generation `render_wavefront` calls
-// (wavefront.py:506, :682) and the in-kernel one of megakernel.py:1507.
-__global__ void __launch_bounds__(256) wavefront_raygen_kernel(const Params p,
-                                                               const Wavefront w,
-                                                               unsigned int total_width,
-                                                               bool regen,
-                                                               const int* __restrict__ take) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= w.n) return;
-  if (take != nullptr && take[t] == 0) return;
-  float* const f = w.f + t;
-  const size_t ps = (size_t)w.stride;
-  if (regen) w.i[WBNC * ps + t] = 0;
-  f[WRR * ps] = f[WRG * ps] = f[WRB * ps] = 0.0f;
-  f[WPD * ps] = f[WPC * ps] = f[WRAYS * ps] = 0.0f;
-  f[WTR * ps] = f[WTG * ps] = f[WTB * ps] = 1.0f;
-  if (w.i[WPIX * ps + t] < 0) {
-    f[WOX * ps] = f[WOY * ps] = f[WOZ * ps] = 0.0f;
-    f[WDX * ps] = f[WDY * ps] = f[WDZ * ps] = 0.0f;
-    f[WLIVE * ps] = 0.0f;
-    return;
+// One bounce of every live ray.  kRegen reads sample and bounce per ray
+// (rays of one launch mix them); without it the bounce is a launch scalar
+// and the sample one too unless w.smp (a batch of samples in one array).
+template <bool kNee, bool kCount, bool kRegen>
+__global__ void __launch_bounds__(256) wavefront_bounce_kernel(const Params p,
+                                                               const Wavefront w) {
+  __shared__ int block_live[8];
+  int n = w.n, cur = 0;
+  if (w.ctr != nullptr) {
+    if (w.ctr[kCtrDone]) return;
+    n = w.ctr[kCtrN];
+    cur = w.ctr[kCtrCur];
   }
-  const unsigned int pid = (unsigned int)w.i[WPID * ps + t];
-  const unsigned int s_abs = regen ? (unsigned int)w.i[WSMP * ps + t] : w.sample;
-  const unsigned int seed = hash_pixel_seeds(pid, s_abs, p.frame_seed);
-  const unsigned int base0 = hash_pixel_seeds(pid, 0u, p.frame_seed);
+  float* const fb = w.f[cur];
+  int* const ib = w.i[cur];
+  int live = 0;
+  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < n; t += gridDim.x * blockDim.x) {
+    live += wavefront_bounce_slot<kNee, kCount, kRegen>(p, w, fb, ib, t) ? 1 : 0;
+  }
+  if (w.ctr == nullptr) return;
+  for (int off = 16; off > 0; off >>= 1) live += __shfl_xor_sync(0xffffffffu, live, off);
+  if ((threadIdx.x & 31) == 0) block_live[threadIdx.x >> 5] = live;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int k = 0; k < (int)(blockDim.x >> 5); ++k) sum += block_live[k];
+    if (sum > 0) atomicAdd(&w.ctr[kCtrLive], sum);
+  }
+}
+
+// Where wavefront_raygen_kernel writes primary rays: the slots [0, count)
+// with their own pixel and sample (kFillSlots); or stream positions: slot j
+// takes position j of the sample-major stream of p pixels (kFillStream,
+// which also sets the counts of a new array), or under the device loop the
+// next k positions from the cursor go to the dead slots in their order
+// (kFillRefill: slot live + r after a compaction, else perm[live + r]).
+enum FillMode { kFillSlots = 0, kFillStream = 1, kFillRefill = 2 };
+
+struct WfFill {
+  int mode;
+  int count;                    // kFillSlots / kFillStream: slots
+  int p, width;                 // the frame band's pixels and width ...
+  unsigned int y_offset, row_stride;  // ... and rows in the whole frame
+  unsigned int s0;              // the stream's first sample
+  int* ctr;                     // kFillStream / kFillRefill
+  WfSched sched;                // kFillRefill
+  const int* perm;              // kFillRefill
+  long long* stats;             // counts the launches that ran, or null
+  unsigned int* bounds;         // reset with a new array's counts
+};
+
+// Primary rays (the megakernel's own ray generation, so a wavefront path
+// starts from the same bits): throughput 1, no radiance, bounce 0, live
+// unless the slot's pix is negative.  A slot's pixel is (pid mod
+// total_width, pid / total_width) of the whole frame.  Replaces the XLA ray
+// generation `render_wavefront` calls (wavefront.py:506, :682), the
+// in-kernel one of megakernel.py:1507, and the refill's stream bookkeeping
+// (:756-767).
+__global__ void __launch_bounds__(256) wavefront_raygen_kernel(const Params p, const Wavefront w,
+                                                               unsigned int total_width,
+                                                               bool regen, const WfFill fl) {
+  int count = fl.count, cur = 0, base_src = 0, live = 0;
+  bool compact = false;
+  if (fl.mode == kFillRefill) {
+    const WfPlan pl = wf_plan(fl.ctr, fl.sched);
+    if (!pl.refill) return;
+    count = pl.k;
+    compact = pl.compact;
+    cur = pl.cur ^ (compact ? 1 : 0);
+    base_src = pl.nxt;
+    live = pl.live;
+  }
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g == 0 && fl.mode != kFillSlots) {
+    if (fl.stats != nullptr) fl.stats[kStatRaygen] += 1;
+    if (fl.mode == kFillStream) {
+      fl.ctr[kCtrN] = count, fl.ctr[kCtrLive] = 0, fl.ctr[kCtrCur] = 0;
+      fl.ctr[kCtrNxt] = count, fl.ctr[kCtrDone] = 0, fl.ctr[kCtrEnter] = count;
+      wf_reset_bounds(fl.bounds);
+    }
+  }
+  float* const fb = w.f[cur];
+  int* const ib = w.i[cur];
+  const size_t ps = (size_t)w.stride;
   Cam cm;
   load_cam(p.cam, cm);
-  Vec3 o, d;
-  generate_ray(p.sampler, cm, (int)(pid % total_width), pid / total_width, seed, base0,
-               s_abs, o, d);
-  f[WOX * ps] = o.x, f[WOY * ps] = o.y, f[WOZ * ps] = o.z;
-  f[WDX * ps] = d.x, f[WDY * ps] = d.y, f[WDZ * ps] = d.z;
-  f[WLIVE * ps] = 1.0f;
+  for (int r = g; r < count; r += gridDim.x * blockDim.x) {
+    int t = r;
+    if (fl.mode == kFillRefill) t = compact ? live + r : fl.perm[live + r];
+    if (fl.mode != kFillSlots) {
+      // The slot's stream position: its pixel and sample.
+      const int src = base_src + r;
+      const int local = src % fl.p;
+      ib[WPID * ps + t] = (int)(((unsigned int)(local / fl.width) * fl.row_stride + fl.y_offset) *
+                                total_width + (unsigned int)(local % fl.width));
+      ib[WPIX * ps + t] = local;
+      ib[WSMP * ps + t] = (int)(fl.s0 + (unsigned int)(src / fl.p));
+    }
+    float* const f = fb + t;
+    if (regen) ib[WBNC * ps + t] = 0;
+    f[WRR * ps] = f[WRG * ps] = f[WRB * ps] = 0.0f;
+    f[WPD * ps] = f[WPC * ps] = f[WRAYS * ps] = 0.0f;
+    f[WTR * ps] = f[WTG * ps] = f[WTB * ps] = 1.0f;
+    if (ib[WPIX * ps + t] < 0) {
+      f[WOX * ps] = f[WOY * ps] = f[WOZ * ps] = 0.0f;
+      f[WDX * ps] = f[WDY * ps] = f[WDZ * ps] = 0.0f;
+      f[WLIVE * ps] = 0.0f;
+      continue;
+    }
+    const unsigned int pid = (unsigned int)ib[WPID * ps + t];
+    const unsigned int s_abs =
+        (regen || w.smp) ? (unsigned int)ib[WSMP * ps + t] : w.sample;
+    const unsigned int seed = hash_pixel_seeds(pid, s_abs, p.frame_seed);
+    const unsigned int base0 = hash_pixel_seeds(pid, 0u, p.frame_seed);
+    Vec3 o, d;
+    generate_ray(p.sampler, cm, (int)(pid % total_width), pid / total_width, seed, base0,
+                 s_abs, o, d);
+    f[WOX * ps] = o.x, f[WOY * ps] = o.y, f[WOZ * ps] = o.z;
+    f[WDX * ps] = d.x, f[WDY * ps] = d.y, f[WDZ * ps] = d.z;
+    f[WLIVE * ps] = 1.0f;
+  }
+}
+
+// The launch grid of a wavefront kernel over `slots`: one thread a slot, at
+// most as many blocks as the card holds at once (the kernels walk the rest).
+template <typename K>
+int wavefront_grid(K kernel, int slots) {
+  int dev = 0, sms = 1, per_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 256, 0);
+  const int need = (slots + 255) / 256;
+  const int fill = sms * (per_sm > 0 ? per_sm : 1);
+  return need < fill ? (need > 0 ? need : 1) : fill;
 }
 
 // The hashes the kernel draws, for a bit-exactness probe against ops/rng.py.
@@ -1717,22 +1817,24 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
                                 : launch_render<false, false>(p, s));
 }
 
-// One wavefront bounce over slots [0, n) of the state planes (`state_f`
-// (16, stride) f32, `state_i` (2 or 4, stride) i32), in place.  The scene
-// arguments are grt_render's.  With `regen` each ray reads its own sample
-// and bounce (state_i rows 2 and 3) and a finished sample goes to slot
-// pix + (sample - sample_base) n_pixels of `out`; without it the launch
-// scalars `sample` and `bounce` apply and the slot is pix.  `rays_out`, when
-// not null, receives the rays each finished sample traced.
+// One wavefront bounce over the ray array in (f0, i0) ((16, stride) f32 and
+// (2-4, stride) i32 planes), in place: slots [0, n), or under the device
+// loop (`ctr` not null) the slots and the buffer ((f0, i0) or (f1, i1))
+// its counts name, adding the surviving rays to them.  The scene arguments
+// are grt_render's.  With `regen` each ray reads its own sample and bounce
+// (i32 rows 2 and 3), with `smp` its own sample; a finished sample then
+// goes to slot pix + (sample - sample_base) n_pixels of `out`, else to pix,
+// with the launch scalars `sample` and `bounce`.  `rays_out`, when not
+// null, receives the rays each finished sample traced.
 extern "C" int grt_wavefront_bounce(
     const float* scene, int n, const float* sbvh_f, const int* sbvh_i, int sbvh_m,
     const float* mesh, int n_tris, int smooth, const float* mbvh_f, const int* mbvh_i,
     int mbvh_m, const float* lights, int n_lights, const float* tri_lights,
     int n_tri_lights, int nee, int mis, int sampler, int kx, int ky, int nbits,
     unsigned int frame_seed, int max_depth, float t_min, float t_max, int rr_depth,
-    float sky_intensity, float clamp, float* state_f, int* state_i, int stride, int n_slots,
-    int regen, unsigned int sample, int bounce, unsigned int sample_base, int n_pixels,
-    float* out, float* rays_out, void* stream) {
+    float sky_intensity, float clamp, float* f0, float* f1, int* i0, int* i1, int stride,
+    int n_slots, int* ctr, int smp, int regen, unsigned int sample, int bounce,
+    unsigned int sample_base, int n_pixels, float* out, float* rays_out, void* stream) {
   Params p = scene_params(nullptr, scene, n, sbvh_f, sbvh_i, sbvh_m, mesh, n_tris, smooth,
                           mbvh_f, mbvh_i, mbvh_m, lights, n_lights, tri_lights,
                           n_tri_lights, nee, mis, sampler, kx, ky, nbits);
@@ -1744,49 +1846,67 @@ extern "C" int grt_wavefront_bounce(
   p.rr_depth = rr_depth;
   p.sky_intensity = sky_intensity;
   p.clamp = clamp;
-  const Wavefront w = {state_f, state_i, stride, n_slots, sample, bounce, sample_base,
-                       n_pixels, out, rays_out};
-  if (n_slots <= 0) return 0;
+  const Wavefront w = {{f0, f1}, {i0, i1}, stride, n_slots, ctr, smp != 0, sample, bounce,
+                       sample_base, n_pixels, out, rays_out};
+  const int slots = ctr != nullptr ? stride : n_slots;
+  if (slots <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int block = 256;
-  const int grid = (n_slots + block - 1) / block;
   const bool count = rays_out != nullptr;
-#define GRT_WF_LAUNCH(NEE, COUNT, REGEN) \
-  wavefront_bounce_kernel<NEE, COUNT, REGEN><<<grid, block, 0, s>>>(p, w)
+#define GRT_WF_LAUNCH(NEE, COUNT, REGEN)                                                  \
+  {                                                                                       \
+    const auto kernel = wavefront_bounce_kernel<NEE, COUNT, REGEN>;                       \
+    kernel<<<wavefront_grid(kernel, slots), 256, 0, s>>>(p, w);                           \
+  }
   if (nee) {
     if (count) {
-      if (regen) GRT_WF_LAUNCH(true, true, true); else GRT_WF_LAUNCH(true, true, false);
+      if (regen) GRT_WF_LAUNCH(true, true, true) else GRT_WF_LAUNCH(true, true, false)
     } else {
-      if (regen) GRT_WF_LAUNCH(true, false, true); else GRT_WF_LAUNCH(true, false, false);
+      if (regen) GRT_WF_LAUNCH(true, false, true) else GRT_WF_LAUNCH(true, false, false)
     }
   } else {
     if (count) {
-      if (regen) GRT_WF_LAUNCH(false, true, true); else GRT_WF_LAUNCH(false, true, false);
+      if (regen) GRT_WF_LAUNCH(false, true, true) else GRT_WF_LAUNCH(false, true, false)
     } else {
-      if (regen) GRT_WF_LAUNCH(false, false, true); else GRT_WF_LAUNCH(false, false, false);
+      if (regen) GRT_WF_LAUNCH(false, false, true) else GRT_WF_LAUNCH(false, false, false)
     }
   }
 #undef GRT_WF_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
-// Primary rays into slots [0, n) of the wavefront state (those `take`
-// flags when it is not null): see wavefront_raygen_kernel.
+// Primary rays into the ray array (see wavefront_raygen_kernel): `mode` 0
+// the slots [0, count) with their own pid and pix (and sample: `smp` or
+// `regen`; else `sample`), 1 the first `count` positions of the stream of
+// `pool` pixels (width `width`, rows y_offset + r row_stride of the frame)
+// from sample s0, setting the counts `ctr` of a new array, 2 the refill
+// the counts call for (the schedule's thresholds, stream length `total`,
+// the dead slots' order in `perm`).  `stats`, when not null, counts the
+// launches of modes 1 and 2 that ran.
 extern "C" int grt_wavefront_raygen(const float* cam, int sampler, int kx, int ky, int nbits,
                                     unsigned int frame_seed, unsigned int total_width,
-                                    float* state_f, int* state_i, int stride, int n_slots,
-                                    int regen, unsigned int sample, const int* take,
-                                    void* stream) {
+                                    float* f0, float* f1, int* i0, int* i1, int stride,
+                                    int smp, int regen, unsigned int sample, int mode, int count,
+                                    int pool, int width, unsigned int y_offset,
+                                    unsigned int row_stride, unsigned int s0, int* ctr,
+                                    double compact_threshold, double refill_threshold,
+                                    int total, const int* perm, long long* stats,
+                                    unsigned int* bounds, void* stream) {
+  if (mode < kFillSlots || mode > kFillRefill) return 1;
+  if (mode != kFillSlots && (ctr == nullptr || pool <= 0 || width <= 0)) return 1;
   Params p = {};
   p.cam = cam;
   p.sampler = {sampler, kx, ky, nbits};
   p.frame_seed = frame_seed;
-  const Wavefront w = {state_f, state_i, stride, n_slots, sample, 0, 0u, 0, nullptr, nullptr};
-  if (n_slots <= 0) return 0;
-  const int block = 256;
-  wavefront_raygen_kernel<<<(n_slots + block - 1) / block, block, 0,
+  const Wavefront w = {{f0, f1}, {i0, i1}, stride, count, ctr, smp != 0, sample, 0, 0u, 0,
+                       nullptr, nullptr};
+  const WfFill fl = {mode, count, pool, width, y_offset, row_stride, s0, ctr,
+                     {compact_threshold, refill_threshold, total, pool, 1, 0}, perm, stats,
+                     bounds};
+  const int slots = mode == kFillRefill ? stride : count;
+  if (slots <= 0) return 0;
+  wavefront_raygen_kernel<<<wavefront_grid(wavefront_raygen_kernel, slots), 256, 0,
                             static_cast<cudaStream_t>(stream)>>>(p, w, total_width,
-                                                                 regen != 0, take);
+                                                                 regen != 0, fl);
   return static_cast<int>(cudaGetLastError());
 }
 

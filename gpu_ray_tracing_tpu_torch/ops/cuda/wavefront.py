@@ -7,50 +7,65 @@ memory and runs the loop the wavefront way (Laine et al., PAPERS.md):
 
   per bounce:  [bounce kernel over the ray array, one thread per ray]
                -> finished samples go to the image by pixel id
-               -> the live rays are gathered to the front (and grouped by
-                  direction octant), the dead ones dropped
+               -> the live rays are gathered to the front (in their order,
+                  or grouped by direction octant), the dead ones dropped
                -> the next bounce launches over the live rays only
 
-`render_wavefront` drives the two CUDA kernels of ops/cuda/megakernel.cu
-(`wavefront_raygen_kernel`, `wavefront_bounce_kernel`, K2) and takes CUDA
-tensors only; `render_wavefront_reference` is the same host loop around
-their plain PyTorch versions (`wavefront_raygen_reference`,
-`wavefront_bounce_reference`, which wraps ops/integrators.path_bounce on the
-kernel's state layout), on the device the scene lies on.  The compaction,
-sort keys, cumsums and gathers are torch calls in both, as they are XLA
-code around the Pallas kernel.
+`render_wavefront` drives the CUDA kernels of ops/cuda/megakernel.cu
+(`wavefront_bounce_kernel`, `wavefront_raygen_kernel`) and
+ops/cuda/wavefront.cu (the partition `wf_*_kernel`s and
+`wf_advance_kernel`), K2, and takes CUDA tensors only;
+`render_wavefront_reference` runs the same schedule around their plain
+PyTorch versions (`wavefront_bounce_reference`, which wraps
+ops/integrators.path_bounce on the kernel's state layout;
+`wavefront_raygen_reference`; `wavefront_partition_reference`, which is
+`_permutation`, the torch sort keys and cumsums; `wavefront_advance_reference`)
+on the device the scene lies on.
 
 Design, against the TPU engine:
 
 - **Per-ray state, no tiles.**  One thread per ray slot over (16, N) f32 and
-  (2 or 4, N) i32 structure-of-arrays planes, updated in place.  A dead slot
-  returns at once; compaction drops dead rays, so no launch copies them.
+  (2-4, N) i32 structure-of-arrays planes, updated in place, in two
+  buffers: a compaction gathers the live rays into the other one.
 - **Radiance is carried, not emitted as deltas.**  A path keeps its running
   radiance in its state and writes its sample's total (clamped) into the
   sample's image slot when it ends.  Every sum then has the megakernel's
   order, so with regeneration off the image equals `render_cuda`'s bit for
   bit on every route, NEE with several lights included, and `clamp` has
   its per-sample total.
-- **Compaction is per ray.**  The TPU moved 128-ray rows because that is
-  all its gathers move; here every slot moves on its own, and a ray's
-  stream is unchanged by it, since every draw keys on (pixel id, sample,
-  frame seed, salt).  Moving 32-ray warp rows instead was measured on the
-  H100 and dropped: a regenerating pool of rows refills only rows that died
-  whole and took more than twice the launches and the time, and without
-  regeneration the two were within the host's run-to-run spread (PERF.md).
+- **Compaction is per ray and stable.**  The TPU moved 128-ray rows because
+  that is all its gathers move; here every slot moves on its own, and a
+  ray's stream is unchanged by it, since every draw keys on (pixel id,
+  sample, frame seed, salt).  The partition is a counting sort over the
+  sort's keys (at most 8 * 64 * 4 + 1), written by hand without atomics:
+  it gives exactly `_permutation`'s order.
+- **Samples are batched.**  Without regeneration a batch of samples (as
+  many as SAMPLE_SLOTS slots hold on the card, PLAIN_SAMPLE_SLOTS in the
+  plain version) is traced in one array, each ray carrying
+  its sample: the late bounces of 16 samples fill the card where one
+  sample's few thousand rays did not.  Each sample writes its own slice of
+  a (samples, pixels, 3) buffer, folded in sample order.
 - **Regeneration is deterministic.**  The pool (`regenerate=True`) refills
-  dead slots with the next samples' primary rays, so rays of one launch mix
-  (sample, bounce), carried per ray.  Each finished (pixel, sample) writes
-  its total into its own slot of a (samples, pixels, 3) buffer, a plain
-  store, and the samples are folded in sample order afterwards: the image
-  is the same in every run and equals the sample-major loop's.  The buffer
-  holds at most REGEN_BATCH samples; a larger spp runs one pool per batch.
-- **Host synchronisation.**  The loop reads the live count once per bounce
-  (`.item()` of a sum), which stalls the host; `LAST_RUN` counts those
-  reads beside the launches and compactions.  On an H100 no kernel runs
-  for most of a frame's span; the sort keys and `compact_threshold` keep
-  the JAX engine's defaults, though fewer and cheaper compactions measured
-  faster there (PERF.md).
+  dead slots with the next samples' primary rays, in the dead slots' order,
+  so rays of one launch mix (sample, bounce), carried per ray.  Each
+  finished (pixel, sample) writes its total into its own slot of a
+  (samples, pixels, 3) buffer, a plain store, and the samples are folded in
+  sample order afterwards: the image is the same in every run and equals
+  the sample-major loop's.  The buffer holds at most REGEN_BATCH samples; a
+  larger spp runs one pool per batch.
+- **Host synchronisation.**  The loop's counts live in a small i32 tensor
+  on the device: the array's slot count, its live rays, its buffer, the
+  stream cursor and a "done" flag.  Every kernel of an iteration reads them
+  and decides from them alone what to do (compact when live <
+  compact_threshold * n; refill when refill_threshold of the pool died or
+  the stream is about to drain; nothing once the loop is over); the last
+  kernel of the iteration updates them.  So the host enqueues a fixed
+  schedule: max_depth (bounce, compaction) pairs a sample batch, or
+  iterations of a pool, reading the done flag once every POLL_EVERY
+  iterations (one poll behind, so that the card always has queued work),
+  and reads the frame's counters once at its end.  `LAST_RUN` keeps what the
+  device counted (launches that ran over rays, compactions, live rays) and
+  the host's reads and enqueued launches.
 
 The TPU-only knobs (tile_rows, interpret, the triangle and node caps, the
 sort-cell environment variable) are left behind.
@@ -60,6 +75,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from gpu_ray_tracing_tpu_torch.models.camera import Camera
@@ -72,29 +88,57 @@ from gpu_ray_tracing_tpu_torch.ops.rays import generate_rays_for_ids
 
 #: The launch counts shared with the megakernel.  A bounce launch adds one to
 #: "wavefront:<route>[+nee][+<sampler>][+regen][+rays]", a ray-generation
-#: launch to "wavefront_raygen".
+#: launch to "wavefront_raygen", a partition to "wavefront_partition", a
+#: loop step to "wavefront_advance".
 LAUNCHES = mk.LAUNCHES
 
-# Rows of the (16, N) f32 state planes (megakernel.cu::WfPlane): origin,
+# Rows of the (16, N) f32 state planes (wavefront.cuh::WfPlane): origin,
 # direction, throughput, radiance so far, prev_diffuse, prev_cos, live, rays
 # traced so far; and of the i32 planes (WfInt): global pixel id (u32 bits),
-# local pixel index (-1: the slot holds no ray), and under regeneration the
-# absolute sample index (u32 bits) and the bounce.
+# local pixel index (-1: the slot holds no ray), the absolute sample (u32
+# bits; batched samples and regeneration) and the bounce (regeneration).
 OX, OY, OZ, DX, DY, DZ, TR, TG, TB, RR, RG, RB, PD, PC, LIVE, RAYS = range(16)
 F_PLANES = 16
 PID, PIX, SMP, BNC = range(4)
+# The loop's i32 counts (wavefront.cuh::WfCtr) and the frame's i64 counters
+# (WfStat).
+CTR_N, CTR_LIVE, CTR_CUR, CTR_NXT, CTR_DONE, CTR_ENTER = range(6)
+CTR_WORDS = 8
+STAT_BOUNCE, STAT_RAYGEN, STAT_COMPACT, STAT_LIVE_BOUNCES = range(4)
+STAT_WORDS = 4
 
 #: Per-axis cell count of the spatial sort's origin grid (sort='spatial').
 SORT_CELLS = 4
 #: Samples one regenerating pool folds through its (samples, pixels, 3)
 #: buffer; a larger spp runs one pool per batch of this many.
 REGEN_BATCH = 64
+#: Slots of one ray array without regeneration, which bound the samples of
+#: a batch: on the card, and in the plain version, whose f64 (rays,
+#: primitives) intermediates are larger (16 samples of the 1280 x 720 frame
+#: at once would not fit on an 80 GB card; one sample an array does).
+SAMPLE_SLOTS = 1 << 24
+PLAIN_SAMPLE_SLOTS = 1 << 20
+#: Iterations of a regenerating pool between two reads of its done flag.
+POLL_EVERY = 8
 SORTS = ("octant", "octant-flat", "spatial", "live")
+# Slots the partition's keys kernel ranks a block (wavefront.cu::kTile).
+_TILE = 2048
 
-#: What the last render did: bounce and ray-generation launches,
-#: compactions, host synchronisations (reads of the live count), the sum of
-#: live rays over the bounce launches, and the live rays entering each
-#: iteration (per bounce, summed over samples, without regeneration).
+
+def _ordered(x: float) -> int:
+    """wavefront.cuh::wf_ordered of an f32, as a signed 32-bit value."""
+    u = int(np.array([x], np.float32).view(np.uint32)[0])
+    u = (~u & 0xFFFFFFFF) if u & 0x80000000 else u | 0x80000000
+    return u - (1 << 32) if u >= 1 << 31 else u
+
+
+_BOUNDS_RESET = (_ordered(3.4e38), _ordered(-3.4e38))
+
+#: What the last render did: bounce and ray-generation launches that ran
+#: over rays, compactions, live ray-bounces, the live rays entering each
+#: iteration (per bounce, summed over samples, without regeneration), all
+#: counted on the device; host reads of the device (`host_syncs`), and the
+#: launches the host enqueued (`enqueued`).
 LAST_RUN: dict = {}
 
 
@@ -219,40 +263,193 @@ class Engine:
                 + ("+rays" if self.count_rays else ""))
 
 
-def new_state(n: int, regen: bool, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """Zeroed (16, n) f32 and (2 or 4, n) i32 state planes; pix is -1 (no
+def new_state(n: int, regen: bool, device, *, per_ray_sample: bool = False
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed (16, n) f32 and (2, 3 or 4, n) i32 state planes; pix is -1 (no
     slot holds a ray)."""
     state_f = torch.zeros((F_PLANES, n), dtype=torch.float32, device=device)
-    state_i = torch.zeros((4 if regen else 2, n), dtype=torch.int32, device=device)
+    state_i = torch.zeros((_int_planes(regen, per_ray_sample), n), dtype=torch.int32,
+                          device=device)
     state_i[PIX] = -1
     return state_f, state_i
 
 
-def _check_state(state_f, state_i, n: int, regen: bool) -> None:
+def _int_planes(regen: bool, per_ray_sample: bool) -> int:
+    return 4 if regen else 3 if per_ray_sample else 2
+
+
+def _check_state(state_f, state_i, n: int, regen: bool, per_ray_sample: bool = False) -> None:
     if (state_f.dtype != torch.float32 or state_f.dim() != 2 or state_f.shape[0] != F_PLANES
             or not state_f.is_contiguous()):
         raise ValueError(f"state_f must be a contiguous ({F_PLANES}, N) f32 tensor")
+    rows = _int_planes(regen, per_ray_sample)
     if (state_i.dtype != torch.int32 or state_i.dim() != 2
-            or state_i.shape != ((4 if regen else 2), state_f.shape[1])
+            or state_i.shape != (rows, state_f.shape[1])
             or not state_i.is_contiguous() or state_i.device != state_f.device):
-        raise ValueError("state_i must be a contiguous (4 if regen else 2, N) i32 tensor "
-                         "beside state_f")
+        raise ValueError(f"state_i must be a contiguous ({rows}, N) i32 tensor beside state_f "
+                         "(4 rows under regen, 3 with per-ray samples, else 2)")
     if not 0 <= n <= state_f.shape[1]:
         raise ValueError(f"n={n} slots outside the state's {state_f.shape[1]}")
 
 
-def wavefront_raygen_reference(eng: Engine, state_f, state_i, n: int, *, regen: bool,
-                               sample: int = 0, take: torch.Tensor | None = None) -> None:
-    """Plain version of wavefront_raygen: primary rays from ops/rays.py into
-    slots [0, n) (those `take` flags), in place."""
-    _check_state(state_f, state_i, n, regen)
-    idx = torch.arange(n, device=state_f.device) if take is None else torch.nonzero(
-        take[:n]).squeeze(1)
+# --- the loop's ray array, schedule and counts --------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """The constants every kernel of an iteration reads beside the counts
+    (wavefront.cuh::WfSched): compact when live < compact_threshold * n;
+    under `regen` refill from a stream of `total` rays into a pool of
+    `pool` slots when refill_threshold of it died or the stream is about to
+    drain; `last`: the iteration's bounce is the last (no compaction)."""
+
+    compact_threshold: float
+    refill_threshold: float = 0.0
+    total: int = 0
+    pool: int = 0
+    regen: bool = False
+    last: bool = False
+
+    def args(self) -> tuple:
+        return (float(self.compact_threshold), float(self.refill_threshold), int(self.total),
+                int(self.pool), int(self.regen), int(self.last))
+
+
+@dataclasses.dataclass
+class _Plan:
+    done: bool
+    n: int
+    live: int
+    cur: int
+    nxt: int
+    compact: bool = False
+    refill: bool = False
+    rank: bool = False
+    k: int = 0
+
+
+def _plan(ctr: torch.Tensor, sched: Schedule) -> _Plan:
+    """wavefront.cuh::wf_plan on the counts (read by the plain versions)."""
+    c = ctr.tolist()
+    pl = _Plan(bool(c[CTR_DONE]), c[CTR_N], c[CTR_LIVE], c[CTR_CUR], c[CTR_NXT])
+    if pl.done:
+        return pl
+    if sched.regen:
+        pl.compact = pl.live < sched.compact_threshold * pl.n
+        avail, dead = sched.total - pl.nxt, sched.pool - pl.live
+        pl.k = min(dead, avail)
+        pl.refill = pl.k > 0 and (dead >= sched.refill_threshold * sched.pool
+                                  or avail <= sched.pool)
+        pl.rank = pl.refill and not pl.compact
+    else:
+        pl.compact = (not sched.last and pl.live > 0
+                      and pl.live < sched.compact_threshold * pl.n)
+    return pl
+
+
+def _sort_code(sort: str, regen: bool) -> tuple[int, bool, int]:
+    """(wavefront.cuh::WfSort code, bounce bucket, keys of live rays) of a
+    sort: the keys `_permutation` sorts by."""
+    bucket = regen and sort in ("octant", "spatial")
+    n_keys = 1 if sort == "live" else 8 * (SORT_CELLS ** 3 if sort == "spatial" else 1)
+    return SORTS.index(sort), bucket, n_keys * (4 if bucket else 1)
+
+
+class RayArray:
+    """The ray array of the device loop: two state buffers ((2, 16, cap) f32
+    and (2, rows, cap) i32: the second takes a compaction's gather), the
+    loop's counts (CTR_*, i32) and the partition's scratch, on one
+    device."""
+
+    def __init__(self, cap: int, regen: bool, sort: str, device):
+        self.cap, self.regen, self.sort = cap, regen, sort
+        self.rows = _int_planes(regen, True)
+        self.f = torch.empty((2, F_PLANES, cap), dtype=torch.float32, device=device)
+        self.i = torch.empty((2, self.rows, cap), dtype=torch.int32, device=device)
+        self.ctr = torch.zeros(CTR_WORDS, dtype=torch.int32, device=device)
+        self.code, self.bucket, self.n_keys = _sort_code(sort, regen)
+        self.keys = torch.empty(cap, dtype=torch.int16, device=device)
+        self.rank = torch.empty(cap, dtype=torch.int32, device=device)
+        self.hist = torch.empty((self.n_keys + 1) * -(-cap // _TILE), dtype=torch.int32,
+                                device=device)
+        self.perm = torch.empty(cap, dtype=torch.int32, device=device)
+        self.bounds = torch.empty(6, dtype=torch.int32, device=device)
+        self.reset_bounds()
+
+    def reset_bounds(self) -> None:
+        """The partition's bounding box before any live origin is seen
+        (wavefront.cuh::wf_reset_bounds), filled on the device."""
+        self.bounds[:3].fill_(_BOUNDS_RESET[0])
+        self.bounds[3:].fill_(_BOUNDS_RESET[1])
+
+    def buffers(self) -> tuple:
+        return (self.f[0].data_ptr(), self.f[1].data_ptr(), self.i[0].data_ptr(),
+                self.i[1].data_ptr())
+
+
+class _Run:
+    """A frame's device counters (STAT_*, and the live rays entering each
+    iteration), the host's reads of the device and its enqueued launches."""
+
+    def __init__(self, device, iterations: int):
+        self.stats = torch.zeros(STAT_WORDS, dtype=torch.int64, device=device)
+        self.iter_live = torch.zeros(max(iterations, 1), dtype=torch.int64, device=device)
+        self.iterations = 0
+        self.host_syncs = 0
+        self.enqueued = dict(bounce=0, raygen=0, partition=0, advance=0)
+
+    def reserve(self, iterations: int) -> None:
+        """Room for `iterations` entries of iter_live (a stream-ordered copy
+        into a larger tensor: no read)."""
+        if iterations > self.iter_live.numel():
+            grown = torch.zeros(2 * iterations, dtype=torch.int64, device=self.stats.device)
+            grown[:self.iter_live.numel()] = self.iter_live
+            self.iter_live = grown
+
+    def done_flag(self, arr: RayArray):
+        """Start copying the array's done flag to the host (no wait)."""
+        if not arr.ctr.is_cuda:
+            return arr.ctr[CTR_DONE:CTR_DONE + 1].clone(), None
+        host = torch.empty(1, dtype=torch.int32, pin_memory=True)
+        host.copy_(arr.ctr[CTR_DONE:CTR_DONE + 1], non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def read_flag(self, flag) -> bool:
+        """Wait for a done flag's copy: one read of the device."""
+        host, event = flag
+        if event is not None:
+            event.synchronize()
+        self.host_syncs += 1
+        return bool(host[0])
+
+    def counts(self, regen: bool, max_depth: int) -> dict:
+        """The device's counters, read once."""
+        values = torch.cat([self.stats, self.iter_live]).tolist()
+        self.host_syncs += 1
+        stats, per_iteration = values[:STAT_WORDS], values[STAT_WORDS:]
+        return dict(bounce_launches=stats[STAT_BOUNCE], raygen_launches=stats[STAT_RAYGEN],
+                    compactions=stats[STAT_COMPACT], host_syncs=self.host_syncs,
+                    live_ray_bounces=stats[STAT_LIVE_BOUNCES],
+                    live_per_iteration=per_iteration[:stats[STAT_BOUNCE] if regen
+                                                     else max_depth],
+                    enqueued=dict(self.enqueued))
+
+
+# --- ray generation -----------------------------------------------------------
+
+
+def _primary_rays_reference(eng: Engine, state_f, state_i, idx, *, regen: bool,
+                            per_ray_sample: bool, sample: int) -> None:
+    """Primary rays for slots `idx` of a state from their pid, pix (and
+    sample), in place."""
     if idx.numel() == 0:
         return
     pix = state_i[PIX, idx]
     real = pix >= 0
-    s = rng_ops.as_u32(state_i[SMP, idx]) if regen else int(sample) & 0xFFFFFFFF
+    s = (rng_ops.as_u32(state_i[SMP, idx]) if regen or per_ray_sample
+         else int(sample) & 0xFFFFFFFF)
     o, d, _ = generate_rays_for_ids(eng.camera, rng_ops.as_u32(state_i[PID, idx]), s,
                                     eng.frame_seed, total_width=eng.total_width,
                                     sampler_spec=eng.sampler_spec)
@@ -267,52 +464,147 @@ def wavefront_raygen_reference(eng: Engine, state_f, state_i, n: int, *, regen: 
         state_i[BNC, idx] = 0
 
 
-def wavefront_raygen(eng: Engine, state_f, state_i, n: int, *, regen: bool, sample: int = 0,
-                     take: torch.Tensor | None = None) -> None:
-    """Primary rays into slots [0, n) of the ray state (those `take`, an i32
-    flag per slot, marks; all when None), in place: sample `sample` of each
-    slot's pixel, or under `regen` the slot's own sample; throughput 1, no
-    radiance, bounce 0, live unless the slot's pix is negative.  On CUDA
-    tensors it launches `wavefront_raygen_kernel` (the megakernel's own ray
-    generation); on CPU tensors it is the plain version."""
-    if not eng.on_card(state_f):
-        return wavefront_raygen_reference(eng, state_f, state_i, n, regen=regen,
-                                          sample=sample, take=take)
-    _check_state(state_f, state_i, n, regen)
-    if take is not None and (take.dtype != torch.int32 or take.numel() < n
-                             or not take.is_contiguous()):
-        raise ValueError("take must be a contiguous i32 flag per slot")
+def wavefront_raygen_reference(eng: Engine, state_f, state_i, n: int, *, regen: bool,
+                               sample: int = 0, per_ray_sample: bool = False) -> None:
+    """Plain version of wavefront_raygen: primary rays from ops/rays.py into
+    slots [0, n), in place."""
+    _check_state(state_f, state_i, n, regen, per_ray_sample)
+    _primary_rays_reference(eng, state_f, state_i, torch.arange(n, device=state_f.device),
+                            regen=regen, per_ray_sample=per_ray_sample, sample=sample)
+
+
+def _raygen_launch(eng: Engine, f, i, stride: int, *, per_ray_sample: bool, regen: bool,
+                   sample: int = 0, mode: int, count: int = 0, geometry=(0, 0, 0, 1, 0),
+                   ctr=None, sched: Schedule | None = None, perm=None, run: _Run | None = None,
+                   bounds=None) -> None:
+    """One launch of wavefront_raygen_kernel (grt_wavefront_raygen's modes:
+    0 slots, 1 stream, 2 refill); f and i are (2, planes, stride) buffers or
+    a single (planes, stride) state."""
     eng.packed()
     kind, kx, ky, nbits = mk._sampler_args(eng.sampler_spec)
+    pool, width, y_offset, row_stride, s0 = geometry
+    sched = sched or Schedule(0.0)
+    pair = (lambda t: (t[0].data_ptr(), t[1].data_ptr())) if f.dim() == 3 else (
+        lambda t: (t.data_ptr(), t.data_ptr()))
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = build.load()
-    dev = state_f.device
+    dev = f.device
     with torch.cuda.device(dev):
         rc = lib.grt_wavefront_raygen(
             eng._cam_vec.data_ptr(), kind, kx, ky, nbits, eng.frame_seed,
-            int(eng.total_width), state_f.data_ptr(), state_i.data_ptr(),
-            state_f.shape[1], n, int(regen), int(sample) & 0xFFFFFFFF,
-            None if take is None else take.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(eng.total_width), *pair(f), *pair(i), stride, int(per_ray_sample), int(regen),
+            int(sample) & 0xFFFFFFFF, mode, count, pool, width, y_offset, row_stride,
+            s0 & 0xFFFFFFFF, ptr(ctr), sched.compact_threshold, sched.refill_threshold,
+            sched.total, ptr(perm), None if run is None else run.stats.data_ptr(),
+            ptr(bounds), torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "wavefront_raygen")
+    LAUNCHES["wavefront_raygen"] += 1
+    if run is not None:
+        run.enqueued["raygen"] += 1
+
+
+def wavefront_raygen(eng: Engine, state_f, state_i, n: int, *, regen: bool, sample: int = 0,
+                     per_ray_sample: bool = False) -> None:
+    """Primary rays into slots [0, n) of the ray state, in place: sample
+    `sample` of each slot's pixel, or under `regen` or `per_ray_sample` the
+    slot's own sample; throughput 1, no radiance, bounce 0, live unless the
+    slot's pix is negative.  On CUDA tensors it launches
+    `wavefront_raygen_kernel` (the megakernel's own ray generation); on CPU
+    tensors it is the plain version."""
+    if not eng.on_card(state_f):
+        return wavefront_raygen_reference(eng, state_f, state_i, n, regen=regen,
+                                          sample=sample, per_ray_sample=per_ray_sample)
+    _check_state(state_f, state_i, n, regen, per_ray_sample)
     if n > 0:
-        LAUNCHES["wavefront_raygen"] += 1
+        _raygen_launch(eng, state_f, state_i, state_f.shape[1], per_ray_sample=per_ray_sample,
+                       regen=regen, sample=sample, mode=0, count=n)
+
+
+def _stream_ids(src, *, p, width, height, y_offset, row_stride, total_width, s0):
+    """(pid, pix, sample) of stream positions `src`: pixel src mod p of the
+    band, sample s0 + src // p."""
+    local = src % p
+    pid = _global_pids(local, p=p, width=width, height=height, y_offset=y_offset,
+                       total_width=total_width, row_stride=row_stride)
+    return torch.stack([pid, local, (s0 + src // p) & 0xFFFFFFFF]).to(torch.int32)
+
+
+def _fill_reference(eng: Engine, arr: RayArray, count: int, frame: dict, s0: int,
+                    run: _Run) -> None:
+    """Plain version of the stream fill: slot j takes stream position j,
+    and the array's counts start over (count slots, all entering)."""
+    src = torch.arange(count, device=arr.f.device)
+    arr.i[0, :SMP + 1, :count] = _stream_ids(src, total_width=eng.total_width, s0=s0, **frame)
+    _primary_rays_reference(eng, arr.f[0], arr.i[0], src, regen=arr.regen,
+                            per_ray_sample=True, sample=0)
+    arr.ctr.zero_()
+    arr.ctr[CTR_N] = arr.ctr[CTR_NXT] = arr.ctr[CTR_ENTER] = count
+    run.stats[STAT_RAYGEN] += 1
+
+
+def wavefront_fill(eng: Engine, arr: RayArray, count: int, frame: dict, s0: int,
+                   run: _Run) -> None:
+    """Start the array over with the first `count` positions of the
+    sample-major stream of the band's pixels from sample s0 (`frame`:
+    p, width, height, y_offset, row_stride): ids and primary rays, and the
+    counts of a new array.  Launches wavefront_raygen_kernel (mode 1) on
+    the card; the plain version elsewhere."""
+    if not eng.on_card(arr.f):
+        return _fill_reference(eng, arr, count, frame, s0, run)
+    geometry = (frame["p"], frame["width"], frame["y_offset"], frame["row_stride"], s0)
+    _raygen_launch(eng, arr.f, arr.i, arr.cap, per_ray_sample=True, regen=arr.regen, mode=1,
+                   count=count, geometry=geometry, ctr=arr.ctr, run=run, bounds=arr.bounds)
+
+
+def _refill_reference(eng: Engine, arr: RayArray, sched: Schedule, frame: dict, s0: int,
+                      run: _Run) -> None:
+    """Plain version of the refill: the dead slots in their order (after a
+    compaction, slots live ..; else perm[live ..]) take the next k stream
+    positions from the cursor."""
+    pl = _plan(arr.ctr, sched)
+    if not pl.refill:
+        return
+    r = torch.arange(pl.k, device=arr.f.device)
+    cur = pl.cur ^ int(pl.compact)
+    slots = pl.live + r if pl.compact else arr.perm[pl.live:pl.live + pl.k].long()
+    arr.i[cur, :SMP + 1, slots] = _stream_ids(pl.nxt + r, total_width=eng.total_width,
+                                              s0=s0, **frame)
+    _primary_rays_reference(eng, arr.f[cur], arr.i[cur], slots, regen=True,
+                            per_ray_sample=True, sample=0)
+    run.stats[STAT_RAYGEN] += 1
+
+
+def wavefront_refill(eng: Engine, arr: RayArray, sched: Schedule, frame: dict, s0: int,
+                     run: _Run) -> None:
+    """The refill the counts call for, in stream order: launches
+    wavefront_raygen_kernel (mode 2) on the card; the plain version
+    elsewhere."""
+    if not eng.on_card(arr.f):
+        return _refill_reference(eng, arr, sched, frame, s0, run)
+    geometry = (frame["p"], frame["width"], frame["y_offset"], frame["row_stride"], s0)
+    _raygen_launch(eng, arr.f, arr.i, arr.cap, per_ray_sample=True, regen=True, mode=2,
+                   geometry=geometry, ctr=arr.ctr, sched=sched, perm=arr.perm, run=run)
+
+
+# --- the bounce ---------------------------------------------------------------
 
 
 def wavefront_bounce_reference(eng: Engine, state_f, state_i, n: int, *, regen: bool,
                                sample: int = 0, bounce: int = 0, sample_base: int = 0,
                                n_pixels: int = 0, out: torch.Tensor,
-                               rays_out: torch.Tensor | None = None) -> None:
+                               rays_out: torch.Tensor | None = None,
+                               per_ray_sample: bool = False) -> int:
     """Plain version of wavefront_bounce: ops/integrators.path_bounce on the
-    live rays of slots [0, n), in place, finished samples written to `out`."""
-    _check_state(state_f, state_i, n, regen)
+    live rays of slots [0, n), in place, finished samples written to `out`;
+    returns the rays that go on."""
+    _check_state(state_f, state_i, n, regen, per_ray_sample)
     idx = torch.nonzero(state_f[LIVE, :n] > 0.5).squeeze(1)
     if idx.numel() == 0:
-        return
+        return 0
     pid = rng_ops.as_u32(state_i[PID, idx])
-    if regen:
-        s, i = rng_ops.as_u32(state_i[SMP, idx]), state_i[BNC, idx].to(torch.int64)
-    else:
-        s, i = int(sample) & 0xFFFFFFFF, int(bounce)
+    s = (rng_ops.as_u32(state_i[SMP, idx]) if regen or per_ray_sample
+         else int(sample) & 0xFFFFFFFF)
+    i = state_i[BNC, idx].to(torch.int64) if regen else int(bounce)
     st = integrators.PathState(
         o=state_f[OX:DX, idx].T, d=state_f[DX:TR, idx].T, throughput=state_f[TR:RR, idx].T,
         result=state_f[RR:PD, idx].T, live=torch.ones_like(idx, dtype=torch.bool),
@@ -325,7 +617,7 @@ def wavefront_bounce_reference(eng: Engine, state_f, state_i, n: int, *, regen: 
     done = ~st.live | ((i + 1) >= eng.max_depth)
     rgb = integrators.clamp_radiance(st.result, eng.clamp) if eng.clamp > 0.0 else st.result
     slot = state_i[PIX, idx].to(torch.int64)
-    if regen:
+    if regen or per_ray_sample:
         slot = slot + ((s - (int(sample_base) & 0xFFFFFFFF)) & 0xFFFFFFFF) * int(n_pixels)
     out.reshape(-1, 3)[slot[done]] = rgb[done]
     if rays_out is not None:
@@ -336,49 +628,90 @@ def wavefront_bounce_reference(eng: Engine, state_f, state_i, n: int, *, regen: 
     state_f[RR:PD, idx] = st.result.T
     state_f[PD, idx] = st.prev_diffuse.to(torch.float32)
     state_f[PC, idx] = st.prev_cos
-    state_f[LIVE, idx] = (st.live & ~done).to(torch.float32)
+    going = st.live & ~done
+    state_f[LIVE, idx] = going.to(torch.float32)
     if eng.count_rays:
         state_f[RAYS, idx] = st.rays
+    return int(going.sum())
 
 
-def wavefront_bounce(eng: Engine, state_f, state_i, n: int, *, regen: bool, sample: int = 0,
-                     bounce: int = 0, sample_base: int = 0, n_pixels: int = 0,
-                     out: torch.Tensor, rays_out: torch.Tensor | None = None) -> None:
-    """One path bounce of every live ray of slots [0, n), in place
-    (`_wf_kernel`'s contract): the next ray, throughput, radiance so far,
-    prev_diffuse, prev_cos and live flag, and the rays traced so far when
-    the engine counts them.  Without `regen` every ray is at (`sample`,
-    `bounce`); with it each reads its own from state_i.  A ray whose path
-    ends, or whose bounce was the last of max_depth, writes its sample's
-    total radiance (clamped) to `out[slot]` and its ray count to
-    `rays_out[slot]`, slot = pix, plus (sample - sample_base) * n_pixels
-    under `regen`, and goes dead.  On CUDA tensors it launches
-    `wavefront_bounce_kernel`; on CPU tensors it is the plain version."""
-    if eng.count_rays != (rays_out is not None):
-        raise ValueError("rays_out goes with an Engine built with count_rays=True")
-    if not eng.on_card(state_f):
-        return wavefront_bounce_reference(
-            eng, state_f, state_i, n, regen=regen, sample=sample, bounce=bounce,
-            sample_base=sample_base, n_pixels=n_pixels, out=out, rays_out=rays_out)
-    _check_state(state_f, state_i, n, regen)
+def _bounce_launch(eng: Engine, f, i, stride: int, n: int, *, ctr=None, regen: bool,
+                   per_ray_sample: bool, sample: int, bounce: int, sample_base: int,
+                   n_pixels: int, out, rays_out) -> None:
     for t in (out, rays_out):
         if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()
-                              or t.device != state_f.device):
+                              or t.device != f.device):
             raise ValueError("out and rays_out must be contiguous f32 tensors beside the state")
     packed = eng.packed()
+    pair = (lambda t: (t[0].data_ptr(), t[1].data_ptr())) if f.dim() == 3 else (
+        lambda t: (t.data_ptr(), t.data_ptr()))
     lib = build.load()
-    dev = state_f.device
+    dev = f.device
     with torch.cuda.device(dev):
         rc = lib.grt_wavefront_bounce(
             *packed.args, eng.frame_seed, eng.max_depth, float(eng.t_min), float(eng.t_max),
             int(eng.russian_roulette_depth), float(eng.sky_intensity), float(eng.clamp),
-            state_f.data_ptr(), state_i.data_ptr(), state_f.shape[1], n, int(regen),
-            int(sample) & 0xFFFFFFFF, int(bounce), int(sample_base) & 0xFFFFFFFF,
-            int(n_pixels), out.data_ptr(), None if rays_out is None else rays_out.data_ptr(),
+            *pair(f), *pair(i), stride, n, None if ctr is None else ctr.data_ptr(),
+            int(per_ray_sample), int(regen), int(sample) & 0xFFFFFFFF, int(bounce),
+            int(sample_base) & 0xFFFFFFFF, int(n_pixels), out.data_ptr(),
+            None if rays_out is None else rays_out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "wavefront_bounce")
+    LAUNCHES[eng.route(regen)] += 1
+
+
+def wavefront_bounce(eng: Engine, state_f, state_i, n: int, *, regen: bool, sample: int = 0,
+                     bounce: int = 0, sample_base: int = 0, n_pixels: int = 0,
+                     out: torch.Tensor, rays_out: torch.Tensor | None = None,
+                     per_ray_sample: bool = False) -> None:
+    """One path bounce of every live ray of slots [0, n), in place
+    (`_wf_kernel`'s contract): the next ray, throughput, radiance so far,
+    prev_diffuse, prev_cos and live flag, and the rays traced so far when
+    the engine counts them.  Without `regen` every ray is at `bounce`, and
+    at `sample` unless `per_ray_sample` (a batch of samples: each reads its
+    own); with `regen` each reads both from state_i.  A ray whose path
+    ends, or whose bounce was the last of max_depth, writes its sample's
+    total radiance (clamped) to `out[slot]` and its ray count to
+    `rays_out[slot]`, slot = pix, plus (sample - sample_base) * n_pixels
+    with per-ray samples, and goes dead.  On CUDA tensors it launches
+    `wavefront_bounce_kernel`; on CPU tensors it is the plain version."""
+    if eng.count_rays != (rays_out is not None):
+        raise ValueError("rays_out goes with an Engine built with count_rays=True")
+    if not eng.on_card(state_f):
+        wavefront_bounce_reference(
+            eng, state_f, state_i, n, regen=regen, sample=sample, bounce=bounce,
+            sample_base=sample_base, n_pixels=n_pixels, out=out, rays_out=rays_out,
+            per_ray_sample=per_ray_sample)
+        return
+    _check_state(state_f, state_i, n, regen, per_ray_sample)
     if n > 0:
-        LAUNCHES[eng.route(regen)] += 1
+        _bounce_launch(eng, state_f, state_i, state_f.shape[1], n, regen=regen,
+                       per_ray_sample=per_ray_sample, sample=sample, bounce=bounce,
+                       sample_base=sample_base, n_pixels=n_pixels, out=out, rays_out=rays_out)
+
+
+def _bounce_step(eng: Engine, arr: RayArray, run: _Run, *, bounce: int = 0, sample_base: int,
+                 n_pixels: int, out, rays_out=None) -> None:
+    """One bounce of the loop's array: the slots and buffer its counts
+    name, nothing once the loop is over; the surviving rays are added to
+    the live count."""
+    run.enqueued["bounce"] += 1
+    if eng.on_card(arr.f):
+        return _bounce_launch(eng, arr.f, arr.i, arr.cap, 0, ctr=arr.ctr, regen=arr.regen,
+                              per_ray_sample=True, sample=0, bounce=bounce,
+                              sample_base=sample_base, n_pixels=n_pixels, out=out,
+                              rays_out=rays_out)
+    c = arr.ctr.tolist()
+    if c[CTR_DONE]:
+        return
+    cur = c[CTR_CUR]
+    arr.ctr[CTR_LIVE] += wavefront_bounce_reference(
+        eng, arr.f[cur], arr.i[cur], c[CTR_N], regen=arr.regen, bounce=bounce,
+        sample_base=sample_base, n_pixels=n_pixels, out=out, rays_out=rays_out,
+        per_ray_sample=True)
+
+
+# --- the partition and the loop's step ----------------------------------------
 
 
 def _permutation(state_f, state_i, n: int, live, sort: str, regen: bool) -> torch.Tensor:
@@ -392,128 +725,174 @@ def _permutation(state_f, state_i, n: int, live, sort: str, regen: bool) -> torc
                              bounce_rows=bounce, origins=origins)
 
 
-def _live_count(state_f, n: int, stats: dict):
-    """(live mask, live rays) of slots [0, n): one read of the device by the
-    host."""
-    live = state_f[LIVE, :n] > 0.5
-    stats["host_syncs"] += 1
-    return live, int(live.sum().item())
+def wavefront_partition_reference(arr: RayArray, sched: Schedule) -> None:
+    """Plain version of wavefront_partition: `_permutation` (torch sort
+    keys, argsort or cumsums) into arr.perm, and the gather by torch
+    indexing."""
+    pl = _plan(arr.ctr, sched)
+    if not (pl.compact or pl.rank):
+        return
+    f, i = arr.f[pl.cur], arr.i[pl.cur]
+    live = f[LIVE, :pl.n] > 0.5
+    perm = (_permutation(f, i, pl.n, live, arr.sort, arr.regen) if pl.compact
+            else _partition_live(live.to(torch.float32)))
+    arr.perm[:pl.n] = perm.to(torch.int32)
+    if pl.compact:
+        m = pl.n if arr.regen else pl.live
+        arr.f[pl.cur ^ 1, :, :m] = f[:, perm[:m]]
+        arr.i[pl.cur ^ 1, :, :m] = i[:, perm[:m]]
 
 
-def _new_stats() -> dict:
-    return dict(bounce_launches=0, raygen_launches=0, compactions=0, host_syncs=0,
-                live_ray_bounces=0, live_per_iteration=[])
+def wavefront_partition(eng: Engine, arr: RayArray, sched: Schedule,
+                        run: _Run | None = None) -> None:
+    """The compaction the counts call for: live rays first in `_permutation`'s
+    order (arr.perm) and the state planes gathered into the other buffer;
+    or, when a pool only refills, its dead slots' order.  On the card it
+    launches the partition kernels of ops/cuda/wavefront.cu (a stable
+    counting sort); elsewhere the plain version."""
+    if run is not None:
+        run.enqueued["partition"] += 1
+    if not eng.on_card(arr.f):
+        return wavefront_partition_reference(arr, sched)
+    lib = build.load("wavefront")
+    dev = arr.f.device
+    with torch.cuda.device(dev):
+        rc = lib.grt_wf_partition(
+            arr.ctr.data_ptr(), *sched.args(), *arr.buffers(), arr.rows, arr.cap, arr.code,
+            int(arr.bucket), arr.n_keys, arr.keys.data_ptr(), arr.rank.data_ptr(),
+            arr.hist.data_ptr(), arr.perm.data_ptr(), arr.bounds.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "wavefront_partition", "wavefront")
+    LAUNCHES["wavefront_partition"] += 1
 
 
-def _run_samples(eng: Engine, *, width, height, spp, sample_index, y_offset, row_stride,
-                 sort, compact_threshold, stats):
-    """The sample-major loop (wavefront.py:505-608): each sample traced to
-    termination, bounce by bounce, over a ray array that shrinks to its live
-    rays whenever their share of it falls below `compact_threshold`."""
+def wavefront_advance_reference(arr: RayArray, sched: Schedule, run: _Run,
+                                iteration: int) -> None:
+    """Plain version of wavefront_advance (wf_advance_kernel)."""
+    pl = _plan(arr.ctr, sched)
+    if pl.done:
+        return
+    c = arr.ctr
+    enter = int(c[CTR_ENTER])
+    run.iter_live[int(run.stats[STAT_BOUNCE]) if sched.regen else iteration] += enter
+    run.stats[STAT_BOUNCE] += 1
+    run.stats[STAT_LIVE_BOUNCES] += enter
+    live = pl.live
+    if pl.compact:
+        run.stats[STAT_COMPACT] += 1
+        c[CTR_CUR] = pl.cur ^ 1
+        if not sched.regen:
+            c[CTR_N] = live
+    done = live == 0
+    if sched.regen:
+        k = pl.k if pl.refill else 0
+        live += k
+        c[CTR_NXT] = pl.nxt + k
+        done = not (pl.nxt + k < sched.total or live > 0)
+    c[CTR_ENTER] = live
+    c[CTR_LIVE] = 0
+    c[CTR_DONE] = int(done)
+
+
+def wavefront_advance(eng: Engine, arr: RayArray, sched: Schedule, run: _Run,
+                      iteration: int) -> None:
+    """End an iteration: count its bounce, swap the buffers after a
+    compaction, take the refill into the counts, and decide whether the
+    loop is over.  One thread of wf_advance_kernel on the card; the plain
+    version elsewhere."""
+    run.enqueued["advance"] += 1
+    if not eng.on_card(arr.f):
+        return wavefront_advance_reference(arr, sched, run, iteration)
+    lib = build.load("wavefront")
+    dev = arr.f.device
+    with torch.cuda.device(dev):
+        rc = lib.grt_wf_advance(arr.ctr.data_ptr(), *sched.args(), run.stats.data_ptr(),
+                                run.iter_live.data_ptr(), iteration, arr.bounds.data_ptr(),
+                                torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "wavefront_advance", "wavefront")
+    LAUNCHES["wavefront_advance"] += 1
+
+
+# --- the host loops -----------------------------------------------------------
+
+
+def _sample_batch(spp: int, p: int, plain: bool) -> int:
+    """Samples traced in one array without regeneration."""
+    return max(1, min(spp, (PLAIN_SAMPLE_SLOTS if plain else SAMPLE_SLOTS) // p))
+
+
+def _run_samples(eng: Engine, *, frame, spp, sample_index, sort, compact_threshold,
+                 batch, run):
+    """The sample-major loop (wavefront.py:505-608), a batch of samples at a
+    time: each batch traced to termination, bounce by bounce, over a ray
+    array that shrinks to its live rays whenever their share of it falls
+    below `compact_threshold`.  The host enqueues max_depth (bounce,
+    compaction, step) triples a batch and reads nothing."""
     dev = eng.device
-    p = width * height
-    local = torch.arange(p, dtype=torch.int64, device=dev)
-    pid0 = _global_pids(local, p=p, width=width, height=height, y_offset=y_offset,
-                        total_width=eng.total_width, row_stride=row_stride)
-    ids0 = torch.stack([pid0, local]).to(torch.int32)
+    p = frame["p"]
     acc = torch.zeros((p, 3), dtype=torch.float32, device=dev)
     rays_acc = torch.zeros(p, dtype=torch.float32, device=dev) if eng.count_rays else None
-    per_bounce = [0] * eng.max_depth
-    for k in range(spp):
-        s = (int(sample_index) + k) & 0xFFFFFFFF
-        state_f = torch.empty((F_PLANES, p), dtype=torch.float32, device=dev)
-        state_i = ids0.clone()
-        out = torch.zeros((p, 3), dtype=torch.float32, device=dev)
-        rays = torch.zeros(p, dtype=torch.float32, device=dev) if eng.count_rays else None
-        if eng.max_depth > 0:
-            wavefront_raygen(eng, state_f, state_i, p, regen=False, sample=s)
-            stats["raygen_launches"] += 1
-        n = n_live = p
+    if eng.max_depth <= 0:
+        return acc, rays_acc
+    arr = RayArray(batch * p, False, sort, dev)
+    for first in range(0, spp, batch):
+        k = min(batch, spp - first)
+        s0 = (int(sample_index) + first) & 0xFFFFFFFF
+        out = torch.zeros((k * p, 3), dtype=torch.float32, device=dev)
+        rays = torch.zeros(k * p, dtype=torch.float32, device=dev) if eng.count_rays else None
+        wavefront_fill(eng, arr, k * p, frame, s0, run)
         for b in range(eng.max_depth):
-            wavefront_bounce(eng, state_f, state_i, n, regen=False, sample=s, bounce=b,
-                             out=out, rays_out=rays)
-            stats["bounce_launches"] += 1
-            stats["live_ray_bounces"] += n_live
-            per_bounce[b] += n_live
-            if b + 1 >= eng.max_depth:
-                break  # every remaining ray has written its sample
-            live, n_live = _live_count(state_f, n, stats)
-            if n_live == 0:
-                break
-            if n_live < compact_threshold * n:
-                # Keep the live rays only, in sort order: the next launch
-                # covers them and nothing else.
-                slots = _permutation(state_f, state_i, n, live, sort, False)[:n_live]
-                state_f = state_f.index_select(1, slots)
-                state_i = state_i.index_select(1, slots)
-                n = n_live
-                stats["compactions"] += 1
+            sched = Schedule(compact_threshold, last=b + 1 >= eng.max_depth)
+            _bounce_step(eng, arr, run, bounce=b, sample_base=s0, n_pixels=p, out=out,
+                         rays_out=rays)
+            if not sched.last:
+                wavefront_partition(eng, arr, sched, run)
+            wavefront_advance(eng, arr, sched, run, b)
         # Samples fold in sample order, as the megakernel's spp loop adds them.
-        acc += out
-        if rays is not None:
-            rays_acc += rays
-    stats["live_per_iteration"] = per_bounce
+        for j in range(k):
+            acc += out[j * p:(j + 1) * p]
+            if rays is not None:
+                rays_acc += rays[j * p:(j + 1) * p]
     return acc, rays_acc
 
 
-def _run_regen(eng: Engine, *, width, height, spp, sample_index, y_offset, row_stride, sort,
-               compact_threshold, refill_threshold, stats, acc):
+def _run_regen(eng: Engine, *, frame, spp, sample_index, sort, compact_threshold,
+               refill_threshold, run, acc):
     """The regenerating pool (wavefront.py:611-794) over samples
     sample_index .. sample_index + spp - 1, added into `acc` in sample
     order.  The sample stream is the spp * p primary rays, sample-major; the
     pool holds p slots, and one iteration is one bounce of every pooled ray.
     When at least `refill_threshold` of the slots have died (or the stream
     is about to drain), dead slots take the next rays of the stream in
-    stream order."""
+    stream order.  The host enqueues POLL_EVERY iterations at a time and
+    reads the done flag of the previous group: the loop has ended when it
+    is set."""
     dev = eng.device
-    p = width * height
+    p = frame["p"]
     total = spp * p
     s0 = int(sample_index) & 0xFFFFFFFF
-    state_f, state_i = new_state(p, True, dev)
+    arr = RayArray(p, True, sort, dev)
     buf = torch.zeros((total, 3), dtype=torch.float32, device=dev)
-
-    def fill(src, take):
-        """Point the slots `take` marks at their stream positions `src` and
-        generate their primary rays."""
-        local = src % p
-        pid = _global_pids(local, p=p, width=width, height=height, y_offset=y_offset,
-                           total_width=eng.total_width, row_stride=row_stride)
-        fresh = torch.stack([pid, local, s0 + src // p])
-        state_i[:BNC] = torch.where(take, fresh.to(torch.int32), state_i[:BNC])
-        wavefront_raygen(eng, state_f, state_i, p, regen=True,
-                         take=take.to(torch.int32).contiguous())
-        stats["raygen_launches"] += 1
-
-    # The stream position each slot traces, -1 where it holds no ray.
-    src = torch.arange(p, dtype=torch.int64, device=dev)
-    fill(src, src >= 0)
-    nxt = n_live = p
-    while nxt < total or n_live > 0:
-        wavefront_bounce(eng, state_f, state_i, p, regen=True, sample_base=s0, n_pixels=p,
-                         out=buf)
-        stats["bounce_launches"] += 1
-        stats["live_ray_bounces"] += n_live
-        stats["live_per_iteration"].append(n_live)
-        live, n_live = _live_count(state_f, p, stats)
-        if n_live < compact_threshold * p:
-            perm = _permutation(state_f, state_i, p, live, sort, True)
-            state_f = state_f.index_select(1, perm)
-            state_i = state_i.index_select(1, perm)
-            src, live = src[perm], live[perm]
-            stats["compactions"] += 1
-        dead = ~live
-        src = torch.where(live, src, -1)
-        avail = total - nxt
-        k = min(p - n_live, avail)
-        # Refill when enough slots died to amortize the ray-generation pass,
-        # or unconditionally near the stream's end (so that it drains).
-        if k > 0 and ((p - n_live) >= refill_threshold * p or avail <= p):
-            rank = torch.cumsum(dead.to(torch.int64), 0) - 1
-            take = dead & (rank < avail)
-            src = torch.where(take, nxt + rank, src)
-            fill(src, take)
-            n_live += k
-            nxt += k
+    sched = Schedule(compact_threshold, refill_threshold, total, p, regen=True)
+    wavefront_fill(eng, arr, p, frame, s0, run)
+    # Each iteration bounces at least one ray of the stream: a bound that
+    # only a fault reaches.
+    limit = run.iterations + total * max(eng.max_depth, 1) + 2 * POLL_EVERY
+    pending = None
+    while True:
+        run.reserve(run.iterations + POLL_EVERY)
+        for _ in range(POLL_EVERY):
+            _bounce_step(eng, arr, run, sample_base=s0, n_pixels=p, out=buf)
+            wavefront_partition(eng, arr, sched, run)
+            wavefront_refill(eng, arr, sched, frame, s0, run)
+            wavefront_advance(eng, arr, sched, run, run.iterations)
+            run.iterations += 1
+        flag = run.done_flag(arr)
+        if pending is not None and run.read_flag(pending):
+            break
+        pending = flag
+        if run.iterations > limit:
+            raise RuntimeError(f"the regenerating pool did not drain in {limit} iterations")
     # Fold the finished samples in sample order: the megakernel's order.
     for k in range(spp):
         acc += buf[k * p:(k + 1) * p]
@@ -552,6 +931,10 @@ def _render(scene_or_spheres, camera, *, plain: bool, width, height, sample_inde
         raise ValueError(f"invalid resolution {width}x{height}")
     if sampler_spec is not None and sampler_spec[0] not in mk.SAMPLERS:
         raise ValueError(f"unknown sampler spec {sampler_spec!r}")
+    p = width * height
+    batch = _sample_batch(spp, p, plain)
+    if (REGEN_BATCH if regenerate else batch) * p >= 2 ** 31:
+        raise ValueError(f"{width}x{height} pixels overflow the loop's 32-bit slot counts")
     sc = as_scene(scene_or_spheres)
     if not plain:
         dev = mk._require_cuda(*mk.dataclass_tensors(sc), *mk.dataclass_tensors(camera))
@@ -560,11 +943,10 @@ def _render(scene_or_spheres, camera, *, plain: bool, width, height, sample_inde
     eng = Engine(sc, camera, frame_seed, max_depth, t_min, t_max, russian_roulette_depth,
                  sky_intensity, nee, mis, sampler_spec, clamp,
                  width if total_width is None else total_width, return_ray_count, plain)
-    stats = _new_stats()
-    common = dict(width=width, height=height, y_offset=int(y_offset),
-                  row_stride=int(row_stride), sort=sort, compact_threshold=compact_threshold,
-                  stats=stats)
-    p = width * height
+    run = _Run(dev, max_depth if not regenerate else 4 * POLL_EVERY)
+    frame = dict(p=p, width=width, height=height, y_offset=int(y_offset),
+                 row_stride=int(row_stride))
+    common = dict(frame=frame, sort=sort, compact_threshold=compact_threshold, run=run)
     rays = None
     if regenerate:
         acc = torch.zeros((p, 3), dtype=torch.float32, device=dev)
@@ -575,9 +957,12 @@ def _render(scene_or_spheres, camera, *, plain: bool, width, height, sample_inde
                        sample_index=int(sample_index) + first,
                        refill_threshold=refill_threshold, acc=acc, **common)
     else:
-        acc, rays = _run_samples(eng, spp=spp, sample_index=sample_index, **common)
+        acc, rays = _run_samples(eng, spp=spp, sample_index=sample_index, batch=batch,
+                                 **common)
     LAST_RUN.clear()
-    LAST_RUN.update(stats, regenerate=bool(regenerate), sort=sort)
+    LAST_RUN.update(run.counts(regenerate, max(max_depth, 0)), regenerate=bool(regenerate),
+                    sort=sort, sample_batch=None if regenerate else batch,
+                    poll_every=POLL_EVERY)
     # The megakernel's mean is an IEEE division; torch divides a CUDA tensor
     # by a Python number as a multiplication by its reciprocal, which rounds
     # differently unless spp is a power of two.
@@ -598,12 +983,13 @@ def render_wavefront(scene_or_spheres, camera: Camera, *, width: int, height: in
     (same counter-based stream, same arithmetic in the same order), and the
     ray counts equal its plane.  `y_offset`, `row_stride` and `total_width`
     address a row band of a larger frame: pixel ids, and so the stream, are
-    global.  `sort` ('octant', 'octant-flat', 'spatial', 'live') and
+    global.  `sort` ('octant', 'octant-flat', 'spatial', 'live'),
     `compact_threshold` (compact when the live share of the ray array falls
-    below it) only schedule.  `regenerate=True` keeps one persistent ray pool across the
-    samples and refills dead slots with the next samples' primary rays once
-    `refill_threshold` of the pool has died; it composes with neither
-    `clamp` nor `return_ray_count`, as in the JAX package.  Keywords:
+    below it) only schedule.  `regenerate=True` keeps one persistent ray
+    pool across the samples and refills dead slots with the next samples'
+    primary rays once `refill_threshold` of the pool has died; it composes
+    with neither `clamp` nor `return_ray_count`, as in the JAX package.
+    Keywords:
     sample_index, frame_seed, max_depth, t_min, t_max,
     russian_roulette_depth, sky_intensity, nee, mis, spp, sampler_spec,
     clamp, return_ray_count, and the scheduling ones above."""
@@ -612,8 +998,7 @@ def render_wavefront(scene_or_spheres, camera: Camera, *, width: int, height: in
 
 def render_wavefront_reference(scene_or_spheres, camera: Camera, *, width: int, height: int,
                                **kw):
-    """The plain PyTorch version of render_wavefront: the same host loop
-    around wavefront_raygen_reference and wavefront_bounce_reference, on the
-    device the scene lies on.  Its image equals
-    render_reference(light_pick='sample') bit for bit."""
+    """The plain PyTorch version of render_wavefront: the same schedule
+    around the kernels' plain versions, on the device the scene lies on.
+    Its image equals render_reference(light_pick='sample') bit for bit."""
     return _render(scene_or_spheres, camera, plain=True, width=width, height=height, **kw)

@@ -193,8 +193,15 @@ def _sphere_candidate(pnt, normal, lc, lr, u1n, u2n):
     cos_phi, sin_phi = cos_sin(phi)
     cp = cos_phi * sin_t
     sp = sin_phi * sin_t
-    omega = fma(wl, cos_t[..., None], fma(u_ax, cp[..., None], v_ax * sp[..., None]))
-    cos_i = dot3(normal, omega)
+    if pnt.device.type == "cpu":
+        # As XLA:CPU's fused bounce rounds it (its object code): v sp fused
+        # onto the product u cp, and n . omega summed unfused.
+        omega = fma(wl, cos_t[..., None], fma(v_ax, sp[..., None], u_ax * cp[..., None]))
+        prod = normal * omega
+        cos_i = prod[..., 0] + prod[..., 1] + prod[..., 2]
+    else:  # the kernel's rounding
+        omega = fma(wl, cos_t[..., None], fma(u_ax, cp[..., None], v_ax * sp[..., None]))
+        cos_i = dot3(normal, omega)
     h_l = dot3(dc, omega)
     disc_l = fma(h_l, h_l, -fma(-lr, lr, d2))
     t_l = h_l - sqrt(torch.clamp(disc_l, min=0.0))

@@ -7,9 +7,9 @@ speed of light to set beside the data sheet's 67 TFLOP/s, which every
 `bound` of PERF.md divides by.  `bf16_probe()` answers "what would packed
 bf16 buy the slab-test-shaped math": microseconds per launch in f32 and in
 packed bf16, with and without a compare.  Both launch the hand-written
-kernels of ops/cuda/probes.cu (`fma_peak_kernel`, K3; `slab_f32_kernel` and
-`slab_bf16_kernel`, K4) and time them with CUDA events; they need a CUDA
-device.
+kernels of ops/cuda/probes.cu (`fma_peak_kernel`, K3; `slab_kernel`, K4) and
+time them with CUDA events; they need a CUDA device.  `slab_bound_ms` is
+K4's least time: its operations a round at the issue rate of the type.
 
 `fma_peak` and `slab_dtype` are the kernels' wrappers: on a CUDA tensor they
 launch, on a CPU tensor they take the plain versions beside them
@@ -44,6 +44,22 @@ BUNDLE_INSTRUCTIONS = {"slab": 23, "fma": 4}
 
 #: FP32 outside the tensor cores, H100 SXM data sheet (700 W).
 NOMINAL_FP32 = 67e12
+#: The H100 SXM's SMs and boost clock (NVIDIA's data sheet: 67 TFLOP/s =
+#: 132 SMs x 128 FP32 lanes x 2 x 1.98 GHz).
+H100_SMS = 132
+H100_CLOCK_HZ = 1.98e9
+#: K4's operations a round and element as bf16_probe.py counts them (9: sub,
+#: add, 3 multiplies, min, max, the accumulation's add, the carry's
+#: multiply; the compare form adds a compare).  None is fused
+#: (-fmad=false), so each is an instruction of its own: `slab_bound_ms`
+#: puts them at the H100's issue rate of 128 instructions a clock an SM (4
+#: schedulers x 32 lanes; CUDA C++ Programming Guide, "Arithmetic
+#: Instructions", compute capability 9.0), which is 128 results a clock in
+#: f32 and 256 in packed bf16.  The min/max pipe's 64 a clock does not bind:
+#: 2 of the 9.  The kernel's SASS has exactly these instructions a round
+#: (PERF.md, Findings).
+SLAB_OPS_PER_ROUND = 9
+SLAB_RESULTS_PER_CLOCK = {torch.float32: 128, torch.bfloat16: 256}
 
 _SLAB_C1 = 1.0009765625  # keeps values near 1 (1 exactly in bf16)
 
@@ -153,8 +169,8 @@ def slab_dtype(x: torch.Tensor, rounds: int, dtype: torch.dtype = torch.float32,
     even element count) in `dtype` (torch.float32, or torch.bfloat16: two
     values a thread, each operation rounded to bf16), accumulating tf * tn,
     or (tf >= tn) * tn with `compare`; returns f32 of x's shape.  On a CUDA
-    tensor it launches `slab_f32_kernel` or `slab_bf16_kernel`; on a CPU
-    tensor it is the plain version."""
+    tensor it launches `slab_kernel`; on a CPU tensor it is the plain
+    version."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
     if rounds < 0:
@@ -173,6 +189,16 @@ def slab_dtype(x: torch.Tensor, rounds: int, dtype: torch.dtype = torch.float32,
     build.check(rc, "slab_dtype", "probes")
     LAUNCHES["bf16_probe"] += 1
     return out
+
+
+def slab_bound_ms(n: int, rounds: int, dtype: torch.dtype = torch.float32,
+                  compare: bool = False) -> float:
+    """K4's least time on the H100 for n elements and `rounds` rounds: its
+    operations (SLAB_OPS_PER_ROUND, one more with `compare`) at the issue
+    rate of the type."""
+    ops = SLAB_OPS_PER_ROUND + int(compare)
+    clocks = ops * n * rounds / (SLAB_RESULTS_PER_CLOCK[dtype] * H100_SMS)
+    return clocks / H100_CLOCK_HZ * 1e3
 
 
 def _device() -> torch.device:

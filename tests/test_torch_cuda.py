@@ -567,6 +567,86 @@ def test_wavefront_equals_megakernel_bit_for_bit(dev, route):
         torch.testing.assert_close(a, want, atol=3e-5, rtol=1e-5)
 
 
+def _partition_array(wf, dev, cap, n, regen, sort, live_p, seed):
+    """A ray array on the card with random planes, a live share `live_p`
+    of slots [0, n) and bounces -1 .. 8, its counts naming buffer 0."""
+    rng = np.random.default_rng(seed)
+    arr = wf.RayArray(cap, regen, sort, dev)
+    arr.f.copy_(torch.from_numpy(rng.normal(size=arr.f.shape).astype(np.float32)))
+    arr.f[:, wf.LIVE] = torch.from_numpy((rng.random((2, cap)) < live_p).astype(np.float32))
+    arr.i.copy_(torch.from_numpy(rng.integers(-1, 9, arr.i.shape).astype(np.int32)))
+    live = int((arr.f[0, wf.LIVE, :n] > 0.5).sum())
+    arr.ctr.copy_(torch.tensor([n, live, 0, 0, 0, live, 0, 0], dtype=torch.int32))
+    return arr, live
+
+
+@pytest.mark.parametrize("case", ["random", "all_dead", "all_live", "one_ray"])
+@pytest.mark.parametrize("sort", ["octant", "octant-flat", "spatial", "live"])
+@pytest.mark.parametrize("regen", [False, True], ids=["samples", "regen"])
+def test_partition_kernel_equals_permutation(dev, regen, sort, case):
+    """The stable counting sort of ops/cuda/wavefront.cu (keys, block ranks,
+    scan, permutation, gather) against `_permutation` (torch sort keys and
+    a stable argsort) on the same state: the permutation of every slot and
+    the gathered planes exactly, and the step's new slot count; under
+    regeneration with the bounce bucket, and, when only a refill follows,
+    the dead slots' order.  An all-dead, an all-live and a one-ray array
+    included."""
+    from gpu_ray_tracing_tpu_torch.ops.cuda import wavefront as wf
+
+    cap, n, live_p = {"random": (300_000, 299_937, 0.4), "all_dead": (5000, 5000, 0.0),
+                      "all_live": (5000, 5000, 1.0), "one_ray": (64, 1, 1.0)}[case]
+    scene, cam = _one_weekend(dev, 16, 8)
+    eng = wf.Engine(scene, cam, 3, 8, 1e-3, total_width=16)
+    for threshold in (1.1, 0.0):
+        arr, live = _partition_array(wf, dev, cap, n, regen, sort, live_p, seed=n)
+        before_f, before_i = arr.f[0].clone(), arr.i[0].clone()
+        live_mask = before_f[wf.LIVE, :n] > 0.5
+        sched = wf.Schedule(threshold, 0.25, 3 * n, n, regen=regen)
+        compact = (regen or live > 0) and threshold > 1.0
+        rank = regen and not compact and live < n
+        wf.wavefront_partition(eng, arr, sched)
+        run = wf._Run(dev, 4)
+        wf.wavefront_advance(eng, arr, sched, run, 0)
+        torch.cuda.synchronize()
+        if compact:
+            want = wf._permutation(before_f, before_i, n, live_mask, sort, regen)
+        elif rank:
+            want = wf._partition_live(live_mask.to(torch.float32))
+        if compact or rank:
+            assert torch.equal(arr.perm[:n].long(), want)
+        ctr = arr.ctr.tolist()
+        assert int(run.stats[wf.STAT_COMPACT]) == int(compact)
+        assert ctr[wf.CTR_CUR] == int(compact)
+        assert ctr[wf.CTR_N] == (live if compact and not regen else n)
+        if compact:
+            m = n if regen else live
+            assert torch.equal(arr.f[1, :, :m], before_f[:, want[:m]])
+            assert torch.equal(arr.i[1, :, :m], before_i[:, want[:m]])
+
+
+def test_wavefront_host_reads_and_sample_batches(dev, monkeypatch):
+    """The loop reads the device once a frame without regeneration and at
+    most once every POLL_EVERY iterations plus once with it; a batch of
+    samples in one array renders the one-sample arrays' image and ray
+    counts bit for bit."""
+    from gpu_ray_tracing_tpu_torch.ops.cuda import wavefront as wf
+
+    scene, cam = _one_weekend(dev, 320, 180)
+    kw = dict(width=320, height=180, spp=16, max_depth=30, t_min=1e-3, frame_seed=7)
+    img, rays = wf.render_wavefront(scene, cam, return_ray_count=True, **kw)
+    assert wf.LAST_RUN["host_syncs"] == 1 and wf.LAST_RUN["sample_batch"] == 16
+    monkeypatch.setattr(wf, "SAMPLE_SLOTS", 320 * 180)
+    one, one_rays = wf.render_wavefront(scene, cam, return_ray_count=True, **kw)
+    assert wf.LAST_RUN["sample_batch"] == 1
+    monkeypatch.undo()
+    assert torch.equal(img, one) and torch.equal(rays, one_rays)
+    assert torch.equal(img, mk.render_cuda(scene, cam, **kw))
+    regen = wf.render_wavefront(scene, cam, regenerate=True, **kw)
+    iterations = wf.LAST_RUN["bounce_launches"]
+    assert 0 < wf.LAST_RUN["host_syncs"] <= -(-iterations // wf.POLL_EVERY) + 1
+    assert float((regen - img).abs().max()) <= 3e-5
+
+
 def test_wavefront_bounce_matches_its_plain_version(dev):
     """One launch of wavefront_bounce_kernel against
     wavefront_bounce_reference on the same state: the live masks differ on
@@ -632,3 +712,21 @@ def test_slab_dtype_kernel_matches_its_plain_version(dev, dtype, compare):
     assert torch.equal(got, roofline.slab_dtype_reference(x, 32, dtype, compare))
     with pytest.raises(ValueError, match="even"):
         roofline.slab_dtype(x[:5].contiguous(), 4, dtype, compare)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("compare", [False, True])
+def test_slab_kernel_tails_and_unaligned_arrays(dev, dtype, compare):
+    """K4's groups of four elements: counts that end inside a group (2, 6,
+    4,098), a card-filling count plus a ragged group, and arrays that start
+    8 bytes past a 16-byte boundary (scalar loads), each exact at 32
+    rounds."""
+    from gpu_ray_tracing_tpu_torch.utils import roofline
+
+    base = torch.linspace(0.5, 1.5, 270_346, device=dev)
+    for n in (2, 6, 4098, 270_338):
+        for offset in (0, 2):
+            x = base[offset:offset + n]
+            got = roofline.slab_dtype(x, 32, dtype, compare)
+            assert torch.equal(got, roofline.slab_dtype_reference(x, 32, dtype, compare)), (
+                n, offset)

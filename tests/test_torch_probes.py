@@ -122,3 +122,26 @@ def test_the_timed_probes_need_a_card():
         roofline.measure_peak(rounds=4)
     with pytest.raises(RuntimeError, match="need an NVIDIA GPU"):
         roofline.bf16_probe(rounds=4)
+
+
+@pytest.mark.parametrize("dtype,compare,ops_per_clock", [
+    (torch.float32, False, 9 / 128), (torch.float32, True, 10 / 128),
+    (torch.bfloat16, False, 9 / 256), (torch.bfloat16, True, 10 / 256)])
+def test_slab_bound_is_its_operations_at_the_issue_rate(dtype, compare, ops_per_clock):
+    """K4's least time: 9 operations a round and element (10 with the
+    compare), each its own instruction, at 128 instructions a clock on each
+    of the H100's 132 SMs at 1.98 GHz; a packed bf16 instruction does two
+    elements.  On the card-filling grid of 1,081,344 elements, 2,048 rounds
+    take 0.596 ms in f32 and 0.298 ms in bf16: twice the old bound of 9
+    operations over the FMA peak of the type (two flops a lane and
+    clock)."""
+    n, rounds = 1_081_344, 2048
+    got = roofline.slab_bound_ms(n, rounds, dtype, compare)
+    np.testing.assert_allclose(got, ops_per_clock * n * rounds / (132 * 1.98e9) * 1e3,
+                               rtol=1e-12)
+    if not compare:
+        peak = 67e12 if dtype == torch.float32 else 133.8e12
+        old = roofline.SLAB_OPS_PER_ROUND * rounds * n / peak * 1e3
+        np.testing.assert_allclose(got / old, 2.0, rtol=0.02)
+        np.testing.assert_allclose(got, 0.596 if dtype == torch.float32 else 0.298,
+                                   atol=5e-4)
