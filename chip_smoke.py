@@ -137,6 +137,35 @@ card in phases, one JSON line each:
                   tile on 1 and on 16 blocks, all identical; resume in chunks
                   of 1, 3 and 8 equal to one shot on three of them
 
+ 26. grad_vs_plain  gradients through the kernels (ops/autograd.KernelFrame:
+                  the kernel forward, a replay of the plain integrator as the
+                  backward): d sum(w * render) for every float tensor of the
+                  scene and the CameraSettings through backend='cuda' and
+                  'wavefront' (regenerate off and on) against autograd
+                  through backend='torch' on the card, per leaf at rtol 1e-5
+                  / atol 1e-7, on tests/test_gradients.py's tri-light
+                  NEE+MIS scene (24x16, 2 spp, depth 3, sky 0) and
+                  base_scene (16x12, 1 spp, depth 4); the forward equal to
+                  the frame without gradients bit for bit, the kernel
+                  launched by the forward and nothing by the backward
+ 27. inverse_path  examples/inverse_rendering.py's settings on the card
+                  (base_scene, its camera, 96x72, 4 spp, depth 6): 20 Adam
+                  steps (lr 0.05) on a scrambled albedo, ms a step split into
+                  forward and backward, the loss and the albedo error falling,
+                  peak memory; then d mean(image)/d albedo of One-Weekend at
+                  1280x720, 1 spp, depth 30, its ms, replay blocks and peak
+                  memory, within rtol 1e-3 of central differences of
+                  render_reference at the three entries of largest gradient
+ 28. denoise_path  render_denoised at the main frame (16 spp, 4 iterations):
+                  5 timed frames, the beauty pass, each guide pass through
+                  render_aov_kernel alone (albedo, normal, depth; each held to
+                  its plain version at 1% / 2e-4, with its bound), the filter
+                  (device ms and kernel launches, torch.profiler) held to the
+                  filter on the CPU on the same planes at rtol 1e-5 / atol
+                  1e-7; the denoised frame nearer a 256-spp render than the
+                  beauty pass is; one backward() through it, finite and
+                  nonzero
+
 Every phase that launches the megakernel gates its launch count on its own
 route key (megakernel:brute, :sphere_bvh, :mesh_bvh, suffixed +nee,
 +sobol/+stratified, +adaptive and +rays when the launch ran them); the
@@ -161,8 +190,10 @@ runs phases 1 and 2, then times phase 6's frame over 20 frames through
 render() and the kernel alone over 10, the kernel alone on the routes of
 configs 3 and 4, the lit path, the night scene and a 1-spp progressive step,
 the adaptive main frame (phase 17's), the adaptive Cornell box (phase
-15's) and the main frame through backend='wavefront' with regeneration off
-and on (5 frames each), and prints one JSON line; with `--save-frame PATH` it also saves the
+15's), the main frame through backend='wavefront' with regeneration off
+and on (5 frames each), the denoised main frame (3 frames) and one
+inverse-rendering step at phase 27's settings (forward and backward, the
+median of 5), and prints one JSON line; with `--save-frame PATH` it also saves the
 frame as a .npy file, and each adaptive frame's image, spp map, ray counts
 and six state planes in PATH's stem + "_adaptive.npz".  "The kernel alone" is the device time of render_cuda calls
 queued behind a spin kernel, so the host's packing per call does not show.
@@ -823,6 +854,369 @@ def lit_scenes(T) -> dict:
     }
 
 
+# examples/inverse_rendering.py:29-36, the JAX package's inverse-rendering
+# camera (its settings: base_scene, 96x72, 4 spp, depth 6, Adam at 0.05).
+INVERSE_CAMERA = dict(look_from=[0.0, 0.3, 1.5], look_at=[0.0, 0.0, -1.0],
+                      vup=[0.0, 1.0, 0.0], field_of_view=55.0, defocus_angle=0.0,
+                      focus_distance=2.5)
+
+
+def tri_light_scene(T):
+    """tests/test_gradients.py's tri-light scene: a floor, a diffuse sphere
+    and an emissive quad (two triangle lights)."""
+    verts = np.float32([[-0.7, 1.8, -2.7], [0.7, 1.8, -2.7], [0.7, 1.8, -1.3],
+                        [-0.7, 1.8, -1.3]])
+    quad = T.make_mesh(verts, np.int64([[0, 1, 2], [0, 2, 3]]), albedo=(1.0, 0.9, 0.8),
+                       mat_kind=T.EMISSIVE, mat_param=6.0)
+    return T.make_scene(T.make_spheres([
+        ((0.0, -1000.0, 0.0), 1000.0, T.LAMBERTIAN, (0.7, 0.7, 0.7), 0.0),
+        ((0.3, 0.4, -2.0), 0.4, T.LAMBERTIAN, (0.4, 0.5, 0.8), 0.0)]), quad)
+
+
+def with_leaves(T, scene, settings):
+    """The scene and settings with every float tensor replaced by a fresh
+    leaf that requires grad: (scene, settings, {path: leaf})."""
+    leaves = {}
+
+    def walk(obj, prefix):
+        new = {}
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                new[f.name] = leaves[prefix + f.name] = v.detach().clone().requires_grad_(True)
+            elif dataclasses.is_dataclass(v):
+                new[f.name] = walk(v, prefix + f.name + ".")
+        return dataclasses.replace(obj, **new)
+
+    return walk(T.as_scene(scene), "scene."), walk(settings, "settings."), leaves
+
+
+def grad_of(T, mk, scene, settings, cfg, weights, seed):
+    """d sum(weights * render) for every float leaf of the scene and the
+    settings through render(cfg): (image, {path: grad}, launches in the
+    forward, launches in the backward)."""
+    sc, st, leaves = with_leaves(T, scene, settings)
+    mk.LAUNCHES.clear()
+    img = T.render(sc, st, cfg, frame_seed=seed)
+    fwd = dict(mk.LAUNCHES)
+    mk.LAUNCHES.clear()
+    (img * weights).sum().backward()
+    bwd = dict(mk.LAUNCHES)
+    return img.detach(), {k: (torch.zeros_like(v) if v.grad is None else v.grad)
+                          for k, v in leaves.items()}, fwd, bwd
+
+
+def grad_vs_plain(T, mk, dev) -> list[dict]:
+    """Phase 26: the gradient through each kernel backend against autograd
+    through backend='torch' on the card, per leaf, and the forward against
+    the frame rendered without gradients."""
+    rows = []
+    cases = [("tri_light_nee_mis", tri_light_scene(T), T.CameraSettings.make(**BASE_CAMERA),
+              dict(width=24, height=16, spp=2, max_depth=3, sky_intensity=0.0, nee=True,
+                   mis=True)),
+             ("base_scene", T.base_scene(), T.CameraSettings.make(**BASE_CAMERA),
+              dict(width=16, height=12, spp=1, max_depth=4))]
+    for case, scene, settings, kw in cases:
+        scene, settings = T.as_scene(scene).to(dev), settings.to(dev)
+        w = torch.from_numpy(np.random.default_rng(5).random(
+            (kw["height"], kw["width"], 3), dtype=np.float32)).to(dev)
+        _, want, _, _ = grad_of(T, mk, scene, settings, T.RenderConfig(backend="torch", **kw),
+                                w, 3)
+        for backend, regen in (("cuda", "off"), ("wavefront", "off"), ("wavefront", "on")):
+            cfg = T.RenderConfig(backend=backend, regenerate=regen, **kw)
+            img, got, fwd, bwd = grad_of(T, mk, scene, settings, cfg, w, 3)
+            with torch.no_grad():
+                plain_fwd = T.render(scene, settings, cfg, frame_seed=3)
+            leaves = {}
+            for k in want:
+                g, ref = got[k], want[k]
+                leaves[k] = dict(
+                    max_abs_diff=float((g - ref).abs().max()),
+                    scale=float(ref.abs().max()),
+                    ok=bool(torch.isfinite(g).all())
+                    and torch.allclose(g, ref, rtol=1e-5, atol=1e-7))
+            rows.append(dict(case=case, backend=backend, regenerate=regen,
+                             forward_equal=bool(torch.equal(img, plain_fwd)),
+                             forward_launches=fwd, backward_launches=bwd, leaves=leaves,
+                             albedo_scale=leaves["scene.spheres.albedo"]["scale"],
+                             tri_emission_scale=leaves.get("scene.tri_lights.emission",
+                                                           {}).get("scale")))
+    return rows
+
+
+def inverse_step(T, scene, settings, cfg, albedo, target, seed):
+    """One step of the inverse-rendering loss, mean((render - target)^2)
+    with respect to `albedo`: (loss, forward ms, backward ms), host clock
+    around each with the card synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = T.render(dataclasses.replace(scene, albedo=albedo), settings, cfg, frame_seed=seed)
+    loss = ((img - target) ** 2).mean()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+
+def inverse_path(T, mk, dev, steps: int = 20) -> dict:
+    """Phase 27: examples/inverse_rendering.py's loop on the card, Adam at
+    0.05 on a scrambled albedo (numpy seed 123), a fresh frame_seed a step."""
+    cfg = T.RenderConfig(width=96, height=72, spp=4, max_depth=6, backend="cuda")
+    scene = T.base_scene(device=dev)
+    settings = T.CameraSettings.make(**INVERSE_CAMERA, device=dev)
+    with torch.no_grad():
+        target = T.render(scene, settings, cfg, frame_seed=0)
+    rng = np.random.default_rng(123)
+    albedo = torch.tensor(rng.random(tuple(scene.albedo.shape), dtype=np.float32), device=dev,
+                          requires_grad=True)
+    opt = torch.optim.Adam([albedo], lr=0.05)
+    err0 = float((albedo.detach() - scene.albedo).abs().max())
+    torch.cuda.reset_peak_memory_stats()
+    mk.LAUNCHES.clear()
+    losses, fwd, bwd = [], [], []
+    for i in range(steps):
+        opt.zero_grad()
+        loss, f_ms, b_ms = inverse_step(T, scene, settings, cfg, albedo, target, 1 + i)
+        opt.step()
+        with torch.no_grad():
+            albedo.clamp_(0.0, 1.0)
+        losses.append(loss)
+        fwd.append(f_ms)
+        bwd.append(b_ms)
+    return dict(size=[96, 72], spp=4, max_depth=6, steps=steps, lr=0.05,
+                launches=dict(mk.LAUNCHES), loss_first=losses[0], loss_last=losses[-1],
+                losses=losses, albedo_err_first=err0,
+                albedo_err_last=float((albedo.detach() - scene.albedo).abs().max()),
+                forward_ms_median=float(np.median(fwd)),
+                backward_ms_median=float(np.median(bwd)),
+                step_ms_median=float(np.median(np.add(fwd, bwd))),
+                max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+
+
+def main_frame_grad(T, mk, dev, seed: int = 7, eps: float = 1e-3) -> dict:
+    """Phase 27, second part: d mean(image)/d spheres.albedo of One-Weekend
+    at 1280x720, 1 spp, depth 30 through backend='cuda', against central
+    differences of render_reference on the same stream at the three entries
+    of largest gradient (perturbing albedo moves no hit decision).  The
+    perturbation is the f32 difference of the two albedos."""
+    from gpu_ray_tracing_tpu_torch.ops import autograd as ag
+
+    w, h = 1280, 720
+    cfg = T.RenderConfig(width=w, height=h, spp=1, max_depth=30, backend="cuda")
+    scene = T.one_weekend_scene(0, device=dev)
+    settings = T.CameraSettings.default(device=dev)
+    albedo = scene.albedo.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    mk.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    img = T.render(dataclasses.replace(scene, albedo=albedo), settings, cfg, frame_seed=seed)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    img.mean().backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(mk.LAUNCHES)
+    g = albedo.grad
+    block = ag.replay_block(w * h, T.as_scene(scene), cfg, dev)
+    cam = T.derive_camera(settings, w, h)
+
+    def loss(a):
+        with torch.no_grad():
+            return float(mk.render_reference(
+                dataclasses.replace(scene, albedo=a), cam, width=w, height=h, spp=1,
+                max_depth=30, t_min=cfg.t_min, frame_seed=seed,
+                light_pick="lane").double().mean())
+
+    checks = []
+    for flat in torch.argsort(g.abs().flatten(), descending=True)[:3].tolist():
+        i, c = divmod(flat, 3)
+        hi, lo = scene.albedo.clone(), scene.albedo.clone()
+        hi[i, c] += eps
+        lo[i, c] -= eps
+        fd = (loss(hi) - loss(lo)) / float(hi[i, c] - lo[i, c])
+        checks.append(dict(sphere=i, channel=c, grad=float(g[i, c]), fd=fd,
+                           rel_err=abs(float(g[i, c]) - fd) / abs(fd)))
+    return dict(size=[w, h], spp=1, max_depth=30, spheres=scene.count,
+                forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
+                replay_block_pixels=block, replay_blocks=-(-w * h // block) * cfg.spp,
+                peak_memory_bytes=peak, memory_before_bytes=base_mem, launches=launches,
+                finite=bool(torch.isfinite(g).all()), nonzero=int((g != 0).sum()),
+                fd_eps=eps, fd=checks)
+
+
+def time_denoised(T, mk, repeats: int) -> dict:
+    """render_denoised at the main frame (One-Weekend, 1280x720, 16 spp,
+    depth 30, 4 iterations, backend='cuda'): one warm-up, then the mean ms
+    of `repeats` frames (CUDA events), the launches of one frame, and the
+    last frame with its passes."""
+    cfg = T.RenderConfig(width=1280, height=720, spp=16, max_depth=30, backend="cuda")
+    scene, settings = T.one_weekend_scene(0), T.CameraSettings.default()
+    run = lambda: T.render_denoised(scene, settings, cfg, frame_seed=7, return_aovs=True)
+    run()
+    mk.LAUNCHES.clear()
+    run()
+    launches = dict(mk.LAUNCHES)
+    ms, out = cuda_ms(run, repeats)
+    return dict(ms=ms, launches=launches, out=out, cfg=cfg, scene=scene, settings=settings)
+
+
+def time_inverse_step(T, dev, repeats: int) -> dict:
+    """One inverse-rendering step at phase 27's settings (forward through
+    the kernel, backward through the replay): medians over `repeats`
+    steps after one warm-up."""
+    cfg = T.RenderConfig(width=96, height=72, spp=4, max_depth=6, backend="cuda")
+    scene = T.base_scene(device=dev)
+    settings = T.CameraSettings.make(**INVERSE_CAMERA, device=dev)
+    with torch.no_grad():
+        target = T.render(scene, settings, cfg, frame_seed=0)
+    albedo = torch.full_like(scene.albedo, 0.5).requires_grad_(True)
+    steps = [inverse_step(T, scene, settings, cfg, albedo, target, 1 + i)
+             for i in range(repeats + 1)][1:]
+    return dict(forward_ms=float(np.median([s[1] for s in steps])),
+                backward_ms=float(np.median([s[2] for s in steps])))
+
+
+def filter_device(fn) -> dict:
+    """Device ms and CUDA kernel launches of one call of fn
+    (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    return dict(device_ms=sum(ev.time_range.elapsed_us() for ev in evs) / 1e3,
+                cuda_kernels=len(evs))
+
+
+def phase_grad(T, mk, dev, smi: str) -> None:
+    """Phase 26, grad_vs_plain: gradients through the kernels
+    (ops/autograd.KernelFrame) against autograd through the plain version
+    on the card, per leaf."""
+    grad_rows = grad_vs_plain(T, mk, dev)
+    emit({"phase": "grad_vs_plain", "cases": grad_rows, "bound": [1e-5, 1e-7], "card": smi})
+    for r in grad_rows:
+        name26 = f"{r['case']} {r['backend']} regenerate={r['regenerate']}"
+        bad = [k for k, v in r["leaves"].items() if not v["ok"]]
+        gate("grad_vs_plain", not bad, f"{name26}: leaves off the bound: {bad}")
+        gate("grad_vs_plain", r["forward_equal"],
+             f"{name26}: the forward differs from the frame without gradients")
+        gate("grad_vs_plain", r["albedo_scale"] > 0
+             and (r["case"] != "tri_light_nee_mis" or (r["tri_emission_scale"] or 0.0) > 0),
+             f"{name26}: a zero albedo or tri-light emission gradient")
+        # The megakernel once a frame; the wavefront bounce kernel once a
+        # bounce of an iteration.
+        key = "megakernel:" if r["backend"] == "cuda" else "wavefront:"
+        n = sum(v for k, v in r["forward_launches"].items() if k.startswith(key))
+        gate("grad_vs_plain", n == 1 if r["backend"] == "cuda" else n >= 1,
+             f"{name26}: the forward's {key} launches: {r['forward_launches']}")
+        gate("grad_vs_plain", not r["backward_launches"],
+             f"{name26}: the backward launched a kernel: {r['backward_launches']}")
+
+
+def phase_inverse(T, mk, dev, smi: str) -> None:
+    """Phase 27, inverse_path: the inverse-rendering loop on the card, then
+    one albedo gradient at the main frame's size against finite
+    differences."""
+    inv = inverse_path(T, mk, dev)
+    emit({"phase": "inverse_path", **inv, "card": smi})
+    gate("inverse_path", inv["loss_last"] < inv["loss_first"],
+         f"the loss did not fall: {inv['loss_first']} -> {inv['loss_last']}")
+    gate("inverse_path", inv["albedo_err_last"] < inv["albedo_err_first"],
+         f"the albedo error did not fall: {inv['albedo_err_first']} -> "
+         f"{inv['albedo_err_last']}")
+    gate("inverse_path", inv["launches"] == {"megakernel:brute": 20},
+         f"expected 20 brute megakernel launches, counted {inv['launches']}")
+    mg = main_frame_grad(T, mk, dev)
+    emit({"phase": "inverse_path", "main_frame_gradient": mg, "card": smi})
+    gate("inverse_path", mg["finite"] and mg["nonzero"] > 0,
+         f"main-frame gradient finite {mg['finite']}, nonzero entries {mg['nonzero']}")
+    gate("inverse_path", all(c["rel_err"] < 1e-3 for c in mg["fd"]),
+         f"main-frame gradient vs finite differences: {mg['fd']}")
+    gate("inverse_path", mg["launches"] == {"megakernel:brute": 1},
+         f"expected 1 brute megakernel launch, counted {mg['launches']}")
+
+
+def phase_denoise(T, mk, dev, smi: str) -> None:
+    """Phase 28, denoise_path: render_denoised at the main frame timed
+    whole and by part (beauty, the three guide passes through
+    render_aov_kernel, the filter); the filter on the card against the
+    filter on the CPU, each guide pass against its plain version, the
+    denoised frame against a 256-spp render, and one backward."""
+    den = time_denoised(T, mk, 5)
+    out, beauty, aovs = den["out"]
+    cfg28, scene28 = den["cfg"], T.as_scene(den["scene"]).to(dev)
+    cam28 = T.derive_camera(den["settings"], 1280, 720).to(dev)
+    beauty_ms, _ = cuda_ms(lambda: T.render(den["scene"], den["settings"], cfg28,
+                                            frame_seed=7), 5)
+    kw28 = dict(width=1280, height=720, spp=16, max_depth=30, t_min=cfg28.t_min, frame_seed=7)
+    guides = {}
+    for mode in ("albedo", "normal", "depth"):
+        mk.LAUNCHES.clear()
+        k_img = mk.render_cuda(scene28, cam28, mode=mode, **kw28)
+        key = list(mk.LAUNCHES)
+        p_ms, p_img = cuda_ms(lambda: mk.render_reference(scene28, cam28, mode=mode, **kw28), 1)
+        m = T.images_match(k_img, p_img, 0.01, 2e-4)
+        guides[mode] = dict(kernel_ms=kernel_ms(mk, scene28, cam28, dict(kw28, mode=mode), 5),
+                            launch_key=key, plain_ms=p_ms, flip_frac=m.flip_frac,
+                            mean_abs=m.mean_abs, max_abs=m.max_abs, ok=m.ok,
+                            equal_to_render_denoised_pass=bool(torch.equal(k_img, aovs[mode])),
+                            **bound(T, mk, scene28, 1280.0 * 720 * 16, 3 * 4 * 1280 * 720))
+    planes = dict(albedo=aovs["albedo"], normal=T.decode_normal_aov(aovs["normal"]),
+                  depth=aovs["depth"][..., 0])
+    filt = lambda: T.atrous_denoise(beauty, **planes)
+    filter_ms, card_out = cuda_ms(filt, 5)
+    filt_prof = filter_device(filt)
+    t0 = time.perf_counter()
+    cpu_out = T.atrous_denoise(beauty.cpu(), **{k: v.cpu() for k, v in planes.items()})
+    cpu_s = time.perf_counter() - t0
+    filt_match = torch.allclose(card_out.cpu(), cpu_out, rtol=1e-5, atol=1e-7)
+    filt_diff = (card_out.cpu() - cpu_out).abs()
+    with torch.no_grad():
+        ref256 = T.render(den["scene"], den["settings"], dataclasses.replace(cfg28, spp=256),
+                          frame_seed=7)
+    mse_beauty = float(((beauty - ref256) ** 2).mean())
+    mse_out = float(((out - ref256) ** 2).mean())
+    albedo28 = scene28.spheres.albedo.clone().requires_grad_(True)
+    grad_scene = dataclasses.replace(scene28, spheres=dataclasses.replace(scene28.spheres,
+                                                                          albedo=albedo28))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mk.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    T.render_denoised(grad_scene, den["settings"], cfg28, frame_seed=7).mean().backward()
+    torch.cuda.synchronize()
+    den_bwd = dict(ms=(time.perf_counter() - t0) * 1e3, launches=dict(mk.LAUNCHES),
+                   finite=bool(torch.isfinite(albedo28.grad).all()),
+                   nonzero=int((albedo28.grad != 0).sum()),
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+    emit({"phase": "denoise_path", "size": [1280, 720], "spp": 16, "max_depth": 30,
+          "iterations": 4, "ms_per_frame": den["ms"], "launches": den["launches"],
+          "beauty_ms": beauty_ms, "guides": guides, "filter_ms": filter_ms,
+          "filter_device": filt_prof, "filter_cpu_s": cpu_s,
+          "filter_card_vs_cpu_max_abs": float(filt_diff.max()),
+          "filter_card_vs_cpu_max_rel": float((filt_diff / cpu_out.abs().clamp(min=1e-6)).max()),
+          "filter_card_vs_cpu_ok": filt_match, "mse_beauty_vs_256spp": mse_beauty,
+          "mse_denoised_vs_256spp": mse_out, "backward": den_bwd, "card": smi})
+    gate("denoise_path", filt_match, f"the filter on the card differs from the CPU's: "
+         f"max |diff| {float(filt_diff.max())}")
+    for mode, g in guides.items():
+        gate("denoise_path", g["ok"], f"{mode} pass vs plain: {g}")
+        gate("denoise_path", g["launch_key"] == ["megakernel:brute"],
+             f"{mode} pass launched {g['launch_key']}")
+    gate("denoise_path", den["launches"] == {"megakernel:brute": 4},
+         f"expected 4 brute megakernel launches a frame, counted {den['launches']}")
+    gate("denoise_path", mse_out < mse_beauty,
+         f"denoised MSE {mse_out} not below the 16-spp beauty's {mse_beauty}")
+    gate("denoise_path", den_bwd["finite"] and den_bwd["nonzero"] > 0,
+         f"render_denoised backward: {den_bwd}")
+
+
 def render_kw(cfg, seed: int) -> dict:
     """render_cuda/render_reference keywords of a RenderConfig frame."""
     return dict(width=cfg.width, height=cfg.height, spp=cfg.spp, max_depth=cfg.max_depth,
@@ -882,7 +1276,10 @@ def main() -> int:
     if args.main_path_only:
         ms, img, launches = time_main_path(T, mk, 20)
         arrays = {} if args.save_frame else None
+        den = time_denoised(T, mk, 3)
         emit({"phase": "main_path_only", "repo": REPO, "ms_per_frame": ms, "repeats": 20,
+              "denoised_ms": den["ms"], "denoised_repeats": 3,
+              "inverse_step": time_inverse_step(T, dev, 5), "inverse_repeats": 5,
               **time_main_kernel(T, mk, 10), "kernel_repeats": 10,
               "routes_kernel_ms": time_routes(T, mk, 10),
               "adaptive_kernel": time_adaptive(T, mk, 5, arrays), "adaptive_repeats": 5,
@@ -1760,6 +2157,12 @@ def main() -> int:
         gate("adaptive_schedule", r["ok"], f"{r['case']}: {r}")
         gate("adaptive_schedule", any(k.endswith("+adaptive+rays") for k in r["launches"]),
              f"{r['case']}: no adaptive launch counted: {r['launches']}")
+    # 26-28. gradients through the kernels, the inverse-rendering loop and
+    # the denoised main frame
+    phase_grad(T, mk, dev, smi)
+    phase_inverse(T, mk, dev, smi)
+    phase_denoise(T, mk, dev, smi)
+
     ad_alone = time_adaptive(T, mk, 5)
 
     def rays_of(sc, cam, kw):

@@ -4,7 +4,9 @@ The port renders the hash-stream path tracer on sphere scenes (brute scan
 or sphere BVH) and triangle meshes behind a BVH, lit by the sky or by
 sphere and triangle lights (next-event estimation with MIS), under the
 independent, stratified or Sobol sampler, in one shot, progressively, or
-adaptively per tile, with a hand-written sm_90a megakernel (backend='cuda',
+adaptively per tile, differentiably (render() on every backend) and
+through the AOV-guided a-trous denoiser (render_denoised), with a
+hand-written sm_90a megakernel (backend='cuda',
 the default), the wavefront engine's sm_90a kernels (backend='wavefront',
 one launch per bounce over compacted rays, with ray regeneration) or their
 plain PyTorch versions (backend='torch', 'wavefront_torch').  It imports
@@ -22,6 +24,7 @@ from gpu_ray_tracing_tpu_torch.api import (
     progressive_step,
     render,
     render_animation,
+    render_denoised,
     render_progressive,
     stack_camera_track,
 )
@@ -79,6 +82,7 @@ from gpu_ray_tracing_tpu_torch.ops.accumulate import (
     init_accum,
     init_adaptive_accum,
 )
+from gpu_ray_tracing_tpu_torch.ops.autograd import render_vjp
 from gpu_ray_tracing_tpu_torch.ops.bvh import (
     BVH,
     build_bvh,
@@ -87,6 +91,7 @@ from gpu_ray_tracing_tpu_torch.ops.bvh import (
     validate_bvh,
 )
 from gpu_ray_tracing_tpu_torch.ops.cuda.megakernel import render_cuda, render_reference
+from gpu_ray_tracing_tpu_torch.ops.denoise import atrous_denoise, decode_normal_aov
 from gpu_ray_tracing_tpu_torch.ops.cuda.wavefront import (
     render_wavefront,
     render_wavefront_reference,
@@ -104,15 +109,15 @@ __all__ = [
     "AccumState", "AdaptiveAccumState", "BVH", "Camera", "CameraSettings", "DIELECTRIC",
     "EMISSIVE", "LAMBERTIAN", "Lights", "METAL", "REFERENCE_CONFIG", "RenderConfig", "SPHERE_BVH_THRESHOLD",
     "Scene", "Spheres", "TriLights", "TriangleMesh", "adaptive_progressive_step",
-    "as_scene", "base_scene", "box", "build_bvh", "build_mesh_bvh", "build_sphere_bvh",
+    "as_scene", "atrous_denoise", "base_scene", "box", "build_bvh", "build_mesh_bvh", "build_sphere_bvh",
     "bunny_stand_in", "checkpoint_path", "cornell_box_scene", "cornell_camera",
-    "count_traced_rays", "derive_camera", "dolly", "elevate", "extract_lights",
+    "count_traced_rays", "decode_normal_aov", "derive_camera", "dolly", "elevate", "extract_lights",
     "extract_tri_lights", "fold_sample", "from_reference", "icosphere", "images_match",
     "init_accum", "init_adaptive_accum", "load_accum", "load_obj", "make_mesh",
     "make_scene", "make_spheres", "merge_meshes", "one_weekend_scene", "orbit_pitch",
-    "orbit_yaw", "progressive_step", "render", "render_animation", "render_cuda",
+    "orbit_yaw", "progressive_step", "render", "render_animation", "render_cuda", "render_denoised",
     "render_fingerprint", "render_progressive", "render_reference", "render_wavefront",
-    "render_wavefront_reference", "save_accum",
+    "render_vjp", "render_wavefront_reference", "save_accum",
     "stack_camera_track", "strafe", "torus", "transform_mesh", "trefoil",
     "tri_light_id_per_face", "validate_bvh", "validate_camera", "zoom",
 ]

@@ -6,6 +6,7 @@
   render_animation(scene, settings_track, config) a camera fly-through
   adaptive_progressive_step(state, ...)           adaptive accumulation
   count_traced_rays(scene, camera, config)        the rays a render traces
+  render_denoised(scene, camera, config)          a frame through the a-trous filter
 
 Every entry point renders a Spheres or a Scene (spheres, sphere BVH, mesh
 with its BVH, sphere and triangle lights) on the counter-based hash stream,
@@ -14,9 +15,13 @@ with config.nee/mis and config.sampler, through the config's backend:
   backend='cuda'   the default: the hand-written megakernel (render_cuda),
                    the counterpart of 'pallas'.  It needs a CUDA device and
                    raises without one; a scene on the CPU is moved to the
-                   current CUDA device.  It has no backward, so inputs that
-                   require grad raise.  adaptive_tol > 0 runs its adaptive
-                   spp loop.
+                   current CUDA device.  adaptive_tol > 0 runs its adaptive
+                   spp loop.  render() is differentiable on it: when
+                   autograd records and a tensor of the scene or camera
+                   requires grad, the frame goes through
+                   ops/autograd.KernelFrame, whose forward is the kernel
+                   and whose backward replays 'torch' on the same stream
+                   (JAX's custom VJP); otherwise straight to the kernel.
   backend='wavefront'  the wavefront engine on the card (render_wavefront:
                    one kernel launch per bounce over compacted rays), the
                    counterpart of JAX's 'wavefront'.  It needs a CUDA device
@@ -25,7 +30,7 @@ with config.nee/mis and config.sampler, through the config's backend:
                    config.regenerate ('on', or 'auto' when more than one
                    sample is traced) keeps one persistent ray pool across
                    the samples.  With regeneration off its image equals
-                   'cuda''s bit for bit.
+                   'cuda''s bit for bit.  Differentiable as 'cuda' is.
   backend='torch'  the plain PyTorch integrator (render_reference with
                    light_pick='lane'), on the device the scene lies on; the
                    counterpart of 'jax'.
@@ -47,12 +52,14 @@ import torch
 
 from gpu_ray_tracing_tpu_torch.models.camera import Camera, CameraSettings, derive_camera
 from gpu_ray_tracing_tpu_torch.models.scene import as_scene
+from gpu_ray_tracing_tpu_torch.ops import denoise as denoise_ops
 from gpu_ray_tracing_tpu_torch.ops.accumulate import (
     AccumState,
     AdaptiveAccumState,
     fold_sample,
     init_accum,
 )
+from gpu_ray_tracing_tpu_torch.ops.autograd import kernel_frame, needs_grad
 from gpu_ray_tracing_tpu_torch.ops.cuda.megakernel import render_cuda, render_reference
 from gpu_ray_tracing_tpu_torch.ops.cuda.wavefront import (
     render_wavefront,
@@ -133,9 +140,28 @@ def render(scene, camera: Camera | CameraSettings, config: RenderConfig, *,
            frame_seed=0) -> torch.Tensor:
     """Render one frame at config.spp samples per pixel (a per-tile budget
     when config.adaptive_tol > 0); returns linear-RGB f32 of shape
-    (height, width, 3)."""
-    return _render(scene, _camera(camera, config), config, frame_seed=_seed(frame_seed),
-                   spp=config.spp, adaptive=True)
+    (height, width, 3).  Differentiable on every backend: on 'cuda' and
+    'wavefront' through KernelFrame (module docstring), the camera derived
+    outside it so that gradients reach the CameraSettings."""
+    camera = _camera(camera, config)
+    seed = _seed(frame_seed)
+
+    def run(sc, cam):
+        return _render(sc, cam, config, frame_seed=seed, spp=config.spp, adaptive=True)
+
+    if config.backend in ("cuda", "wavefront") and needs_grad(as_scene(scene), camera):
+        return kernel_frame(run, scene, camera, config, seed)
+    return run(scene, camera)
+
+
+def _refuse_grad(entry: str, scene, camera, config: RenderConfig) -> None:
+    """The progressive entry points of the kernel backends have no
+    backward (the JAX package's have none either)."""
+    if config.backend in ("cuda", "wavefront") and needs_grad(as_scene(scene), camera):
+        raise RuntimeError(
+            f"{entry} has no backward on backend={config.backend!r}; differentiate "
+            "through render(), whose backward replays the plain integrator"
+        )
 
 
 def progressive_step(state: AccumState, scene, camera: Camera | CameraSettings,
@@ -148,6 +174,7 @@ def progressive_step(state: AccumState, scene, camera: Camera | CameraSettings,
     accumulated, and a frozen state renders nothing."""
     if spp_per_step < 1:
         raise ValueError(f"spp_per_step must be >= 1, got {spp_per_step}")
+    _refuse_grad("progressive_step", scene, camera, config)
     if config.adaptive_tol > 0.0:
         # The fold weights each batch by its exact sample count; adaptive
         # tiles take data-dependent counts the fold cannot see.
@@ -231,6 +258,7 @@ def adaptive_progressive_step(state: AdaptiveAccumState, scene,
         raise ValueError("adaptive sampling applies to the path integrator")
     if spp_per_step < 1:
         raise ValueError(f"spp_per_step must be >= 1, got {spp_per_step}")
+    _refuse_grad("adaptive_progressive_step", scene, camera, config)
     outs = _render(
         scene, _camera(camera, config), config, frame_seed=_seed(frame_seed),
         spp=config.spp, adaptive=True, adaptive_chunk=spp_per_step,
@@ -275,3 +303,44 @@ def count_traced_rays(scene, camera: Camera | CameraSettings, config: RenderConf
     if return_map:
         result["map"] = ray_map
     return result
+
+
+def render_denoised(scene, camera: Camera | CameraSettings, config: RenderConfig, *,
+                    frame_seed=0, iterations: int = 4, sigma_color: float = 0.45,
+                    sigma_normal: float = 64.0, sigma_depth: float = 2.0,
+                    return_aovs: bool = False):
+    """Render one frame and denoise it with the AOV-guided a-trous filter
+    (the JAX package's render_denoised, api.py:707-776, without its
+    threefry `key`).
+
+    Renders the beauty pass with `config` as it is, then three first-hit
+    guide passes (albedo, normal and depth AOVs, with the same sampler and
+    spp so that guide edges match beauty edges; on 'cuda' and 'wavefront'
+    they run render_aov_kernel), and runs ops/denoise.atrous_denoise with
+    albedo demodulation.  Returns the denoised (H, W, 3) image, or
+    (denoised, beauty, {"albedo", "normal", "depth"}) with return_aovs.
+    Differentiable end to end: every pass goes through render(), and the
+    filter is plain arithmetic."""
+    if config.integrator != "path":
+        raise ValueError(
+            "render_denoised denoises the path integrator's beauty pass; "
+            f"got integrator={config.integrator!r}"
+        )
+    camera = _camera(camera, config)
+    beauty = render(scene, camera, config, frame_seed=frame_seed)
+
+    def guide(integrator: str) -> torch.Tensor:
+        # Every path-only knob the AOV integrators reject or ignore dropped.
+        cfg = dataclasses.replace(config, integrator=integrator, nee=False, mis=False,
+                                  clamp=0.0, adaptive_tol=0.0, regenerate="off")
+        return render(scene, camera, cfg, frame_seed=frame_seed)
+
+    albedo, normal_aov, depth = guide("albedo"), guide("normal"), guide("depth")
+    out = denoise_ops.atrous_denoise(
+        beauty, albedo=albedo, normal=denoise_ops.decode_normal_aov(normal_aov),
+        depth=depth[..., 0], iterations=iterations, sigma_color=sigma_color,
+        sigma_normal=sigma_normal, sigma_depth=sigma_depth,
+    )
+    if return_aovs:
+        return out, beauty, {"albedo": albedo, "normal": normal_aov, "depth": depth}
+    return out

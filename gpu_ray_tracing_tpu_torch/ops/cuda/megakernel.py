@@ -331,6 +331,35 @@ def _adaptive_loop_reference(sample, width: int, height: int, plan: _AdaptivePla
     st[3] = k[tile].to(torch.float32)
 
 
+def trace_pixels(sc: Scene, camera: Camera, ids: torch.Tensor, sample: int, frame_seed: int,
+                 *, width: int, max_depth: int, t_min: float, t_max: float, mode: str,
+                 russian_roulette_depth: int, sky_intensity: float, clamp: float, nee: bool,
+                 mis: bool, sampler_spec: tuple | None, light_pick: str,
+                 count_rays: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Hash-stream sample `sample` (u32) of the global pixel ids `ids` (1-D)
+    of a `width`-wide frame, traced by the plain integrator of `mode`:
+    ((n, 3) rgb after the clamp, (n,) rays traced or None).  Each pixel is
+    independent of the others, so any partition of the ids gives the same
+    values; render_reference traces blocks of them, and the autograd
+    replay (ops/autograd.py) blocks of its own."""
+    o, d, seeds = generate_rays_for_ids(camera, ids, sample, frame_seed,
+                                        total_width=width, sampler_spec=sampler_spec)
+    aov = {"normal": integrators.shade_normals, "albedo": integrators.shade_albedo,
+           "depth": integrators.shade_depth}.get(mode)
+    if aov is not None:
+        rays = torch.ones(ids.numel(), dtype=torch.float32, device=ids.device)
+        return aov(o, d, sc, t_min, t_max), rays if count_rays else None
+    out = integrators.trace_path(
+        o, d, sc, max_depth, t_min, t_max, pixel_seeds=seeds,
+        russian_roulette_depth=russian_roulette_depth, sky_intensity=sky_intensity,
+        nee=nee, mis=mis, pixel_ids=ids, sample_index=sample,
+        frame_seed_u32=int(frame_seed) & 0xFFFFFFFF, sampler_spec=sampler_spec,
+        light_pick=light_pick, count_rays=count_rays,
+    )
+    img, rays = out if count_rays else (out, None)
+    return (integrators.clamp_radiance(img, clamp) if clamp > 0.0 else img), rays
+
+
 def render_reference(
     scene_or_spheres,
     camera: Camera,
@@ -378,37 +407,23 @@ def render_reference(
     block = _trace_block(p, sc)
     pid = hash_pixel_ids(width, height, y_offset=y_offset, total_width=width,
                          row_stride=row_stride, device=dev).reshape(p)
-    aov = {"normal": integrators.shade_normals, "albedo": integrators.shade_albedo,
-           "depth": integrators.shade_depth}.get(mode)
+    kw = dict(width=width, max_depth=max_depth, t_min=t_min, t_max=t_max, mode=mode,
+              russian_roulette_depth=russian_roulette_depth, sky_intensity=sky_intensity,
+              clamp=clamp, nee=nee, mis=mis, sampler_spec=sampler_spec,
+              light_pick=light_pick, count_rays=return_ray_count)
 
     def sample(idx, s: int):
         """Sample s of the local pixels idx (all when None): (rgb, rays)."""
         s_u32 = (int(sample_index) + s) & 0xFFFFFFFF
         ids = pid if idx is None else pid[idx]
-        o, d, seeds = generate_rays_for_ids(camera, ids, s_u32, frame_seed,
-                                            total_width=width, sampler_spec=sampler_spec)
         n = ids.numel()
         rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
-        rays = torch.ones(n, dtype=torch.float32, device=dev) if return_ray_count else None
+        rays = torch.empty(n, dtype=torch.float32, device=dev) if return_ray_count else None
         for start in range(0, n, block):
             sl = slice(start, start + block)
-            if aov is not None:
-                rgb[sl] = aov(o[sl], d[sl], sc, t_min, t_max)
-                continue
-            out = integrators.trace_path(
-                o[sl], d[sl], sc, max_depth, t_min, t_max,
-                pixel_seeds=seeds[sl],
-                russian_roulette_depth=russian_roulette_depth,
-                sky_intensity=sky_intensity, nee=nee, mis=mis,
-                pixel_ids=ids[sl], sample_index=s_u32,
-                frame_seed_u32=int(frame_seed) & 0xFFFFFFFF,
-                sampler_spec=sampler_spec, light_pick=light_pick,
-                count_rays=return_ray_count,
-            )
-            img = out[0] if return_ray_count else out
-            if return_ray_count:
-                rays[sl] = out[1]
-            rgb[sl] = integrators.clamp_radiance(img, clamp) if clamp > 0.0 else img
+            rgb[sl], r = trace_pixels(sc, camera, ids[sl], s_u32, frame_seed, **kw)
+            if r is not None:
+                rays[sl] = r
         return rgb, rays
 
     rays = torch.zeros(p, dtype=torch.float32, device=dev) if return_ray_count else None
@@ -497,8 +512,9 @@ def _require_cuda(*tensors: torch.Tensor) -> torch.device:
             )
         if t.requires_grad:
             raise RuntimeError(
-                "the CUDA megakernel has no backward; render with "
-                "backend='torch' to differentiate (ROADMAP Queue 1 item 11)"
+                "the CUDA kernels take no tensor that requires grad: "
+                "differentiate through render(), whose backward replays the "
+                "plain integrator (ops/autograd.py)"
             )
     return dev
 

@@ -338,13 +338,15 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
 
     def shadow_visible(ok, pnt, omega, window):
         """Lanes of `ok` with no hit in (t_min, window): the any-hit query,
-        driven only by lanes whose sample is otherwise valid."""
+        driven only by lanes whose sample is otherwise valid.  A decision,
+        so it runs without autograd: its (P, N) planes are never kept."""
         vis = torch.zeros_like(ok)
         idx = torch.nonzero(ok.reshape(-1)).squeeze(1)
         if idx.numel():
-            t = nearest_t_scene(pnt.reshape(-1, 3)[idx], omega.reshape(-1, 3)[idx],
-                                sc, t_min, t_max)
-            vis.reshape(-1)[idx] = t >= window.reshape(-1)[idx]
+            with torch.no_grad():
+                t = nearest_t_scene(pnt.reshape(-1, 3)[idx], omega.reshape(-1, 3)[idx],
+                                    sc, t_min, t_max)
+                vis.reshape(-1)[idx] = t >= window.reshape(-1)[idx]
         return vis
 
     def remapped(u1, u2, rot_salt):

@@ -32,28 +32,28 @@ class Hit:
     front_face: torch.Tensor  # (...,) bool
 
 
-def _sphere_roots(o, d, spheres: Spheres, t_min: float, t_max: float):
-    """All-spheres quadratic for flat rays (P, 3): returns ((P, N) root,
-    (P, N) valid) with the reference's near-then-far root pick.
+def _roots(o, d, c, r, t_min: float, t_max: float):
+    """The reference's near-then-far root pick for rays o, d (P, 1, 3)
+    against spheres c (..., 3), r (...) that broadcast with them: every
+    sphere ((N, 3), (N,): (P, N) planes) or one sphere a ray ((P, 1, 3),
+    (P, 1)).  Returns (root, valid).  Each element is the same arithmetic
+    either way, so a ray's root against its own sphere equals that
+    sphere's entry of the planes bit for bit.
 
     Its inner products and discriminant round as fused multiply-adds, as
     XLA:CPU rounds them (see ops/rounding.py): a ray leaving a surface
     starts with |o - c|^2 - r^2 near 0, where the last bit decides whether
     it hits its own sphere again.
     """
-    c = spheres.centers
-    r = spheres.radii
-    active = r > 0.0
-
-    dc = dot3(d[:, None, :], c[None])  # (P, N) d . c
-    oc_dot_c = dot3(o[:, None, :], c[None])  # (P, N) o . c
-    od = dot3(o, d)[:, None]
-    oo = dot3(o, o)[:, None]
-    a = dot3(d, d)[:, None]
+    dc = dot3(d, c)  # d . c
+    oc_dot_c = dot3(o, c)  # o . c
+    od = dot3(o, d)
+    oo = dot3(o, o)
+    a = dot3(d, d)
     c2 = dot3(c, c)
 
     h = dc - od  # dot(center - origin, d)   (wgsl:185)
-    cc = (c2 - r * r)[None, :] - 2.0 * oc_dot_c + oo  # |oc|^2 - r^2 (wgsl:186)
+    cc = (c2 - r * r) - 2.0 * oc_dot_c + oo  # |oc|^2 - r^2 (wgsl:186)
     disc = fma(h, h, -(a * cc))  # h^2 - a*cc (wgsl:187)
 
     disc_pos = disc > 0.0
@@ -67,8 +67,14 @@ def _sphere_roots(o, d, spheres: Spheres, t_min: float, t_max: float):
     near_ok = (root_near > t_min) & (root_near < t_max)
     far_ok = (root_far > t_min) & (root_far < t_max)
     root = torch.where(near_ok, root_near, root_far)
-    valid = (disc >= 0.0) & (near_ok | far_ok) & active[None, :]
+    valid = (disc >= 0.0) & (near_ok | far_ok) & (r > 0.0)
     return root, valid
+
+
+def _sphere_roots(o, d, spheres: Spheres, t_min: float, t_max: float):
+    """All-spheres quadratic for flat rays (P, 3): ((P, N) root, (P, N)
+    valid); inactive pad spheres (radius <= 0) are never valid."""
+    return _roots(o[:, None, :], d[:, None, :], spheres.centers, spheres.radii, t_min, t_max)
 
 
 def intersect_spheres(
@@ -79,19 +85,32 @@ def intersect_spheres(
     t_max: float,
 ) -> Hit:
     """Closest sphere hit for a batch of rays (..., 3); inactive pad
-    spheres (radius <= 0) never hit."""
+    spheres (radius <= 0) never hit.
+
+    Gradients are straight-through, as intersect_bvh's: the (P, N) scan
+    runs without autograd and fixes the winning sphere, then the winner's
+    root is recomputed differentiably from its own center and radius (the
+    same value: `_roots`).  That is the gradient of the scan's minimum,
+    and the graph autograd keeps is O(P), not O(P N).
+    """
     batch_shape = origins.shape[:-1]
     o = origins.reshape(-1, 3)
     d = dirs.reshape(-1, 3)
 
-    root, valid = _sphere_roots(o, d, spheres, t_min, t_max)
-    t_cand = torch.where(valid, root, torch.inf)
-    t_best, idx = torch.min(t_cand, dim=-1)
+    with torch.no_grad():
+        root, valid = _sphere_roots(o, d, spheres, t_min, t_max)
+        t_cand = torch.where(valid, root, torch.inf)
+        t_best, idx = torch.min(t_cand, dim=-1)
     hit = torch.isfinite(t_best)
-    t_best = torch.where(hit, t_best, t_max)
 
     center_best = spheres.centers[idx]
     radius_best = spheres.radii[idx]
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (o, d, center_best, radius_best)):
+        t_best, _ = _roots(o[:, None, :], d[:, None, :], center_best[:, None, :],
+                           radius_best[:, None], t_min, t_max)
+        t_best = t_best[:, 0]
+    t_best = torch.where(hit, t_best, t_max)
     # Misses keep t = t_max in the record but must not build a ~1e35 point.
     t_point = torch.where(hit, t_best, 0.0)
     # o + t d rounded once, as XLA:CPU fuses it: the point decides whether

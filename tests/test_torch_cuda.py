@@ -164,7 +164,7 @@ def test_refuses_cpu_tensors_and_grad(dev):
     scene = T.base_scene(device=dev)
     scene = T.Spheres(scene.centers.clone().requires_grad_(True), scene.radii,
                       scene.albedo, scene.mat_kind, scene.mat_param)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="differentiate through render"):
         mk.render_cuda(scene, cam.to(dev), **kw)
 
 
@@ -730,3 +730,55 @@ def test_slab_kernel_tails_and_unaligned_arrays(dev, dtype, compare):
             got = roofline.slab_dtype(x, 32, dtype, compare)
             assert torch.equal(got, roofline.slab_dtype_reference(x, 32, dtype, compare)), (
                 n, offset)
+
+
+# --- gradients through the kernels (ops/autograd.KernelFrame) -----------------
+
+
+def _tri_light_scene(dev, grad: bool):
+    """tests/test_gradients.py's tri-light NEE+MIS scene on the card; with
+    `grad`, its sphere albedo and triangle-light emission as leaves."""
+    spheres = T.make_spheres([
+        ((0.0, -1000.0, 0.0), 1000.0, T.LAMBERTIAN, (0.7, 0.7, 0.7), 0.0),
+        ((0.3, 0.4, -2.0), 0.4, T.LAMBERTIAN, (0.4, 0.5, 0.8), 0.0),
+    ])
+    verts = np.float32([[-0.7, 1.8, -2.7], [0.7, 1.8, -2.7], [0.7, 1.8, -1.3],
+                        [-0.7, 1.8, -1.3]])
+    quad = T.make_mesh(verts, np.int64([[0, 1, 2], [0, 2, 3]]), albedo=(1.0, 0.9, 0.8),
+                       mat_kind=T.EMISSIVE, mat_param=6.0)
+    scene = T.make_scene(spheres, quad).to(dev)
+    if not grad:
+        return scene, ()
+    albedo = scene.spheres.albedo.clone().requires_grad_(True)
+    emission = scene.tri_lights.emission.clone().requires_grad_(True)
+    scene = dataclasses.replace(
+        scene, spheres=dataclasses.replace(scene.spheres, albedo=albedo),
+        tri_lights=dataclasses.replace(scene.tri_lights, emission=emission))
+    return scene, (albedo, emission)
+
+
+@pytest.mark.parametrize("backend,regenerate", [("cuda", "off"), ("wavefront", "off"),
+                                                ("wavefront", "on")])
+def test_kernel_frame_gradient_matches_the_torch_backend(dev, backend, regenerate):
+    """d sum(w * render) through a kernel backend (KernelFrame: the kernel
+    forward, the replay backward) equals autograd through backend='torch'
+    on the card, per leaf at rtol 1e-5 / atol 1e-7
+    (test_pallas_vjp_matches_jax_grad's bound), both nonzero; the forward
+    is the frame without gradients bit for bit."""
+    cfg_kw = dict(width=24, height=16, spp=2, max_depth=3, sky_intensity=0.0, nee=True,
+                  mis=True)
+    kernel_cfg = T.RenderConfig(backend=backend, regenerate=regenerate, **cfg_kw)
+    w = torch.from_numpy(np.random.default_rng(5).random((16, 24, 3), dtype=np.float32)).to(dev)
+    grads = {}
+    for cfg in (kernel_cfg, T.RenderConfig(backend="torch", **cfg_kw)):
+        scene, leaves = _tri_light_scene(dev, grad=True)
+        img = T.render(scene, BASE_CAMERA, cfg, frame_seed=3)
+        (img * w).sum().backward()
+        grads[cfg.backend] = [leaf.grad for leaf in leaves]
+        if cfg is kernel_cfg:
+            kernel_img = img.detach()
+    for got, want in zip(grads[backend], grads["torch"]):
+        assert float(want.abs().max()) > 0
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+    plain_scene, _ = _tri_light_scene(dev, grad=False)
+    assert torch.equal(kernel_img, T.render(plain_scene, BASE_CAMERA, kernel_cfg, frame_seed=3))
