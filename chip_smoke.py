@@ -42,8 +42,9 @@ card in phases, one JSON line each:
                   (81,920 faces) behind its BVH, 640x480, 1 spp, depth 8,
                   held to the plain version at flip <= 1% and mean < 2e-4;
      config1      BASELINE config 1 through render(): base_scene, 800x600,
-                  1 spp, the normal AOV (render_aov_kernel), timed as config 3
-                  and held to the plain version at 1% / 2e-4
+                  1 spp, the normal AOV (render_aov_kernel's staged brute
+                  scan), timed as config 3 and held to the plain version at
+                  1% / 2e-4
 
  11. nee_vs_plain  the NEE kernel vs its plain version at 1% / 2e-4: _nee_scene
                   (nee+mis, RR 3, sky 0, 320x240, 4 spp, depth 8), the 81-light
@@ -157,14 +158,27 @@ card in phases, one JSON line each:
                   memory, within rtol 1e-3 of central differences of
                   render_reference at the three entries of largest gradient
  28. denoise_path  render_denoised at the main frame (16 spp, 4 iterations):
-                  5 timed frames, the beauty pass, each guide pass through
-                  render_aov_kernel alone (albedo, normal, depth; each held to
-                  its plain version at 1% / 2e-4, with its bound), the filter
-                  (device ms and kernel launches, torch.profiler) held to the
-                  filter on the CPU on the same planes at rtol 1e-5 / atol
-                  1e-7; the denoised frame nearer a 256-spp render than the
-                  beauty pass is; one backward() through it, finite and
-                  nonzero
+                  5 timed frames (a beauty and one guides launch each), the
+                  beauty pass, the guides launch (render_guides: the albedo,
+                  normal and depth planes of one closest hit a sample) and
+                  each single-mode guide pass, all through render_aov_kernel
+                  alone with their bounds; every single-mode plane equal to
+                  the guides launch's bit for bit, each held to its plain
+                  version at 1% / 2e-4; the filter (device ms and kernel
+                  launches, torch.profiler) held to the filter on the CPU on
+                  the same planes at rtol 1e-5 / atol 1e-7; the denoised
+                  frame nearer a 256-spp render than the beauty pass is; one
+                  backward() through it (the beauty and three single-mode
+                  passes), finite and nonzero
+ 29. aov_scan     render_aov_kernel's staged brute scan through the guides
+                  launch at 1280x720: sphere counts 0, 1, 255, 256, 257,
+                  1000, 1024, 1025 and 2500 (around the block, the BVH
+                  threshold and the 1024-sphere staging chunk), 2000 spheres
+                  with every third inactive (equal bit for bit to the scene
+                  of its active ones) and a ragged 1283x717 One-Weekend
+                  frame: each launched twice (identical), each plane equal
+                  to its single-mode launch bit for bit and to the plain
+                  version at 1% / 2e-4 (no sphere: the sky everywhere)
 
 Every phase that launches the megakernel gates its launch count on its own
 route key (megakernel:brute, :sphere_bvh, :mesh_bvh, suffixed +nee,
@@ -174,8 +188,8 @@ ray generation under wavefront_raygen, the partition under
 wavefront_partition, the loop's step under wavefront_advance, the probes
 under fma_peak and bf16_probe.  Then the kernels line (the megakernel once
 per path: brute, sphere_bvh, mesh_bvh, mesh_bvh+nee, brute+nee, brute+sobol,
-brute+adaptive, mesh_bvh+nee+adaptive (with the kernel alone and its cluster
-size), the hash and sampler probes, wavefront:brute, wavefront:brute+regen,
+brute+aov_normal, brute+guides, brute+adaptive, mesh_bvh+nee+adaptive (with
+the kernel alone and its cluster size), the hash and sampler probes, wavefront:brute, wavefront:brute+regen,
 wavefront_partition, wavefront_raygen, wavefront_advance, fma_peak and
 bf16_probe), each row with its least time
 on the card (`bound_ms`, from the rays its counters measured at that row's
@@ -191,11 +205,14 @@ render() and the kernel alone over 10, the kernel alone on the routes of
 configs 3 and 4, the lit path, the night scene and a 1-spp progressive step,
 the adaptive main frame (phase 17's), the adaptive Cornell box (phase
 15's), the main frame through backend='wavefront' with regeneration off
-and on (5 frames each), the denoised main frame (3 frames) and one
-inverse-rendering step at phase 27's settings (forward and backward, the
-median of 5), and prints one JSON line; with `--save-frame PATH` it also saves the
-frame as a .npy file, and each adaptive frame's image, spp map, ray counts
-and six state planes in PATH's stem + "_adaptive.npz".  "The kernel alone" is the device time of render_cuda calls
+and on (5 frames each), the denoised main frame (3 frames) and its
+launches, render_aov_kernel alone on the three guide passes of that frame,
+its guides launch (where the package has render_guides) and config 1, and
+one inverse-rendering step at phase 27's settings (forward and backward,
+the median of 5), and prints one JSON line; with `--save-frame PATH` it
+also saves the frame as a .npy file, each adaptive frame's image, spp map,
+ray counts and six state planes in PATH's stem + "_adaptive.npz", and the
+AOV planes in PATH's stem + "_aov.npz".  "The kernel alone" is the device time of render_cuda calls
 queued behind a spin kernel, so the host's packing per call does not show.
 Copied into
 another checkout and run there, it times that checkout's package: run two
@@ -316,16 +333,21 @@ def cuda_ms(fn, repeats: int) -> tuple[float, object]:
     return start.elapsed_time(end) / repeats, out
 
 
-def kernel_ms(mk, scene, cam, kw: dict, repeats: int) -> float:
-    """The kernel alone: device ms of render_cuda(scene, cam, **kw), scene
-    and camera on the card, one warm-up call, then the mean of `repeats`
-    calls queued behind a ~0.1 s spin kernel.  The host packs a scene in
-    about a millisecond a call, so the queue fills before the card reaches
-    it and the events see no host time."""
-    mk.render_cuda(scene, cam, **kw)
+def alone_ms(fn, repeats: int) -> float:
+    """The kernel alone: device ms of fn (a launch on tensors already on
+    the card), one warm-up call, then the mean of `repeats` calls queued
+    behind a ~0.1 s spin kernel.  The host packs a scene in about a
+    millisecond a call, so the queue fills before the card reaches it and
+    the events see no host time."""
+    fn()
     torch.cuda.synchronize()
     torch.cuda._sleep(200_000_000)
-    return cuda_ms(lambda: mk.render_cuda(scene, cam, **kw), repeats)[0]
+    return cuda_ms(fn, repeats)[0]
+
+
+def kernel_ms(mk, scene, cam, kw: dict, repeats: int) -> float:
+    """alone_ms of render_cuda(scene, cam, **kw)."""
+    return alone_ms(lambda: mk.render_cuda(scene, cam, **kw), repeats)
 
 
 def against_plain(T, mk, run, scene, cam, kw, flip: float, mean_tol: float,
@@ -390,6 +412,136 @@ def time_main_kernel(T, mk, repeats: int) -> dict:
     ms = kernel_ms(mk, scene, cam, kw, repeats)
     rays = float(mk.render_cuda(scene, cam, return_ray_count=True, **kw)[1].double().sum())
     return dict(kernel_ms=ms, rays_traced=rays, bounce_mrays_per_s=rays / (ms * 1e3))
+
+
+AOV_MODES = ("albedo", "normal", "depth")
+
+
+def main_aov_inputs(T, dev):
+    """The denoiser's guide passes at the main frame (One-Weekend,
+    1280x720, 16 spp, frame seed 7: render_denoised's own), on the card,
+    with render_guides' keywords (a single-mode pass adds max_depth)."""
+    scene = T.as_scene(T.one_weekend_scene(0)).to(dev)
+    cam = T.derive_camera(T.CameraSettings.default(), 1280, 720).to(dev)
+    return scene, cam, dict(width=1280, height=720, spp=16, t_min=1e-3, frame_seed=7)
+
+
+def time_aov(T, mk, repeats: int, arrays: dict | None = None) -> dict:
+    """render_aov_kernel alone (alone_ms over `repeats` launches): the three
+    guide passes at the main frame, the guides launch where the package
+    has one (mk.render_guides), and BASELINE config 1 (base_scene, 800x600,
+    1 spp, the normal AOV; phase 10's frame).  With `arrays` it stores
+    every plane there, for a byte comparison between checkouts."""
+    dev = torch.device("cuda", 0)
+    scene, cam, kw = main_aov_inputs(T, dev)
+    out = {}
+    for mode in AOV_MODES:
+        single = dict(kw, mode=mode, max_depth=30)
+        out[mode] = kernel_ms(mk, scene, cam, single, repeats)
+        if arrays is not None:
+            arrays["main_" + mode] = mk.render_cuda(scene, cam, **single).cpu().numpy()
+    if hasattr(mk, "render_guides"):
+        out["guides"] = alone_ms(lambda: mk.render_guides(scene, cam, **kw), repeats)
+        if arrays is not None:
+            g = mk.render_guides(scene, cam, **kw)
+            arrays.update({"guides_" + m: g[m].cpu().numpy() for m in AOV_MODES})
+    cfg1 = T.RenderConfig(width=800, height=600, spp=1, integrator="normal")
+    base = T.as_scene(T.base_scene()).to(dev)
+    bcam = T.derive_camera(T.CameraSettings.make(**BASE_CAMERA), 800, 600).to(dev)
+    k1 = dict(width=800, height=600, spp=1, max_depth=cfg1.max_depth, t_min=cfg1.t_min,
+              frame_seed=1, mode="normal")
+    out["config1"] = kernel_ms(mk, base, bcam, k1, repeats)
+    if arrays is not None:
+        arrays["config1_normal"] = mk.render_cuda(base, bcam, **k1).cpu().numpy()
+    return out
+
+
+def sphere_cloud(T, n: int, dev, seed: int = 0, inactive_every: int = 0):
+    """n spheres for the brute route (as_scene builds no sphere BVH at any
+    n; tests/test_torch_cuda.py::_sphere_cloud): a ground sphere, then
+    random spheres in front of the default camera with distinct albedos,
+    and a copy of sphere 1 (a tie) when n >= 3; with inactive_every k,
+    every k-th sphere after the ground has radius 0."""
+    rng = np.random.default_rng(seed)
+    centers = np.column_stack([rng.uniform(-8, 8, n), rng.uniform(0.1, 2.0, n),
+                               rng.uniform(-8, 8, n)]).astype(np.float32)
+    radii = rng.uniform(0.15, 0.7, n).astype(np.float32)
+    albedo = rng.uniform(0.05, 0.95, (n, 3)).astype(np.float32)
+    kind = rng.integers(0, 3, n).astype(np.int32)
+    if n:
+        centers[0], radii[0], kind[0] = (0.0, -1000.0, 0.0), 1000.0, T.LAMBERTIAN
+    if n >= 3:
+        centers[2], radii[2] = centers[1], radii[1]
+    if inactive_every:
+        radii[1::inactive_every] = 0.0
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return T.Spheres(t(centers), t(radii), t(albedo), t(kind),
+                     t(rng.uniform(0.0, 1.5, n).astype(np.float32)))
+
+
+def aov_scan_case(T, mk, name: str, scene, cam, kw: dict, twin=None) -> dict:
+    """Phase 29, one case: the guides launch twice (identical), each plane
+    against its single-mode launch (bit for bit) and against the plain
+    version (render_guides_reference, 1% / 2e-4; a scene with no sphere
+    must see the sky everywhere instead); with `twin` (another scene that
+    must render the same planes) against the twin's guides bit for bit."""
+    mk.LAUNCHES.clear()
+    g = mk.render_guides(scene, cam, **kw)
+    again = mk.render_guides(scene, cam, **kw)
+    launches = dict(mk.LAUNCHES)
+    r = dict(case=name, spheres=T.as_scene(scene).spheres.count,
+             size=[kw["width"], kw["height"]], spp=kw["spp"], launches=launches,
+             repeat_equal=all(torch.equal(g[m], again[m]) for m in AOV_MODES),
+             single_equal={m: bool(torch.equal(g[m], mk.render_cuda(scene, cam, mode=m,
+                                                                    max_depth=1, **kw)))
+                           for m in AOV_MODES})
+    if r["spheres"]:
+        plain = mk.render_guides_reference(scene, cam, **kw)
+        ms = {m: T.images_match(g[m], plain[m], 0.01, 2e-4) for m in AOV_MODES}
+        r.update(vs_plain={m: [v.flip_frac, v.mean_abs, v.max_abs] for m, v in ms.items()},
+                 plain_ok=all(v.ok for v in ms.values()),
+                 max_abs=max(v.max_abs for v in ms.values()))
+    else:
+        r.update(plain_ok=bool(torch.equal(g["albedo"], g["normal"]))
+                 and not bool(g["depth"].any()), max_abs=0.0)
+    if twin is not None:
+        tg = mk.render_guides(twin, cam, **kw)
+        r["twin_equal"] = all(torch.equal(g[m], tg[m]) for m in AOV_MODES)
+    r["ok"] = (r["repeat_equal"] and all(r["single_equal"].values()) and r["plain_ok"]
+               and r.get("twin_equal", True))
+    return r
+
+
+def phase_aov_scan(T, mk, dev, smi: str) -> dict:
+    """Phase 29, aov_scan: render_aov_kernel's staged brute scan at
+    card-filling sizes (1280x720) through the guides launch, at sphere
+    counts around the block (256 threads), the sphere-BVH threshold (256)
+    and the staging chunk (1024 spheres), a scene with inactive spheres
+    against the scene of its active ones, and a ragged One-Weekend frame."""
+    settings = T.CameraSettings.default()
+    cam = T.derive_camera(settings, 1280, 720).to(dev)
+    rows = []
+    for n in (0, 1, 255, 256, 257, 1000, 1024, 1025, 2500):
+        kw = dict(width=1280, height=720, spp=1, t_min=1e-3, frame_seed=n)
+        rows.append(aov_scan_case(T, mk, f"n={n}", T.as_scene(sphere_cloud(T, n, dev, seed=n)),
+                                  cam, kw))
+    sp = sphere_cloud(T, 2000, dev, seed=29, inactive_every=3)
+    keep = sp.radii > 0
+    active = T.Spheres(*(getattr(sp, f.name)[keep] for f in dataclasses.fields(T.Spheres)))
+    kw = dict(width=1280, height=720, spp=1, t_min=1e-3, frame_seed=29)
+    rows.append(aov_scan_case(T, mk, "inactive_every_3", T.as_scene(sp), cam, kw,
+                              twin=T.as_scene(active)))
+    odd_cam = T.derive_camera(settings, 1283, 717).to(dev)
+    kw = dict(width=1283, height=717, spp=2, t_min=1e-3, frame_seed=5)
+    rows.append(aov_scan_case(T, mk, "ragged_1283x717", T.as_scene(T.one_weekend_scene(0)).to(dev),
+                              odd_cam, kw))
+    emit({"phase": "aov_scan", "cases": rows, "limits": [0.01, 2e-4], "card": smi})
+    for r in rows:
+        gate("aov_scan", r["ok"], f"{r['case']}: {r}")
+        gate("aov_scan", r["launches"] == {"megakernel:brute+guides": 2},
+             f"{r['case']}: expected 2 brute guides launches, counted {r['launches']}")
+    return dict(launches=sum(r["launches"].get("megakernel:brute+guides", 0) for r in rows),
+                max_abs=max(r["max_abs"] for r in rows))
 
 
 def mesh_scene(T, subdivisions: int):
@@ -1142,31 +1294,46 @@ def phase_inverse(T, mk, dev, smi: str) -> None:
          f"expected 1 brute megakernel launch, counted {mg['launches']}")
 
 
-def phase_denoise(T, mk, dev, smi: str) -> None:
+def phase_denoise(T, mk, dev, smi: str) -> dict:
     """Phase 28, denoise_path: render_denoised at the main frame timed
-    whole and by part (beauty, the three guide passes through
-    render_aov_kernel, the filter); the filter on the card against the
-    filter on the CPU, each guide pass against its plain version, the
-    denoised frame against a 256-spp render, and one backward."""
+    whole and by part (beauty, the guides launch beside the three
+    single-mode passes of render_aov_kernel, the filter); each single-mode
+    plane equal to the guides launch's bit for bit and to its plain
+    version at 1% / 2e-4, the filter on the card against the filter on
+    the CPU, the denoised frame against a 256-spp render, and one
+    backward (three single-mode passes, the replay needs their graphs).
+    Returns the guides launch's kernels-line numbers."""
     den = time_denoised(T, mk, 5)
     out, beauty, aovs = den["out"]
-    cfg28, scene28 = den["cfg"], T.as_scene(den["scene"]).to(dev)
-    cam28 = T.derive_camera(den["settings"], 1280, 720).to(dev)
+    cfg28 = den["cfg"]
+    scene28, cam28, kw28 = main_aov_inputs(T, dev)
     beauty_ms, _ = cuda_ms(lambda: T.render(den["scene"], den["settings"], cfg28,
                                             frame_seed=7), 5)
-    kw28 = dict(width=1280, height=720, spp=16, max_depth=30, t_min=cfg28.t_min, frame_seed=7)
+    mk.LAUNCHES.clear()
+    g_img = mk.render_guides(scene28, cam28, **kw28)
+    g_key = list(mk.LAUNCHES)
+    g_plain_ms, g_plain = cuda_ms(lambda: mk.render_guides_reference(scene28, cam28, **kw28), 1)
     guides = {}
-    for mode in ("albedo", "normal", "depth"):
+    for mode in AOV_MODES:
+        single = dict(kw28, mode=mode, max_depth=cfg28.max_depth)
         mk.LAUNCHES.clear()
-        k_img = mk.render_cuda(scene28, cam28, mode=mode, **kw28)
+        k_img = mk.render_cuda(scene28, cam28, **single)
         key = list(mk.LAUNCHES)
-        p_ms, p_img = cuda_ms(lambda: mk.render_reference(scene28, cam28, mode=mode, **kw28), 1)
+        p_ms, p_img = cuda_ms(lambda: mk.render_reference(scene28, cam28, **single), 1)
         m = T.images_match(k_img, p_img, 0.01, 2e-4)
-        guides[mode] = dict(kernel_ms=kernel_ms(mk, scene28, cam28, dict(kw28, mode=mode), 5),
+        guides[mode] = dict(kernel_ms=kernel_ms(mk, scene28, cam28, single, 5),
                             launch_key=key, plain_ms=p_ms, flip_frac=m.flip_frac,
                             mean_abs=m.mean_abs, max_abs=m.max_abs, ok=m.ok,
+                            plain_equals_guides_plain=bool(torch.equal(p_img, g_plain[mode])),
+                            equal_to_guides_launch=bool(torch.equal(k_img, g_img[mode])),
                             equal_to_render_denoised_pass=bool(torch.equal(k_img, aovs[mode])),
                             **bound(T, mk, scene28, 1280.0 * 720 * 16, 3 * 4 * 1280 * 720))
+    g_match = {m: T.images_match(g_img[m], g_plain[m], 0.01, 2e-4) for m in AOV_MODES}
+    launch = dict(kernel_ms=alone_ms(lambda: mk.render_guides(scene28, cam28, **kw28), 5),
+                  launch_key=g_key, plain_ms=g_plain_ms,
+                  max_abs=max(v.max_abs for v in g_match.values()),
+                  ok=all(v.ok for v in g_match.values()),
+                  **bound(T, mk, scene28, 1280.0 * 720 * 16, 3 * 3 * 4 * 1280 * 720))
     planes = dict(albedo=aovs["albedo"], normal=T.decode_normal_aov(aovs["normal"]),
                   depth=aovs["depth"][..., 0])
     filt = lambda: T.atrous_denoise(beauty, **planes)
@@ -1197,7 +1364,10 @@ def phase_denoise(T, mk, dev, smi: str) -> None:
                    peak_memory_bytes=torch.cuda.max_memory_allocated())
     emit({"phase": "denoise_path", "size": [1280, 720], "spp": 16, "max_depth": 30,
           "iterations": 4, "ms_per_frame": den["ms"], "launches": den["launches"],
-          "beauty_ms": beauty_ms, "guides": guides, "filter_ms": filter_ms,
+          "beauty_ms": beauty_ms, "guides": guides, "guides_launch": launch,
+          "guides_launch_vs_plain": {m: [v.flip_frac, v.mean_abs, v.max_abs]
+                                     for m, v in g_match.items()},
+          "filter_ms": filter_ms,
           "filter_device": filt_prof, "filter_cpu_s": cpu_s,
           "filter_card_vs_cpu_max_abs": float(filt_diff.max()),
           "filter_card_vs_cpu_max_rel": float((filt_diff / cpu_out.abs().clamp(min=1e-6)).max()),
@@ -1209,12 +1379,23 @@ def phase_denoise(T, mk, dev, smi: str) -> None:
         gate("denoise_path", g["ok"], f"{mode} pass vs plain: {g}")
         gate("denoise_path", g["launch_key"] == ["megakernel:brute"],
              f"{mode} pass launched {g['launch_key']}")
-    gate("denoise_path", den["launches"] == {"megakernel:brute": 4},
-         f"expected 4 brute megakernel launches a frame, counted {den['launches']}")
+        gate("denoise_path", g["equal_to_guides_launch"] and g["equal_to_render_denoised_pass"]
+             and g["plain_equals_guides_plain"],
+             f"{mode} pass differs from the guides launch's plane: {g}")
+    gate("denoise_path", launch["ok"], f"guides launch vs plain: {g_match}")
+    gate("denoise_path", g_key == ["megakernel:brute+guides"], f"guides launched {g_key}")
+    gate("denoise_path", den["launches"] == {"megakernel:brute": 1,
+                                              "megakernel:brute+guides": 1},
+         f"expected a beauty and a guides launch a frame, counted {den['launches']}")
     gate("denoise_path", mse_out < mse_beauty,
          f"denoised MSE {mse_out} not below the 16-spp beauty's {mse_beauty}")
     gate("denoise_path", den_bwd["finite"] and den_bwd["nonzero"] > 0,
          f"render_denoised backward: {den_bwd}")
+    gate("denoise_path", den_bwd["launches"] == {"megakernel:brute": 4},
+         f"expected the beauty and three single-mode passes with grad, counted "
+         f"{den_bwd['launches']}")
+    return dict(launch, launches=den["launches"].get("megakernel:brute+guides", 0),
+                denoised_ms=den["ms"])
 
 
 def render_kw(cfg, seed: int) -> dict:
@@ -1277,8 +1458,11 @@ def main() -> int:
         ms, img, launches = time_main_path(T, mk, 20)
         arrays = {} if args.save_frame else None
         den = time_denoised(T, mk, 3)
+        aov_arrays = {} if args.save_frame else None
         emit({"phase": "main_path_only", "repo": REPO, "ms_per_frame": ms, "repeats": 20,
               "denoised_ms": den["ms"], "denoised_repeats": 3,
+              "denoised_launches": den["launches"],
+              "aov_kernel_ms": time_aov(T, mk, 10, aov_arrays), "aov_repeats": 10,
               "inverse_step": time_inverse_step(T, dev, 5), "inverse_repeats": 5,
               **time_main_kernel(T, mk, 10), "kernel_repeats": 10,
               "routes_kernel_ms": time_routes(T, mk, 10),
@@ -1288,6 +1472,7 @@ def main() -> int:
         if args.save_frame:
             np.save(args.save_frame, img.cpu().numpy())
             np.savez(os.path.splitext(args.save_frame)[0] + "_adaptive.npz", **arrays)
+            np.savez(os.path.splitext(args.save_frame)[0] + "_aov.npz", **aov_arrays)
         return 0
 
     # 3. hash probe
@@ -2158,10 +2343,11 @@ def main() -> int:
         gate("adaptive_schedule", any(k.endswith("+adaptive+rays") for k in r["launches"]),
              f"{r['case']}: no adaptive launch counted: {r['launches']}")
     # 26-28. gradients through the kernels, the inverse-rendering loop and
-    # the denoised main frame
+    # the denoised main frame; 29. the AOV kernel's staged scan
     phase_grad(T, mk, dev, smi)
     phase_inverse(T, mk, dev, smi)
-    phase_denoise(T, mk, dev, smi)
+    guides_row = phase_denoise(T, mk, dev, smi)
+    aov_scan = phase_aov_scan(T, mk, dev, smi)
 
     ad_alone = time_adaptive(T, mk, 5)
 
@@ -2193,6 +2379,17 @@ def main() -> int:
                      kernel_ms=paths["config1"]["kernel_ms"],
                      **bound(T, mk, sc1, float(kw1["width"] * kw1["height"]),
                              3 * 4 * kw1["width"] * kw1["height"])))
+    # render_aov_kernel's guides mode: the denoiser's three planes in one
+    # launch at the main frame (phase 28; its launches are the denoised
+    # frame's), 14.7 M primary rays on 197 spheres, 36 bytes a pixel out.
+    rows.append(dict(kernel, name="megakernel:brute+guides", path="brute, guides (phase 28)",
+                     launches=guides_row["launches"], max_abs_err=max(
+                         guides_row["max_abs"], aov_scan["max_abs"]),
+                     ms=guides_row["kernel_ms"], plain_ms=guides_row["plain_ms"],
+                     kernel_ms=guides_row["kernel_ms"], denoised_frame_ms=guides_row[
+                         "denoised_ms"], aov_scan_launches=aov_scan["launches"],
+                     **{k: guides_row[k] for k in ("bound_ms", "bound_by", "rays_traced",
+                                                   "bound_is_lower_bound", "library_ms")}))
     # The adaptive rows: the main frame (phase 17) and the Cornell box, the
     # NEE instance (phase 15).
     cb = adaptive_runs["cornell"]

@@ -60,7 +60,12 @@ from gpu_ray_tracing_tpu_torch.ops.accumulate import (
     init_accum,
 )
 from gpu_ray_tracing_tpu_torch.ops.autograd import kernel_frame, needs_grad
-from gpu_ray_tracing_tpu_torch.ops.cuda.megakernel import render_cuda, render_reference
+from gpu_ray_tracing_tpu_torch.ops.cuda.megakernel import (
+    render_cuda,
+    render_guides,
+    render_guides_reference,
+    render_reference,
+)
 from gpu_ray_tracing_tpu_torch.ops.cuda.wavefront import (
     render_wavefront,
     render_wavefront_reference,
@@ -313,13 +318,17 @@ def render_denoised(scene, camera: Camera | CameraSettings, config: RenderConfig
     (the JAX package's render_denoised, api.py:707-776, without its
     threefry `key`).
 
-    Renders the beauty pass with `config` as it is, then three first-hit
-    guide passes (albedo, normal and depth AOVs, with the same sampler and
-    spp so that guide edges match beauty edges; on 'cuda' and 'wavefront'
-    they run render_aov_kernel), and runs ops/denoise.atrous_denoise with
-    albedo demodulation.  Returns the denoised (H, W, 3) image, or
-    (denoised, beauty, {"albedo", "normal", "depth"}) with return_aovs.
-    Differentiable end to end: every pass goes through render(), and the
+    Renders the beauty pass with `config` as it is, then the three
+    first-hit guide planes (albedo, normal and depth AOVs, with the same
+    sampler and spp so that guide edges match beauty edges), and runs
+    ops/denoise.atrous_denoise with albedo demodulation.  With no input
+    requiring grad the guides come from one closest hit per sample
+    (render_guides on 'cuda' and 'wavefront': one launch of
+    render_aov_kernel; render_guides_reference on the plain backends),
+    each plane equal bit for bit to its own render() pass; otherwise from
+    three render() calls, so that each goes through KernelFrame's replay.
+    Returns the denoised (H, W, 3) image, or (denoised, beauty, {"albedo",
+    "normal", "depth"}) with return_aovs.  Differentiable end to end: the
     filter is plain arithmetic."""
     if config.integrator != "path":
         raise ValueError(
@@ -328,19 +337,32 @@ def render_denoised(scene, camera: Camera | CameraSettings, config: RenderConfig
         )
     camera = _camera(camera, config)
     beauty = render(scene, camera, config, frame_seed=frame_seed)
-
-    def guide(integrator: str) -> torch.Tensor:
-        # Every path-only knob the AOV integrators reject or ignore dropped.
-        cfg = dataclasses.replace(config, integrator=integrator, nee=False, mis=False,
-                                  clamp=0.0, adaptive_tol=0.0, regenerate="off")
-        return render(scene, camera, cfg, frame_seed=frame_seed)
-
-    albedo, normal_aov, depth = guide("albedo"), guide("normal"), guide("depth")
+    # Every path-only knob the AOV integrators reject or ignore dropped.
+    guide_cfg = dataclasses.replace(config, integrator="albedo", nee=False, mis=False,
+                                    clamp=0.0, adaptive_tol=0.0, regenerate="off")
+    if needs_grad(as_scene(scene), camera):
+        aovs = {m: render(scene, camera, dataclasses.replace(guide_cfg, integrator=m),
+                          frame_seed=frame_seed) for m in ("albedo", "normal", "depth")}
+    else:
+        aovs = _guides(scene, camera, guide_cfg, _seed(frame_seed))
     out = denoise_ops.atrous_denoise(
-        beauty, albedo=albedo, normal=denoise_ops.decode_normal_aov(normal_aov),
-        depth=depth[..., 0], iterations=iterations, sigma_color=sigma_color,
+        beauty, albedo=aovs["albedo"], normal=denoise_ops.decode_normal_aov(aovs["normal"]),
+        depth=aovs["depth"][..., 0], iterations=iterations, sigma_color=sigma_color,
         sigma_normal=sigma_normal, sigma_depth=sigma_depth,
     )
     if return_aovs:
-        return out, beauty, {"albedo": albedo, "normal": normal_aov, "depth": depth}
+        return out, beauty, aovs
     return out
+
+
+def _guides(scene, camera: Camera, config: RenderConfig, frame_seed: int) -> dict:
+    """The three guide planes of render_denoised from one closest hit per
+    sample, through the config's backend (render()'s stream and keywords)."""
+    sc = as_scene(scene)
+    kwargs = dict(width=config.width, height=config.height, frame_seed=frame_seed,
+                  t_min=config.t_min, t_max=config.t_max, spp=config.spp,
+                  sampler_spec=config.sampler_spec)
+    if config.backend in ("cuda", "wavefront"):
+        device = _cuda_device(config.backend)
+        return render_guides(sc.to(device), camera.to(device), **kwargs)
+    return render_guides_reference(sc, camera.to(sc.device), **kwargs)

@@ -1,6 +1,7 @@
 // Path-tracing megakernel for Hopper (sm_90a): warps that regenerate paths
-// (render_kernel), one thread per pixel for the AOV modes, or a thread block
-// cluster per tile for the adaptive spp loop (render_adaptive_kernel).
+// (render_kernel), one thread per pixel over a staged sphere table for the
+// AOV modes (render_aov_kernel), or a thread block cluster per tile for the
+// adaptive spp loop (render_adaptive_kernel).
 //
 // Replaces the Pallas TPU kernel gpu_ray_tracing_tpu/ops/pallas/megakernel.py
 // `_kernel` (launched by `render_pallas`) on its K1a-K1f paths: spheres by
@@ -67,7 +68,9 @@ enum CamSlot {
   DEFOCUS_ANGLE = 18
 };
 
-enum Mode { PATH = 0, NORMAL = 1, ALBEDO = 2, DEPTH = 3 };
+// GUIDES is render_aov_kernel's alone: the albedo, normal and depth planes
+// of one closest hit per sample (megakernel.py::render_guides).
+enum Mode { PATH = 0, NORMAL = 1, ALBEDO = 2, DEPTH = 3, GUIDES = 4 };
 
 constexpr float kTwoPi = 6.283185307179586f;
 
@@ -666,7 +669,7 @@ struct Params {
   float sky_intensity;
   float clamp;
   int spp;     // the fixed loop's count; the adaptive loop's budget
-  float* out;  // (height, width, 3), or null (adaptive resume)
+  float* out;  // (height, width, 3), (3, height, width, 3) in GUIDES, or null
   float* rays;  // (height, width) rays-traced plane, or null
   int* cursor;  // render_kernel's next pixel group, zero at launch
 };
@@ -928,34 +931,224 @@ __device__ __forceinline__ unsigned int global_row(const Params& p, int y_local)
   return (unsigned int)y_local * p.row_stride + p.y_offset;
 }
 
-// The fixed spp loop of the AOV modes: one thread per pixel, the mean of
-// p.spp samples of one ray each (nothing to regenerate).
-template <bool kCount>
-__global__ void __launch_bounds__(256) render_aov_kernel(const Params p) {
+// The AOV modes' fixed spp loop (K1g): one thread per pixel, the mean of
+// p.spp samples of one ray each (nothing to regenerate), in the modes
+// NORMAL, ALBEDO, DEPTH, or GUIDES: the albedo, normal and depth planes of
+// one closest hit per sample, written to (3, height, width, 3) planes in
+// that order, each equal bit for bit to its single-mode launch (a plane
+// sums its samples in sample order from 0.0f and divides by spp, as the
+// single modes do; depth's three channels are one sum).
+//
+// Replaces `_kernel`'s AOV modes (gpu_ray_tracing_tpu/ops/pallas/
+// megakernel.py:1550-1576).  What bounds it on this card: the brute scan's
+// arithmetic, 23 flops a sphere test (the denoiser's guides at 1280x720 /
+// 16 spp on 197 spheres: 14.7 M rays, 0.997 ms at 67 TFLOP/s).  So a test
+// does only the work whose result is used: nothing that depends on the
+// sphere alone, and no root for a sphere the ray misses (most of them).
+// On the brute route (no sphere BVH, no mesh) a block stages the active
+// spheres in shared memory as float4 (cx, cy, cz, |c|^2 - r^2), formed
+// with sphere_root's fdot3, in scene order with their scene index beside
+// them (inactive spheres never win, so they are left out; ties and
+// materials are unchanged), at most kAovStage a chunk: a larger scene is
+// restaged chunk by chunk for each sample, the window carried across
+// chunks.  A test is then one broadcast LDS.128 and the quadratic; a
+// negative (or NaN) discriminant skips the root arithmetic, where
+// sphere_root returns false, and the lanes that take it run sphere_root's
+// operations in its order.  The hit record keeps only what the modes read
+// (t, the normal, the albedo), inline: no call to closest_hit, whose
+// generic record needs a stack frame.  The sphere-BVH and mesh routes call
+// closest_hit.  Threads outside the frame (ragged blocks) stage and meet
+// every barrier, and trace nothing.
+constexpr int kAovThreads = 256;
+constexpr int kAovWarps = kAovThreads / 32;
+constexpr int kAovStage = 1024;  // 16 KB of spheres and 4 KB of indices a block
+
+// Stage the active spheres of [j0, j1) in scene order: s_sph[k] = (cx,
+// cy, cz, |c|^2 - r^2) and s_idx[k] = the scene index.  Returns the count.
+// Every thread of the block calls it (it meets __syncthreads), and the
+// staged table is visible to all when it returns.
+__device__ __forceinline__ int stage_spheres(const float* __restrict__ sc, int n, int j0,
+                                             int j1, float4* s_sph, int* s_idx,
+                                             int* s_warp) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  int count = 0;
+  for (int base = j0; base < j1; base += kAovThreads) {
+    const int j = base + tid;
+    const bool act = j < j1 && __ldg(sc + ACTIVE * n + j) > 0.0f;
+    const unsigned int vote = __ballot_sync(0xffffffffu, act);
+    if (lane == 0) s_warp[warp] = __popc(vote);
+    __syncthreads();
+    int below = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kAovWarps; ++w) {
+      const int c = s_warp[w];
+      below += w < warp ? c : 0;
+      total += c;
+    }
+    if (act) {
+      const int k = count + below + __popc(vote & ((1u << lane) - 1u));
+      const float cx = __ldg(sc + CX * n + j);
+      const float cy = __ldg(sc + CY * n + j);
+      const float cz = __ldg(sc + CZ * n + j);
+      const float rj = __ldg(sc + RAD * n + j);
+      s_sph[k] = make_float4(cx, cy, cz, fdot3(cx, cy, cz, cx, cy, cz) - rj * rj);
+      s_idx[k] = j;
+    }
+    count += total;
+    __syncthreads();  // the table is complete; s_warp may be reused
+  }
+  return count;
+}
+
+// sphere_scan over a staged table: the same window, roots and winner (the
+// winner's scene index is read once, after the scan).  Unrolled by 8: the
+// loads and quadratics of 8 spheres issue ahead of their branches (the
+// fastest of 1, 4 and 8 on the H100; PERF.md, K1g).
+__device__ __forceinline__ void staged_scan(const float4* s_sph, const int* s_idx, int count,
+                                            float t_min, Vec3 o, Vec3 d, const SphereRay& r,
+                                            float& tb, int& best) {
+  int k_best = -1;
+#pragma unroll 8
+  for (int k = 0; k < count; ++k) {
+    const float4 s = s_sph[k];
+    const float h = fdot3(d.x, d.y, d.z, s.x, s.y, s.z) - r.od;
+    const float cc = s.w - 2.0f * fdot3(o.x, o.y, o.z, s.x, s.y, s.z) + r.oo;
+    const float disc = fmaf(h, h, -(r.a * cc));
+    if (disc >= 0.0f) {
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      const float rn = (h - sq) * r.inv_a;
+      const float rf = (h + sq) * r.inv_a;
+      const bool nok = (rn > t_min) & (rn < tb);
+      const bool fok = (rf > t_min) & (rf < tb);
+      if (nok | fok) {
+        tb = nok ? rn : rf;
+        k_best = k;
+      }
+    }
+  }
+  if (k_best >= 0) best = s_idx[k_best];
+}
+
+// What the AOV modes read of a closest hit.
+struct AovHit {
+  bool hit;
+  float t;
+  Vec3 n;  // the face normal flipped toward the ray
+  float ar, ag, ab;
+};
+
+// closest_hit's fields for a brute-scan winner `best` (-1: none) at
+// window tb, in its arithmetic.
+__device__ __forceinline__ AovHit brute_hit(const float* __restrict__ sc, int n,
+                                            float t_max, Vec3 o, Vec3 d, float tb, int best) {
+  AovHit h;
+  h.hit = tb < t_max;
+  h.t = h.hit ? tb : 1.0f;
+  const Vec3 pt = {fmaf(h.t, d.x, o.x), fmaf(h.t, d.y, o.y), fmaf(h.t, d.z, o.z)};
+  float cx = 0.0f, cy = 0.0f, cz = 0.0f, rad = 0.0f;
+  h.ar = h.ag = h.ab = 0.0f;
+  if (best >= 0) {
+    cx = __ldg(sc + CX * n + best);
+    cy = __ldg(sc + CY * n + best);
+    cz = __ldg(sc + CZ * n + best);
+    rad = __ldg(sc + RAD * n + best);
+    h.ar = __ldg(sc + ALR * n + best);
+    h.ag = __ldg(sc + ALG * n + best);
+    h.ab = __ldg(sc + ALB * n + best);
+  }
+  const float rs = rad != 0.0f ? rad : 1.0f;
+  const Vec3 nrm = {(pt.x - cx) / rs, (pt.y - cy) / rs, (pt.z - cz) / rs};
+  const bool front = d.x * nrm.x + d.y * nrm.y + d.z * nrm.z < 0.0f;
+  const float sign = front ? 1.0f : -1.0f;
+  h.n = {nrm.x * sign, nrm.y * sign, nrm.z * sign};
+  return h;
+}
+
+template <bool kCount, bool kBrute>
+__global__ void __launch_bounds__(kAovThreads) render_aov_kernel(const Params p) {
+  __shared__ float4 s_sph[kBrute ? kAovStage : 1];
+  __shared__ int s_idx[kBrute ? kAovStage : 1];
+  __shared__ int s_warp[kAovWarps];
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y_local = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= p.width || y_local >= p.height) return;
+  const bool in_frame = x < p.width && y_local < p.height;
   const unsigned int y = global_row(p, y_local);
   const unsigned int pid = y * (unsigned int)p.width + (unsigned int)x;
   // The sample-0 seed keys the sampler's per-(pixel, frame, pair) remaps.
   const unsigned int base0 = hash_pixel_seeds(pid, 0u, p.frame_seed);
   Cam cm;
   load_cam(p.cam, cm);
+  const int mode = p.mode;
+  const float* sc = p.geo.scene;
+  const int n = p.geo.n;
+  const bool one_chunk = n <= kAovStage;
+  int staged = 0;
+  if (kBrute && one_chunk) staged = stage_spheres(sc, n, 0, n, s_sph, s_idx, s_warp);
   unsigned int rays = 0u;
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  float al_r = 0.0f, al_g = 0.0f, al_b = 0.0f;  // albedo (or ALBEDO's) sums
+  float nm_r = 0.0f, nm_g = 0.0f, nm_b = 0.0f;  // normal sums
+  float dep = 0.0f;                             // depth sum
   for (int s = 0; s < p.spp; ++s) {
-    const Vec3 c = aov_sample<kCount>(p, cm, x, y, pid, base0,
-                                      p.sample_index + (unsigned int)s, rays);
-    acc_r = acc_r + c.x;
-    acc_g = acc_g + c.y;
-    acc_b = acc_b + c.z;
+    const unsigned int s_abs = p.sample_index + (unsigned int)s;
+    Vec3 o = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
+    if (in_frame) {
+      const unsigned int seed = hash_pixel_seeds(pid, s_abs, p.frame_seed);
+      generate_ray(p.sampler, cm, x, y, seed, base0, s_abs, o, d);
+      if (kCount) ++rays;
+    }
+    AovHit h;
+    if (kBrute) {
+      const SphereRay sr = sphere_ray(o, d);
+      float tb = p.t_max;
+      int best = -1;
+      for (int j0 = 0; j0 < n; j0 += kAovStage) {
+        if (!one_chunk)
+          staged = stage_spheres(sc, n, j0, min(n, j0 + kAovStage), s_sph, s_idx, s_warp);
+        if (in_frame) staged_scan(s_sph, s_idx, staged, p.t_min, o, d, sr, tb, best);
+        if (!one_chunk) __syncthreads();  // scans done before the next chunk is staged
+      }
+      if (!in_frame) continue;
+      h = brute_hit(sc, n, p.t_max, o, d, tb, best);
+    } else {
+      if (!in_frame) continue;
+      const Hit g = closest_hit(p.geo, p.t_min, p.t_max, o, d);
+      h = {g.hit, g.t, g.n, g.ar, g.ag, g.ab};
+    }
+    const Vec3 sk = sky(d);
+    if (mode == ALBEDO || mode == GUIDES) {
+      al_r = al_r + (h.hit ? h.ar : sk.x);
+      al_g = al_g + (h.hit ? h.ag : sk.y);
+      al_b = al_b + (h.hit ? h.ab : sk.z);
+    }
+    if (mode == NORMAL || mode == GUIDES) {
+      nm_r = nm_r + (h.hit ? 0.5f * (h.n.x + 1.0f) : sk.x);
+      nm_g = nm_g + (h.hit ? 0.5f * (h.n.y + 1.0f) : sk.y);
+      nm_b = nm_b + (h.hit ? 0.5f * (h.n.z + 1.0f) : sk.z);
+    }
+    if (mode == DEPTH || mode == GUIDES)
+      dep = dep + (h.hit ? h.t * sqrtf(d.x * d.x + d.y * d.y + d.z * d.z) : 0.0f);
   }
+  if (!in_frame) return;
   const float inv = (float)p.spp;  // the mean is sum / spp (megakernel.py:1789)
   const size_t pix = (size_t)y_local * p.width + x;
-  float* out = p.out + pix * 3;
-  out[0] = acc_r / inv;
-  out[1] = acc_g / inv;
-  out[2] = acc_b / inv;
+  const size_t plane = (size_t)p.width * p.height * 3;
+  if (mode == ALBEDO || mode == GUIDES) {
+    float* out = p.out + pix * 3;
+    out[0] = al_r / inv;
+    out[1] = al_g / inv;
+    out[2] = al_b / inv;
+  }
+  if (mode == NORMAL || mode == GUIDES) {
+    float* out = p.out + (mode == GUIDES ? plane : 0) + pix * 3;
+    out[0] = nm_r / inv;
+    out[1] = nm_g / inv;
+    out[2] = nm_b / inv;
+  }
+  if (mode == DEPTH || mode == GUIDES) {
+    float* out = p.out + (mode == GUIDES ? 2 * plane : 0) + pix * 3;
+    out[0] = out[1] = out[2] = dep / inv;
+  }
   if (kCount) p.rays[pix] = (float)rays;
 }
 
@@ -1757,8 +1950,9 @@ Params scene_params(const float* cam, const float* scene, int n, const float* sb
 // scan); a (n_tris, 32) mesh table with its BVH (n_tris = 0: no mesh).
 // The lights: (8, n_lights) and (16, n_tri_lights) planes, read when nee.
 // The sampler: kind 0 independent, 1 stratified (kx, ky), 2 Sobol (nbits).
-// The outputs: `out` (height, width, 3) and, when not null, `rays`
-// (height, width), the rays traced per pixel.  With `state` (6, height,
+// The outputs: `out` (height, width, 3), or (3, height, width, 3) in mode
+// GUIDES (albedo, normal, depth), and, when not null, `rays` (height,
+// width), the rays traced per pixel.  With `state` (6, height,
 // width) the adaptive loop runs (spp is its budget) and updates the state;
 // `out` is then optional (the one-shot mean).  The path integrator's fixed
 // loop needs `cursor`, one int in device memory set to 0.
@@ -1798,6 +1992,7 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool count = rays != nullptr;
   if (state != nullptr) {
+    if (mode == GUIDES) return static_cast<int>(cudaErrorInvalidValue);  // one plane a loop
     const Adaptive a = {state, tile_rows, min_spp, chunk, tol};
     if (nee) return static_cast<int>(count ? launch_adaptive<true, true>(p, a, s)
                                            : launch_adaptive<true, false>(p, a, s));
@@ -1807,8 +2002,13 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
   if (mode != PATH) {
     const dim3 block(32, 8);
     const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-    if (count) render_aov_kernel<true><<<grid, block, 0, s>>>(p);
-    else render_aov_kernel<false><<<grid, block, 0, s>>>(p);
+    if (p.geo.sphere_bvh.m == 0 && p.geo.n_tris == 0) {
+      if (count) render_aov_kernel<true, true><<<grid, block, 0, s>>>(p);
+      else render_aov_kernel<false, true><<<grid, block, 0, s>>>(p);
+    } else {
+      if (count) render_aov_kernel<true, false><<<grid, block, 0, s>>>(p);
+      else render_aov_kernel<false, false><<<grid, block, 0, s>>>(p);
+    }
     return static_cast<int>(cudaGetLastError());
   }
   if (nee) return static_cast<int>(count ? launch_render<true, true>(p, s)

@@ -5,10 +5,12 @@ the Pallas `_kernel`: spheres by the brute scan or through a sphere BVH,
 triangle meshes behind a BVH (flat or smooth), next-event estimation toward
 sphere and triangle lights with MIS, the independent, stratified and Sobol
 samplers, the fixed spp loop (warps that regenerate paths; one thread per
-pixel for the AOV modes), Russian roulette and the clamp, and the adaptive
-spp loop (a cluster of blocks per tile, warps that regenerate paths) with
-its resume state, the spp map and the ray counters.  `render_reference` is
-its plain PyTorch version with the same signature, composed of ops/rays,
+pixel over a staged sphere table for the AOV modes, and `render_guides`,
+the denoiser's three AOV planes in one launch), Russian roulette and the
+clamp, and the adaptive spp loop (a cluster of blocks per tile, warps that
+regenerate paths) with its resume state, the spp map and the ray counters.
+`render_reference` is its plain PyTorch version with the same signature
+(`render_guides_reference` is render_guides'), composed of ops/rays,
 ops/intersect, ops/materials and ops/integrators; the tests and the
 'torch' backend run it, and chip_smoke.py holds the kernel against it on
 the card.  The plain version scans every sphere whether or not the scene
@@ -56,8 +58,9 @@ from gpu_ray_tracing_tpu_torch.ops.rounding import fma
 #: geometry the launch was given (a mesh, else a sphere BVH, else the brute
 #: scan), suffixed "+nee" when the launch ran next-event estimation,
 #: "+stratified" or "+sobol" when it ran that sampler, "+adaptive" when it
-#: ran the adaptive loop and "+rays" when it counted rays (e.g.
-#: "megakernel:mesh_bvh+nee", "megakernel:brute+adaptive"), so a run can
+#: ran the adaptive loop, "+guides" for render_guides' launch and "+rays"
+#: when it counted rays (e.g. "megakernel:mesh_bvh+nee",
+#: "megakernel:brute+adaptive", "megakernel:brute+guides"), so a run can
 #: show which paths it used.
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -67,6 +70,11 @@ _LIGHTID = 11
 _SCENE_ROWS = 16
 
 MODES = {"path": 0, "normal": 1, "albedo": 2, "depth": 3}
+# render_guides: the albedo, normal and depth planes of one closest hit per
+# sample, in one launch (the kernel's mode GUIDES).
+GUIDES = integrators.GUIDES
+_GUIDES = "guides"
+_GUIDES_MODE = 4
 SAMPLERS = {None: 0, "stratified": 1, "sobol": 2}
 
 # Mesh table: one row of 32 f32 slots per face (the Pallas table's
@@ -338,14 +346,15 @@ def trace_pixels(sc: Scene, camera: Camera, ids: torch.Tensor, sample: int, fram
                  count_rays: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Hash-stream sample `sample` (u32) of the global pixel ids `ids` (1-D)
     of a `width`-wide frame, traced by the plain integrator of `mode`:
-    ((n, 3) rgb after the clamp, (n,) rays traced or None).  Each pixel is
-    independent of the others, so any partition of the ids gives the same
-    values; render_reference traces blocks of them, and the autograd
-    replay (ops/autograd.py) blocks of its own."""
+    ((n, 3) rgb after the clamp, (n,) rays traced or None), or ((3, n, 3)
+    albedo, normal and depth, rays) in render_guides_reference's mode.
+    Each pixel is independent of the others, so any partition of the ids
+    gives the same values; render_reference traces blocks of them, and the
+    autograd replay (ops/autograd.py) blocks of its own."""
     o, d, seeds = generate_rays_for_ids(camera, ids, sample, frame_seed,
                                         total_width=width, sampler_spec=sampler_spec)
     aov = {"normal": integrators.shade_normals, "albedo": integrators.shade_albedo,
-           "depth": integrators.shade_depth}.get(mode)
+           "depth": integrators.shade_depth, _GUIDES: integrators.shade_guides}.get(mode)
     if aov is not None:
         rays = torch.ones(ids.numel(), dtype=torch.float32, device=ids.device)
         return aov(o, d, sc, t_min, t_max), rays if count_rays else None
@@ -566,9 +575,6 @@ def render_cuda(
                           return_spp_map, return_ray_count, adaptive_state,
                           adaptive_chunk)
     packed = pack_scene(sc, nee, mis, sampler_spec)
-    lib = build.load()
-    cam = camera_vector(camera).contiguous()
-    ptr = lambda t: None if t is None else t.data_ptr()
     out = (None if plan.resume
            else torch.empty((height, width, 3), dtype=torch.float32, device=dev))
     rays = (torch.zeros((height, width), dtype=torch.float32, device=dev)
@@ -576,6 +582,25 @@ def render_cuda(
     # The path kernel's pixel-group cursor, zero at launch.
     cursor = (torch.zeros(1, dtype=torch.int32, device=dev)
               if plan.state is None and mode == "path" else None)
+    _launch(packed, camera, dev, MODES[mode], out, rays, plan, cursor, width=width,
+            height=height, sample_index=sample_index, frame_seed=frame_seed,
+            y_offset=y_offset, row_stride=row_stride, max_depth=max_depth, t_min=t_min,
+            t_max=t_max, russian_roulette_depth=russian_roulette_depth,
+            sky_intensity=sky_intensity, clamp=clamp, spp=spp)
+    route = packed.route + ("+adaptive" if plan.state is not None else "")
+    LAUNCHES["megakernel:" + route + ("+rays" if rays is not None else "")] += 1
+    return _outputs(out, plan, spp, return_spp_map, rays)
+
+
+def _launch(packed: PackedScene, camera: Camera, dev: torch.device, mode: int, out, rays,
+            plan: _AdaptivePlan, cursor, *, width: int, height: int, sample_index: int,
+            frame_seed: int, y_offset: int, row_stride: int, max_depth: int, t_min: float,
+            t_max: float, russian_roulette_depth: int, sky_intensity: float, clamp: float,
+            spp: int) -> None:
+    """One grt_render launch on dev's current stream; raises if refused."""
+    lib = build.load()
+    cam = camera_vector(camera).contiguous()
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.grt_render(
@@ -583,15 +608,106 @@ def render_cuda(
             width, height,
             int(sample_index) & 0xFFFFFFFF, int(frame_seed) & 0xFFFFFFFF,
             int(y_offset) & 0xFFFFFFFF, int(row_stride) & 0xFFFFFFFF,
-            max_depth, float(t_min), float(t_max), MODES[mode],
+            max_depth, float(t_min), float(t_max), mode,
             int(russian_roulette_depth), float(sky_intensity), float(clamp),
             spp, ptr(out), ptr(rays), ptr(plan.state),
             plan.tile_rows, plan.min_spp, plan.chunk, plan.tol, ptr(cursor), stream,
         )
     build.check(rc, "megakernel")
-    route = packed.route + ("+adaptive" if plan.state is not None else "")
-    LAUNCHES["megakernel:" + route + ("+rays" if rays is not None else "")] += 1
-    return _outputs(out, plan, spp, return_spp_map, rays)
+
+
+def render_guides(
+    scene_or_spheres,
+    camera: Camera,
+    *,
+    width: int,
+    height: int,
+    sample_index: int = 0,
+    frame_seed: int = 0,
+    t_min: float,
+    t_max: float = 3.4e35,
+    y_offset: int = 0,
+    spp: int = 1,
+    row_stride: int = 1,
+    sampler_spec: tuple | None = None,
+    return_ray_count: bool = False,
+) -> dict[str, torch.Tensor]:
+    """The denoiser's guide planes in one launch of render_aov_kernel:
+    {"albedo", "normal", "depth"}, each (height, width, 3) f32 and equal
+    bit for bit to render_cuda(mode=<that key>) with these keywords (at any
+    max_depth), from one closest hit per sample; with return_ray_count also "rays", the
+    (height, width) rays traced (one a sample, as each single mode counts).
+    The fixed spp loop only: the adaptive loop would stop each plane's
+    tiles at its own count.  CUDA tensors only: no fallback."""
+    _check_args(width, height, spp, 1, "albedo", False, False, sampler_spec)
+    sc = as_scene(scene_or_spheres)
+    dev = _require_cuda(*dataclass_tensors(sc), *dataclass_tensors(camera))
+    plan = _AdaptivePlan(None, False, AOV_TILE_ROWS, 1, 0, 0.0)
+    packed = pack_scene(sc, False, False, sampler_spec)
+    out = torch.empty((3, height, width, 3), dtype=torch.float32, device=dev)
+    rays = (torch.zeros((height, width), dtype=torch.float32, device=dev)
+            if return_ray_count else None)
+    _launch(packed, camera, dev, _GUIDES_MODE, out, rays, plan, None, width=width,
+            height=height, sample_index=sample_index, frame_seed=frame_seed,
+            y_offset=y_offset, row_stride=row_stride, max_depth=1, t_min=t_min,
+            t_max=t_max, russian_roulette_depth=0, sky_intensity=1.0, clamp=0.0, spp=spp)
+    LAUNCHES["megakernel:" + packed.route + "+guides" + ("+rays" if rays is not None else "")] += 1
+    return _guides_dict(out, rays)
+
+
+def _guides_dict(planes: torch.Tensor, rays) -> dict[str, torch.Tensor]:
+    out = dict(zip(GUIDES, planes.unbind(0)))
+    if rays is not None:
+        out["rays"] = rays
+    return out
+
+
+def render_guides_reference(
+    scene_or_spheres,
+    camera: Camera,
+    *,
+    width: int,
+    height: int,
+    sample_index: int = 0,
+    frame_seed: int = 0,
+    t_min: float,
+    t_max: float = 3.4e35,
+    y_offset: int = 0,
+    spp: int = 1,
+    row_stride: int = 1,
+    sampler_spec: tuple | None = None,
+    return_ray_count: bool = False,
+) -> dict[str, torch.Tensor]:
+    """The plain PyTorch version of render_guides, on the scene's device:
+    per sample one integrators.intersect_scene and the three shade_*
+    planes of it (integrators.shade_guides), summed in sample order and
+    divided by spp, so each plane equals render_reference(mode=<key>) bit
+    for bit.  Same keywords and return as render_guides."""
+    _check_args(width, height, spp, 1, "albedo", False, False, sampler_spec)
+    sc = as_scene(scene_or_spheres)
+    dev = sc.spheres.device
+    camera = camera.to(dev)
+    p = width * height
+    block = _trace_block(p, sc)
+    pid = hash_pixel_ids(width, height, y_offset=y_offset, total_width=width,
+                         row_stride=row_stride, device=dev).reshape(p)
+    kw = dict(width=width, max_depth=1, t_min=t_min, t_max=t_max, mode=_GUIDES,
+              russian_roulette_depth=0, sky_intensity=1.0, clamp=0.0, nee=False, mis=False,
+              sampler_spec=sampler_spec, light_pick="sample", count_rays=return_ray_count)
+    acc = torch.zeros((3, p, 3), dtype=torch.float32, device=dev)
+    rays = torch.zeros(p, dtype=torch.float32, device=dev) if return_ray_count else None
+    for s in range(spp):
+        s_u32 = (int(sample_index) + s) & 0xFFFFFFFF
+        planes = torch.empty((3, p, 3), dtype=torch.float32, device=dev)
+        for start in range(0, p, block):
+            sl = slice(start, start + block)
+            planes[:, sl], r = trace_pixels(sc, camera, pid[sl], s_u32, frame_seed, **kw)
+            if r is not None:
+                rays[sl] += r
+        acc += planes
+    img = acc / float(spp)
+    return _guides_dict(img.reshape(3, height, width, 3),
+                        None if rays is None else rays.reshape(height, width))
 
 
 def adaptive_cluster(blocks: int | None = None) -> int:

@@ -126,26 +126,46 @@ def nearest_t_scene(origins, dirs, scene, t_min: float, t_max: float) -> torch.T
     return torch.minimum(t, torch.where(m_hit.hit, m_hit.t, t_max))
 
 
+def _shade_hit(mode: str, hit: Hit, albedo, dirs) -> torch.Tensor:
+    """One AOV plane of a closest hit: 'normal' 0.5*(n+1) or sky, 'albedo'
+    the first-hit albedo or sky, 'depth' the metric distance t * |d| in 3
+    equal channels (0 on a miss)."""
+    if mode == "normal":
+        return torch.where(hit.hit[..., None], 0.5 * (hit.normal + 1.0), sky_color(dirs))
+    if mode == "albedo":
+        return torch.where(hit.hit[..., None], albedo, sky_color(dirs))
+    dist = torch.where(
+        hit.hit, hit.t * sqrt(torch.sum(dirs * dirs, dim=-1)), 0.0
+    )
+    return dist[..., None].expand(*dist.shape, 3)
+
+
 def shade_normals(origins, dirs, scene, t_min: float, t_max: float) -> torch.Tensor:
     """Normal-shading integrator (BASELINE config 1): 0.5*(n+1) or sky."""
-    hit, _, _, _ = intersect_scene(origins, dirs, scene, t_min, t_max)
-    lit = 0.5 * (hit.normal + 1.0)
-    return torch.where(hit.hit[..., None], lit, sky_color(dirs))
+    hit, albedo, _, _ = intersect_scene(origins, dirs, scene, t_min, t_max)
+    return _shade_hit("normal", hit, albedo, dirs)
 
 
 def shade_albedo(origins, dirs, scene, t_min: float, t_max: float) -> torch.Tensor:
     """First-hit albedo AOV, sky color on a miss."""
     hit, albedo, _, _ = intersect_scene(origins, dirs, scene, t_min, t_max)
-    return torch.where(hit.hit[..., None], albedo, sky_color(dirs))
+    return _shade_hit("albedo", hit, albedo, dirs)
 
 
 def shade_depth(origins, dirs, scene, t_min: float, t_max: float) -> torch.Tensor:
     """First-hit metric distance (t * |d|), 3 equal channels; 0 on a miss."""
-    hit, _, _, _ = intersect_scene(origins, dirs, scene, t_min, t_max)
-    dist = torch.where(
-        hit.hit, hit.t * sqrt(torch.sum(dirs * dirs, dim=-1)), 0.0
-    )
-    return dist[..., None].expand(*dist.shape, 3)
+    hit, albedo, _, _ = intersect_scene(origins, dirs, scene, t_min, t_max)
+    return _shade_hit("depth", hit, albedo, dirs)
+
+
+GUIDES = ("albedo", "normal", "depth")
+
+
+def shade_guides(origins, dirs, scene, t_min: float, t_max: float) -> torch.Tensor:
+    """The denoiser's three guide planes from one closest hit: (3, ..., 3),
+    albedo, normal and depth in that order, each what its shade_* gives."""
+    hit, albedo, _, _ = intersect_scene(origins, dirs, scene, t_min, t_max)
+    return torch.stack([_shade_hit(m, hit, albedo, dirs) for m in GUIDES])
 
 
 def clamp_radiance(rgb: torch.Tensor, clamp: float) -> torch.Tensor:

@@ -782,3 +782,131 @@ def test_kernel_frame_gradient_matches_the_torch_backend(dev, backend, regenerat
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
     plain_scene, _ = _tri_light_scene(dev, grad=False)
     assert torch.equal(kernel_img, T.render(plain_scene, BASE_CAMERA, kernel_cfg, frame_seed=3))
+
+
+# --- render_aov_kernel: the staged brute scan and the guides launch ----------
+
+
+def _sphere_cloud(n: int, dev, seed: int = 0, inactive_every: int = 0):
+    """n spheres for the brute route (as_scene builds no sphere BVH at any
+    n): a ground sphere, then random spheres in front of the default
+    camera with distinct albedos, and a copy of sphere 1 (a tie the first
+    index must win) when n >= 3.  With inactive_every k, every k-th
+    sphere after the ground gets radius 0."""
+    rng = np.random.default_rng(seed)
+    centers = np.column_stack([rng.uniform(-8, 8, n), rng.uniform(0.1, 2.0, n),
+                               rng.uniform(-8, 8, n)]).astype(np.float32)
+    radii = rng.uniform(0.15, 0.7, n).astype(np.float32)
+    albedo = rng.uniform(0.05, 0.95, (n, 3)).astype(np.float32)
+    kind = rng.integers(0, 3, n).astype(np.int32)
+    if n:
+        centers[0], radii[0], kind[0] = (0.0, -1000.0, 0.0), 1000.0, T.LAMBERTIAN
+    if n >= 3:
+        centers[2], radii[2] = centers[1], radii[1]
+    if inactive_every:
+        radii[1::inactive_every] = 0.0
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return T.Spheres(t(centers), t(radii), t(albedo), t(kind),
+                     t(rng.uniform(0.0, 1.5, n).astype(np.float32)))
+
+
+def _guide_routes(dev):
+    """route -> (scene, camera, render_guides keywords, launch-count route)."""
+    ow, owc = _one_weekend(dev, 96, 54)
+    base = dict(t_min=1e-3, frame_seed=3)
+    mesh, mesh_cam = _mesh_scene(dev, smooth=True)
+    bvh, bvh_cam = _sphere_bvh_scene(dev, 96, 54)
+    odd_cam = T.derive_camera(T.CameraSettings.default(), 50, 31).to(dev)
+    return {
+        "brute": (ow, owc, dict(base, width=96, height=54, spp=3), "brute"),
+        "ragged_50x31": (ow, odd_cam, dict(base, width=50, height=31, spp=5), "brute"),
+        "row_band": (ow, owc, dict(base, width=96, height=20, spp=2, y_offset=1,
+                                   row_stride=2), "brute"),
+        "sobol": (ow, owc, dict(base, width=96, height=54, spp=4, sampler_spec=("sobol", 5)),
+                  "brute+sobol"),
+        "stratified": (ow, owc, dict(base, width=96, height=54, spp=4,
+                                     sampler_spec=("stratified", 2, 2)), "brute+stratified"),
+        "sphere_bvh": (bvh, bvh_cam, dict(base, width=96, height=54, spp=2), "sphere_bvh"),
+        "mesh": (mesh, mesh_cam, dict(base, width=96, height=72, spp=2), "mesh_bvh"),
+    }
+
+
+@pytest.mark.parametrize("route", ["brute", "ragged_50x31", "row_band", "sobol", "stratified",
+                                   "sphere_bvh", "mesh"])
+def test_guides_launch_equals_the_single_mode_launches(dev, route):
+    """render_guides' three planes and ray counts equal render_cuda(mode=)
+    bit for bit on every route; two launches give identical planes; one
+    launch counts once under megakernel:<route>+guides+rays."""
+    scene, cam, kw, key = _guide_routes(dev)[route]
+    before = mk.LAUNCHES[f"megakernel:{key}+guides+rays"]
+    first = mk.render_guides(scene, cam, return_ray_count=True, **kw)
+    assert mk.LAUNCHES[f"megakernel:{key}+guides+rays"] == before + 1
+    second = mk.render_guides(scene, cam, return_ray_count=True, **kw)
+    assert set(first) == {"albedo", "normal", "depth", "rays"}
+    for mode in mk.GUIDES:
+        img, rays = mk.render_cuda(scene, cam, mode=mode, max_depth=1, return_ray_count=True,
+                                   **kw)
+        assert torch.equal(first[mode], img), mode
+        assert torch.equal(first[mode], second[mode]), mode
+        assert torch.equal(first["rays"], rays)
+    assert bool((first["rays"] == kw["spp"]).all())
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 1000, 1024, 1025, 2500])
+def test_staged_brute_scan_at_every_sphere_count(dev, n):
+    """The brute route stages at most 1024 spheres a chunk: at counts
+    around the block size, the BVH threshold and the chunk size, the
+    guides equal the single-mode launches bit for bit (each launched
+    twice, identical) and the plain version at 1% / 2e-4; with no sphere
+    every ray sees the sky (albedo == normal, depth 0)."""
+    cam = T.derive_camera(T.CameraSettings.default(), 64, 40).to(dev)
+    scene = T.as_scene(_sphere_cloud(n, dev, seed=n))
+    kw = dict(width=64, height=40, spp=2, t_min=1e-3, frame_seed=n)
+    g = mk.render_guides(scene, cam, **kw)
+    for mode in mk.GUIDES:
+        single = mk.render_cuda(scene, cam, mode=mode, max_depth=1, **kw)
+        assert torch.equal(g[mode], single), mode
+        assert torch.equal(single, mk.render_cuda(scene, cam, mode=mode, max_depth=1, **kw))
+        if n:
+            _assert_match(g[mode], mk.render_reference(scene, cam, mode=mode, max_depth=1, **kw))
+    if not n:
+        assert torch.equal(g["albedo"], g["normal"]) and not bool(g["depth"].any())
+
+
+def test_inactive_spheres_never_win(dev):
+    """A scene with every third sphere inactive renders the same planes,
+    bit for bit, as the scene of its active spheres alone (the staged
+    table leaves inactive spheres out and keeps the scan order), and
+    matches the plain version."""
+    cam = T.derive_camera(T.CameraSettings.default(), 64, 40).to(dev)
+    sp = _sphere_cloud(300, dev, seed=11, inactive_every=3)
+    keep = sp.radii > 0
+    active = T.Spheres(*(getattr(sp, f.name)[keep] for f in dataclasses.fields(T.Spheres)))
+    kw = dict(width=64, height=40, spp=2, t_min=1e-3, frame_seed=2)
+    with_inactive = mk.render_guides(sp, cam, **kw)
+    only_active = mk.render_guides(active, cam, **kw)
+    for mode in mk.GUIDES:
+        assert torch.equal(with_inactive[mode], only_active[mode]), mode
+        _assert_match(with_inactive[mode],
+                      mk.render_reference(sp, cam, mode=mode, max_depth=1, **kw))
+
+
+def test_render_denoised_launches_the_guides_once(dev):
+    """render_denoised on the card: with no grad one beauty launch and one
+    guides launch a frame, the guides bit-equal to three render() passes;
+    with an albedo leaf that requires grad the three single-mode passes
+    (KernelFrame's replay needs each mode's graph), and backward() runs."""
+    scene, settings = T.one_weekend_scene(0, device=dev), T.CameraSettings.default()
+    cfg = T.RenderConfig(width=64, height=48, spp=2, max_depth=6, backend="cuda")
+    mk.LAUNCHES.clear()
+    out, beauty, aovs = T.render_denoised(scene, settings, cfg, frame_seed=4, return_aovs=True)
+    assert dict(mk.LAUNCHES) == {"megakernel:brute": 1, "megakernel:brute+guides": 1}
+    for mode in mk.GUIDES:
+        want = T.render(scene, settings, dataclasses.replace(cfg, integrator=mode), frame_seed=4)
+        assert torch.equal(aovs[mode], want), mode
+    albedo = scene.albedo.clone().requires_grad_(True)
+    mk.LAUNCHES.clear()
+    T.render_denoised(dataclasses.replace(scene, albedo=albedo), settings, cfg,
+                      frame_seed=4).mean().backward()
+    assert dict(mk.LAUNCHES) == {"megakernel:brute": 4}
+    assert bool(torch.isfinite(albedo.grad).all()) and bool((albedo.grad != 0).any())
