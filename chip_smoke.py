@@ -193,7 +193,8 @@ the kernel alone and its cluster size), the hash and sampler probes, wavefront:b
 wavefront_partition, wavefront_raygen, wavefront_advance, fma_peak and
 bf16_probe), each row with its least time
 on the card (`bound_ms`, from the rays its counters measured at that row's
-shape), the card's `nvidia-smi` name and power limit, and last
+shape and, on a brute scan, the share of sphere tests that need roots in
+the row's plain version on the same inputs), the card's `nvidia-smi` name and power limit, and last
 {"ok": true, "device": {...}}.  A failed gate exits nonzero before that line.
 Without a CUDA device, or outside the repository, it exits nonzero and prints
 no result.  It needs no network and starts no process that outlives it.
@@ -207,7 +208,8 @@ the adaptive main frame (phase 17's), the adaptive Cornell box (phase
 15's), the main frame through backend='wavefront' with regeneration off
 and on (5 frames each), the denoised main frame (3 frames) and its
 launches, render_aov_kernel alone on the three guide passes of that frame,
-its guides launch (where the package has render_guides) and config 1, and
+its guides launch (where the package has render_guides) and config 1, config
+1 through render() (40 frames after 2 warm-ups, as phase 10 times it), and
 one inverse-rendering step at phase 27's settings (forward and backward,
 the median of 5), and prints one JSON line; with `--save-frame PATH` it
 also saves the frame as a .npy file, each adaptive frame's image, spp map,
@@ -269,11 +271,14 @@ BF16_PEAK = 133.8e12
 HBM_RATE = 3.35e12
 # FP32 operations of one primitive test, counted from the JAX kernel's code
 # (a fused multiply-add as 2; compares and selects not counted):
-# `_sphere_root` (megakernel.py:530): h 6, cc 8, disc 3, sqrt(max) 2, roots 4;
-# the slab test of `_traverse_bvh` (:296-318): 12 for the slabs, 10 min/max,
-# the t_min clamp 1; `_tri_intersect` (:439): pvec 9, det 5, 1/det 1, tvec 3,
-# u 6, qvec 9, v 6, t 6.
-SPHERE_FLOPS = 23
+# `_sphere_root` (megakernel.py:530): h 6, cc 8, disc 3 for every test, and
+# sqrt(max) 2 and the roots 4 only where the discriminant is not negative
+# (elsewhere the closest hit needs no root); the slab test of
+# `_traverse_bvh` (:296-318): 12 for the slabs, 10 min/max, the t_min clamp
+# 1; `_tri_intersect` (:439): pvec 9, det 5, 1/det 1, tvec 3, u 6, qvec 9,
+# v 6, t 6.
+SPHERE_TEST_FLOPS = 17
+SPHERE_ROOT_FLOPS = 6
 BOX_FLOPS = 23
 TRI_FLOPS = 45
 # `-Xptxas -v` of the one-thread-per-pixel render_kernel<nee, count> this
@@ -333,6 +338,21 @@ def cuda_ms(fn, repeats: int) -> tuple[float, object]:
     return start.elapsed_time(end) / repeats, out
 
 
+def plain_run(fn) -> tuple[float, object, float | None]:
+    """cuda_ms(fn, 1) of a plain version's call, and the share of its
+    brute-scan (ray, active sphere) tests whose discriminant is not
+    negative (ops/intersect.SPHERE_TESTS; None where it ran no brute scan).
+    Counting adds a compare and a sum to each scan."""
+    from gpu_ray_tracing_tpu_torch.ops import intersect
+    intersect.SPHERE_TESTS = counts = {"tests": 0, "roots": 0}
+    try:
+        ms, out = cuda_ms(fn, 1)
+    finally:
+        intersect.SPHERE_TESTS = None
+    tests = int(counts["tests"])
+    return ms, out, int(counts["roots"]) / tests if tests else None
+
+
 def alone_ms(fn, repeats: int) -> float:
     """The kernel alone: device ms of fn (a launch on tensors already on
     the card), one warm-up call, then the mean of `repeats` calls queued
@@ -355,18 +375,19 @@ def against_plain(T, mk, run, scene, cam, kw, flip: float, mean_tol: float,
     """Reset the launch counts, call `run` (a kernel path) `warmup` times
     and 5 timed times (CUDA events), read the counts, then render the same
     frame with the plain version once (render_reference(scene, cam, **kw);
-    its launches do not count) unless `plain` gives (image, ms) already.
-    The kernel's image is matched to the plain one at (flip, mean_tol)."""
+    its launches do not count; plain_run's root share) unless `plain`
+    gives (image, ms, root share) already.  The kernel's image is matched
+    to the plain one at (flip, mean_tol)."""
     mk.LAUNCHES.clear()
     for _ in range(warmup):
         run()
     ms, img = cuda_ms(run, 5)
     launches = dict(mk.LAUNCHES)
     if plain is None:
-        plain_ms, plain_img = cuda_ms(lambda: mk.render_reference(scene, cam, **kw), 1)
+        plain_ms, plain_img, share = plain_run(lambda: mk.render_reference(scene, cam, **kw))
     else:
-        plain_img, plain_ms = plain
-    return dict(img=img, plain_img=plain_img, ms=ms, plain_ms=plain_ms,
+        plain_img, plain_ms, share = plain
+    return dict(img=img, plain_img=plain_img, ms=ms, plain_ms=plain_ms, root_share=share,
                 launches=launches, finite=bool(torch.isfinite(img).all()),
                 mean=float(img.mean()), match=T.images_match(img, plain_img, flip, mean_tol))
 
@@ -430,8 +451,10 @@ def time_aov(T, mk, repeats: int, arrays: dict | None = None) -> dict:
     """render_aov_kernel alone (alone_ms over `repeats` launches): the three
     guide passes at the main frame, the guides launch where the package
     has one (mk.render_guides), and BASELINE config 1 (base_scene, 800x600,
-    1 spp, the normal AOV; phase 10's frame).  With `arrays` it stores
-    every plane there, for a byte comparison between checkouts."""
+    1 spp, the normal AOV; phase 10's frame), and config 1 through
+    render() as phase 10 times it (2 warm-ups, then the mean of 4 x
+    `repeats` frames).  With `arrays` it stores every plane there, for a
+    byte comparison between checkouts."""
     dev = torch.device("cuda", 0)
     scene, cam, kw = main_aov_inputs(T, dev)
     out = {}
@@ -451,6 +474,13 @@ def time_aov(T, mk, repeats: int, arrays: dict | None = None) -> dict:
     k1 = dict(width=800, height=600, spp=1, max_depth=cfg1.max_depth, t_min=cfg1.t_min,
               frame_seed=1, mode="normal")
     out["config1"] = kernel_ms(mk, base, bcam, k1, repeats)
+    cfg1 = dataclasses.replace(cfg1, backend="cuda")
+    base_settings = T.CameraSettings.make(**BASE_CAMERA)
+    scene1 = T.as_scene(T.base_scene())
+    run1 = lambda: T.render(scene1, base_settings, cfg1, frame_seed=1)
+    for _ in range(2):
+        run1()
+    out["config1_render"] = cuda_ms(run1, 4 * repeats)[0]
     if arrays is not None:
         arrays["config1_normal"] = mk.render_cuda(base, bcam, **k1).cpu().numpy()
     return out
@@ -458,10 +488,11 @@ def time_aov(T, mk, repeats: int, arrays: dict | None = None) -> dict:
 
 def sphere_cloud(T, n: int, dev, seed: int = 0, inactive_every: int = 0):
     """n spheres for the brute route (as_scene builds no sphere BVH at any
-    n; tests/test_torch_cuda.py::_sphere_cloud): a ground sphere, then
-    random spheres in front of the default camera with distinct albedos,
-    and a copy of sphere 1 (a tie) when n >= 3; with inactive_every k,
-    every k-th sphere after the ground has radius 0."""
+    n; phase 29 and tests/test_torch_cuda.py's guides tests): a ground
+    sphere, then random spheres in front of the default camera with
+    distinct albedos, and a copy of sphere 1 (a tie the first index must
+    win) when n >= 3; with inactive_every k, every k-th sphere after the
+    ground has radius 0."""
     rng = np.random.default_rng(seed)
     centers = np.column_stack([rng.uniform(-8, 8, n), rng.uniform(0.1, 2.0, n),
                                rng.uniform(-8, 8, n)]).astype(np.float32)
@@ -726,32 +757,38 @@ def _mean_leaf(bvh) -> float:
     return float(counts.mean())
 
 
-def ray_flops(sc) -> float:
+def ray_flops(sc, root_share: float | None) -> float:
     """FP32 operations of the primitive tests one ray needs on a scene's
-    route: every active sphere on the brute scan; on a BVH one root-box test
-    plus one leaf of the tree's mean size (a lower bound)."""
+    route: every active sphere on the brute scan, the roots in
+    `root_share` of the tests (plain_run's count; None counts none, a lower
+    bound); on a BVH one root-box test plus one leaf of the tree's mean
+    size (a lower bound)."""
+    sphere = SPHERE_TEST_FLOPS + SPHERE_ROOT_FLOPS * (root_share or 0.0)
     if sc.sphere_bvh is not None:
-        flops = BOX_FLOPS + _mean_leaf(sc.sphere_bvh) * SPHERE_FLOPS
+        flops = BOX_FLOPS + _mean_leaf(sc.sphere_bvh) * sphere
     else:
-        flops = float((sc.spheres.radii > 0).sum()) * SPHERE_FLOPS
+        flops = float((sc.spheres.radii > 0).sum()) * sphere
     if sc.mesh is not None:
         flops += BOX_FLOPS + _mean_leaf(sc.bvh) * TRI_FLOPS
     return flops
 
 
-def bound(T, mk, sc, rays_traced: float, out_bytes: int) -> dict:
+def bound(T, mk, sc, rays_traced: float, out_bytes: int, root_share: float | None) -> dict:
     """bound_ms of a megakernel row: the larger of its FP32 work (rays
-    traced x ray_flops) over FP32_PEAK and its bytes (the scene's arrays and
-    the camera read once, `out_bytes` written once) over HBM_RATE.  On a
-    BVH route the work is a lower bound (one box and one leaf a ray)."""
+    traced x ray_flops at the plain version's root share on the same
+    inputs) over FP32_PEAK and its bytes (the scene's arrays and the camera
+    read once, `out_bytes` written once) over HBM_RATE.  On a BVH route,
+    or a brute scan with no share counted, the work is a lower bound."""
     sc = T.as_scene(sc)
-    lower = sc.sphere_bvh is not None or sc.mesh is not None
+    brute = sc.sphere_bvh is None and bool((sc.spheres.radii > 0).any())
+    lower = (sc.sphere_bvh is not None or sc.mesh is not None
+             or (brute and root_share is None))
     in_bytes = sum(t.numel() * t.element_size() for t in mk.dataclass_tensors(sc)) + 96
-    t_ops = rays_traced * ray_flops(sc) / FP32_PEAK * 1e3
+    t_ops = rays_traced * ray_flops(sc, root_share) / FP32_PEAK * 1e3
     t_bytes = (in_bytes + out_bytes) / HBM_RATE * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
-                else "bytes", rays_traced=rays_traced, bound_is_lower_bound=lower,
-                library_ms=None)
+                else "bytes", rays_traced=rays_traced, root_share=root_share,
+                bound_is_lower_bound=lower, library_ms=None)
 
 
 def bounce_vs_plain(wf, sc, cam, w: int, h: int, *, regen: bool, bounces: int = 6,
@@ -1312,14 +1349,15 @@ def phase_denoise(T, mk, dev, smi: str) -> dict:
     mk.LAUNCHES.clear()
     g_img = mk.render_guides(scene28, cam28, **kw28)
     g_key = list(mk.LAUNCHES)
-    g_plain_ms, g_plain = cuda_ms(lambda: mk.render_guides_reference(scene28, cam28, **kw28), 1)
+    g_plain_ms, g_plain, g_share = plain_run(
+        lambda: mk.render_guides_reference(scene28, cam28, **kw28))
     guides = {}
     for mode in AOV_MODES:
         single = dict(kw28, mode=mode, max_depth=cfg28.max_depth)
         mk.LAUNCHES.clear()
         k_img = mk.render_cuda(scene28, cam28, **single)
         key = list(mk.LAUNCHES)
-        p_ms, p_img = cuda_ms(lambda: mk.render_reference(scene28, cam28, **single), 1)
+        p_ms, p_img, p_share = plain_run(lambda: mk.render_reference(scene28, cam28, **single))
         m = T.images_match(k_img, p_img, 0.01, 2e-4)
         guides[mode] = dict(kernel_ms=kernel_ms(mk, scene28, cam28, single, 5),
                             launch_key=key, plain_ms=p_ms, flip_frac=m.flip_frac,
@@ -1327,13 +1365,14 @@ def phase_denoise(T, mk, dev, smi: str) -> dict:
                             plain_equals_guides_plain=bool(torch.equal(p_img, g_plain[mode])),
                             equal_to_guides_launch=bool(torch.equal(k_img, g_img[mode])),
                             equal_to_render_denoised_pass=bool(torch.equal(k_img, aovs[mode])),
-                            **bound(T, mk, scene28, 1280.0 * 720 * 16, 3 * 4 * 1280 * 720))
+                            **bound(T, mk, scene28, 1280.0 * 720 * 16, 3 * 4 * 1280 * 720,
+                                    p_share))
     g_match = {m: T.images_match(g_img[m], g_plain[m], 0.01, 2e-4) for m in AOV_MODES}
     launch = dict(kernel_ms=alone_ms(lambda: mk.render_guides(scene28, cam28, **kw28), 5),
                   launch_key=g_key, plain_ms=g_plain_ms,
                   max_abs=max(v.max_abs for v in g_match.values()),
                   ok=all(v.ok for v in g_match.values()),
-                  **bound(T, mk, scene28, 1280.0 * 720 * 16, 3 * 3 * 4 * 1280 * 720))
+                  **bound(T, mk, scene28, 1280.0 * 720 * 16, 3 * 3 * 4 * 1280 * 720, g_share))
     planes = dict(albedo=aovs["albedo"], normal=T.decode_normal_aov(aovs["normal"]),
                   depth=aovs["depth"][..., 0])
     filt = lambda: T.atrous_denoise(beauty, **planes)
@@ -1592,16 +1631,17 @@ def main() -> int:
     shape_ok = tuple(img.shape) == (h, w, 3)
     # The plain version of the same frame (its launches do not count).
     cam6 = T.derive_camera(main_cam, w, h).to(dev)
-    plain_ms, plain_img = cuda_ms(lambda: mk.render_reference(
+    plain_ms, plain_img, main_share = plain_run(lambda: mk.render_reference(
         main_scene.to(dev), cam6, width=w, height=h, spp=spp, max_depth=30,
-        t_min=cfg.t_min, frame_seed=7), 1)
+        t_min=cfg.t_min, frame_seed=7))
     m6 = T.images_match(img, plain_img, 0.01, 2e-4)
     main_kernel = time_main_kernel(T, mk, 5)
     emit({"phase": "main_path", "size": [w, h], "spp": spp, "max_depth": 30,
           "shape": list(img.shape), "finite": finite, "mean": mean,
           "launches": launches, "ms_per_frame": frame_ms, **main_kernel,
           "primary_mrays_per_s": w * h * spp / (frame_ms * 1e3),
-          "plain_ms": plain_ms, "vs_plain_flip_frac": m6.flip_frac,
+          "plain_ms": plain_ms, "plain_root_share": main_share,
+          "vs_plain_flip_frac": m6.flip_frac,
           "vs_plain_mean_abs": m6.mean_abs, "vs_plain_max_abs": m6.max_abs,
           "card": smi})
     gate("main_path", shape_ok and finite and 0.0 < mean < 1.0,
@@ -1622,7 +1662,7 @@ def main() -> int:
                          final_dev, cam7, kw7, 0.02, 2e-3)
     brute = against_plain(T, mk, lambda: mk.render_cuda(brute_dev, cam7, **kw7),
                           final_dev, cam7, kw7, 0.01, 2e-4,
-                          plain=(walk["plain_img"], walk["plain_ms"]))
+                          plain=(walk["plain_img"], walk["plain_ms"], walk["root_share"]))
     m7, m7b = walk["match"], brute["match"]
     # The walk adds no flips over the scan: held to the brute kernel on the
     # same spheres at the standard contract.
@@ -1800,7 +1840,7 @@ def main() -> int:
         mk.render_cuda(sc, cam, **kw)
         k_ms, (img, smap) = cuda_ms(lambda: mk.render_cuda(sc, cam, **kw), 5)
         ad_l = dict(mk.LAUNCHES)
-        p_ms, (pimg, pmap) = cuda_ms(lambda: mk.render_reference(sc, cam, **kw), 1)
+        p_ms, (pimg, pmap), p_share = plain_run(lambda: mk.render_reference(sc, cam, **kw))
         tiles_differ, mm = adaptive_match(T, img, smap, pimg, pmap, flip, 2e-4)
         early = bool(smap.min() < smap.max())
         rays = mk.render_cuda(sc, cam, **{**kw, "return_spp_map": False},
@@ -1809,6 +1849,7 @@ def main() -> int:
         # and written.
         adaptive_runs[case] = dict(route=route, launches=ad_l, ms=k_ms, plain_ms=p_ms,
                                    match=mm, scene=sc, rays=float(rays.double().sum()),
+                                   root_share=p_share,
                                    out_bytes=(3 + 1 + 2 * 6) * 4 * w * h,
                                    cluster=mk.adaptive_cluster())
         emit({"phase": "adaptive_vs_plain", "case": case, "route": route, "size": [w, h],
@@ -1868,7 +1909,8 @@ def main() -> int:
                  adaptive_tol=0.03, adaptive_min_spp=8, return_spp_map=True)
     k_img, smap = mk.render_cuda(main_dev, cam6, **ad_kw)
     # The plain version of the same frame (its launches do not count).
-    ad_plain_ms, (p_img, p_map) = cuda_ms(lambda: mk.render_reference(main_dev, cam6, **ad_kw), 1)
+    ad_plain_ms, (p_img, p_map), ad_share = plain_run(
+        lambda: mk.render_reference(main_dev, cam6, **ad_kw))
     ad_tiles_differ, m17 = adaptive_match(T, k_img, smap, p_img, p_map, 0.01, 2e-4)
     ad_rays = T.count_traced_rays(main_scene, main_cam, ad_cfg, frame_seed=7)["rays_traced"]
     spp_mean = float(smap.mean())
@@ -2355,7 +2397,7 @@ def main() -> int:
         return float(mk.render_cuda(sc, cam, return_ray_count=True, **kw)[1].double().sum())
 
     kernel = dict(route="cuda", source=KERNEL_SOURCE, replaces=REPLACES)
-    main_bound = bound(T, mk, main_dev, main_rays, 3 * 4 * 1280 * 720)
+    main_bound = bound(T, mk, main_dev, main_rays, 3 * 4 * 1280 * 720, main_share)
     rows = [
         dict(kernel, name="megakernel:brute", path="brute",
              launches=launches.get("megakernel:brute", 0),
@@ -2365,7 +2407,8 @@ def main() -> int:
     for p in (paths["config3"], paths["config4"], paths["mesh_bvh+nee"], nee_runs["night"],
               paths["brute+sobol"]):
         sc, cam, kw = p["inputs"]
-        b = bound(T, mk, sc, rays_of(sc, cam, kw), 3 * 4 * kw["width"] * kw["height"])
+        b = bound(T, mk, sc, rays_of(sc, cam, kw), 3 * 4 * kw["width"] * kw["height"],
+                  p["root_share"])
         rows.append(dict(kernel, name="megakernel:" + p["route"], path=p["route"],
                          launches=p["launches"].get("megakernel:" + p["route"], 0),
                          max_abs_err=p["match"].max_abs, ms=p["ms"], plain_ms=p["plain_ms"],
@@ -2378,7 +2421,8 @@ def main() -> int:
                      plain_ms=paths["config1"]["plain_ms"],
                      kernel_ms=paths["config1"]["kernel_ms"],
                      **bound(T, mk, sc1, float(kw1["width"] * kw1["height"]),
-                             3 * 4 * kw1["width"] * kw1["height"])))
+                             3 * 4 * kw1["width"] * kw1["height"],
+                             paths["config1"]["root_share"])))
     # render_aov_kernel's guides mode: the denoiser's three planes in one
     # launch at the main frame (phase 28; its launches are the denoised
     # frame's), 14.7 M primary rays on 197 spheres, 36 bytes a pixel out.
@@ -2389,7 +2433,8 @@ def main() -> int:
                      kernel_ms=guides_row["kernel_ms"], denoised_frame_ms=guides_row[
                          "denoised_ms"], aov_scan_launches=aov_scan["launches"],
                      **{k: guides_row[k] for k in ("bound_ms", "bound_by", "rays_traced",
-                                                   "bound_is_lower_bound", "library_ms")}))
+                                                   "root_share", "bound_is_lower_bound",
+                                                   "library_ms")}))
     # The adaptive rows: the main frame (phase 17) and the Cornell box, the
     # NEE instance (phase 15).
     cb = adaptive_runs["cornell"]
@@ -2398,13 +2443,14 @@ def main() -> int:
                      max_abs_err=m17.max_abs, ms=ad_ms, plain_ms=ad_plain_ms,
                      kernel_ms=ad_alone["adaptive_main"]["kernel_ms"],
                      cluster_blocks=ad_cluster,
-                     **bound(T, mk, main_dev, ad_rays, (3 + 2 * 6) * 4 * 1280 * 720)))
+                     **bound(T, mk, main_dev, ad_rays, (3 + 2 * 6) * 4 * 1280 * 720, ad_share)))
     rows.append(dict(kernel, name="megakernel:" + cb["route"], path=cb["route"],
                      launches=cb["launches"].get("megakernel:" + cb["route"], 0),
                      max_abs_err=cb["match"].max_abs, ms=cb["ms"], plain_ms=cb["plain_ms"],
                      kernel_ms=ad_alone["adaptive_cornell"]["kernel_ms"],
                      cluster_blocks=cb["cluster"],
-                     **bound(T, mk, cb["scene"], cb["rays"], cb["out_bytes"])))
+                     **bound(T, mk, cb["scene"], cb["rays"], cb["out_bytes"],
+                             cb["root_share"])))
     n_salts, n_pairs = len(salts), len(pairs)
     probe_bytes = {"hash_probe": 4 * (values.size * (1 + 2 + 2 * n_salts) + n_salts),
                    "sampler_probe": 2 * 4 * values.size * (2 + 2 * n_pairs)}
@@ -2482,7 +2528,8 @@ def main() -> int:
     for row in rows:
         if row["name"] in ("megakernel:brute", "wavefront:brute", "wavefront:brute+regen"):
             row["bound_ms_at_measured_slab_rate"] = (
-                main_rays * ray_flops(T.as_scene(main_dev)) / (best["slab"]["tflops"] * 1e12) * 1e3)
+                main_rays * ray_flops(T.as_scene(main_dev), main_share)
+                / (best["slab"]["tflops"] * 1e12) * 1e3)
     emit({"kernels": rows})
     if failures:
         for f in failures:

@@ -959,8 +959,12 @@ __device__ __forceinline__ unsigned int global_row(const Params& p, int y_local)
 // generic record needs a stack frame.  The sphere-BVH and mesh routes call
 // closest_hit.  Threads outside the frame (ragged blocks) stage and meet
 // every barrier, and trace nothing.
+// A block is kAovThreads threads in full 32-lane warps (grt_render
+// launches (32, kAovThreads / 32)): the staging's ballots and prefix sums
+// count on it.
 constexpr int kAovThreads = 256;
 constexpr int kAovWarps = kAovThreads / 32;
+static_assert(kAovThreads % 32 == 0 && kAovThreads <= 1024, "whole warps, one block");
 constexpr int kAovStage = 1024;  // 16 KB of spheres and 4 KB of indices a block
 
 // Stage the active spheres of [j0, j1) in scene order: s_sph[k] = (cx,
@@ -2000,7 +2004,7 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
                                   : launch_adaptive<false, false>(p, a, s));
   }
   if (mode != PATH) {
-    const dim3 block(32, 8);
+    const dim3 block(32, kAovThreads / 32);
     const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
     if (p.geo.sphere_bvh.m == 0 && p.geo.n_tris == 0) {
       if (count) render_aov_kernel<true, true><<<grid, block, 0, s>>>(p);

@@ -19,6 +19,13 @@ import torch
 from gpu_ray_tracing_tpu_torch.models.spheres import Spheres
 from gpu_ray_tracing_tpu_torch.ops.rounding import cross, dot3, fma, sqrt
 
+# While this is a dict, every all-spheres scan (`_sphere_roots`) adds its
+# (ray, active sphere) tests under "tests" and those whose discriminant is
+# not negative, the ones that need the roots, under "roots" (0-d tensors
+# on the scan's device).  chip_smoke.py reads it to count the least work
+# of a frame's closest hits; it is None otherwise.
+SPHERE_TESTS: dict | None = None
+
 
 @dataclasses.dataclass(frozen=True)
 class Hit:
@@ -32,7 +39,7 @@ class Hit:
     front_face: torch.Tensor  # (...,) bool
 
 
-def _roots(o, d, c, r, t_min: float, t_max: float):
+def _roots(o, d, c, r, t_min: float, t_max: float, count: dict | None = None):
     """The reference's near-then-far root pick for rays o, d (P, 1, 3)
     against spheres c (..., 3), r (...) that broadcast with them: every
     sphere ((N, 3), (N,): (P, N) planes) or one sphere a ray ((P, 1, 3),
@@ -43,7 +50,8 @@ def _roots(o, d, c, r, t_min: float, t_max: float):
     Its inner products and discriminant round as fused multiply-adds, as
     XLA:CPU rounds them (see ops/rounding.py): a ray leaving a surface
     starts with |o - c|^2 - r^2 near 0, where the last bit decides whether
-    it hits its own sphere again.
+    it hits its own sphere again.  With `count` (SPHERE_TESTS), adds the
+    planes' tests and roots to it.
     """
     dc = dot3(d, c)  # d . c
     oc_dot_c = dot3(o, c)  # o . c
@@ -55,6 +63,10 @@ def _roots(o, d, c, r, t_min: float, t_max: float):
     h = dc - od  # dot(center - origin, d)   (wgsl:185)
     cc = (c2 - r * r) - 2.0 * oc_dot_c + oo  # |oc|^2 - r^2 (wgsl:186)
     disc = fma(h, h, -(a * cc))  # h^2 - a*cc (wgsl:187)
+    if count is not None:
+        active = r > 0.0
+        count["tests"] = count["tests"] + active.sum() * (disc.numel() // active.numel())
+        count["roots"] = count["roots"] + ((disc >= 0.0) & active).sum()
 
     disc_pos = disc > 0.0
     sqrt_disc = torch.where(
@@ -74,7 +86,8 @@ def _roots(o, d, c, r, t_min: float, t_max: float):
 def _sphere_roots(o, d, spheres: Spheres, t_min: float, t_max: float):
     """All-spheres quadratic for flat rays (P, 3): ((P, N) root, (P, N)
     valid); inactive pad spheres (radius <= 0) are never valid."""
-    return _roots(o[:, None, :], d[:, None, :], spheres.centers, spheres.radii, t_min, t_max)
+    return _roots(o[:, None, :], d[:, None, :], spheres.centers, spheres.radii, t_min, t_max,
+                  SPHERE_TESTS)
 
 
 def intersect_spheres(

@@ -226,3 +226,48 @@ def test_guides_take_only_the_fixed_loops_keywords():
         for extra in (dict(mode="albedo"), dict(adaptive_tol=0.05), dict(return_spp_map=True)):
             with pytest.raises(TypeError):
                 fn(scene, cam, **kw, **extra)
+
+
+def test_sphere_test_count(monkeypatch):
+    """ops/intersect.SPHERE_TESTS, from which chip_smoke.py counts the
+    least work of a frame's closest hits: each (ray, active sphere) test
+    counts once, its roots are the tests whose discriminant (here in
+    float64, on rays that keep it away from 0) is not negative, and
+    counting leaves the planes bit-equal."""
+    from gpu_ray_tracing_tpu_torch.ops import intersect
+
+    rng = np.random.default_rng(7)
+    n, p = 40, 500
+    f32 = lambda a: a.astype(np.float32).astype(np.float64)
+    centers = f32(rng.uniform(-4.0, 4.0, (n, 3)))
+    radii = f32(rng.uniform(0.2, 1.0, n))
+    radii[::5] = 0.0
+    origins = f32(rng.uniform(-0.5, 0.5, (p, 3)))
+    dirs = f32(rng.normal(size=(p, 3)))
+    oc = centers[None] - origins[:, None]
+    h = np.einsum("pk,pnk->pn", dirs, oc)
+    disc = h * h - np.einsum("pk,pk->p", dirs, dirs)[:, None] * (
+        np.einsum("pnk,pnk->pn", oc, oc) - radii ** 2)
+    active = radii > 0
+    assert np.abs(disc[:, active]).min() > 1e-4
+    t = lambda a: torch.from_numpy(a.astype(np.float32))
+    spheres = T.Spheres(t(centers), t(radii), t(rng.uniform(0.1, 0.9, (n, 3))),
+                        torch.zeros(n, dtype=torch.int32), torch.zeros(n))
+    counts = {"tests": 0, "roots": 0}
+    monkeypatch.setattr(intersect, "SPHERE_TESTS", counts)
+    hit = intersect.intersect_spheres(t(origins), t(dirs), spheres, 1e-3, 3.4e35)
+    assert int(counts["tests"]) == p * int(active.sum())
+    assert int(counts["roots"]) == int((disc[:, active] >= 0).sum())
+    monkeypatch.setattr(intersect, "SPHERE_TESTS", None)
+    plain = intersect.intersect_spheres(t(origins), t(dirs), spheres, 1e-3, 3.4e35)
+    assert torch.equal(hit.t, plain.t) and torch.equal(hit.idx, plain.idx)
+
+    scene, cam, kw = _port_case("one_weekend")
+    want = mk.render_guides_reference(scene, cam, **kw)
+    counts = {"tests": 0, "roots": 0}
+    monkeypatch.setattr(intersect, "SPHERE_TESTS", counts)
+    got = mk.render_guides_reference(scene, cam, **kw)
+    assert all(torch.equal(got[m], want[m]) for m in mk.GUIDES)
+    active = int((T.as_scene(scene).spheres.radii > 0).sum())
+    assert int(counts["tests"]) == W * H * kw["spp"] * active
+    assert 0 < int(counts["roots"]) < int(counts["tests"])

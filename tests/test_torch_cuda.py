@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import gpu_ray_tracing_tpu_torch as T
+from chip_smoke import sphere_cloud
 from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as mk
 
 # The suite runs in several worker processes at once: one torch thread
@@ -787,29 +788,6 @@ def test_kernel_frame_gradient_matches_the_torch_backend(dev, backend, regenerat
 # --- render_aov_kernel: the staged brute scan and the guides launch ----------
 
 
-def _sphere_cloud(n: int, dev, seed: int = 0, inactive_every: int = 0):
-    """n spheres for the brute route (as_scene builds no sphere BVH at any
-    n): a ground sphere, then random spheres in front of the default
-    camera with distinct albedos, and a copy of sphere 1 (a tie the first
-    index must win) when n >= 3.  With inactive_every k, every k-th
-    sphere after the ground gets radius 0."""
-    rng = np.random.default_rng(seed)
-    centers = np.column_stack([rng.uniform(-8, 8, n), rng.uniform(0.1, 2.0, n),
-                               rng.uniform(-8, 8, n)]).astype(np.float32)
-    radii = rng.uniform(0.15, 0.7, n).astype(np.float32)
-    albedo = rng.uniform(0.05, 0.95, (n, 3)).astype(np.float32)
-    kind = rng.integers(0, 3, n).astype(np.int32)
-    if n:
-        centers[0], radii[0], kind[0] = (0.0, -1000.0, 0.0), 1000.0, T.LAMBERTIAN
-    if n >= 3:
-        centers[2], radii[2] = centers[1], radii[1]
-    if inactive_every:
-        radii[1::inactive_every] = 0.0
-    t = lambda a: torch.from_numpy(a).to(dev)
-    return T.Spheres(t(centers), t(radii), t(albedo), t(kind),
-                     t(rng.uniform(0.0, 1.5, n).astype(np.float32)))
-
-
 def _guide_routes(dev):
     """route -> (scene, camera, render_guides keywords, launch-count route)."""
     ow, owc = _one_weekend(dev, 96, 54)
@@ -860,7 +838,7 @@ def test_staged_brute_scan_at_every_sphere_count(dev, n):
     twice, identical) and the plain version at 1% / 2e-4; with no sphere
     every ray sees the sky (albedo == normal, depth 0)."""
     cam = T.derive_camera(T.CameraSettings.default(), 64, 40).to(dev)
-    scene = T.as_scene(_sphere_cloud(n, dev, seed=n))
+    scene = T.as_scene(sphere_cloud(T, n, dev, seed=n))
     kw = dict(width=64, height=40, spp=2, t_min=1e-3, frame_seed=n)
     g = mk.render_guides(scene, cam, **kw)
     for mode in mk.GUIDES:
@@ -879,7 +857,7 @@ def test_inactive_spheres_never_win(dev):
     table leaves inactive spheres out and keeps the scan order), and
     matches the plain version."""
     cam = T.derive_camera(T.CameraSettings.default(), 64, 40).to(dev)
-    sp = _sphere_cloud(300, dev, seed=11, inactive_every=3)
+    sp = sphere_cloud(T, 300, dev, seed=11, inactive_every=3)
     keep = sp.radii > 0
     active = T.Spheres(*(getattr(sp, f.name)[keep] for f in dataclasses.fields(T.Spheres)))
     kw = dict(width=64, height=40, spp=2, t_min=1e-3, frame_seed=2)
