@@ -180,6 +180,35 @@ card in phases, one JSON line each:
                   to its single-mode launch bit for bit and to the plain
                   version at 1% / 2e-4 (no sphere: the sky everywhere)
 
+ 30. cli_path     the command line end to end: `python3 -m
+                  gpu_ray_tracing_tpu_torch render` in a subprocess at its
+                  defaults (the main path: One-Weekend, 1280x720, 16 spp, depth
+                  30, --backend auto, --device cuda), its PNG byte-equal to
+                  to_uint8(tonemap(render(...))) of the API at the same seed,
+                  with the subprocess's wall seconds (the torch import and the
+                  cached build included); the same command in this process
+                  (render() and write_image timed inside that call, host
+                  clock synchronised with the card, and its host seconds
+                  outside render()); cli.main with --bench-frames 20 (61
+                  brute launches: the written frame and three timed windows
+                  of 20; FrameStats' ms a frame), beside the same seeds
+                  through render() in this call: phase 6's host inputs with
+                  and without time_frames' per-frame sum, the settings on
+                  the card (a camera derived a frame) and the CLI's camera
+                  derived once on the card; at 320x180 --denoise 4 (one
+                  beauty and one guides launch), --regenerate on (the
+                  wavefront keys) and
+                  --adaptive-tol 0.03 (one +adaptive launch); `progressive
+                  --steps 2 --checkpoint` twice bit-equal to --steps 4 once,
+                  with a --preview-every file; `animate --frames 2` (2 files)
+                  and `view --no-input --max-steps 3 --cols 80` (half-block
+                  cells); the WGSL stream's pixel_seeds, make_bounce_seeds and
+                  seed_from_f32 on 1M values on the card bit-equal to the
+                  CPU's, and base_parity_48x32 through backend='torch' with the
+                  scene on the card at the golden's 0.5% / 1e-4.  Each run
+                  sets the launch counts to 0 just before it and reads them
+                  just after
+
 Every phase that launches the megakernel gates its launch count on its own
 route key (megakernel:brute, :sphere_bvh, :mesh_bvh, suffixed +nee,
 +sobol/+stratified, +adaptive and +rays when the launch ran them); the
@@ -1437,6 +1466,241 @@ def phase_denoise(T, mk, dev, smi: str) -> dict:
                 denoised_ms=den["ms"])
 
 
+def run_cli(cli, mk, argv: list[str]) -> tuple[int, str, dict]:
+    """cli.main(argv) in this process with the launch counts set to 0
+    just before it: (exit code, its standard output, the counts just
+    after)."""
+    import contextlib
+    import io
+
+    mk.LAUNCHES.clear()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), dict(mk.LAUNCHES)
+
+
+def timed_calls(module, name: str, sink: list):
+    """A context in which module.name appends the host seconds of each call,
+    the card synchronised at both ends, to `sink`."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            sink.append(time.perf_counter() - t0)
+            return out
+
+        setattr(module, name, wrapper)
+        try:
+            yield sink
+        finally:
+            setattr(module, name, orig)
+
+    return ctx()
+
+
+def window_ms(frame_fn, frames: int, repeats: int, with_sum: bool) -> dict:
+    """ms a frame of `repeats` CUDA-event windows of `frames` frames, frame i
+    of window r being frame_fn(r * frames + i), with or without
+    time_frames' per-frame sum: the median window and every window."""
+    ws = []
+    for r in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        acc = None
+        for i in range(frames):
+            out = frame_fn(r * frames + i)
+            if with_sum:
+                acc = out.sum() if acc is None else acc + out.sum()
+        end.record()
+        torch.cuda.synchronize()
+        ws.append(start.elapsed_time(end) / frames)
+    return dict(median_ms=sorted(ws)[len(ws) // 2], windows_ms=ws)
+
+
+def phase_cli(T, mk, dev, smi: str, main_ms: float) -> dict:
+    """Phase 30: the command line end to end on the card (module
+    docstring).  `main_ms` is phase 6's render() ms a frame."""
+    import tempfile
+
+    from PIL import Image
+
+    from gpu_ray_tracing_tpu_torch import cli
+    from gpu_ray_tracing_tpu_torch.ops import integrators as ti
+    from gpu_ray_tracing_tpu_torch.ops import rng as trng
+    from gpu_ray_tracing_tpu_torch.utils.checkpoint import load_accum
+    from gpu_ray_tracing_tpu_torch.utils import image as image_mod
+    from gpu_ray_tracing_tpu_torch.utils.image import to_uint8, tonemap
+
+    row: dict = {"phase": "cli_path", "card": smi}
+    small = ["--width", "320", "--height", "180"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. `python3 -m gpu_ray_tracing_tpu_torch render` at the main path's
+        # settings (the CLI's defaults: One-Weekend, 1280x720, 16 spp, depth
+        # 30, --backend auto, --device cuda, seed 0), against the API frame.
+        out = os.path.join(tmp, "main.png")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gpu_ray_tracing_tpu_torch", "render", "--out", out],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+            text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        cfg = T.RenderConfig(width=1280, height=720, spp=16, max_depth=30)
+        frame = T.render(T.one_weekend_scene(0), T.CameraSettings.default(), cfg, frame_seed=0)
+        api = to_uint8(tonemap(frame))
+        written = os.path.exists(out)
+        png = np.asarray(Image.open(out)) if written else None
+        same = written and png.shape == api.shape and bool(np.array_equal(png, api))
+        row["subprocess"] = dict(rc=proc.returncode, wall_s=wall, written=written,
+                                 png_equals_api=same, stdout=proc.stdout.strip()[-300:],
+                                 differing_bytes=None if not written or png.shape != api.shape
+                                 else int((png != api).sum()))
+        gate("cli_path", proc.returncode == 0 and written,
+             f"subprocess render: rc {proc.returncode}, stderr {proc.stderr[-2000:]}")
+        gate("cli_path", same, "the subprocess's PNG differs from the API frame's")
+
+        # The same command in this process, render() and write_image timed
+        # inside it: its host seconds outside render() are the parser, the
+        # scene, the camera and the image (the copy to the host and the
+        # PNG encode).
+        render_s, encode_s = [], []
+        with timed_calls(T, "render", render_s), timed_calls(image_mod, "write_image",
+                                                             encode_s):
+            t0 = time.perf_counter()
+            rc, _, launches = run_cli(cli, mk, ["render", "--out", os.path.join(tmp, "i.png")])
+            wall_in = time.perf_counter() - t0
+        row["in_process"] = dict(rc=rc, launches=launches, wall_s=wall_in,
+                                 render_s=sum(render_s), write_image_s=sum(encode_s),
+                                 outside_render_s=wall_in - sum(render_s),
+                                 setup_s=wall_in - sum(render_s) - sum(encode_s))
+        gate("cli_path", rc == 0 and launches == {"megakernel:brute": 1},
+             f"in-process render: rc {rc}, {launches}")
+        gate("cli_path", len(render_s) == 1 and len(encode_s) == 1,
+             f"in-process render: {len(render_s)} render() and {len(encode_s)} "
+             "write_image calls timed, expected one of each")
+
+        # 2. In process with --bench-frames 20: the written frame, then 3
+        # timed windows of 20 frames (time_frames' default repeats).
+        rc, text, launches = run_cli(cli, mk, ["render", "--out", os.path.join(tmp, "b.png"),
+                                               "--bench-frames", "20"])
+        stats = json.loads(text[text.index("{"):]) if "{" in text else {}
+        # Beside it in this call, 3 windows of 10 of the CLI's frame seeds:
+        # render() as phase 6 calls it (the scene and settings on the host),
+        # with and without time_frames' per-frame sum; the scene and
+        # settings on the card, the camera derived a frame; and the CLI's
+        # inputs, the camera derived once on the card.
+        st = T.CameraSettings.default()
+        sc_dev, st_dev = T.one_weekend_scene(0, device=dev), st.to(dev)
+        cam_dev = T.derive_camera(st_dev, cfg.width, cfg.height)
+
+        def frames(sc, cam, with_sum):
+            return window_ms(lambda i: T.render(sc, cam, cfg, frame_seed=i), 10, 3, with_sum)
+
+        row["bench_frames"] = dict(
+            rc=rc, launches=launches, frame_stats=stats, render_ms_phase6=main_ms,
+            host_inputs_no_sum=frames(T.one_weekend_scene(0), st, False),
+            host_inputs_with_sum=frames(T.one_weekend_scene(0), st, True),
+            card_settings_with_sum=frames(sc_dev, st_dev, True),
+            card_camera_once_with_sum=frames(sc_dev, cam_dev, True))
+        mk.LAUNCHES.clear()
+        gate("cli_path", rc == 0 and launches == {"megakernel:brute": 1 + 3 * 20},
+             f"--bench-frames 20: rc {rc}, expected 61 brute launches, counted {launches}")
+        gate("cli_path", stats.get("device") == torch.cuda.get_device_name(0),
+             f"--bench-frames timed on {stats.get('device')}")
+
+        # 3. The other engines at 320x180.
+        engines = {}
+        for name, flags, want in (
+                ("denoise", ["--denoise", "4"],
+                 lambda c: c == {"megakernel:brute": 1, "megakernel:brute+guides": 1}),
+                ("regenerate", ["--regenerate", "on"],
+                 lambda c: c.get("wavefront:brute+regen", 0) > 0
+                 and c.get("wavefront_raygen", 0) > 0 and "megakernel:brute" not in c),
+                ("adaptive", ["--adaptive-tol", "0.03"],
+                 lambda c: c == {"megakernel:brute+adaptive": 1})):
+            t0 = time.perf_counter()
+            rc, text, launches = run_cli(
+                cli, mk, ["render", *small, "--out", os.path.join(tmp, name + ".png"), *flags])
+            engines[name] = dict(rc=rc, launches=launches, wall_s=time.perf_counter() - t0,
+                                 backend=text.split("backend=")[1].split(",")[0]
+                                 if "backend=" in text else None)
+            gate("cli_path", rc == 0 and want(launches), f"render {flags}: rc {rc}, {launches}")
+        row["engines"] = engines
+
+        # 4. Progressive resume: 2 + 2 steps through a checkpoint equal 4 steps.
+        prog = ["progressive", "--checkpoint"]
+        ck2, ck4 = os.path.join(tmp, "c2.npz"), os.path.join(tmp, "c4.npz")
+        preview = os.path.join(tmp, "p.png")
+        rc_a, _, la = run_cli(cli, mk, prog + [ck2, "--steps", "2"])
+        rc_b, _, lb = run_cli(cli, mk, prog + [ck2, "--steps", "2", "--out", preview,
+                                               "--preview-every", "2"])
+        rc_c, _, lc = run_cli(cli, mk, prog + [ck4, "--steps", "4"])
+        s2, s4 = load_accum(ck2), load_accum(ck4)
+        resume_equal = (int(s2.count) == int(s4.count) == 4
+                        and bool(torch.equal(s2.rgb * int(s2.count), s4.rgb * int(s4.count)))
+                        and bool(torch.equal(s2.rgb, s4.rgb)))
+        preview_written = os.path.exists(os.path.join(tmp, "p_preview.png"))
+        row["progressive"] = dict(rc=[rc_a, rc_b, rc_c], launches=[la, lb, lc],
+                                  count=int(s2.count), resume_bit_equal=resume_equal,
+                                  preview_written=preview_written)
+        gate("cli_path", [rc_a, rc_b, rc_c] == [0, 0, 0] and resume_equal,
+             "progressive 2 + 2 steps through the checkpoint differ from 4 steps")
+        gate("cli_path", preview_written, "--preview-every wrote no preview")
+        gate("cli_path", [la, lb, lc] == [{"megakernel:brute": 2}, {"megakernel:brute": 2},
+                                          {"megakernel:brute": 4}],
+             f"progressive launches {[la, lb, lc]}")
+
+        # 5. animate and view.
+        frames_dir = os.path.join(tmp, "frames")
+        rc_an, _, l_an = run_cli(cli, mk, ["animate", *small, "--frames", "2",
+                                           "--out-dir", frames_dir])
+        n_frames = len(os.listdir(frames_dir)) if os.path.isdir(frames_dir) else 0
+        rc_v, text_v, l_v = run_cli(cli, mk, ["view", *small, "--no-input", "--max-steps", "3",
+                                              "--cols", "80"])
+        row["animate"] = dict(rc=rc_an, files=n_frames, launches=l_an)
+        row["view"] = dict(rc=rc_v, half_blocks=text_v.count("▀"), launches=l_v,
+                           status=[ln for ln in text_v.splitlines() if "spp/step" in ln][-1:])
+        gate("cli_path", rc_an == 0 and n_frames == 2 and l_an == {"megakernel:brute": 2},
+             f"animate: rc {rc_an}, {n_frames} files, {l_an}")
+        gate("cli_path", rc_v == 0 and text_v.count("▀") >= 80 and l_v == {"megakernel:brute": 2},
+             f"view: rc {rc_v}, {text_v.count('▀')} cells, {l_v}")
+
+    # 6. The WGSL stream on the card: its seeds bit for bit with the CPU's
+    # on 1M values, and the parity golden through backend='torch'.
+    vals = np.random.default_rng(20261017).random(1 << 20).astype(np.float32) * 1.25 - 0.1
+    vals[:6] = [0.0, 1.0, np.nextafter(np.float32(1), np.float32(0)), np.nan, np.inf, -1.0]
+    seeds_equal = {
+        "pixel_seeds": bool(torch.equal(trng.pixel_seeds(1024, 1024, 5, 99, 7, device=dev).cpu(),
+                                        trng.pixel_seeds(1024, 1024, 5, 99, 7))),
+        "make_bounce_seeds": bool(torch.equal(
+            ti.make_bounce_seeds(torch.tensor(123456789, device=dev), 1 << 20).cpu(),
+            ti.make_bounce_seeds(123456789, 1 << 20))),
+        "seed_from_f32": bool(torch.equal(trng.seed_from_f32(torch.from_numpy(vals).to(dev)).cpu(),
+                                          trng.seed_from_f32(torch.from_numpy(vals)))),
+    }
+    cfg = T.RenderConfig(width=48, height=32, spp=2, max_depth=6, rng="wgsl", parity=True,
+                         backend="torch")
+    img = T.render(T.base_scene(device=dev), T.CameraSettings.make(**BASE_CAMERA), cfg,
+                   frame_seed=7)
+    m = T.images_match(img, np.load(os.path.join(GOLDENS, "base_parity_48x32.npy")),
+                       0.005, 1e-4)
+    row["wgsl"] = dict(seeds_bit_equal=seeds_equal, golden="base_parity_48x32.npy",
+                       device=str(img.device), flip_frac=m.flip_frac, flip_limit=0.005,
+                       mean_abs=m.mean_abs, mean_limit=1e-4, max_abs=m.max_abs, ok=m.ok)
+    gate("cli_path", all(seeds_equal.values()), f"WGSL seeds on the card: {seeds_equal}")
+    gate("cli_path", m.ok and img.device.type == "cuda", f"base_parity on the card: {m}")
+    emit(row)
+    return row
+
+
 def render_kw(cfg, seed: int) -> dict:
     """render_cuda/render_reference keywords of a RenderConfig frame."""
     return dict(width=cfg.width, height=cfg.height, spp=cfg.spp, max_depth=cfg.max_depth,
@@ -2390,6 +2654,8 @@ def main() -> int:
     phase_inverse(T, mk, dev, smi)
     guides_row = phase_denoise(T, mk, dev, smi)
     aov_scan = phase_aov_scan(T, mk, dev, smi)
+    # 30. the command line end to end
+    phase_cli(T, mk, dev, smi, frame_ms)
 
     ad_alone = time_adaptive(T, mk, 5)
 

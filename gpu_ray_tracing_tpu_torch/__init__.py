@@ -9,8 +9,10 @@ through the AOV-guided a-trous denoiser (render_denoised), with a
 hand-written sm_90a megakernel (backend='cuda',
 the default), the wavefront engine's sm_90a kernels (backend='wavefront',
 one launch per bounce over compacted rays, with ray regeneration) or their
-plain PyTorch versions (backend='torch', 'wavefront_torch').  It imports
-torch and numpy, never jax.
+plain PyTorch versions (backend='torch', 'wavefront_torch'); the
+reference shader's own WGSL stream (rng='wgsl') through 'torch'.  It
+imports torch and numpy, never jax.  `python -m gpu_ray_tracing_tpu_torch`
+is its command line (cli.py: render, animate, progressive, view).
 
     from gpu_ray_tracing_tpu_torch import (
         CameraSettings, RenderConfig, one_weekend_scene, render)

@@ -10,7 +10,11 @@
 
 Every entry point renders a Spheres or a Scene (spheres, sphere BVH, mesh
 with its BVH, sphere and triangle lights) on the counter-based hash stream,
-with config.nee/mis and config.sampler, through the config's backend:
+with config.nee/mis and config.sampler, through the config's backend.
+config.rng='wgsl' renders the reference's own stream instead (sample s
+seeded 1 + s + frame_seed, update() at wgsl:353; parity=True keeps its
+sampler quirks): through backend='torch' only, as the JAX package sends it
+to 'jax', since the kernels draw the hash stream.  The backends:
 
   backend='cuda'   the default: the hand-written megakernel (render_cuda),
                    the counterpart of 'pallas'.  It needs a CUDA device and
@@ -73,12 +77,14 @@ from gpu_ray_tracing_tpu_torch.ops.cuda.wavefront import (
 from gpu_ray_tracing_tpu_torch.utils.config import RenderConfig
 
 
-def _cuda_device(backend: str) -> torch.device:
+def _cuda_device(backend: str, hint: str | None = None) -> torch.device:
+    """The current CUDA device; raises when no card is visible, naming what
+    to ask for instead (`hint`, by default the backend's plain version)."""
     if not torch.cuda.is_available():
         plain = "wavefront_torch" if backend == "wavefront" else "torch"
         raise RuntimeError(
-            f"backend={backend!r} needs an NVIDIA GPU and none is visible; use "
-            f"backend={plain!r} for its plain PyTorch version"
+            f"backend={backend!r} needs an NVIDIA GPU and none is visible; "
+            + (hint or f"use backend={plain!r} for its plain PyTorch version")
         )
     return torch.device("cuda", torch.cuda.current_device())
 
@@ -117,7 +123,8 @@ def _render(scene, camera: Camera, config: RenderConfig, *, frame_seed: int,
     if config.backend in ("cuda", "wavefront"):
         device = _cuda_device(config.backend)
         return render_cuda(sc.to(device), camera.to(device), **kwargs)
-    return render_reference(sc, camera.to(sc.device), light_pick="lane", **kwargs)
+    return render_reference(sc, camera.to(sc.device), light_pick="lane", rng=config.rng,
+                            parity=config.parity, **kwargs)
 
 
 def _render_wavefront(sc, camera: Camera, config: RenderConfig, *, frame_seed: int,
@@ -325,8 +332,10 @@ def render_denoised(scene, camera: Camera | CameraSettings, config: RenderConfig
     requiring grad the guides come from one closest hit per sample
     (render_guides on 'cuda' and 'wavefront': one launch of
     render_aov_kernel; render_guides_reference on the plain backends),
-    each plane equal bit for bit to its own render() pass; otherwise from
-    three render() calls, so that each goes through KernelFrame's replay.
+    each plane equal bit for bit to its own render() pass; otherwise, and
+    on the WGSL stream (whose guides are its own rays, as in the JAX
+    package), from three render() calls, so that each goes through
+    KernelFrame's replay.
     Returns the denoised (H, W, 3) image, or (denoised, beauty, {"albedo",
     "normal", "depth"}) with return_aovs.  Differentiable end to end: the
     filter is plain arithmetic."""
@@ -340,7 +349,7 @@ def render_denoised(scene, camera: Camera | CameraSettings, config: RenderConfig
     # Every path-only knob the AOV integrators reject or ignore dropped.
     guide_cfg = dataclasses.replace(config, integrator="albedo", nee=False, mis=False,
                                     clamp=0.0, adaptive_tol=0.0, regenerate="off")
-    if needs_grad(as_scene(scene), camera):
+    if config.rng != "hash" or needs_grad(as_scene(scene), camera):
         aovs = {m: render(scene, camera, dataclasses.replace(guide_cfg, integrator=m),
                           frame_seed=frame_seed) for m in ("albedo", "normal", "depth")}
     else:

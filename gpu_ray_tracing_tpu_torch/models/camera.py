@@ -169,8 +169,13 @@ def derive_camera(settings: CameraSettings, width: int, height: int) -> Camera:
     viewport_u = viewport_width * u
     viewport_v = -viewport_height * v  # image y grows downward
 
-    pixel_delta_u = viewport_u / float(width)
-    pixel_delta_v = viewport_v / float(height)
+    # Divided by a tensor on the settings' device: PyTorch's CUDA kernel
+    # multiplies by the reciprocal of a Python scalar, one ulp off the
+    # quotient for most widths, and the camera would then depend on where
+    # its settings lie.
+    pixel_delta_u = viewport_u / torch.tensor(float(width), dtype=f32, device=viewport_u.device)
+    pixel_delta_v = viewport_v / torch.tensor(float(height), dtype=f32,
+                                              device=viewport_v.device)
     viewport_upper_left = (
         s.look_from - s.focus_distance * w - viewport_u / 2.0 - viewport_v / 2.0
     )

@@ -1,7 +1,8 @@
 """Sphere scene model (port of gpu_ray_tracing_tpu/models/spheres.py).
 
 Struct-of-arrays spheres as a dataclass of tensors, the material kinds,
-and the scene generators.  `one_weekend_scene(seed)` draws from an
+the reference's packed albedo.w material codec (host numpy, for parity
+tests) and the scene generators.  `one_weekend_scene(seed)` draws from an
 explicitly seeded numpy generator, the only host randomness in the port;
 its seed mix is the JAX package's, so `one_weekend_scene(k)` equals the
 JAX `one_weekend_scene(jax.random.key(k))` sphere for sphere.
@@ -51,6 +52,25 @@ class Spheres:
         return Spheres(*(getattr(self, f.name).to(device)
                          for f in dataclasses.fields(self)))
 
+    def pad_to(self, n: int) -> "Spheres":
+        """Pad with inactive (radius 0) spheres up to n slots, on the
+        spheres' device.  Every path masks an inactive slot, so a padded
+        scene renders the same frame; the kernels need no padding (the
+        JAX package pads to the TPU's lane width)."""
+        k = n - self.count
+        if k < 0:
+            raise ValueError(f"cannot pad {self.count} spheres down to {n}")
+        if k == 0:
+            return self
+        return Spheres(*(torch.cat([t, torch.zeros((k, *t.shape[1:]), dtype=t.dtype,
+                                                   device=t.device)])
+                         for t in (getattr(self, f.name) for f in dataclasses.fields(self))))
+
+    def pad_to_multiple(self, m: int = 128) -> "Spheres":
+        """Pad N up to a multiple of m (at least m slots)."""
+        n = ((self.count + m - 1) // m) * m
+        return self.pad_to(max(n, m))
+
 
 def make_spheres(entries, device=None) -> Spheres:
     """Build a Spheres SoA from (center, radius, kind, albedo, param) tuples."""
@@ -69,6 +89,59 @@ def make_spheres(entries, device=None) -> Spheres:
         albedo=col(3, np.float32, 3),
         mat_kind=col(2, np.int32),
         mat_param=col(4, np.float32),
+    )
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def pack_materials(spheres: Spheres) -> np.ndarray:
+    """Spheres -> (N, 4) f32 packed albedo.w materials (sphere.rs
+    convention): lambertian (r, g, b, -2), metal (r, g, b, fuzz),
+    dielectric (ior, 0, 0, 2).  EMISSIVE has no encoding and a metal fuzz
+    outside [-1, 1] would decode as another kind: both are refused."""
+    kind = _host(spheres.mat_kind)
+    if bool(np.any(kind == EMISSIVE)):
+        raise ValueError("the reference albedo.w codec cannot express EMISSIVE")
+    albedo = _host(spheres.albedo)
+    param = _host(spheres.mat_param)
+    metal_fuzz = param[kind == METAL]
+    if metal_fuzz.size and bool(np.any((metal_fuzz < -1.0) | (metal_fuzz > 1.0))):
+        raise ValueError(
+            "metal fuzz must be within [-1, 1] to round-trip the albedo.w "
+            f"codec; got {metal_fuzz.min()}..{metal_fuzz.max()}"
+        )
+    out = np.zeros((albedo.shape[0], 4), np.float32)
+    out[:, :3] = albedo
+    out[kind == LAMBERTIAN, 3] = -2.0
+    out[kind == METAL, 3] = param[kind == METAL]
+    out[kind == DIELECTRIC, 0] = param[kind == DIELECTRIC]
+    out[kind == DIELECTRIC, 1:3] = 0.0
+    out[kind == DIELECTRIC, 3] = 2.0
+    return out
+
+
+def unpack_materials(centers, radii, packed, device=None) -> Spheres:
+    """(N, 4) packed albedo.w -> Spheres (the decode of wgsl:77-79,
+    272-284): w < -1 lambertian, -1 <= w <= 1 metal with fuzz w, w > 1
+    dielectric with ior x and albedo 1."""
+    packed = np.asarray(packed, np.float32)
+    w = packed[:, 3]
+    kind = np.where(w < -1.0, LAMBERTIAN, np.where(w <= 1.0, METAL, DIELECTRIC))
+    param = np.where(kind == METAL, w, np.where(kind == DIELECTRIC, packed[:, 0], 0.0))
+    albedo = packed[:, :3].copy()
+    albedo[kind == DIELECTRIC] = 1.0
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32).copy()).to(device)
+
+    return Spheres(
+        centers=f32(centers).reshape(-1, 3),
+        radii=f32(radii).reshape(-1),
+        albedo=f32(albedo),
+        mat_kind=torch.from_numpy(kind.astype(np.int32)).to(device),
+        mat_param=f32(param),
     )
 
 

@@ -49,7 +49,11 @@ from gpu_ray_tracing_tpu_torch.ops import integrators
 from gpu_ray_tracing_tpu_torch.ops import rng as rng_ops
 from gpu_ray_tracing_tpu_torch.ops.bvh import BVH
 from gpu_ray_tracing_tpu_torch.ops.cuda import build
-from gpu_ray_tracing_tpu_torch.ops.rays import generate_rays_for_ids, hash_pixel_ids
+from gpu_ray_tracing_tpu_torch.ops.rays import (
+    generate_rays_for_ids,
+    generate_rays_wgsl,
+    hash_pixel_ids,
+)
 from gpu_ray_tracing_tpu_torch.ops.rounding import fma
 
 #: Kernel launches per wrapper and route ("megakernel:brute",
@@ -343,23 +347,32 @@ def trace_pixels(sc: Scene, camera: Camera, ids: torch.Tensor, sample: int, fram
                  *, width: int, max_depth: int, t_min: float, t_max: float, mode: str,
                  russian_roulette_depth: int, sky_intensity: float, clamp: float, nee: bool,
                  mis: bool, sampler_spec: tuple | None, light_pick: str,
-                 count_rays: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+                 count_rays: bool = False, wgsl_rays: tuple | None = None,
+                 parity: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Hash-stream sample `sample` (u32) of the global pixel ids `ids` (1-D)
     of a `width`-wide frame, traced by the plain integrator of `mode`:
     ((n, 3) rgb after the clamp, (n,) rays traced or None), or ((3, n, 3)
     albedo, normal and depth, rays) in render_guides_reference's mode.
     Each pixel is independent of the others, so any partition of the ids
     gives the same values; render_reference traces blocks of them, and the
-    autograd replay (ops/autograd.py) blocks of its own."""
-    o, d, seeds = generate_rays_for_ids(camera, ids, sample, frame_seed,
-                                        total_width=width, sampler_spec=sampler_spec)
+    autograd replay (ops/autograd.py) blocks of its own.  `wgsl_rays` =
+    (origins, dirs, bounce_seeds), the WGSL stream's rays of these pixels
+    and its frame-uniform bounce seeds, takes the place of the hash
+    stream's rays and seeds; `parity` keeps that stream's sky leak."""
+    if wgsl_rays is None:
+        o, d, seeds = generate_rays_for_ids(camera, ids, sample, frame_seed,
+                                            total_width=width, sampler_spec=sampler_spec)
+        stream = dict(pixel_seeds=seeds)
+    else:
+        o, d, bounce_seeds = wgsl_rays
+        stream = dict(bounce_seeds=bounce_seeds, parity=parity)
     aov = {"normal": integrators.shade_normals, "albedo": integrators.shade_albedo,
            "depth": integrators.shade_depth, _GUIDES: integrators.shade_guides}.get(mode)
     if aov is not None:
         rays = torch.ones(ids.numel(), dtype=torch.float32, device=ids.device)
         return aov(o, d, sc, t_min, t_max), rays if count_rays else None
     out = integrators.trace_path(
-        o, d, sc, max_depth, t_min, t_max, pixel_seeds=seeds,
+        o, d, sc, max_depth, t_min, t_max, **stream,
         russian_roulette_depth=russian_roulette_depth, sky_intensity=sky_intensity,
         nee=nee, mis=mis, pixel_ids=ids, sample_index=sample,
         frame_seed_u32=int(frame_seed) & 0xFFFFFFFF, sampler_spec=sampler_spec,
@@ -397,14 +410,34 @@ def render_reference(
     adaptive_state: tuple | None = None,
     adaptive_chunk: int = 0,
     light_pick: str = "sample",
+    rng: str = "hash",
+    parity: bool = False,
 ):
     """The plain PyTorch version of render_cuda: the mean of spp hash-stream
     samples as a (height, width, 3) f32 image, on the scene's device, with
     render_cuda's adaptive options and return shapes.  Sample s uses stream
     index sample_index + s.  `light_pick` ('sample', the kernel's, or
     'lane', the 'jax' engine's) chooses the > 4-light pick
-    (ops/integrators.trace_path)."""
+    (ops/integrators.trace_path).
+
+    rng='wgsl' draws the reference shader's stream instead, which no kernel
+    draws (the JAX package's _render_one_sample, api.py:263-273): sample s
+    seeds generate_rays_wgsl with 1 + sample_index + s + frame_seed and its
+    bounces (make_bounce_seeds) with that + 1; `parity` keeps its sampler
+    quirks.  That stream is drawn a whole frame at a time, so it takes no
+    sampler, adaptive option, ray count, y_offset or row_stride."""
     _check_args(width, height, spp, max_depth, mode, nee, mis, sampler_spec)
+    if rng not in ("hash", "wgsl"):
+        raise ValueError(f"rng must be 'hash' or 'wgsl', got {rng!r}")
+    if rng == "wgsl" and (sampler_spec is not None or adaptive_tol > 0.0
+                          or adaptive_state is not None or return_ray_count
+                          or y_offset != 0 or row_stride != 1):
+        raise ValueError(
+            "rng='wgsl' takes no sampler_spec, adaptive options, ray count, "
+            "y_offset or row_stride"
+        )
+    if parity and rng != "wgsl":
+        raise ValueError("parity=True requires rng='wgsl'")
     sc = as_scene(scene_or_spheres)
     sc.nee_light_counts(nee)
     dev = sc.spheres.device
@@ -428,9 +461,16 @@ def render_reference(
         n = ids.numel()
         rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
         rays = torch.empty(n, dtype=torch.float32, device=dev) if return_ray_count else None
+        if rng == "wgsl":  # the whole frame: idx is None without the adaptive loop
+            seed = (1 + s_u32 + int(frame_seed)) & 0xFFFFFFFF
+            o, d = generate_rays_wgsl(camera, width, height, seed, frame_seed, parity)
+            o, d = o.reshape(p, 3), d.reshape(p, 3)
+            bounce_seeds = integrators.make_bounce_seeds(seed + 1, max_depth).to(dev)
         for start in range(0, n, block):
             sl = slice(start, start + block)
-            rgb[sl], r = trace_pixels(sc, camera, ids[sl], s_u32, frame_seed, **kw)
+            wgsl_rays = None if rng == "hash" else (o[sl], d[sl], bounce_seeds)
+            rgb[sl], r = trace_pixels(sc, camera, ids[sl], s_u32, frame_seed,
+                                      wgsl_rays=wgsl_rays, parity=parity, **kw)
             if r is not None:
                 rays[sl] = r
         return rgb, rays

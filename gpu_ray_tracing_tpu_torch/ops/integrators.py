@@ -8,8 +8,10 @@ roulette, and optional next-event estimation toward sphere lights (cone
 sampling) and triangle lights (area sampling) with MIS power-heuristic
 weights, and the stratified/Sobol first-bounce remaps.  Every ray runs the
 full trip count with a `live` mask, as in the JAX package; dead rays add
-nothing.  Only the `pixel_seeds` stream is ported (threefry and the WGSL
-chain are ROADMAP items).
+nothing.  Two streams are ported: the counter stream (`pixel_seeds`) and
+the WGSL parity stream (`bounce_seeds`, frame-uniform draws with the
+reference's depth-exhaustion sky leak under parity=True); threefry is a
+ROADMAP item.
 
 Arithmetic follows the JAX package's 'jax' engine.  Where XLA:CPU
 contracts a*b+c into one fused multiply-add, the plain version does too
@@ -263,7 +265,8 @@ class PathState:
     mask, whether the vertex a ray left ran NEE (`prev_diffuse`) and the
     cosine of its scatter direction there (`prev_cos`, for MIS), the rays
     traced so far (f32; None when not counted), and the constants of the
-    stream: each ray's pixel seed and, for the samplers, its pixel id."""
+    stream: each ray's pixel seed and, for the samplers, its pixel id; or,
+    on the WGSL stream, the frame-uniform seed of each bounce."""
 
     o: torch.Tensor
     d: torch.Tensor
@@ -273,12 +276,13 @@ class PathState:
     prev_diffuse: torch.Tensor
     prev_cos: torch.Tensor
     rays: torch.Tensor | None
-    pixel_seeds: torch.Tensor
+    pixel_seeds: torch.Tensor | None
     pixel_ids: torch.Tensor | None = None
+    bounce_seeds: torch.Tensor | None = None
 
 
 def initial_path_state(origins, dirs, pixel_seeds, pixel_ids=None, *,
-                       count_rays: bool = False) -> PathState:
+                       count_rays: bool = False, bounce_seeds=None) -> PathState:
     """The state of fresh primary rays: unit throughput, no radiance, live."""
     batch_shape, dev = dirs.shape[:-1], dirs.device
     return PathState(
@@ -290,7 +294,7 @@ def initial_path_state(origins, dirs, pixel_seeds, pixel_ids=None, *,
         prev_cos=torch.zeros(batch_shape, dtype=torch.float32, device=dev),
         rays=(torch.zeros(batch_shape, dtype=torch.float32, device=dev)
               if count_rays else None),
-        pixel_seeds=pixel_seeds, pixel_ids=pixel_ids,
+        pixel_seeds=pixel_seeds, pixel_ids=pixel_ids, bounce_seeds=bounce_seeds,
     )
 
 
@@ -342,7 +346,9 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
     `i` (the bounce) and `s` (the absolute sample index) are Python ints, or
     per-ray integer tensors when the rays of a batch mix them (the
     regenerating wavefront pool); either way each ray draws the same stream.
-    Dead rays pass through unchanged."""
+    On the WGSL stream (`st.bounce_seeds`) every draw of bounce i is one
+    frame-uniform value shared by the whole batch, as the reference's
+    ray_color draws it (wgsl:268).  Dead rays pass through unchanged."""
     sc, dev = ctx.sc, st.d.device
     t_min, t_max, max_depth = ctx.t_min, ctx.t_max, ctx.max_depth
     nee, mis, total, n_sl, n_tl = ctx.nee, ctx.mis, ctx.total, ctx.n_sl, ctx.n_tl
@@ -355,6 +361,15 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
     rays_box = [st.rays]
     per_ray = isinstance(i, torch.Tensor)
     first = i == 0
+    wgsl = st.bounce_seeds is not None
+    if wgsl and per_ray:
+        raise ValueError("the WGSL stream draws one value a bounce for the whole "
+                         "frame; it takes no per-ray bounce index")
+    wgsl_seed = st.bounce_seeds[i] if wgsl else None
+
+    def frame_uniform(x):
+        """A draw of the WGSL stream, the same for every ray of the batch."""
+        return x.expand(*batch_shape, *x.shape)
 
     def shadow_visible(ok, pnt, omega, window):
         """Lanes of `ok` with no hit in (t_min, window): the any-hit query,
@@ -384,15 +399,20 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
             o, d, sc, t_min, t_max, want_mesh_wins=True)
     else:
         hit, albedo, kind, param = intersect_scene(o, d, sc, t_min, t_max)
-    base = 16 + 3 * i
-    # The first-bounce scatter pair (salt 6): strata of the sphere.  2 pi
-    # stays outside the remap: jitted trace_path runs its bounces in a
-    # while loop, and XLA folds no constant into it.
-    u1, u2 = remapped(rng_ops.uniform_hash(pixel_seeds, base),
-                      rng_ops.uniform_hash(pixel_seeds, base + 1),
-                      rng_ops._SCATTER_ROT_SALT)
-    unit_vec = rng_ops.unit_vector_from_uniforms(u1, u2)
-    u_reflect = rng_ops.uniform_hash(pixel_seeds, base + 2)
+    if wgsl:
+        # hash(seed + i*1000) of the whole frame (wgsl:268).
+        unit_vec = frame_uniform(rng_ops.random_unit_vector(wgsl_seed))
+        u_reflect = frame_uniform(rng_ops.wgsl_random_float(wgsl_seed))
+    else:
+        base = 16 + 3 * i
+        # The first-bounce scatter pair (salt 6): strata of the sphere.  2 pi
+        # stays outside the remap: jitted trace_path runs its bounces in a
+        # while loop, and XLA folds no constant into it.
+        u1, u2 = remapped(rng_ops.uniform_hash(pixel_seeds, base),
+                          rng_ops.uniform_hash(pixel_seeds, base + 1),
+                          rng_ops._SCATTER_ROT_SALT)
+        unit_vec = rng_ops.unit_vector_from_uniforms(u1, u2)
+        u_reflect = rng_ops.uniform_hash(pixel_seeds, base + 2)
     new_dir, attenuation, ok = scatter(
         d, hit.normal, hit.front_face, albedo, kind, param, unit_vec, u_reflect
     )
@@ -453,9 +473,17 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
         salt0 = 2000 + 37 * i
         last = i == max_depth - 1
 
+        def nee_uniform(salt_off: int, k: int):
+            """Draw k of the NEE group at salt offset salt_off: the pixel
+            stream's salt 2000 + 37i + salt_off + k, or on the WGSL stream
+            uniform_hash(hash(bounce seed + 4241 + salt_off), k)."""
+            if wgsl:
+                group = rng_ops.wgsl_hash((wgsl_seed + 4241 + salt_off) & rng_ops._MASK)
+                return frame_uniform(rng_ops.uniform_hash(group, k))
+            return rng_ops.uniform_hash(pixel_seeds, salt0 + salt_off + k)
+
         def draws(g: int):
-            u1n = rng_ops.uniform_hash(pixel_seeds, salt0 + 7 * g + 1)
-            u2n = rng_ops.uniform_hash(pixel_seeds, salt0 + 7 * g + 2)
+            u1n, u2n = nee_uniform(7 * g + 1, 0), nee_uniform(7 * g + 1, 1)
             if total <= 4:
                 u1n, u2n = remapped(u1n, u2n, rng_ops._NEE_ROT_SALT_BASE + g)
             return u1n, u2n
@@ -496,7 +524,7 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
                 result = tri_term(result, ji, u1n, u2n, 1.0)
         else:
             # One light, weighted by the count.
-            u1n, u2n = draws(0)
+            u1n, u2n = nee_uniform(0, 1), nee_uniform(0, 2)
             if ctx.pick_per_sample:
                 pick_seed = rng_ops.as_u32(s, dev) ^ rng_ops.wgsl_hash(
                     rng_ops.as_u32(frame_seed_u32, dev))
@@ -504,7 +532,7 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
                 g = rng_ops.hash2(bounce_seed, 0) % total
                 gi = g.to(torch.long).expand(batch_shape)
             else:
-                u_l = rng_ops.uniform_hash(pixel_seeds, salt0)
+                u_l = nee_uniform(0, 0)
                 gi = torch.clamp((u_l * float(total)).long(), 0, total - 1)
             if n_tl == 0:
                 result = sphere_term(result, gi, u1n, u2n, float(total))
@@ -549,7 +577,10 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
     if per_ray or roulette:
         if ctx.rr_depth > 0:
             # Survive with p = max channel throughput (clamped), divide by p.
-            u_rr = rng_ops.uniform_hash(pixel_seeds, 1000 + i)
+            if wgsl:
+                u_rr = frame_uniform(rng_ops.wgsl_random_float((wgsl_seed + 977) & rng_ops._MASK))
+            else:
+                u_rr = rng_ops.uniform_hash(pixel_seeds, 1000 + i)
             p = torch.clamp(torch.amax(throughput, dim=-1), 0.05, 1.0)
             survive = u_rr < p
             if per_ray:
@@ -564,7 +595,8 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
             live = live & survive
     return PathState(o=o, d=d, throughput=throughput, result=result, live=live,
                      prev_diffuse=prev_diffuse, prev_cos=prev_cos, rays=rays_box[0],
-                     pixel_seeds=pixel_seeds, pixel_ids=pixel_ids)
+                     pixel_seeds=pixel_seeds, pixel_ids=pixel_ids,
+                     bounce_seeds=st.bounce_seeds)
 
 
 def trace_path(
@@ -575,7 +607,9 @@ def trace_path(
     t_min: float,
     t_max: float,
     *,
-    pixel_seeds: torch.Tensor,
+    pixel_seeds: torch.Tensor | None = None,
+    bounce_seeds: torch.Tensor | None = None,
+    parity: bool = False,
     russian_roulette_depth: int = 0,
     sky_intensity: float = 1.0,
     nee: bool = False,
@@ -587,7 +621,7 @@ def trace_path(
     light_pick: str = "lane",
     count_rays: bool = False,
 ):
-    """Path-trace a batch of rays on the counter stream; returns linear RGB
+    """Path-trace a batch of rays; returns linear RGB
     of shape dirs.shape, or (rgb, rays) with `count_rays=True`: rays is a
     per-ray f32 count of the rays traced, one closest-hit walk per live
     bounce plus one per NEE shadow ray whose light sample is valid, counted
@@ -608,9 +642,22 @@ def trace_path(
     g's first-bounce NEE pair (salt 8+g); it needs `pixel_ids`,
     `sample_index` and `frame_seed_u32`.
 
+    The stream is exactly one of `pixel_seeds` (per-pixel counter seeds,
+    generate_rays_hash's) or `bounce_seeds` (the WGSL stream:
+    make_bounce_seeds' (max_depth,) scalar seeds, one a bounce for the whole
+    frame, as ray_color draws them; NEE draws hash(seed + 4241 + 7g + 1),
+    Russian roulette seed + 977).  `parity=True` keeps the reference's sky
+    leak: a ray still live after max_depth bounces gains throughput * sky
+    (wgsl:293-296) instead of ending black.
+
     The loop body is `path_bounce`, which the wavefront engine's plain
     version runs one bounce at a time.
     """
+    if (pixel_seeds is None) == (bounce_seeds is None):
+        raise ValueError("pass exactly one of pixel_seeds= or bounce_seeds=")
+    if bounce_seeds is not None and sampler_spec is not None:
+        raise ValueError("sampler_spec= remaps the counter stream; the WGSL stream "
+                         "(bounce_seeds=) takes none")
     ctx = PathContext(
         scene, max_depth, t_min, t_max, russian_roulette_depth=russian_roulette_depth,
         sky_intensity=sky_intensity, nee=nee, mis=mis, frame_seed_u32=frame_seed_u32,
@@ -618,9 +665,27 @@ def trace_path(
         need_ids=pixel_ids is None or sample_index is None or frame_seed_u32 is None)
     if ctx.pick_per_sample and (sample_index is None or frame_seed_u32 is None):
         raise ValueError("light_pick='sample' needs sample_index= and frame_seed_u32=")
-    st = initial_path_state(origins, dirs, pixel_seeds, pixel_ids, count_rays=count_rays)
+    if ctx.pick_per_sample and bounce_seeds is not None:
+        raise ValueError("the WGSL stream picks its light per lane (light_pick='lane')")
+    st = initial_path_state(origins, dirs, pixel_seeds, pixel_ids, count_rays=count_rays,
+                            bounce_seeds=bounce_seeds)
     # Every ray runs the full trip count with its `live` mask.
     for i in range(max_depth):
         st = path_bounce(ctx, st, i, sample_index)
-    # Exhausted rays contribute black (the parity quirk is not ported).
-    return (st.result, st.rays) if count_rays else st.result
+    result = st.result
+    if parity:
+        result = torch.where(
+            st.live[..., None],
+            _add_sky(result, st.throughput, sky_color(st.d), ctx.sky_intensity), result)
+    # Otherwise exhausted rays contribute black.
+    return (result, st.rays) if count_rays else result
+
+
+def make_bounce_seeds(color_seed_u32, max_depth: int) -> torch.Tensor:
+    """The per-bounce scalar seeds of ray_color, hash(seed + i*1000)
+    (wgsl:268), as a (max_depth,) int64 tensor of u32 values;
+    `color_seed_u32` is the frame-uniform seed the reference passes to
+    ray_color (update()'s seed + 1, wgsl:355)."""
+    seed = rng_ops.as_u32(color_seed_u32)
+    i = torch.arange(max_depth, dtype=torch.int64, device=seed.device)
+    return rng_ops.wgsl_hash((seed + i * 1000) & rng_ops._MASK)

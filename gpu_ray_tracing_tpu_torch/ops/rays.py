@@ -1,7 +1,9 @@
-"""Counter-based ray generation (port of gpu_ray_tracing_tpu/ops/rays.py:89-146).
+"""Ray generation (port of gpu_ray_tracing_tpu/ops/rays.py:89-244): the
+counter stream and the WGSL parity stream.
 
-Every draw keys on the GLOBAL pixel id, so a row band of a larger frame
-generates exactly the rays the full frame would.  Directions are not
+Every draw keys on the GLOBAL pixel id (the WGSL stream on the global
+row), so a row band of a larger frame generates exactly the rays the full
+frame would.  Directions are not
 normalized (wgsl:322); the intersection math uses a = dot(d, d).  The
 pixel center and lens point round as the reference renders them (fused
 multiply-adds, see ops/rounding.py): a ray one ulp off can graze a sphere
@@ -103,3 +105,49 @@ def generate_rays_for_ids(
     origins = torch.where(camera.defocus_angle > 0.0, lens, camera.center)
     dirs = centers - origins
     return origins, dirs, seeds
+
+
+def generate_rays_wgsl(
+    camera: Camera,
+    width: int,
+    height: int,
+    sample_seed_u32,
+    frame_seed_u32,
+    parity: bool,
+    *,
+    y_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """WGSL-seeded primary rays (get_ray, wgsl:305-325): (origins, dirs),
+    each (height, width, 3) f32.  `sample_seed_u32` is update()'s scalar
+    seed (1 + samples so far + frame seed, wgsl:353); each pixel's seed is
+    get_ray's (ops/rng.pixel_seeds).  parity=True keeps the reference's
+    sampler quirks (the seed*seed jitter-y and the defocus disk's rim);
+    parity=False draws an independent jitter-y and the uniform disk."""
+    dev = camera.device
+    seeds = rng_ops.pixel_seeds(width, height, sample_seed_u32, frame_seed_u32, y_offset,
+                                device=dev)
+    jx = rng_ops.wgsl_random_float(seeds) - 0.5  # (wgsl:300)
+    if parity:
+        jy = rng_ops.wgsl_random_float(rng_ops._mul32(seeds, seeds)) - 0.5  # (wgsl:301)
+    else:
+        jy = rng_ops.wgsl_random_float((seeds + 7919) & rng_ops._MASK) - 0.5
+    x = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+    y = torch.arange(height, dtype=torch.float32, device=dev)[:, None] + float(y_offset)
+    fx = (x + 0.5 + jx)[..., None]
+    fy = (y + 0.5 + jy)[..., None]
+    centers = fma(camera.pixel_delta_v, fy,
+                  fma(camera.pixel_delta_u, fx, camera.viewport_upper_left))
+    u1 = rng_ops.wgsl_random_float((seeds + 1) & rng_ops._MASK)
+    if parity:
+        # The rim: the angle only, radius 1 (wgsl:327-331).
+        px, py = cos_sin(u1 * _TWO_PI)
+    else:
+        u2 = rng_ops.wgsl_random_float((seeds + 2) & rng_ops._MASK)
+        radius = sqrt(u1)
+        cos_a, sin_a = cos_sin(u2 * _TWO_PI)
+        px, py = radius * cos_a, radius * sin_a
+    lens = fma(py[..., None], camera.defocus_disk_v,
+               fma(px[..., None], camera.defocus_disk_u, camera.center))
+    # Pinhole when defocus_angle <= 0 (wgsl:319).
+    origins = torch.where(camera.defocus_angle > 0.0, lens, camera.center)
+    return origins, centers - origins

@@ -1,7 +1,10 @@
-"""Counter-based hash RNG (port of gpu_ray_tracing_tpu/ops/rng.py).
+"""Counter-based hash RNG and the WGSL parity stream (port of
+gpu_ray_tracing_tpu/ops/rng.py).
 
 Every draw is a pure function of (global pixel id, sample index, frame
-seed, salt), bit-exact with the JAX package.  PyTorch's CPU build has no
+seed, salt), bit-exact with the JAX package.  The WGSL stream's pieces
+(`wgsl_random_float`, `seed_from_f32`, `random_unit_vector`,
+`pixel_seeds`) are the reference shader's own chains, also bit-exact.  PyTorch's CPU build has no
 `+` or `>>` on uint32 tensors, so u32 values are carried in int64 tensors
 in [0, 2**32) and masked after every operation.  A u32 product can reach
 2**64 and would wrap int64, so `_mul32` multiplies by 16-bit halves: every
@@ -26,6 +29,9 @@ _SALT_MUL = 0x68E31DA4
 _PIX_MUL = 2654435761
 _SAMPLE_MUL = 0x85EBCA6B
 _INV_2_24 = 1.0 / (1 << 24)
+# f32(4294967295.0) is 2**32: dividing by it is scaling by 2**-32, exact.
+_INV_2_32 = 1.0 / (1 << 32)
+_U32_MAX_F = 4294967295.0
 
 
 def as_u32(x, device: torch.device | None = None) -> torch.Tensor:
@@ -59,6 +65,44 @@ def wgsl_hash(value) -> torch.Tensor:
     s = _mul32(s, _MUL)
     s = s ^ (s >> 16)
     return _mul32(s, _MUL)
+
+
+def wgsl_random_float(value) -> torch.Tensor:
+    """hash(value) / 4294967295.0 as f32 in [0, 1] (wgsl:61-63)."""
+    return wgsl_hash(value).to(torch.float32) * _INV_2_32
+
+
+def seed_from_f32(seed01) -> torch.Tensor:
+    """u32(seed * 4294967295.0) with WGSL's saturating f32->u32 cast
+    (wgsl:311,353), as int64 holding u32.  The product of a seed within an
+    ulp of 1 rounds to 2**32, which saturates to u32::MAX; a negative
+    product clamps to 0 and NaN maps to 0.  Both are written out rather
+    than left to the float->int cast, which is undefined out of range."""
+    x = torch.as_tensor(seed01, dtype=torch.float32) * _U32_MAX_F
+    x = torch.where(torch.isnan(x), 0.0, torch.clamp(x, min=0.0))
+    # Below 2**32 the largest f32 is 4294967040, which converts exactly.
+    return torch.where(x >= 4294967296.0, _MASK,
+                       torch.clamp(x, max=4294967040.0).to(torch.int64))
+
+
+def random_unit_vector(seed) -> torch.Tensor:
+    """Uniform point on the unit sphere from two hash draws of the WGSL
+    stream (wgsl:234-243): shape seed.shape + (3,)."""
+    seed = as_u32(seed)
+    return unit_vector_from_uniforms(wgsl_random_float(seed),
+                                     wgsl_random_float((seed + 1) & _MASK))
+
+
+def pixel_seeds(width: int, height: int, sample_index, frame_seed_u32, y_offset: int = 0,
+                device=None) -> torch.Tensor:
+    """The WGSL per-pixel seed grid of get_ray (wgsl:309-311),
+    hash(hash(x*73) ^ hash(y*51) ^ (sample_index*25 + frame_seed)), as a
+    (height, width) int64 tensor of u32 values; `y_offset` shifts the
+    global row (a row band of a taller frame)."""
+    x = torch.arange(width, dtype=torch.int64, device=device)[None, :]
+    y = (torch.arange(height, dtype=torch.int64, device=device)[:, None] + y_offset) & _MASK
+    mix = (_mul32(as_u32(sample_index, device), 25) + as_u32(frame_seed_u32, device)) & _MASK
+    return wgsl_hash(wgsl_hash(_mul32(x, 73)) ^ wgsl_hash(_mul32(y, 51)) ^ mix)
 
 
 def hash2(seed, salt) -> torch.Tensor:

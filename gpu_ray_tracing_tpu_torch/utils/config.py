@@ -10,9 +10,10 @@ plain PyTorch integrator (the counterpart of 'jax') and 'wavefront_torch'
 for the wavefront engine's plain version, which run on the device the scene
 lies on.  NEE/MIS and the stratified and Sobol samplers run on all four;
 adaptive sampling is a megakernel mode and ray regeneration a wavefront
-mode, as in the JAX package.  The modes the port does not carry yet raise
-NotImplementedError and name their ROADMAP.md item: the threefry and wgsl
-streams.
+mode, as in the JAX package.  The WGSL parity stream (rng='wgsl') runs
+through 'torch' only: the kernels draw the hash stream, as the JAX
+package's do.  The one mode the port does not carry yet, the threefry
+stream, raises NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -121,11 +122,11 @@ class RenderConfig:
                 f"backend={self.backend!r} ignores it — set "
                 "backend='wavefront' or regenerate='off'"
             )
-        # Modes the port does not carry yet.
-        if self.rng != "hash":
+        # The mode the port does not carry yet.
+        if self.rng == "threefry":
             raise NotImplementedError(
-                f"rng={self.rng!r} is not ported yet (ROADMAP Queue 1 item 2; "
-                "only the counter-based 'hash' stream is)"
+                "rng='threefry' is not ported yet (ROADMAP Queue 1 item 2, "
+                "rng='threefry'); use the counter-based 'hash' stream or 'wgsl'"
             )
 
     @property

@@ -888,3 +888,46 @@ def test_render_denoised_launches_the_guides_once(dev):
                       frame_seed=4).mean().backward()
     assert dict(mk.LAUNCHES) == {"megakernel:brute": 4}
     assert bool(torch.isfinite(albedo.grad).all()) and bool((albedo.grad != 0).any())
+
+
+@pytest.mark.parametrize("flags,launches", [
+    ([], {"megakernel:brute": 1}),
+    (["--rng", "wgsl"], {}),
+    (["--denoise", "2"], {"megakernel:brute": 1, "megakernel:brute+guides": 1}),
+])
+def test_cli_render_png_equals_the_api_frame(dev, tmp_path, flags, launches):
+    """`render` through cli.main on the card (its default --device cuda
+    and --backend auto) writes the PNG of the API's frame at the same
+    arguments, byte for byte, through the launches its route needs (none
+    on the WGSL stream, which the plain integrator draws on the card)."""
+    from PIL import Image
+
+    from gpu_ray_tracing_tpu_torch import cli
+    from gpu_ray_tracing_tpu_torch.utils.image import to_uint8, tonemap
+
+    out = str(tmp_path / "cli.png")
+    mk.LAUNCHES.clear()
+    assert cli.main(["render", "--width", "96", "--height", "54", "--spp", "4", "--depth", "8",
+                     "--seed", "3", "--out", out] + flags) == 0
+    assert dict(mk.LAUNCHES) == launches
+    rng = "wgsl" if "wgsl" in flags else "hash"
+    cfg = T.RenderConfig(width=96, height=54, spp=4, max_depth=8, rng=rng,
+                         backend="torch" if rng == "wgsl" else "cuda")
+    scene, settings = T.one_weekend_scene(0, device=dev), T.CameraSettings.default()
+    if "--denoise" in flags:
+        img = T.render_denoised(scene, settings, cfg, frame_seed=3, iterations=2)
+    else:
+        img = T.render(scene, settings, cfg, frame_seed=3)
+    assert img.device.type == "cuda"
+    assert np.array_equal(np.asarray(Image.open(out)), to_uint8(tonemap(img)))
+
+
+@pytest.mark.parametrize("size", [(96, 54), (1280, 720), (48, 27), (1283, 717)])
+def test_derive_camera_on_the_card_equals_the_cpu(dev, size):
+    """A camera derived from settings on the card is the one derived on the
+    CPU, bit for bit: the CLI builds its settings on --device."""
+    settings = T.CameraSettings.default()
+    on_card = T.derive_camera(settings.to(dev), *size)
+    on_cpu = T.derive_camera(settings, *size)
+    for f in dataclasses.fields(T.Camera):
+        assert torch.equal(getattr(on_card, f.name).cpu(), getattr(on_cpu, f.name)), f.name

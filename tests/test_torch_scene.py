@@ -226,14 +226,15 @@ def test_degenerate_camera_raises():
     (dict(backend="wavefront", regenerate="on"), None),
     (dict(nee=True), None),
     (dict(rng="threefry", backend="torch"), "item 2"),
-    (dict(rng="wgsl", parity=True, backend="torch"), "item 2"),
+    (dict(rng="wgsl", parity=True, backend="torch"), None),
     (dict(sampler="sobol"), None),
     (dict(backend="cuda", adaptive_tol=0.05), None),
 ])
 def test_config_names_the_roadmap_item_of_unported_modes(kw, item):
     """Unported modes raise naming their item; ported ones (item None: NEE
     since K1b, the samplers since K1e, adaptive sampling since K1f, the
-    wavefront engine with its ray regeneration since K2) are accepted."""
+    wavefront engine with its ray regeneration since K2, the WGSL parity
+    stream through 'torch' since the command line's slice) are accepted."""
     if item is None:
         cfg = T.RenderConfig(**kw)
         assert all(getattr(cfg, k) == v for k, v in kw.items())
