@@ -209,6 +209,34 @@ card in phases, one JSON line each:
                   sets the launch counts to 0 just before it and reads them
                   just after
 
+ 31. sharded      parallel.sharding on the card through K1 and K2, rank
+                  processes spawned on the one H100 (each imports this file
+                  and the port, never jax, and loads the cached build), every
+                  run against the unsharded frame of its backend: the 1x1 mesh
+                  over nccl (world 1: NCCL's all_gather on the card) at the main
+                  path, bit for bit; over gloo with CUDA tensors where ranks
+                  share the card (nccl puts no two ranks on one card; with a
+                  card a rank, over nccl), 2x1 contiguous and interleaved at the
+                  main path through 'cuda' and 'wavefront' (regeneration off),
+                  bit for bit; BASELINE config 5's frame (make_scene(One-Weekend),
+                  1920x1080, depth 20, roulette 5, 'cuda'): 8 interleaved
+                  progressive_step_sharded steps and accum_image against 8
+                  unsharded progressive_steps bit for bit; row-sharded adaptive
+                  at 1280x768 (two bands of 384 rows; budget 32, tol 0.03, min 8),
+                  the image and each band's spp map bit for bit; and on 4 ranks
+                  the 2x2 main path (rtol 1e-5 / atol 1e-6) and config 5 in 4
+                  steps of 2 samples against render(spp=8) at atol 2e-5.  The
+                  ms a frame or step are each rank's on one shared card, not
+                  scaling; each run's launches are counted on every rank and
+                  gated on the route's key.  A rank that fails fails the phase
+ 32. threefry     render(rng='threefry', backend='torch') on the card,
+                  One-Weekend 320x180, depth 8, 256 spp: the same key twice
+                  bit-equal, another key another frame; its per-sample frames
+                  (their mean in order is the frame, bit for bit) against the
+                  hash stream's (render_cuda, a sample each): per pixel and
+                  channel |mean difference| <= 4 standard errors for >= 99%,
+                  and the frame means within 4 standard errors
+
 Every phase that launches the megakernel gates its launch count on its own
 route key (megakernel:brute, :sphere_bvh, :mesh_bvh, suffixed +nee,
 +sobol/+stratified, +adaptive and +rays when the launch ran them); the
@@ -1701,6 +1729,345 @@ def phase_cli(T, mk, dev, smi: str, main_ms: float) -> dict:
     return row
 
 
+# --- 31. the sharded path on the card, and 32. the threefry stream ---------
+
+SHARDED_MAIN = dict(width=1280, height=720, spp=16, max_depth=30)  # phase 6's frame
+CONFIG5 = dict(width=1920, height=1080, spp=1024, max_depth=20, russian_roulette_depth=5)
+SHARDED_ADAPTIVE = dict(width=1280, height=768, spp=32, max_depth=30, adaptive_tol=0.03,
+                        adaptive_min_spp=8)
+CONFIG5_STEPS = 8
+
+
+def digest(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def sharded_job(T, mk, sharding, mesh, job: dict) -> dict:
+    """One job of phase 31 on this rank: its readings, every rank's digest
+    of what it returned and rank 0's image (numpy, to the parent)."""
+    import torch.distributed as dist
+    kind, cfg = job["kind"], T.RenderConfig(**job["cfg"])
+    scene, cam = T.make_scene(T.one_weekend_scene(0)), T.CameraSettings.default()
+    part, seed = job.get("partition", "contiguous"), job.get("seed", 7)
+    out = {"rank": dist.get_rank(), "xi": mesh.get_local_rank("x"),
+           "si": mesh.get_local_rank("s"), "device": torch.cuda.current_device(),
+           "backend": dist.get_backend(mesh.get_group("x"))}
+    if kind == "progressive":
+        def run():
+            st = sharding.shard_accum_state(T.init_accum(cfg.height, cfg.width), mesh)
+            for _ in range(job["steps"]):
+                st = sharding.progressive_step_sharded(st, scene, cam, cfg, mesh,
+                                                       frame_seed=seed, row_partition=part)
+            return st
+        run()  # warm-up
+        repeats = 1
+    else:
+        def run():
+            return sharding.render_sharded(scene, cam, cfg, mesh, frame_seed=seed,
+                                           row_partition=part)
+        run()
+        repeats = job.get("repeats", 3)
+    torch.cuda.synchronize()
+    mk.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        res = run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / repeats
+    out["launches"] = dict(mk.LAUNCHES)
+    if kind == "progressive":
+        out["ms_per_step"] = ms / job["steps"]
+        out["band"], out["count"] = list(res.rgb.shape), int(res.count)
+        img = sharding.accum_image(res, mesh, part)
+    else:
+        out["ms_per_frame"], img = ms, res
+    out["digest"], out["shape"] = digest(img), list(img.shape)
+    out["img"] = img.cpu().numpy() if out["rank"] == 0 else None
+    # The collectives of a frame alone: a band's all_reduce over 's' (with
+    # spp shards) and its all_gather over 'x', host clock, card synced.
+    band = torch.zeros((cfg.height // mesh.size(0), cfg.width, 3), device=img.device)
+
+    def collectives():
+        if mesh.size(1) > 1:
+            dist.all_reduce(band, group=mesh.get_group("s"))
+        return sharding._gather_rows(band, mesh)
+    collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        collectives()
+    torch.cuda.synchronize()
+    out["collective_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+    if kind == "adaptive":
+        # The band's spp map, through the dispatch render_sharded uses.
+        n_rows = mesh.size(0)
+        local_h = cfg.height // n_rows
+        y0 = out["xi"] * local_h
+        band_img, smap = sharding._local_sample(
+            T.as_scene(scene).to(img.device), T.derive_camera(cam, cfg.width, cfg.height)
+            .to(img.device), cfg, sample_index=0, spp=cfg.spp, frame_seed=seed, y0=y0,
+            local_h=local_h, adaptive=True, return_spp_map=True)
+        out["y0"], out["spp_map"] = y0, smap.cpu().numpy()
+        out["band_equals_image_rows"] = bool(torch.equal(band_img, img[y0:y0 + local_h]))
+    return out
+
+
+def sharded_rank(rank: int, world: int, port: int, backend: str, jobs: list,
+                 results) -> None:
+    """A rank of phase 31 (a spawned process that imports this file and
+    the port, never jax): joins the process group over `backend`, loads
+    the parent's build, runs `jobs` on its mesh and puts (rank, job name,
+    readings) on `results`.  An error ends the process with its traceback
+    and a nonzero exit code, which fails the phase."""
+    import datetime
+
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    import gpu_ray_tracing_tpu_torch as T
+    from gpu_ray_tracing_tpu_torch.ops.cuda import build
+    from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as mk
+    from gpu_ray_tracing_tpu_torch.parallel import mesh as pmesh
+    from gpu_ray_tracing_tpu_torch.parallel import sharding
+
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        # The parent's build, loaded (compiled only if a source is newer).
+        compiled = {name: build.build_info(name).compiled for name in ("megakernel",
+                                                                      "wavefront")}
+        meshes = {}
+        for job in jobs:
+            shape = tuple(job["mesh"])
+            if shape not in meshes:
+                meshes[shape] = pmesh.make_mesh(*shape)
+            out = sharded_job(T, mk, sharding, meshes[shape], job)
+            results.put((rank, job["name"], dict(out, rank_compiled=compiled)))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world: int, backend: str, jobs: list, timeout: float = 600) -> tuple[dict, float]:
+    """Spawn `world` ranks (rank r on card r % device_count(), make_mesh's
+    rule) over `backend` and run `jobs` on each: ({job name: [readings of
+    rank r]}, wall seconds).  A rank that exits with an error, or a run past
+    `timeout`, fails the phase; every rank still running then is killed."""
+    import queue
+    import socket
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    results = ctx.Queue()
+    procs = [ctx.Process(target=sharded_rank, args=(r, world, port, backend, jobs, results))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got: dict = {}
+    expected, n = world * len(jobs), 0
+    deadline = time.monotonic() + timeout
+    while n < expected:
+        try:
+            rank, name, out = results.get(timeout=1.0)
+        except queue.Empty:
+            if (any(p.exitcode not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            continue
+        got.setdefault(name, {})[rank] = out
+        n += 1
+    for p in procs:
+        p.join(timeout=60 if n == expected else 1)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    gate("sharded", n == expected and codes == [0] * world,
+         f"world {world} over {backend}: {n} of {expected} results, exit codes {codes}")
+    return ({k: [v.get(r) for r in range(world)] for k, v in got.items()},
+            time.perf_counter() - t0)
+
+
+def phase_sharded(T, mk, dev, smi: str, main_img: torch.Tensor) -> dict:
+    """31. render_sharded and progressive_step_sharded on the card through
+    K1 and K2, each run against the unsharded frame of its backend: the
+    1x1 mesh over nccl (world 1), then 2 and 4 ranks.  Ranks that share a
+    card (world > device_count(): one H100) run over gloo with CUDA tensors,
+    since nccl puts no two ranks on one device, and their ms are each
+    rank's on the shared card, not scaling; with a card a rank they run
+    over nccl."""
+    main = T.make_scene(T.one_weekend_scene(0))
+    cam = T.CameraSettings.default()
+    cuda_main = dict(SHARDED_MAIN, backend="cuda")
+    wave_main = dict(SHARDED_MAIN, backend="wavefront")
+    c5 = dict(CONFIG5, backend="cuda")
+    ad = dict(SHARDED_ADAPTIVE, backend="cuda")
+    cards = torch.cuda.device_count()
+    row = dict(phase="sharded", card=smi, cards=cards, runs={})
+
+    def backend(world: int) -> str:
+        return "nccl" if world <= cards else "gloo"
+
+    def frame(name, shape, cfg, partition="contiguous", **kw):
+        return dict(name=name, kind="frame", mesh=shape, cfg=cfg, partition=partition, **kw)
+
+    # The unsharded frames of each backend, in this process.
+    wave_img = T.render(main, cam, T.RenderConfig(**wave_main), frame_seed=7)
+    ad_img, ad_map = T.api._render(main, T.derive_camera(cam, ad["width"], ad["height"]),
+                                   T.RenderConfig(**ad), frame_seed=7, spp=ad["spp"],
+                                   adaptive=True, return_spp_map=True)
+    c5_cfg = T.RenderConfig(**c5)
+    c5_state = T.init_accum(c5_cfg.height, c5_cfg.width)
+    for _ in range(CONFIG5_STEPS):
+        c5_state = T.progressive_step(c5_state, main, cam, c5_cfg, frame_seed=7)
+    c5_spp8 = T.render(main, cam, dataclasses.replace(c5_cfg, spp=8), frame_seed=7)
+    torch.cuda.synchronize()
+
+    def check(name, outs, want, *, exact=True, key=None, per_rank=1, tol=None):
+        """Every rank's digest alike; rank 0's image against `want` (bit
+        for bit, or allclose at `tol` = (rtol, atol)); the route key
+        launched `per_rank` times a timed run on every rank."""
+        img = torch.from_numpy(outs[0]["img"])
+        want = want.cpu()
+        diff = float((img - want).abs().max())
+        same = len({o["digest"] for o in outs}) == 1
+        ok = bool(torch.equal(img, want)) if exact else bool(
+            torch.allclose(img, want, rtol=tol[0], atol=tol[1]))
+        launched = [o["launches"].get(key, 0) for o in outs]
+        rec = dict(max_abs_vs_unsharded=diff, bit_equal=bool(torch.equal(img, want)),
+                   ranks_agree=same, launches=[o["launches"] for o in outs],
+                   backends=sorted({o["backend"] for o in outs}),
+                   devices=[o["device"] for o in outs],
+                   coords=[[o["xi"], o["si"]] for o in outs],
+                   **{k: [o[k] for o in outs] for k in ("ms_per_frame", "ms_per_step",
+                                                         "collective_ms", "band", "count")
+                      if k in outs[0]})
+        row["runs"][name] = rec
+        gate("sharded", same, f"{name}: the ranks' images differ")
+        gate("sharded", ok, f"{name}: max |diff| {diff} against the unsharded frame "
+                            f"({'bit for bit' if exact else tol})")
+        gate("sharded", all(n >= per_rank for n in launched),
+             f"{name}: {key} launched {launched} times, expected >= {per_rank} a rank")
+        return rec
+
+    # World 1 over nccl: the collective backend of a multi-GPU machine.
+    outs, secs = run_ranks(1, "nccl", [frame("nccl_1x1", (1, 1), cuda_main)])
+    row["world1_nccl_seconds"] = secs
+    if "nccl_1x1" in outs:
+        check("nccl_1x1", outs["nccl_1x1"], main_img, key="megakernel:brute", per_rank=3)
+        gate("sharded", outs["nccl_1x1"][0]["backend"] == "nccl",
+             f"the 1x1 mesh ran over {outs['nccl_1x1'][0]['backend']}")
+    # World 2: rows, both partitions and engines, config 5's interleaved
+    # progressive frame, row-sharded adaptive.
+    jobs2 = [frame(f"{eng}_2x1_{part}", (2, 1), cfg, part)
+             for eng, cfg in (("cuda", cuda_main), ("wavefront", wave_main))
+             for part in ("contiguous", "interleaved")]
+    jobs2 += [dict(name="config5_2x1_interleaved", kind="progressive", mesh=(2, 1), cfg=c5,
+                   partition="interleaved", steps=CONFIG5_STEPS),
+              dict(name="adaptive_2x1", kind="adaptive", mesh=(2, 1), cfg=ad, repeats=1)]
+    outs2, secs = run_ranks(2, backend(2), jobs2)
+    row[f"world2_{backend(2)}_seconds"] = secs
+    for eng, want, key in (("cuda", main_img, "megakernel:brute"),
+                           ("wavefront", wave_img, "wavefront:brute")):
+        for part in ("contiguous", "interleaved"):
+            name = f"{eng}_2x1_{part}"
+            if name in outs2:
+                check(name, outs2[name], want, key=key, per_rank=3)
+    if "config5_2x1_interleaved" in outs2:
+        o = outs2["config5_2x1_interleaved"]
+        rec = check("config5_2x1_interleaved", o, c5_state.rgb, key="megakernel:brute",
+                    per_rank=CONFIG5_STEPS)
+        gate("sharded", rec["count"] == [CONFIG5_STEPS] * 2 and
+             rec["band"] == [[540, 1920, 3]] * 2, f"config 5 state: {rec}")
+    if "adaptive_2x1" in outs2:
+        o = outs2["adaptive_2x1"]
+        rec = check("adaptive_2x1", o, ad_img, key="megakernel:brute+adaptive", per_rank=1)
+        maps = [torch.equal(torch.from_numpy(r["spp_map"]),
+                            ad_map[r["y0"]:r["y0"] + r["spp_map"].shape[0]].cpu())
+                for r in o]
+        rec["spp_maps_equal"] = maps
+        rec["band_equals_image_rows"] = [r["band_equals_image_rows"] for r in o]
+        rec["spp_map_mean"] = float(ad_map.mean())
+        gate("sharded", all(maps), f"adaptive 2x1: band spp maps equal {maps}")
+        gate("sharded", all(rec["band_equals_image_rows"]),
+             "adaptive 2x1: the band with its spp map differs from the sharded image")
+    # World 4: 2x2, samples split over 's'.
+    jobs4 = [frame("cuda_2x2", (2, 2), cuda_main),
+             dict(name="config5_2x2", kind="progressive", mesh=(2, 2), cfg=c5,
+                  partition="contiguous", steps=4)]
+    outs4, secs = run_ranks(4, backend(4), jobs4)
+    row[f"world4_{backend(4)}_seconds"] = secs
+    if "cuda_2x2" in outs4:
+        check("cuda_2x2", outs4["cuda_2x2"], main_img, exact=False, tol=(1e-5, 1e-6),
+              key="megakernel:brute", per_rank=3)
+    if "config5_2x2" in outs4:
+        rec = check("config5_2x2", outs4["config5_2x2"], c5_spp8, exact=False, tol=(0.0, 2e-5),
+                    key="megakernel:brute", per_rank=4)
+        gate("sharded", rec["count"] == [8] * 4, f"config 5 2x2 count {rec['count']}")
+    emit(row)
+    return row
+
+
+def phase_threefry(T, mk, dev, smi: str) -> dict:
+    """32. render(rng='threefry', backend='torch') on the card: One-Weekend
+    320x180, depth 8, 256 spp.  The same key twice bit-equal, another key
+    another frame; per-sample frames (render_reference, one sample each)
+    whose mean in order is the frame bit for bit, against the hash stream's
+    per-sample frames (render_cuda, one sample each): per pixel and channel
+    |mean difference| <= 4 standard errors for >= 99%, and the frame means
+    within 4 standard errors (tests/test_torch_threefry.py's rule)."""
+    w, h, spp, depth = 320, 180, 256, 8
+    scene, settings = T.one_weekend_scene(0, device=dev), T.CameraSettings.default()
+    cfg = T.RenderConfig(width=w, height=h, spp=spp, max_depth=depth, rng="threefry",
+                         backend="torch")
+    cam = T.derive_camera(settings, w, h).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = T.render(scene, cam, cfg, key=21)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    same = bool(torch.equal(a, T.render(scene, cam, cfg, key=21)))
+    other = not bool(torch.equal(a, T.render(scene, cam, cfg, key=22)))
+    kw = dict(width=w, height=h, spp=1, max_depth=depth, t_min=cfg.t_min)
+    sums, acc = {}, torch.zeros((h, w, 3), device=dev)
+    for rng in ("threefry", "hash"):
+        s1 = torch.zeros((h, w, 3), dtype=torch.float64, device=dev)
+        s2, means = torch.zeros_like(s1), []
+        for s in range(spp):
+            if rng == "threefry":
+                x = mk.render_reference(scene, cam, sample_index=s, rng="threefry", key=21,
+                                        light_pick="lane", **kw)
+                acc += x
+            else:
+                x = mk.render_cuda(scene, cam, sample_index=s, frame_seed=21, **kw)
+            xd = x.double()
+            s1 += xd
+            s2 += xd * xd
+            means.append(xd.mean())
+        m = torch.stack(means)
+        sums[rng] = (s1 / spp, (s2 - s1 * s1 / spp) / (spp - 1), m)
+    mean_is_frame = bool(torch.equal(acc / float(spp), a))
+    (mt, vt, ft), (mh, vh, fh) = sums["threefry"], sums["hash"]
+    se = torch.sqrt(vt.clamp(min=0) / spp + vh.clamp(min=0) / spp)
+    within = float(((mt - mh).abs() <= 4 * se + 1e-6).double().mean())
+    se_frame = float(torch.sqrt(ft.var() / spp + fh.var() / spp))
+    frame_diff = float(ft.mean() - fh.mean())
+    row = dict(phase="threefry", size=[w, h], spp=spp, max_depth=depth,
+               render_seconds=render_s, same_key_bit_equal=same, other_key_differs=other,
+               per_sample_mean_is_the_frame=mean_is_frame,
+               share_within_4_se=within, frame_mean_diff=frame_diff,
+               frame_mean_se=se_frame, mean=float(a.mean()), card=smi)
+    emit(row)
+    gate("threefry", same and other, f"determinism: same key {same}, other key differs {other}")
+    gate("threefry", mean_is_frame, "the per-sample frames' mean is not the frame")
+    gate("threefry", within >= 0.99, f"{within:.4f} of pixel channels within 4 SE")
+    gate("threefry", abs(frame_diff) <= 4 * se_frame,
+         f"frame means differ by {frame_diff}, 4 SE = {4 * se_frame}")
+    return row
+
+
 def render_kw(cfg, seed: int) -> dict:
     """render_cuda/render_reference keywords of a RenderConfig frame."""
     return dict(width=cfg.width, height=cfg.height, spp=cfg.spp, max_depth=cfg.max_depth,
@@ -2656,6 +3023,9 @@ def main() -> int:
     aov_scan = phase_aov_scan(T, mk, dev, smi)
     # 30. the command line end to end
     phase_cli(T, mk, dev, smi, frame_ms)
+    # 31. the sharded path (K1, K2) on 1, 2 and 4 ranks; 32. threefry
+    phase_sharded(T, mk, dev, smi, main_img)
+    phase_threefry(T, mk, dev, smi)
 
     ad_alone = time_adaptive(T, mk, 5)
 

@@ -10,9 +10,14 @@ hand-written sm_90a megakernel (backend='cuda',
 the default), the wavefront engine's sm_90a kernels (backend='wavefront',
 one launch per bounce over compacted rays, with ray regeneration) or their
 plain PyTorch versions (backend='torch', 'wavefront_torch'); the
-reference shader's own WGSL stream (rng='wgsl') through 'torch'.  It
-imports torch and numpy, never jax.  `python -m gpu_ray_tracing_tpu_torch`
-is its command line (cli.py: render, animate, progressive, view).
+reference shader's own WGSL stream (rng='wgsl') and the threefry mode
+(rng='threefry', keyed torch.Generator streams) through 'torch'.  Rows and
+samples shard over ranks and cards with `parallel.mesh.make_mesh` (a
+torch.distributed DeviceMesh, distinct from the top-level `make_mesh`,
+which builds triangle geometry) and `parallel.sharding.render_sharded` /
+`progressive_step_sharded` / `accum_image`.  It imports torch and numpy,
+never jax.  `python -m gpu_ray_tracing_tpu_torch` is its command line
+(cli.py: render, animate, progressive, view).
 
     from gpu_ray_tracing_tpu_torch import (
         CameraSettings, RenderConfig, one_weekend_scene, render)

@@ -13,8 +13,15 @@ with its BVH, sphere and triangle lights) on the counter-based hash stream,
 with config.nee/mis and config.sampler, through the config's backend.
 config.rng='wgsl' renders the reference's own stream instead (sample s
 seeded 1 + s + frame_seed, update() at wgsl:353; parity=True keeps its
-sampler quirks): through backend='torch' only, as the JAX package sends it
-to 'jax', since the kernels draw the hash stream.  The backends:
+sampler quirks), and config.rng='threefry' explicit torch.Generator
+streams from an int `key=` (ops/rng.py; sample s of a frame under
+fold_key(key, SAMPLE, s), frame f of a progressive run or an animation
+under fold_key(key, FRAME, f), as the JAX package folds its key): both
+through backend='torch' only, as the JAX package sends them to 'jax',
+since the kernels draw the hash stream.  A `key` given to the hash or
+wgsl stream becomes the frame seed key & 0xFFFFFFFF (the last word of
+jax.random.key(seed) for a 32-bit seed), unless frame_seed is given.
+The backends:
 
   backend='cuda'   the default: the hand-written megakernel (render_cuda),
                    the counterpart of 'pallas'.  It needs a CUDA device and
@@ -57,6 +64,7 @@ import torch
 from gpu_ray_tracing_tpu_torch.models.camera import Camera, CameraSettings, derive_camera
 from gpu_ray_tracing_tpu_torch.models.scene import as_scene
 from gpu_ray_tracing_tpu_torch.ops import denoise as denoise_ops
+from gpu_ray_tracing_tpu_torch.ops import rng as rng_ops
 from gpu_ray_tracing_tpu_torch.ops.accumulate import (
     AccumState,
     AdaptiveAccumState,
@@ -94,6 +102,19 @@ def _seed(frame_seed) -> int:
     return 0 if frame_seed is None else int(frame_seed) & 0xFFFFFFFF
 
 
+def _resolve_rng(config: RenderConfig, key, frame_seed) -> tuple[int | None, int]:
+    """(key, frame seed) for config.rng (the JAX package's _resolve_rng,
+    api.py:276-291): threefry needs a key and draws no frame seed; the hash
+    and wgsl streams take frame_seed, else the key's low word, else 0."""
+    if config.rng == "threefry":
+        if key is None:
+            raise ValueError("config.rng='threefry' requires key=")
+        return int(key), 0
+    if frame_seed is None and key is not None:
+        return None, int(key) & 0xFFFFFFFF
+    return None, _seed(frame_seed)
+
+
 def _camera(camera: Camera | CameraSettings, config: RenderConfig) -> Camera:
     if isinstance(camera, CameraSettings):
         return derive_camera(camera, config.width, config.height)
@@ -101,11 +122,12 @@ def _camera(camera: Camera | CameraSettings, config: RenderConfig) -> Camera:
 
 
 def _render(scene, camera: Camera, config: RenderConfig, *, frame_seed: int,
-            sample_index: int = 0, spp: int, adaptive: bool = False, **extra):
+            sample_index: int = 0, spp: int, adaptive: bool = False,
+            key: int | None = None, **extra):
     """One call of the config's backend over samples sample_index ..
-    sample_index + spp - 1.  `adaptive` engages config.adaptive_tol: the
-    one-shot renders set it, the fold-based progressive steps never do
-    (they need exact per-sample counts)."""
+    sample_index + spp - 1 (`key` for rng='threefry').  `adaptive` engages
+    config.adaptive_tol: the one-shot renders set it, the fold-based
+    progressive steps never do (they need exact per-sample counts)."""
     sc = as_scene(scene)
     if config.backend in ("wavefront", "wavefront_torch") and config.integrator == "path":
         return _render_wavefront(sc, camera, config, frame_seed=frame_seed,
@@ -124,7 +146,7 @@ def _render(scene, camera: Camera, config: RenderConfig, *, frame_seed: int,
         device = _cuda_device(config.backend)
         return render_cuda(sc.to(device), camera.to(device), **kwargs)
     return render_reference(sc, camera.to(sc.device), light_pick="lane", rng=config.rng,
-                            parity=config.parity, **kwargs)
+                            parity=config.parity, key=key, **kwargs)
 
 
 def _render_wavefront(sc, camera: Camera, config: RenderConfig, *, frame_seed: int,
@@ -149,17 +171,20 @@ def _render_wavefront(sc, camera: Camera, config: RenderConfig, *, frame_seed: i
 
 
 def render(scene, camera: Camera | CameraSettings, config: RenderConfig, *,
-           frame_seed=0) -> torch.Tensor:
+           key=None, frame_seed=None) -> torch.Tensor:
     """Render one frame at config.spp samples per pixel (a per-tile budget
     when config.adaptive_tol > 0); returns linear-RGB f32 of shape
-    (height, width, 3).  Differentiable on every backend: on 'cuda' and
-    'wavefront' through KernelFrame (module docstring), the camera derived
-    outside it so that gradients reach the CameraSettings."""
+    (height, width, 3).  `key` (an int) draws rng='threefry'; `frame_seed`
+    (u32, default 0) seeds the hash and wgsl streams.  Differentiable on
+    every backend: on 'cuda' and 'wavefront' through KernelFrame (module
+    docstring), the camera derived outside it so that gradients reach the
+    CameraSettings."""
     camera = _camera(camera, config)
-    seed = _seed(frame_seed)
+    key, seed = _resolve_rng(config, key, frame_seed)
 
     def run(sc, cam):
-        return _render(sc, cam, config, frame_seed=seed, spp=config.spp, adaptive=True)
+        return _render(sc, cam, config, frame_seed=seed, spp=config.spp, adaptive=True,
+                       key=key)
 
     if config.backend in ("cuda", "wavefront") and needs_grad(as_scene(scene), camera):
         return kernel_frame(run, scene, camera, config, seed)
@@ -177,15 +202,22 @@ def _refuse_grad(entry: str, scene, camera, config: RenderConfig) -> None:
 
 
 def progressive_step(state: AccumState, scene, camera: Camera | CameraSettings,
-                     config: RenderConfig, *, frame_seed=0, reset=False,
+                     config: RenderConfig, *, key=None, frame_seed=None, reset=False,
                      spp_per_step: int = 1) -> AccumState:
     """One progressive frame: trace spp_per_step samples at absolute sample
     indices count .. count + spp_per_step - 1 and fold their mean into the
     running mean (the reference's `update`, wgsl:333-364).  `reset` is the
     camera_has_moved flag; the state freezes once config.spp samples have
-    accumulated, and a frozen state renders nothing."""
+    accumulated, and a frozen state renders nothing.  rng='threefry' draws
+    its one sample from `key` as render(spp=1, key=key) does, whatever the
+    count: pass a fresh key a step (render_progressive folds the frame in)."""
     if spp_per_step < 1:
         raise ValueError(f"spp_per_step must be >= 1, got {spp_per_step}")
+    if spp_per_step > 1 and config.rng == "threefry":
+        raise ValueError(
+            "spp_per_step > 1 requires a counter-based rng ('hash'/'wgsl'): "
+            "threefry cannot address absolute sample indices from a running count"
+        )
     _refuse_grad("progressive_step", scene, camera, config)
     if config.adaptive_tol > 0.0:
         # The fold weights each batch by its exact sample count; adaptive
@@ -200,31 +232,43 @@ def progressive_step(state: AccumState, scene, camera: Camera | CameraSettings,
             f"spp_per_step={spp_per_step} must divide config.spp="
             f"{config.spp} so accumulation freezes exactly at the target"
         )
+    key, seed = _resolve_rng(config, key, frame_seed)
     count = 0 if bool(reset) else int(state.count)
     if count >= config.spp:
         return state
-    sample = _render(scene, _camera(camera, config), config, frame_seed=_seed(frame_seed),
-                     sample_index=count, spp=spp_per_step)
+    sample = _render(scene, _camera(camera, config), config, frame_seed=seed,
+                     sample_index=0 if key is not None else count, spp=spp_per_step, key=key)
     return fold_sample(state, sample, config.spp, reset, num_samples=spp_per_step)
 
 
 def render_progressive(scene, camera: Camera | CameraSettings, config: RenderConfig, *,
-                       frame_seed=0, num_frames: int | None = None) -> AccumState:
+                       key=None, frame_seed=None,
+                       num_frames: int | None = None) -> AccumState:
     """Run progressive accumulation for num_frames (default: to the spp
     target): the reference's steady-state frame loop with a static camera,
-    the accumulated count acting as the sample index."""
+    the accumulated count acting as the sample index (hash, wgsl), or
+    frame f drawing from fold_key(key, FRAME, f) (threefry)."""
     camera = _camera(camera, config)
+    key, seed = _resolve_rng(config, key, frame_seed)
     state = init_accum(config.height, config.width)
-    for _ in range(config.spp if num_frames is None else num_frames):
-        state = progressive_step(state, scene, camera, config, frame_seed=frame_seed)
+    for f in range(config.spp if num_frames is None else num_frames):
+        state = progressive_step(state, scene, camera, config, frame_seed=seed,
+                                 key=_frame_key(key, f))
     return state
 
 
+def _frame_key(key: int | None, f: int) -> int | None:
+    """Frame f's key (the JAX package's fold_in(key, f)), None without a key."""
+    return None if key is None else rng_ops.fold_key(key, rng_ops.FRAME, f)
+
+
 def render_animation(scene, settings_track: CameraSettings, config: RenderConfig, *,
-                     frame_seeds=None) -> torch.Tensor:
+                     key=None, frame_seeds=None) -> torch.Tensor:
     """Render a camera fly-through: settings_track is a CameraSettings with a
     leading frame axis (stack_camera_track builds one), each frame a full
-    config.spp render.  Returns (frames, height, width, 3)."""
+    config.spp render, frame f with key fold_key(key, FRAME, f) when a key
+    is given, and with frame_seeds[f] when those are.  Returns (frames,
+    height, width, 3)."""
     num_frames = settings_track.look_from.shape[0]
     if frame_seeds is not None and len(frame_seeds) != num_frames:
         raise ValueError(
@@ -235,7 +279,7 @@ def render_animation(scene, settings_track: CameraSettings, config: RenderConfig
     for f in range(num_frames):
         settings = CameraSettings(*(getattr(settings_track, fl.name)[f]
                                     for fl in dataclasses.fields(CameraSettings)))
-        frames.append(render(scene, settings, config,
+        frames.append(render(scene, settings, config, key=_frame_key(key, f),
                              frame_seed=None if frame_seeds is None else frame_seeds[f]))
     return torch.stack(frames)
 
@@ -318,12 +362,12 @@ def count_traced_rays(scene, camera: Camera | CameraSettings, config: RenderConf
 
 
 def render_denoised(scene, camera: Camera | CameraSettings, config: RenderConfig, *,
-                    frame_seed=0, iterations: int = 4, sigma_color: float = 0.45,
+                    key=None, frame_seed=None, iterations: int = 4,
+                    sigma_color: float = 0.45,
                     sigma_normal: float = 64.0, sigma_depth: float = 2.0,
                     return_aovs: bool = False):
     """Render one frame and denoise it with the AOV-guided a-trous filter
-    (the JAX package's render_denoised, api.py:707-776, without its
-    threefry `key`).
+    (the JAX package's render_denoised, api.py:707-776).
 
     Renders the beauty pass with `config` as it is, then the three
     first-hit guide planes (albedo, normal and depth AOVs, with the same
@@ -333,9 +377,9 @@ def render_denoised(scene, camera: Camera | CameraSettings, config: RenderConfig
     (render_guides on 'cuda' and 'wavefront': one launch of
     render_aov_kernel; render_guides_reference on the plain backends),
     each plane equal bit for bit to its own render() pass; otherwise, and
-    on the WGSL stream (whose guides are its own rays, as in the JAX
-    package), from three render() calls, so that each goes through
-    KernelFrame's replay.
+    on the WGSL and threefry streams (whose guides are their own rays, as
+    in the JAX package), from three render() calls, so that each goes
+    through KernelFrame's replay.
     Returns the denoised (H, W, 3) image, or (denoised, beauty, {"albedo",
     "normal", "depth"}) with return_aovs.  Differentiable end to end: the
     filter is plain arithmetic."""
@@ -345,15 +389,16 @@ def render_denoised(scene, camera: Camera | CameraSettings, config: RenderConfig
             f"got integrator={config.integrator!r}"
         )
     camera = _camera(camera, config)
-    beauty = render(scene, camera, config, frame_seed=frame_seed)
+    beauty = render(scene, camera, config, key=key, frame_seed=frame_seed)
     # Every path-only knob the AOV integrators reject or ignore dropped.
     guide_cfg = dataclasses.replace(config, integrator="albedo", nee=False, mis=False,
                                     clamp=0.0, adaptive_tol=0.0, regenerate="off")
     if config.rng != "hash" or needs_grad(as_scene(scene), camera):
         aovs = {m: render(scene, camera, dataclasses.replace(guide_cfg, integrator=m),
-                          frame_seed=frame_seed) for m in ("albedo", "normal", "depth")}
+                          key=key, frame_seed=frame_seed)
+                for m in ("albedo", "normal", "depth")}
     else:
-        aovs = _guides(scene, camera, guide_cfg, _seed(frame_seed))
+        aovs = _guides(scene, camera, guide_cfg, _resolve_rng(config, key, frame_seed)[1])
     out = denoise_ops.atrous_denoise(
         beauty, albedo=aovs["albedo"], normal=denoise_ops.decode_normal_aov(aovs["normal"]),
         depth=aovs["depth"][..., 0], iterations=iterations, sigma_color=sigma_color,

@@ -12,9 +12,12 @@ card that raises, and nothing renders on the CPU instead; pass --device
 cpu for the plain PyTorch versions.  --backend auto is decided from
 --device alone: on 'cuda' the hand-written kernels (the megakernel, the
 wavefront engine for --regenerate, the adaptive kernel for
---adaptive-tol) and the plain stream on the card for --rng wgsl, which the
-kernels do not draw; on 'cpu' the plain versions ('torch', or
-'wavefront_torch' for --regenerate).  `progressive` resumes from its
+--adaptive-tol) and the plain stream on the card for --rng wgsl and
+--rng threefry, which the kernels do not draw; on 'cpu' the plain versions
+('torch', or 'wavefront_torch' for --regenerate).  --seed is the frame
+seed of the hash and wgsl streams and the key of the threefry stream,
+which a progressive session offsets by the step (from the resumed count)
+so that no step draws another's samples.  `progressive` resumes from its
 checkpoint file when present.  The one-weekend scenes are the port's
 one_weekend_scene(--scene-seed): drawn from numpy with the JAX package's
 seed mix (its key(seed) scene, sphere for sphere), and not padded.
@@ -65,8 +68,9 @@ def _add_common(ap: argparse.ArgumentParser) -> None:
                     choices=["auto", "cuda", "wavefront", "torch", "wavefront_torch"],
                     help="auto: from --device (module docstring)")
     ap.add_argument("--rng", default="hash", choices=["hash", "wgsl", "threefry"],
-                    help="wgsl is the reference shader's own stream, through "
-                         "the plain integrator; threefry is not ported yet")
+                    help="wgsl is the reference shader's own stream and threefry "
+                         "explicit torch.Generator streams keyed by --seed, both "
+                         "through the plain integrator")
     ap.add_argument("--sampler", default="independent",
                     choices=["independent", "stratified", "sobol"],
                     help="sample generator; 'stratified' (jittered grid) and "
@@ -173,7 +177,10 @@ def _build_camera(args, device: torch.device):
 
 
 def _rng_kwargs(args, offset: int = 0) -> dict:
-    """--seed as render()'s frame seed (the hash and wgsl streams)."""
+    """--seed (+ offset) as render()'s key (threefry) or frame seed (the
+    hash and wgsl streams)."""
+    if args.rng == "threefry":
+        return {"key": args.seed + offset}
     return {"frame_seed": args.seed + offset}
 
 
@@ -259,8 +266,11 @@ def cmd_animate(args, cfg) -> int:
     _, scene, cam = _setup(args)
     track = rt.stack_camera_track(
         [rt.orbit_yaw(cam, args.orbit_step * f) for f in range(args.frames)])
-    frames = rt.render_animation(scene, track, cfg,
-                                 frame_seeds=list(range(args.seed, args.seed + args.frames)))
+    if args.rng == "threefry":
+        anim_kwargs = {"key": args.seed}
+    else:
+        anim_kwargs = {"frame_seeds": list(range(args.seed, args.seed + args.frames))}
+    frames = rt.render_animation(scene, track, cfg, **anim_kwargs)
     os.makedirs(args.out_dir, exist_ok=True)
     frames = frames.cpu().numpy()
     for f in range(args.frames):
@@ -303,11 +313,15 @@ def cmd_progressive(args, cfg) -> int:
         print(f"resumed from {args.checkpoint} at {int(state.count)} spp")
     else:
         state = rt.init_accum(cfg.height, cfg.width, device=dev)
+    resumed = int(state.count)
     preview_base = args.out or "progressive.png"
     for step in range(args.steps):
-        # A constant frame seed: the accumulated count is the sample index,
-        # as in render().
-        state = rt.progressive_step(state, scene, cam, cfg, **_rng_kwargs(args))
+        # hash/wgsl: a constant frame seed, the accumulated count is the
+        # sample index, as in render().  threefry: a key a step, offset by
+        # the resumed count, or a resumed session would draw the first
+        # session's samples again.
+        kw = _rng_kwargs(args, resumed + step if args.rng == "threefry" else 0)
+        state = rt.progressive_step(state, scene, cam, cfg, **kw)
         if args.preview_every and (step + 1) % args.preview_every == 0:
             root, ext = os.path.splitext(preview_base)
             p = write_image(f"{root}_preview{ext or '.png'}", state.rgb, args.gamma)
@@ -406,8 +420,10 @@ def cmd_view(args, cfg) -> int:
     dev, scene, cam = _setup(args)
     if args.spp_per_step == 0:
         # Batch samples per repaint, so a repaint is not a launch's fixed
-        # cost; keys are polled between batches.
-        args.spp_per_step = next(k for k in (8, 6, 5, 4, 3, 2, 1) if cfg.spp % k == 0)
+        # cost; keys are polled between batches.  A threefry step draws one
+        # sample.
+        args.spp_per_step = 1 if cfg.rng == "threefry" else next(
+            k for k in (8, 6, 5, 4, 3, 2, 1) if cfg.spp % k == 0)
     if args.spp_per_step > 1 and cfg.spp % args.spp_per_step != 0:
         print(f"error: --spp-per-step {args.spp_per_step} must divide "
               f"--spp {cfg.spp}", file=sys.stderr)
@@ -426,9 +442,9 @@ def cmd_view(args, cfg) -> int:
         with _RawKeys(interactive, inject) as keys:
             while (args.max_steps == 0 or step < args.max_steps) and not quit_key:
                 t0 = time.perf_counter()
-                state = rt.progressive_step(state, scene, cam, cfg, reset=reset,
-                                            spp_per_step=args.spp_per_step,
-                                            **_rng_kwargs(args))
+                state = rt.progressive_step(
+                    state, scene, cam, cfg, reset=reset, spp_per_step=args.spp_per_step,
+                    **_rng_kwargs(args, step if args.rng == "threefry" else 0))
                 _sync(dev)
                 dt = time.perf_counter() - t0
                 count = int(state.count)

@@ -51,6 +51,7 @@ from gpu_ray_tracing_tpu_torch.ops.bvh import BVH
 from gpu_ray_tracing_tpu_torch.ops.cuda import build
 from gpu_ray_tracing_tpu_torch.ops.rays import (
     generate_rays_for_ids,
+    generate_rays_threefry,
     generate_rays_wgsl,
     hash_pixel_ids,
 )
@@ -347,25 +348,25 @@ def trace_pixels(sc: Scene, camera: Camera, ids: torch.Tensor, sample: int, fram
                  *, width: int, max_depth: int, t_min: float, t_max: float, mode: str,
                  russian_roulette_depth: int, sky_intensity: float, clamp: float, nee: bool,
                  mis: bool, sampler_spec: tuple | None, light_pick: str,
-                 count_rays: bool = False, wgsl_rays: tuple | None = None,
-                 parity: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+                 count_rays: bool = False,
+                 rays: tuple | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Hash-stream sample `sample` (u32) of the global pixel ids `ids` (1-D)
     of a `width`-wide frame, traced by the plain integrator of `mode`:
     ((n, 3) rgb after the clamp, (n,) rays traced or None), or ((3, n, 3)
     albedo, normal and depth, rays) in render_guides_reference's mode.
     Each pixel is independent of the others, so any partition of the ids
     gives the same values; render_reference traces blocks of them, and the
-    autograd replay (ops/autograd.py) blocks of its own.  `wgsl_rays` =
-    (origins, dirs, bounce_seeds), the WGSL stream's rays of these pixels
-    and its frame-uniform bounce seeds, takes the place of the hash
-    stream's rays and seeds; `parity` keeps that stream's sky leak."""
-    if wgsl_rays is None:
+    autograd replay (ops/autograd.py) blocks of its own.  `rays` =
+    (origins, dirs, stream), another stream's rays of these pixels and the
+    keywords that give trace_path its draws (the WGSL stream's
+    bounce_seeds= and parity=, or the threefry stream's generator_key=),
+    takes the place of the hash stream's rays and seeds."""
+    if rays is None:
         o, d, seeds = generate_rays_for_ids(camera, ids, sample, frame_seed,
                                             total_width=width, sampler_spec=sampler_spec)
         stream = dict(pixel_seeds=seeds)
     else:
-        o, d, bounce_seeds = wgsl_rays
-        stream = dict(bounce_seeds=bounce_seeds, parity=parity)
+        o, d, stream = rays
     aov = {"normal": integrators.shade_normals, "albedo": integrators.shade_albedo,
            "depth": integrators.shade_depth, _GUIDES: integrators.shade_guides}.get(mode)
     if aov is not None:
@@ -412,6 +413,7 @@ def render_reference(
     light_pick: str = "sample",
     rng: str = "hash",
     parity: bool = False,
+    key: int | None = None,
 ):
     """The plain PyTorch version of render_cuda: the mean of spp hash-stream
     samples as a (height, width, 3) f32 image, on the scene's device, with
@@ -424,18 +426,29 @@ def render_reference(
     draws (the JAX package's _render_one_sample, api.py:263-273): sample s
     seeds generate_rays_wgsl with 1 + sample_index + s + frame_seed and its
     bounces (make_bounce_seeds) with that + 1; `parity` keeps its sampler
-    quirks.  That stream is drawn a whole frame at a time, so it takes no
-    sampler, adaptive option, ray count, y_offset or row_stride."""
+    quirks.  That stream is drawn a whole band at a time: it takes
+    y_offset (a row band of the frame draws the frame's rows), but no
+    sampler, adaptive option, ray count or row_stride.
+
+    rng='threefry' draws explicit torch.Generator streams from the int
+    `key` (ops/rng.py): sample s from fold_key(key, SAMPLE, sample_index +
+    s), split into its ray generation (generate_rays_threefry over the
+    whole frame) and its tracing, one key a pixel block.  It is
+    deterministic for a key and a device.  It takes none of the options
+    the wgsl stream refuses, nor a y_offset: its draws follow the shape of
+    the frame, not the pixel's place in it."""
     _check_args(width, height, spp, max_depth, mode, nee, mis, sampler_spec)
-    if rng not in ("hash", "wgsl"):
-        raise ValueError(f"rng must be 'hash' or 'wgsl', got {rng!r}")
-    if rng == "wgsl" and (sampler_spec is not None or adaptive_tol > 0.0
+    if rng not in ("hash", "wgsl", "threefry"):
+        raise ValueError(f"rng must be 'hash', 'wgsl' or 'threefry', got {rng!r}")
+    if rng != "hash" and (sampler_spec is not None or adaptive_tol > 0.0
                           or adaptive_state is not None or return_ray_count
-                          or y_offset != 0 or row_stride != 1):
+                          or row_stride != 1 or (rng == "threefry" and y_offset != 0)):
         raise ValueError(
-            "rng='wgsl' takes no sampler_spec, adaptive options, ray count, "
-            "y_offset or row_stride"
+            f"rng={rng!r} takes no sampler_spec, adaptive options, ray count "
+            "or row_stride" + (", nor a y_offset" if rng == "threefry" else "")
         )
+    if (key is None) != (rng != "threefry"):
+        raise ValueError("key= goes with rng='threefry', and only with it")
     if parity and rng != "wgsl":
         raise ValueError("parity=True requires rng='wgsl'")
     sc = as_scene(scene_or_spheres)
@@ -461,16 +474,27 @@ def render_reference(
         n = ids.numel()
         rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
         rays = torch.empty(n, dtype=torch.float32, device=dev) if return_ray_count else None
-        if rng == "wgsl":  # the whole frame: idx is None without the adaptive loop
+        # The other streams draw the whole band: idx is None without the
+        # adaptive loop.
+        if rng == "wgsl":
             seed = (1 + s_u32 + int(frame_seed)) & 0xFFFFFFFF
-            o, d = generate_rays_wgsl(camera, width, height, seed, frame_seed, parity)
-            o, d = o.reshape(p, 3), d.reshape(p, 3)
+            o, d = generate_rays_wgsl(camera, width, height, seed, frame_seed, parity,
+                                      y_offset=y_offset)
             bounce_seeds = integrators.make_bounce_seeds(seed + 1, max_depth).to(dev)
-        for start in range(0, n, block):
+            streams = lambda b: dict(bounce_seeds=bounce_seeds, parity=parity)
+        elif rng == "threefry":
+            k_sample = rng_ops.fold_key(key, rng_ops.SAMPLE, s_u32)
+            o, d = generate_rays_threefry(camera, width, height,
+                                          rng_ops.fold_key(k_sample, rng_ops.RAYGEN))
+            k_trace = rng_ops.fold_key(k_sample, rng_ops.TRACE)
+            streams = lambda b: dict(generator_key=rng_ops.fold_key(k_trace, rng_ops.BLOCK, b))
+        if rng != "hash":
+            o, d = o.reshape(p, 3), d.reshape(p, 3)
+        for b, start in enumerate(range(0, n, block)):
             sl = slice(start, start + block)
-            wgsl_rays = None if rng == "hash" else (o[sl], d[sl], bounce_seeds)
+            stream_rays = None if rng == "hash" else (o[sl], d[sl], streams(b))
             rgb[sl], r = trace_pixels(sc, camera, ids[sl], s_u32, frame_seed,
-                                      wgsl_rays=wgsl_rays, parity=parity, **kw)
+                                      rays=stream_rays, **kw)
             if r is not None:
                 rays[sl] = r
         return rgb, rays

@@ -8,10 +8,10 @@ roulette, and optional next-event estimation toward sphere lights (cone
 sampling) and triangle lights (area sampling) with MIS power-heuristic
 weights, and the stratified/Sobol first-bounce remaps.  Every ray runs the
 full trip count with a `live` mask, as in the JAX package; dead rays add
-nothing.  Two streams are ported: the counter stream (`pixel_seeds`) and
-the WGSL parity stream (`bounce_seeds`, frame-uniform draws with the
-reference's depth-exhaustion sky leak under parity=True); threefry is a
-ROADMAP item.
+nothing.  Three streams draw the randomness: the counter stream
+(`pixel_seeds`), the WGSL parity stream (`bounce_seeds`, frame-uniform
+draws with the reference's depth-exhaustion sky leak under parity=True)
+and the threefry mode's keyed generators (`generator_key`, ops/rng.py).
 
 Arithmetic follows the JAX package's 'jax' engine.  Where XLA:CPU
 contracts a*b+c into one fused multiply-add, the plain version does too
@@ -279,10 +279,12 @@ class PathState:
     pixel_seeds: torch.Tensor | None
     pixel_ids: torch.Tensor | None = None
     bounce_seeds: torch.Tensor | None = None
+    generator_key: int | None = None
 
 
 def initial_path_state(origins, dirs, pixel_seeds, pixel_ids=None, *,
-                       count_rays: bool = False, bounce_seeds=None) -> PathState:
+                       count_rays: bool = False, bounce_seeds=None,
+                       generator_key: int | None = None) -> PathState:
     """The state of fresh primary rays: unit throughput, no radiance, live."""
     batch_shape, dev = dirs.shape[:-1], dirs.device
     return PathState(
@@ -295,6 +297,7 @@ def initial_path_state(origins, dirs, pixel_seeds, pixel_ids=None, *,
         rays=(torch.zeros(batch_shape, dtype=torch.float32, device=dev)
               if count_rays else None),
         pixel_seeds=pixel_seeds, pixel_ids=pixel_ids, bounce_seeds=bounce_seeds,
+        generator_key=generator_key,
     )
 
 
@@ -348,7 +351,9 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
     regenerating wavefront pool); either way each ray draws the same stream.
     On the WGSL stream (`st.bounce_seeds`) every draw of bounce i is one
     frame-uniform value shared by the whole batch, as the reference's
-    ray_color draws it (wgsl:268).  Dead rays pass through unchanged."""
+    ray_color draws it (wgsl:268); on the threefry stream
+    (`st.generator_key`) each group of draws of bounce i comes from its own
+    generator (ops/rng.fold_key).  Dead rays pass through unchanged."""
     sc, dev = ctx.sc, st.d.device
     t_min, t_max, max_depth = ctx.t_min, ctx.t_max, ctx.max_depth
     nee, mis, total, n_sl, n_tl = ctx.nee, ctx.mis, ctx.total, ctx.n_sl, ctx.n_tl
@@ -362,10 +367,17 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
     per_ray = isinstance(i, torch.Tensor)
     first = i == 0
     wgsl = st.bounce_seeds is not None
-    if wgsl and per_ray:
-        raise ValueError("the WGSL stream draws one value a bounce for the whole "
-                         "frame; it takes no per-ray bounce index")
+    key = st.generator_key
+    if (wgsl or key is not None) and per_ray:
+        raise ValueError("the WGSL and threefry streams draw a bounce for the whole "
+                         "batch; they take no per-ray bounce index")
     wgsl_seed = st.bounce_seeds[i] if wgsl else None
+
+    def keyed(purpose: int, n: int, salt: int | None = None):
+        """n keyed U[0,1) planes of the batch for bounce i: fold_key(key,
+        purpose, i), or fold_key(fold_key(key, purpose, salt), purpose, i)."""
+        k = key if salt is None else rng_ops.fold_key(key, purpose, salt)
+        return rng_ops.key_uniform(rng_ops.fold_key(k, purpose, i), (n, *batch_shape), dev)
 
     def frame_uniform(x):
         """A draw of the WGSL stream, the same for every ray of the batch."""
@@ -403,6 +415,10 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
         # hash(seed + i*1000) of the whole frame (wgsl:268).
         unit_vec = frame_uniform(rng_ops.random_unit_vector(wgsl_seed))
         u_reflect = frame_uniform(rng_ops.wgsl_random_float(wgsl_seed))
+    elif key is not None:
+        u = keyed(rng_ops.SCATTER, 3)
+        unit_vec = rng_ops.unit_vector_from_uniforms(u[0], u[1])
+        u_reflect = u[2]
     else:
         base = 16 + 3 * i
         # The first-bounce scatter pair (salt 6): strata of the sphere.  2 pi
@@ -472,11 +488,17 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
         nee_ok = live & hit.hit & (kind == LAMBERTIAN) & ~inside_any
         salt0 = 2000 + 37 * i
         last = i == max_depth - 1
+        nee_groups = {}
 
         def nee_uniform(salt_off: int, k: int):
             """Draw k of the NEE group at salt offset salt_off: the pixel
-            stream's salt 2000 + 37i + salt_off + k, or on the WGSL stream
-            uniform_hash(hash(bounce seed + 4241 + salt_off), k)."""
+            stream's salt 2000 + 37i + salt_off + k, on the WGSL stream
+            uniform_hash(hash(bounce seed + 4241 + salt_off), k), on the
+            threefry stream plane k of the group's three keyed planes."""
+            if key is not None:
+                if salt_off not in nee_groups:
+                    nee_groups[salt_off] = keyed(rng_ops.NEE, 3, salt=salt_off)
+                return nee_groups[salt_off][k]
             if wgsl:
                 group = rng_ops.wgsl_hash((wgsl_seed + 4241 + salt_off) & rng_ops._MASK)
                 return frame_uniform(rng_ops.uniform_hash(group, k))
@@ -579,6 +601,8 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
             # Survive with p = max channel throughput (clamped), divide by p.
             if wgsl:
                 u_rr = frame_uniform(rng_ops.wgsl_random_float((wgsl_seed + 977) & rng_ops._MASK))
+            elif key is not None:
+                u_rr = keyed(rng_ops.ROULETTE, 1)[0]
             else:
                 u_rr = rng_ops.uniform_hash(pixel_seeds, 1000 + i)
             p = torch.clamp(torch.amax(throughput, dim=-1), 0.05, 1.0)
@@ -596,7 +620,7 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
     return PathState(o=o, d=d, throughput=throughput, result=result, live=live,
                      prev_diffuse=prev_diffuse, prev_cos=prev_cos, rays=rays_box[0],
                      pixel_seeds=pixel_seeds, pixel_ids=pixel_ids,
-                     bounce_seeds=st.bounce_seeds)
+                     bounce_seeds=st.bounce_seeds, generator_key=key)
 
 
 def trace_path(
@@ -609,6 +633,7 @@ def trace_path(
     *,
     pixel_seeds: torch.Tensor | None = None,
     bounce_seeds: torch.Tensor | None = None,
+    generator_key: int | None = None,
     parity: bool = False,
     russian_roulette_depth: int = 0,
     sky_intensity: float = 1.0,
@@ -643,21 +668,26 @@ def trace_path(
     `sample_index` and `frame_seed_u32`.
 
     The stream is exactly one of `pixel_seeds` (per-pixel counter seeds,
-    generate_rays_hash's) or `bounce_seeds` (the WGSL stream:
+    generate_rays_hash's), `bounce_seeds` (the WGSL stream:
     make_bounce_seeds' (max_depth,) scalar seeds, one a bounce for the whole
     frame, as ray_color draws them; NEE draws hash(seed + 4241 + 7g + 1),
-    Russian roulette seed + 977).  `parity=True` keeps the reference's sky
+    Russian roulette seed + 977) or `generator_key` (the threefry mode, an
+    int key: bounce i's scatter draws from fold_key(key, SCATTER, i), its
+    NEE group at salt offset o from fold_key(fold_key(key, NEE, o), NEE,
+    i), its roulette from fold_key(key, ROULETTE, i); ops/rng.py).  `parity=True` keeps the reference's sky
     leak: a ray still live after max_depth bounces gains throughput * sky
     (wgsl:293-296) instead of ending black.
 
     The loop body is `path_bounce`, which the wavefront engine's plain
     version runs one bounce at a time.
     """
-    if (pixel_seeds is None) == (bounce_seeds is None):
-        raise ValueError("pass exactly one of pixel_seeds= or bounce_seeds=")
-    if bounce_seeds is not None and sampler_spec is not None:
+    if sum(x is not None for x in (pixel_seeds, bounce_seeds, generator_key)) != 1:
+        raise ValueError("pass exactly one of pixel_seeds=, bounce_seeds= or "
+                         "generator_key=")
+    if pixel_seeds is None and sampler_spec is not None:
         raise ValueError("sampler_spec= remaps the counter stream; the WGSL stream "
-                         "(bounce_seeds=) takes none")
+                         "(bounce_seeds=) and the threefry stream (generator_key=) "
+                         "take none")
     ctx = PathContext(
         scene, max_depth, t_min, t_max, russian_roulette_depth=russian_roulette_depth,
         sky_intensity=sky_intensity, nee=nee, mis=mis, frame_seed_u32=frame_seed_u32,
@@ -665,10 +695,11 @@ def trace_path(
         need_ids=pixel_ids is None or sample_index is None or frame_seed_u32 is None)
     if ctx.pick_per_sample and (sample_index is None or frame_seed_u32 is None):
         raise ValueError("light_pick='sample' needs sample_index= and frame_seed_u32=")
-    if ctx.pick_per_sample and bounce_seeds is not None:
-        raise ValueError("the WGSL stream picks its light per lane (light_pick='lane')")
+    if ctx.pick_per_sample and pixel_seeds is None:
+        raise ValueError("the WGSL and threefry streams pick their light per lane "
+                         "(light_pick='lane')")
     st = initial_path_state(origins, dirs, pixel_seeds, pixel_ids, count_rays=count_rays,
-                            bounce_seeds=bounce_seeds)
+                            bounce_seeds=bounce_seeds, generator_key=generator_key)
     # Every ray runs the full trip count with its `live` mask.
     for i in range(max_depth):
         st = path_bounce(ctx, st, i, sample_index)

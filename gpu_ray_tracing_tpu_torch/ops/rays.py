@@ -1,5 +1,5 @@
-"""Ray generation (port of gpu_ray_tracing_tpu/ops/rays.py:89-244): the
-counter stream and the WGSL parity stream.
+"""Ray generation (port of gpu_ray_tracing_tpu/ops/rays.py:70-244): the
+counter stream, the WGSL parity stream and the threefry mode's keyed draws.
 
 Every draw keys on the GLOBAL pixel id (the WGSL stream on the global
 row), so a row band of a larger frame generates exactly the rays the full
@@ -37,6 +37,31 @@ def hash_pixel_ids(
     y = torch.arange(height, dtype=torch.int64, device=device)[:, None]
     y = (y * row_stride + y_offset) & rng_ops._MASK
     return (y * tw + x) & rng_ops._MASK
+
+
+def generate_rays_threefry(camera: Camera, width: int, height: int,
+                           key: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The threefry mode's primary rays (the JAX package's
+    generate_rays_threefry): jitter in [-0.5, 0.5) and a uniform-disk lens
+    point (radius sqrt(u), angle 2 pi u'), drawn from the int `key`
+    (ops/rng.key_uniform) for the whole (height, width) frame on the
+    camera's device.  Returns (origins, dirs), each (height, width, 3) f32."""
+    dev = camera.device
+    u = rng_ops.key_uniform(key, (4, height, width), dev)
+    x = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+    y = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+    fx = (x + 0.5 + (u[0] - 0.5))[..., None]
+    fy = (y + 0.5 + (u[1] - 0.5))[..., None]
+    centers = fma(camera.pixel_delta_v, fy,
+                  fma(camera.pixel_delta_u, fx, camera.viewport_upper_left))
+    radius = sqrt(u[2])
+    cos_a, sin_a = cos_sin(u[3] * _TWO_PI)
+    px, py = radius * cos_a, radius * sin_a
+    lens = fma(py[..., None], camera.defocus_disk_v,
+               fma(px[..., None], camera.defocus_disk_u, camera.center))
+    # Pinhole when defocus_angle <= 0 (wgsl:319).
+    origins = torch.where(camera.defocus_angle > 0.0, lens, camera.center)
+    return origins, centers - origins
 
 
 def generate_rays_hash(

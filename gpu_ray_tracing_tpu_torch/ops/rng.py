@@ -1,5 +1,5 @@
-"""Counter-based hash RNG and the WGSL parity stream (port of
-gpu_ray_tracing_tpu/ops/rng.py).
+"""Counter-based hash RNG, the WGSL parity stream and the threefry mode's
+keyed generators (port of gpu_ray_tracing_tpu/ops/rng.py).
 
 Every draw is a pure function of (global pixel id, sample index, frame
 seed, salt), bit-exact with the JAX package.  The WGSL stream's pieces
@@ -14,6 +14,19 @@ megakernel (ops/cuda/megakernel.cu) computes the identical hashes in native
 
 Returned hashes are int64 tensors holding u32 values; inputs may be any
 integer tensor (int32 bit patterns included) or a Python int.
+
+rng='threefry' cannot be jax.random's stream bit for bit: its counterpart
+here is a tree of int keys.  `fold_key(key, purpose, index)` mixes a key,
+a purpose tag and an index into a new 64-bit key (splitmix64 rounds), and
+`key_uniform` draws U[0, 1) f32 from a torch.Generator seeded by one key,
+one generator a draw.  The purposes keep jax.random's separation: the
+sample (fold_in(key, s)), ray generation against tracing (split), a pixel
+block (the JAX package's per-block fold), bounce i's scatter, the NEE
+draws (2000 + salt) and Russian roulette (1000), and the frame of a
+progressive run or an animation.  A stream is deterministic for a key and
+a device; the CPU's generator (mt19937) and the card's (Philox) differ, so
+the same key draws other numbers on each.  It matches jax.random in
+distribution only.
 """
 
 from __future__ import annotations
@@ -282,3 +295,31 @@ def unit_vector_from_uniforms(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tenso
     r = sqrt(torch.clamp(xla_fma(-z, z, torch.ones_like(z)), min=0.0))
     cos_a, sin_a = cos_sin(a, f64_on_card=False)
     return torch.stack([r * cos_a, r * sin_a, z], dim=-1)
+
+
+# The purposes of fold_key: one tag for each place jax.random splits or
+# folds a key in the JAX package (api.py:244, :333, :512, :551;
+# integrators.py:286-291, :436-440, :791-794).
+SAMPLE, RAYGEN, TRACE, BLOCK, SCATTER, NEE, ROULETTE, FRAME = range(1, 9)
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def fold_key(key: int, purpose: int, index: int = 0) -> int:
+    """The key of draw `index` for `purpose` under `key`: a 64-bit int."""
+    return _splitmix64(_splitmix64(_splitmix64(int(key) & _MASK64) ^ purpose)
+                       ^ (int(index) & _MASK64))
+
+
+def key_uniform(key: int, shape, device=None) -> torch.Tensor:
+    """U[0, 1) f32 of `shape` from a fresh torch.Generator on `device`
+    seeded by `key`."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(key) & _MASK64)
+    return torch.rand(shape, generator=gen, dtype=torch.float32, device=device)

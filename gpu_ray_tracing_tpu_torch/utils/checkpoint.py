@@ -25,10 +25,10 @@ from gpu_ray_tracing_tpu_torch.ops.cuda.megakernel import dataclass_tensors
 _FORMAT_VERSION = 1
 
 
-def render_fingerprint(scene, config, *, frame_seed=None) -> str:
+def render_fingerprint(scene, config, *, frame_seed=None, key=None) -> str:
     """Stable hash of everything that determines a render's sample stream:
-    the sample-relevant config fields, every array of the scene and the
-    frame seed.  Scheduler-only choices (backend, adaptive knobs) are left
+    the sample-relevant config fields, every array of the scene, the frame
+    seed and the threefry key (an int).  Scheduler-only choices (backend, adaptive knobs) are left
     out, so a checkpoint written by one backend resumes on the other.  The
     spp budget enters only through the stratified sampler, whose grid it
     sets; the other samplers address samples by absolute index, so a
@@ -47,6 +47,8 @@ def render_fingerprint(scene, config, *, frame_seed=None) -> str:
     )).encode())
     if frame_seed is not None:
         h.update(b"seed" + np.asarray(int(frame_seed) & 0xFFFFFFFF, np.uint32).tobytes())
+    if key is not None:
+        h.update(b"key" + np.asarray(int(key) & ((1 << 64) - 1), np.uint64).tobytes())
     for leaf in dataclass_tensors(as_scene(scene)):
         a = leaf.detach().cpu().numpy()
         h.update(f"{a.shape}{a.dtype}".encode())

@@ -10,10 +10,10 @@ plain PyTorch integrator (the counterpart of 'jax') and 'wavefront_torch'
 for the wavefront engine's plain version, which run on the device the scene
 lies on.  NEE/MIS and the stratified and Sobol samplers run on all four;
 adaptive sampling is a megakernel mode and ray regeneration a wavefront
-mode, as in the JAX package.  The WGSL parity stream (rng='wgsl') runs
-through 'torch' only: the kernels draw the hash stream, as the JAX
-package's do.  The one mode the port does not carry yet, the threefry
-stream, raises NotImplementedError naming its ROADMAP.md item.
+mode, as in the JAX package.  The WGSL parity stream (rng='wgsl') and
+the threefry mode (rng='threefry', explicit torch.Generator streams from
+an int key: ops/rng.py) run through 'torch' only: the kernels draw the
+hash stream, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -121,12 +121,6 @@ class RenderConfig:
                 f"regenerate={self.regenerate!r} is a wavefront-engine mode; "
                 f"backend={self.backend!r} ignores it — set "
                 "backend='wavefront' or regenerate='off'"
-            )
-        # The mode the port does not carry yet.
-        if self.rng == "threefry":
-            raise NotImplementedError(
-                "rng='threefry' is not ported yet (ROADMAP Queue 1 item 2, "
-                "rng='threefry'); use the counter-based 'hash' stream or 'wgsl'"
             )
 
     @property

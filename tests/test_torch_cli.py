@@ -2,7 +2,7 @@
 the JAX package's CLI cases (tests/test_utils.py:224-340, :439-513)
 through `--device cpu`, where `--backend auto` resolves to the plain
 versions; a written PNG equal to write_image of render() on the same
-arguments; the refusals (threefry, bench, a missing card) with their
+arguments; the refusals (threefry on a kernel backend, bench, a missing card) with their
 messages; the `auto` rules on both devices; and `python -m
 gpu_ray_tracing_tpu_torch --help` in a subprocess.
 """
@@ -204,9 +204,13 @@ def test_rawkeys_keeps_escape_sequences_whole(monkeypatch):
 
 
 def test_cli_refuses_threefry_and_bench(capsys):
-    assert main(["render", "--rng", "threefry", "--out", "never.png"]) == 2
+    """threefry on a kernel backend (the kernels draw the hash stream) and
+    `bench` exit 2 before anything renders; --rng threefry through 'torch'
+    renders (test_torch_threefry.py)."""
+    assert main(["render", "--rng", "threefry", "--backend", "cuda",
+                 "--out", "never.png"]) == 2
     err = capsys.readouterr().err
-    assert "rng='threefry' is not ported yet (ROADMAP Queue 1 item 2" in err
+    assert "backend='cuda' requires rng='hash'" in err
     assert not os.path.exists("never.png")
     assert cli.main(["bench"]) == 2
     err = capsys.readouterr().err

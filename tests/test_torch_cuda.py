@@ -931,3 +931,53 @@ def test_derive_camera_on_the_card_equals_the_cpu(dev, size):
     on_cpu = T.derive_camera(settings, *size)
     for f in dataclasses.fields(T.Camera):
         assert torch.equal(getattr(on_card, f.name).cpu(), getattr(on_cpu, f.name)), f.name
+
+
+# --- the sharded path and the threefry stream on the card ---------------------
+
+
+@pytest.fixture
+def world1(dev):
+    """A world-1 gloo process group over localhost, for a 1x1 mesh."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("backend", ["cuda", "wavefront"])
+def test_render_sharded_on_a_1x1_cuda_mesh_equals_render(dev, world1, backend):
+    """render_sharded and 2 progressive_step_sharded steps on a 1x1 mesh of
+    the card launch the backend's kernel and equal render() and
+    progressive_step() bit for bit."""
+    from gpu_ray_tracing_tpu_torch.parallel import mesh, sharding
+    m = mesh.make_mesh(1, 1)
+    assert m.device_type == "cuda"
+    cfg = T.RenderConfig(width=96, height=54, spp=4, max_depth=12, backend=backend)
+    scene, settings = T.one_weekend_scene(0), T.CameraSettings.default()
+    mk.LAUNCHES.clear()
+    img = sharding.render_sharded(scene, settings, cfg, m, frame_seed=3)
+    assert sum(mk.LAUNCHES.values()) > 0 and img.device.type == "cuda"
+    assert torch.equal(img, T.render(scene, settings, cfg, frame_seed=3))
+    st = sharding.shard_accum_state(T.init_accum(54, 96), m)
+    want = T.init_accum(54, 96)
+    for _ in range(2):
+        st = sharding.progressive_step_sharded(st, scene, settings, cfg, m, frame_seed=3)
+        want = T.progressive_step(want, scene, settings, cfg, frame_seed=3)
+    assert torch.equal(sharding.accum_image(st, m), want.rgb)
+
+
+def test_threefry_on_the_card_is_deterministic_for_a_key(dev):
+    cfg = T.RenderConfig(width=64, height=36, spp=4, max_depth=6, rng="threefry",
+                         backend="torch")
+    scene, cam = _one_weekend(dev, 64, 36)
+    a = T.render(scene, cam, cfg, key=5)
+    assert a.device.type == "cuda" and bool(torch.isfinite(a).all())
+    assert torch.equal(a, T.render(scene, cam, cfg, key=5))
+    assert not torch.equal(a, T.render(scene, cam, cfg, key=6))

@@ -225,7 +225,7 @@ def test_degenerate_camera_raises():
 @pytest.mark.parametrize("kw,item", [
     (dict(backend="wavefront", regenerate="on"), None),
     (dict(nee=True), None),
-    (dict(rng="threefry", backend="torch"), "item 2"),
+    (dict(rng="threefry", backend="torch"), None),
     (dict(rng="wgsl", parity=True, backend="torch"), None),
     (dict(sampler="sobol"), None),
     (dict(backend="cuda", adaptive_tol=0.05), None),
@@ -234,7 +234,8 @@ def test_config_names_the_roadmap_item_of_unported_modes(kw, item):
     """Unported modes raise naming their item; ported ones (item None: NEE
     since K1b, the samplers since K1e, adaptive sampling since K1f, the
     wavefront engine with its ray regeneration since K2, the WGSL parity
-    stream through 'torch' since the command line's slice) are accepted."""
+    stream through 'torch' since the command line's slice, the threefry
+    stream through 'torch' since the multi-GPU slice) are accepted."""
     if item is None:
         cfg = T.RenderConfig(**kw)
         assert all(getattr(cfg, k) == v for k, v in kw.items())
@@ -281,10 +282,11 @@ def test_resolution_num_pixels_and_reference_config_match_jax(kw):
 
 
 def test_port_imports_no_jax():
-    """The package imports where jax cannot be imported, and no source file
-    under it names jax in an import."""
+    """The package and its multi-GPU modules import where jax cannot be
+    imported, and no source file under it names jax in an import."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import gpu_ray_tracing_tpu_torch as t; "
+            "import gpu_ray_tracing_tpu_torch.parallel.sharding; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'gpu_ray_tracing_tpu.')) "
             "for m in sys.modules if sys.modules[m] is not None); print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -305,9 +307,10 @@ def test_port_imports_no_jax():
 
 def test_port_opens_no_file_of_the_jax_package():
     """The port keeps its own copy of what it needs: building a BVH scene
-    (the native builder compiles from the port's own bvh_builder.cpp) and
-    rendering open no file inside gpu_ray_tracing_tpu/, and no compiler is
-    handed a path there."""
+    (the native builder compiles from the port's own bvh_builder.cpp),
+    rendering, and rendering sharded on a world-1 gloo mesh of the CPU open
+    no file inside gpu_ray_tracing_tpu/, and no compiler is handed a path
+    there."""
     code = """
 import os, sys
 ref = os.path.join(os.getcwd(), 'gpu_ray_tracing_tpu') + os.sep
@@ -325,6 +328,16 @@ assert native.SOURCE.startswith(port) and os.path.exists(native.SOURCE), native.
 scene = T.make_scene(T.one_weekend_scene(0), sphere_bvh=True)
 cfg = T.RenderConfig(width=8, height=8, spp=1, max_depth=2, backend='wavefront_torch')
 T.render(scene, T.CameraSettings.default(), cfg)
+import socket
+import torch.distributed as dist
+from gpu_ray_tracing_tpu_torch.parallel import mesh, sharding
+with socket.socket() as s:
+    s.bind(('localhost', 0))
+    port = s.getsockname()[1]
+dist.init_process_group('gloo', init_method=f'tcp://localhost:{port}', rank=0, world_size=1)
+sharding.render_sharded(scene, T.CameraSettings.default(), cfg,
+                        mesh.make_mesh(1, 1, device_type='cpu'))
+dist.destroy_process_group()
 assert not bad, bad
 print('ok')
 """

@@ -122,6 +122,46 @@ def test_generate_rays_wgsl_within_one_ulp(parity, defocus):
         assert got.shape == (36, 48, 3) and ulps.max() <= 1
 
 
+@pytest.mark.parametrize("parity", [True, False])
+@pytest.mark.parametrize("defocus", [0.0, 0.6])
+def test_generate_rays_wgsl_band_bit_equal_to_jax(parity, defocus):
+    """The rays and pixel seeds of rows [13, 21) of a 48x32 frame through
+    y_offset equal JAX's generate_rays_wgsl(..., y_offset=13) bit for bit,
+    as test_torch_render.py::test_generate_rays_hash_matches_jax holds the
+    hash stream's band."""
+    js = J.CameraSettings(look_from=jnp.asarray([13.0, 2.0, 3.0]), look_at=jnp.zeros(3),
+                          vup=jnp.asarray([0.0, 1.0, 0.0]), field_of_view=jnp.float32(20.0),
+                          defocus_angle=jnp.float32(defocus),
+                          focus_distance=jnp.float32(10.0))
+    jc = J.derive_camera(js, 48, 32)
+    raygen = jax.jit(lambda s, f: jr.generate_rays_wgsl(jc, 48, 8, s, f, parity, y_offset=13))
+    jo, jd = raygen(jnp.uint32(9), jnp.uint32(7))
+    to, td = tr.generate_rays_wgsl(T.from_reference(jc), 48, 8, 9, 7, parity, y_offset=13)
+    assert np.array_equal(np.asarray(jo), to.numpy())
+    assert np.array_equal(np.asarray(jd), td.numpy())
+    jseeds = jax.jit(lambda s, f: jrng.pixel_seeds(48, 8, s, f, 13))(jnp.uint32(9),
+                                                                     jnp.uint32(7))
+    assert np.array_equal(np.asarray(jseeds), _u32(trng.pixel_seeds(48, 8, 9, 7, 13)))
+
+
+@pytest.mark.parametrize("parity", [True, False])
+def test_wgsl_band_at_y_offset_equals_the_frames_rows(parity):
+    """render_reference(rng='wgsl') over rows [y0, y0 + h) through
+    y_offset equals those rows of the whole frame bit for bit (the sharded
+    WGSL route renders its bands so), whatever the band's start and
+    height; a band with row_stride != 1 stays refused."""
+    from gpu_ray_tracing_tpu_torch.ops.cuda.megakernel import render_reference
+
+    w, h = 48, 32
+    cam = T.derive_camera(T_CAMERA, w, h)
+    kw = dict(width=w, spp=2, max_depth=4, t_min=TMIN, frame_seed=5, sample_index=3,
+              rng="wgsl", parity=parity, light_pick="lane")
+    frame = render_reference(T.base_scene(), cam, height=h, **kw)
+    for y0, band in ((0, 8), (8, 8), (13, 7), (24, 8)):
+        got = render_reference(T.base_scene(), cam, height=band, y_offset=y0, **kw)
+        assert torch.equal(got, frame[y0:y0 + band]), (y0, band)
+
+
 # --- trace_path, render and progressive_step on the stream -----------------
 
 
@@ -215,11 +255,13 @@ def test_wgsl_is_refused_where_jax_refuses_it():
 
 
 @pytest.mark.parametrize("kw", [dict(sampler_spec=("sobol", 1)), dict(adaptive_tol=0.05),
-                                dict(return_ray_count=True), dict(y_offset=1),
+                                dict(return_ray_count=True), dict(y_offset=1, row_stride=2),
                                 dict(row_stride=2)])
 def test_render_reference_wgsl_takes_no_hash_stream_option(kw):
-    """The WGSL stream is drawn a whole frame at a time: the plain renderer
-    refuses the options that address pixels or samples of the hash stream."""
+    """The WGSL stream is drawn a whole band of consecutive rows at a time:
+    the plain renderer refuses the options that address pixels or samples
+    of the hash stream, and interleaved rows (a band may start at any
+    y_offset, test_wgsl_band_at_y_offset_equals_the_frames_rows)."""
     from gpu_ray_tracing_tpu_torch.ops.cuda.megakernel import render_reference
 
     cam = T.derive_camera(T_CAMERA, 8, 4)
@@ -238,20 +280,6 @@ def test_render_wgsl_aov_matches_jax(integrator):
     timg = T.render(T.base_scene(), T_CAMERA, T.RenderConfig(backend="torch", **kw),
                     frame_seed=5)
     _assert_match(timg, np.asarray(jimg))
-
-
-def test_threefry_refusal_names_its_roadmap_item():
-    """The refusal names the ROADMAP.md item of the threefry stream, and
-    that item is about threefry."""
-    with pytest.raises(NotImplementedError) as e:
-        T.RenderConfig(backend="torch", rng="threefry")
-    msg = str(e.value)
-    assert "rng='threefry'" in msg
-    item = int(msg.split("ROADMAP Queue 1 item ")[1].split(",")[0])
-    with open(os.path.join(REPO, "ROADMAP.md")) as f:
-        queue1 = f.read().split("### Queue 1")[1].split("### Queue 2")[0]
-    entry = queue1.split(f"\n{item}. ")[1].split(f"\n{item + 1}. ")[0]
-    assert "threefry" in entry.split("\n")[0]
 
 
 # --- the packed-material codec and padding ---------------------------------
