@@ -13,7 +13,8 @@ card in phases, one JSON line each:
   1. device       the card, its compute capability and power limit
   2. build        nvcc version, build seconds, each kernel instance's registers,
                   stack and spills, render_kernel's and render_adaptive_kernel's
-                  beside the kernels they replaced
+                  beside the kernels they replaced, and a digest of each
+                  instance's SASS (cuobjdump) to compare two checkouts' builds
   3. hash_probe   the kernel's hashes vs ops/rng.py on 1M u32 values: bit-exact;
      sampler_probe  the kernel's stratified (4,4) and Sobol (nbits 5) remaps at
                   pair ids 5-8 on 1M (pixel id, sample) pairs: bit-exact
@@ -108,7 +109,9 @@ card in phases, one JSON line each:
                   timed at the main shape and held there to their plain
                   versions (the 16 samples' 14.7 M-slot array and the
                   921,600-slot pool, every sort: fill, partition, refill and
-                  step); the sort keys, compaction thresholds and sample
+                  step), the partition at both shapes beside torch.sort(keys,
+                  stable=True) + index_select on the same keys (the same
+                  permutation); the sort keys, compaction thresholds and sample
                   batches, three runs each; and small frames on the other
                   routes, each bit-equal to render_cuda
  22. fma_peak     the FP32 probe (K3) vs its plain version at 32 rounds, then
@@ -236,6 +239,18 @@ card in phases, one JSON line each:
                   hash stream's (render_cuda, a sample each): per pixel and
                   channel |mean difference| <= 4 standard errors for >= 99%,
                   and the frame means within 4 standard errors
+ 33. wf_stage     the wavefront bounce kernel's sphere stage (a block stages
+                  the brute route's spheres in shared memory once a launch
+                  and skips the roots of missed spheres) through
+                  render(backend='wavefront') at 1280x720, regeneration off
+                  and on, bit for bit against render(backend='cuda'), ray
+                  counts included: sphere counts 0, 1, 255, 256, 257, 1024
+                  and 1025 (the last takes the global scan), 1,000 spheres
+                  with every third inactive against the scene of its active
+                  ones, One-Weekend with ten spheres duplicated (exact ties)
+                  against One-Weekend, One-Weekend beside an icosphere(4),
+                  _nee_scene's NEE+MIS (the staged shadow query) and a ragged
+                  1283x717 frame; each case's scan (LAST_RUN) gated
 
 Every phase that launches the megakernel gates its launch count on its own
 route key (megakernel:brute, :sphere_bvh, :mesh_bvh, suffixed +nee,
@@ -263,17 +278,19 @@ render() and the kernel alone over 10, the kernel alone on the routes of
 configs 3 and 4, the lit path, the night scene and a 1-spp progressive step,
 the adaptive main frame (phase 17's), the adaptive Cornell box (phase
 15's), the main frame through backend='wavefront' with regeneration off
-and on (5 frames each), the denoised main frame (3 frames) and its
+and on (5 frames each, then a profiled one: device ms by kernel and the
+idle share), the denoised main frame (3 frames) and its
 launches, render_aov_kernel alone on the three guide passes of that frame,
 its guides launch (where the package has render_guides) and config 1, config
 1 through render() (40 frames after 2 warm-ups, as phase 10 times it), and
 one inverse-rendering step at phase 27's settings (forward and backward,
 the median of 5), and prints one JSON line; with `--save-frame PATH` it
 also saves the frame as a .npy file, each adaptive frame's image, spp map,
-ray counts and six state planes in PATH's stem + "_adaptive.npz", and the
-AOV planes in PATH's stem + "_aov.npz".  "The kernel alone" is the device time of render_cuda calls
-queued behind a spin kernel, so the host's packing per call does not show.
-Copied into
+ray counts and six state planes in PATH's stem + "_adaptive.npz", the
+AOV planes in PATH's stem + "_aov.npz", and the two wavefront frames
+(regeneration off and on) in PATH's stem + "_wavefront.npz".  "The kernel
+alone" is the device time of render_cuda calls queued behind a spin
+kernel, so the host's packing per call does not show.  Copied into
 another checkout and run there, it times that checkout's package: run two
 checkouts in turns (A, B, B, A) within one machine to compare two builds of
 the kernel, and compare their saved frames bit for bit.
@@ -383,6 +400,32 @@ def ptxas_instances(report: str) -> list[str]:
     return out
 
 
+def sass_digests(build, infos: dict) -> dict:
+    """A digest of each kernel instance's SASS (`cuobjdump -sass` of the
+    built libraries; addresses dropped and the anonymous namespace's
+    per-file tag taken out of the names), so that the builds of two
+    checkouts compare function by function."""
+    import hashlib
+    import re
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    out = {}
+    for info in infos.values():
+        text = subprocess.run([tool, "-sass", info.library], check=True, capture_output=True,
+                              text=True, timeout=300).stdout
+        name, body = None, []
+        for ln in text.splitlines() + ["\tFunction : end"]:
+            head = re.match(r"\s+Function : (\S+)", ln)
+            if head:
+                if name:
+                    out[name] = hashlib.sha1("\n".join(body).encode()).hexdigest()[:16]
+                name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "", head.group(1))
+                body = []
+            elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", ln):
+                body.append(re.sub(r"\s*/\*[0-9a-f]{4}\*/\s*", "", ln).split(";")[0].strip())
+    return out
+
+
 def cuda_ms(fn, repeats: int) -> tuple[float, object]:
     """Mean device milliseconds of `repeats` calls of fn (CUDA events)."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -462,20 +505,30 @@ def time_main_path(T, mk, repeats: int) -> tuple[float, torch.Tensor, dict]:
     return ms, img, dict(mk.LAUNCHES)
 
 
-def time_wavefront(T, main_img, repeats: int) -> dict:
+def time_wavefront(T, main_img, repeats: int, arrays: dict | None = None) -> dict:
     """The main frame through render(backend='wavefront'), regeneration off
     and on: one warm-up, then the mean ms of `repeats` frames (CUDA
     events), and whether the frame equals the megakernel's `main_img` bit
-    for bit (off) or within 3e-5 (on)."""
+    for bit (off) or within 3e-5 (on).  With `arrays` it stores both
+    frames there, for a byte comparison between checkouts.  Each mode's
+    device time by kernel comes from one more, profiled frame
+    (device_breakdown), with the bounce launches the host enqueued."""
+    from gpu_ray_tracing_tpu_torch.ops.cuda import wavefront as wf
+
     scene, cam = T.one_weekend_scene(0), T.CameraSettings.default()
     out = {}
     for mode in ("off", "on"):
         cfg = T.RenderConfig(width=1280, height=720, spp=16, max_depth=30,
                              backend="wavefront", regenerate=mode)
-        T.render(scene, cam, cfg, frame_seed=7)
-        ms, img = cuda_ms(lambda: T.render(scene, cam, cfg, frame_seed=7), repeats)
+        run = lambda: T.render(scene, cam, cfg, frame_seed=7)
+        run()
+        ms, img = cuda_ms(run, repeats)
         out[mode] = dict(ms_per_frame=ms, max_abs_vs_megakernel=float(
-            (img - main_img).abs().max()), bit_equal=bool(torch.equal(img, main_img)))
+            (img - main_img).abs().max()), bit_equal=bool(torch.equal(img, main_img)),
+                         **device_breakdown(run),
+                         bounce_launches=wf.LAST_RUN["enqueued"]["bounce"])
+        if arrays is not None:
+            arrays[mode] = img.cpu().numpy()
     return out
 
 
@@ -567,6 +620,24 @@ def sphere_cloud(T, n: int, dev, seed: int = 0, inactive_every: int = 0):
                      t(rng.uniform(0.0, 1.5, n).astype(np.float32)))
 
 
+def with_ties(T, spheres, k: int = 10):
+    """`spheres` with its k largest appended again in scene order, albedo
+    1 - albedo: exact ties that the first index must win, so the frame is
+    that of `spheres` (phase 33 and tests/test_torch_cuda.py)."""
+    top = torch.argsort(-spheres.radii.cpu(), stable=True)[:k].sort().values
+    top = top.to(spheres.radii.device)
+    dup = {f.name: getattr(spheres, f.name)[top] for f in dataclasses.fields(T.Spheres)}
+    dup["albedo"] = 1.0 - dup["albedo"]
+    return T.Spheres(*(torch.cat([getattr(spheres, f.name), dup[f.name]])
+                       for f in dataclasses.fields(T.Spheres)))
+
+
+def active_only(T, spheres):
+    """The spheres of radius > 0, in scene order."""
+    keep = spheres.radii > 0
+    return T.Spheres(*(getattr(spheres, f.name)[keep] for f in dataclasses.fields(T.Spheres)))
+
+
 def aov_scan_case(T, mk, name: str, scene, cam, kw: dict, twin=None) -> dict:
     """Phase 29, one case: the guides launch twice (identical), each plane
     against its single-mode launch (bit for bit) and against the plain
@@ -614,8 +685,7 @@ def phase_aov_scan(T, mk, dev, smi: str) -> dict:
         rows.append(aov_scan_case(T, mk, f"n={n}", T.as_scene(sphere_cloud(T, n, dev, seed=n)),
                                   cam, kw))
     sp = sphere_cloud(T, 2000, dev, seed=29, inactive_every=3)
-    keep = sp.radii > 0
-    active = T.Spheres(*(getattr(sp, f.name)[keep] for f in dataclasses.fields(T.Spheres)))
+    active = active_only(T, sp)
     kw = dict(width=1280, height=720, spp=1, t_min=1e-3, frame_seed=29)
     rows.append(aov_scan_case(T, mk, "inactive_every_3", T.as_scene(sp), cam, kw,
                               twin=T.as_scene(active)))
@@ -630,6 +700,85 @@ def phase_aov_scan(T, mk, dev, smi: str) -> dict:
              f"{r['case']}: expected 2 brute guides launches, counted {r['launches']}")
     return dict(launches=sum(r["launches"].get("megakernel:brute+guides", 0) for r in rows),
                 max_abs=max(r["max_abs"] for r in rows))
+
+
+def wf_stage_case(T, mk, wf, dev, name: str, scene, settings, cfg, seed: int,
+                  twin=None) -> dict:
+    """Phase 33, one case: the frame through render(backend='wavefront'),
+    regeneration off and on, against render(backend='cuda') bit for bit,
+    and with regeneration off the ray counts of render_wavefront against
+    render_cuda's; the bounce kernel's sphere scan (LAST_RUN) and launches;
+    with `twin` (a scene that must render the same frame) the twin's frame
+    bit for bit."""
+    want = T.render(scene, settings, dataclasses.replace(cfg, backend="cuda"), frame_seed=seed)
+    r = dict(case=name, spheres=T.as_scene(scene).spheres.count, size=[cfg.width, cfg.height],
+             spp=cfg.spp, max_depth=cfg.max_depth)
+    ok = True
+    for mode in ("off", "on"):
+        mk.LAUNCHES.clear()
+        got = T.render(scene, settings, dataclasses.replace(cfg, backend="wavefront",
+                                                            regenerate=mode), frame_seed=seed)
+        launches = {k: v for k, v in mk.LAUNCHES.items() if k.startswith("wavefront:")}
+        r[mode] = dict(bit_equal=bool(torch.equal(got, want)),
+                       max_abs=float((got - want).abs().max()),
+                       sphere_scan=wf.LAST_RUN["sphere_scan"], launches=launches)
+        ok = ok and r[mode]["bit_equal"] and sum(launches.values()) > 0
+        if twin is not None:
+            r[mode]["twin_equal"] = bool(torch.equal(got, T.render(
+                twin, settings, dataclasses.replace(cfg, backend="wavefront", regenerate=mode),
+                frame_seed=seed)))
+            ok = ok and r[mode]["twin_equal"]
+    sc = T.as_scene(scene).to(dev)
+    cam = T.derive_camera(settings, cfg.width, cfg.height).to(dev)
+    kw = render_kw(cfg, seed)
+    _, want_rays = mk.render_cuda(sc, cam, return_ray_count=True, **kw)
+    _, rays = wf.render_wavefront(sc, cam, return_ray_count=True, **kw)
+    r["ray_counts_equal"] = bool(torch.equal(rays, want_rays))
+    r["rays_traced"] = float(rays.double().sum())
+    r["ok"] = ok and r["ray_counts_equal"]
+    return r
+
+
+def phase_wf_stage(T, mk, wf, dev, smi: str) -> dict:
+    """Phase 33, wf_stage: the wavefront bounce kernel's staged sphere scan
+    at 1280x720 through render(backend='wavefront'), regeneration off and
+    on, bit for bit against render(backend='cuda') (whose render_kernel
+    scans from device memory), ray counts included: sphere counts around
+    the block (256 threads) and the stage (1,024 spheres; 1,025 takes the
+    global scan), every third sphere inactive against the scene of its
+    active spheres, ten spheres duplicated (exact ties) against the scene
+    without them, spheres beside an icosphere(4), NEE+MIS toward sphere
+    lights (the staged any-hit) and a ragged 1283x717 frame."""
+    settings = T.CameraSettings.default()
+    cfg = T.RenderConfig(width=1280, height=720, spp=1, max_depth=8)
+    rows = []
+    for n in (0, 1, 255, 256, 257, 1024, 1025):
+        rows.append(wf_stage_case(T, mk, wf, dev, f"n={n}", T.as_scene(sphere_cloud(T, n, dev, seed=n)),
+                                  settings, cfg, n))
+    sp = sphere_cloud(T, 1000, dev, seed=33, inactive_every=3)
+    rows.append(wf_stage_case(T, mk, wf, dev, "inactive_every_3", T.as_scene(sp), settings, cfg, 33,
+                              twin=T.as_scene(active_only(T, sp))))
+    ow = T.as_scene(T.one_weekend_scene(0)).spheres
+    rows.append(wf_stage_case(T, mk, wf, dev, "ties_10", T.as_scene(with_ties(T, ow)), settings,
+                              dataclasses.replace(cfg, spp=2), 10, twin=T.as_scene(ow)))
+    ico = T.transform_mesh(T.icosphere(4, albedo=(0.75, 0.6, 0.45), smooth=True), 0.6,
+                           (2.0, 0.6, 1.5))
+    rows.append(wf_stage_case(T, mk, wf, dev, "one_weekend_icosphere4", T.make_scene(ow, ico),
+                              settings, cfg, 4))
+    rows.append(wf_stage_case(T, mk, wf, dev, "nee_mis", lit_scenes(T)["nee"],
+                              T.CameraSettings.make(**BASE_CAMERA),
+                              dataclasses.replace(cfg, spp=2, sky_intensity=0.0, nee=True,
+                                                  mis=True, russian_roulette_depth=3), 9))
+    rows.append(wf_stage_case(T, mk, wf, dev, "ragged_1283x717", T.one_weekend_scene(0), settings,
+                              dataclasses.replace(cfg, width=1283, height=717, spp=2), 5))
+    emit({"phase": "wf_stage", "cases": rows, "card": smi})
+    for r in rows:
+        gate("wf_stage", r["ok"], f"{r['case']}: {r}")
+        scan = "global" if r["spheres"] > wf.STAGE_SPHERES else "staged"
+        gate("wf_stage", r["off"]["sphere_scan"] == r["on"]["sphere_scan"] == scan,
+             f"{r['case']}: expected the {scan} scan, took {r['off']['sphere_scan']}")
+    return dict(routes={r["case"]: r["off"]["sphere_scan"] for r in rows},
+                launches=sum(sum(r[m]["launches"].values()) for r in rows for m in ("off", "on")))
 
 
 def mesh_scene(T, subdivisions: int):
@@ -990,6 +1139,24 @@ def partition_vs_plain(wf, sc, cam, w: int, h: int, spp: int = 4,
     return rows
 
 
+def library_partition(arr, pl, repeats: int) -> dict:
+    """The partition as PyTorch calls (the yardstick; the port never calls
+    them): torch.sort(keys, stable=True), whose indices are the permutation
+    the partition kernels compute from the same keys (the int16 keys
+    wf_keys_kernel wrote to arr.keys), and index_select of the gathered
+    slots' state planes.  The mean ms of `repeats` calls (CUDA events, one
+    warm-up), and whether the permutation equals the kernels' (arr.perm)."""
+    n, m = pl.n, pl.n if arr.regen else pl.live
+    keys, f, i = arr.keys[:n], arr.f[pl.cur], arr.i[pl.cur]
+
+    def call():
+        perm = torch.sort(keys, stable=True).indices
+        return perm, f.index_select(1, perm[:m]), i.index_select(1, perm[:m])
+    call()
+    ms, (perm, _, _) = cuda_ms(call, repeats)
+    return dict(library_ms=ms, library_perm_equal=bool(torch.equal(perm, arr.perm[:n].long())))
+
+
 def time_partition(wf, sc, cam, w: int, h: int, spp: int, repeats: int = 10) -> dict:
     """The device loop's kernels at the main path's shape: a batch of `spp`
     samples of the (w x h) frame filled and bounced once on the card, then
@@ -997,7 +1164,10 @@ def time_partition(wf, sc, cam, w: int, h: int, spp: int, repeats: int = 10) -> 
     timed on the card (CUDA events, the mean of `repeats` calls on a copy
     of the state) and as its plain version once; with the least bytes each
     must move.  The fill and the partition are held to their plain
-    versions' results on the same state (`match`: as partition_vs_plain)."""
+    versions' results on the same state (`match`: as partition_vs_plain).
+    The partition is also timed on the regenerating pool's first
+    compaction (w x h slots), and at both shapes against its PyTorch
+    yardstick (library_partition)."""
     dev, p = sc.device, w * h
     frame = dict(p=p, width=w, height=h, y_offset=0, row_stride=1)
     eng = wf.Engine(sc, cam, 7, 30, 1e-3, total_width=w)
@@ -1027,16 +1197,33 @@ def time_partition(wf, sc, cam, w: int, h: int, spp: int, repeats: int = 10) -> 
                  planes_max_abs=float((arr.f[o, :, :m] - twin.f[o, :, :m]).abs().max()))
     match["ok"] = (match["fill_ok"] and match["perm_equal"] and match["planes_equal"]
                    and pl.compact)
+    library = library_partition(arr, pl, repeats)
+    # The regenerating pool's first compaction: every slot is gathered.
+    pool = wf.RayArray(p, True, "octant", dev)
+    pool_sched = wf.Schedule(0.9, 0.25, spp * p, p, regen=True)
+    pool_run = wf._Run(dev, 30)
+    wf.wavefront_fill(eng, pool, p, frame, 0, pool_run)
+    wf._bounce_step(eng, pool, pool_run, bounce=0, sample_base=0, n_pixels=p, out=out)
+    torch.cuda.synchronize()
+    pool_pl = wf._plan(pool.ctr, pool_sched)
+    pool_ms, _ = cuda_ms(lambda: wf.wavefront_partition(eng, pool, pool_sched), repeats)
+    pool_library = library_partition(pool, pool_pl, repeats)
+    del pool
     adv_ms, _ = cuda_ms(lambda: wf.wavefront_advance(eng, arr, sched, run, 0), repeats)
     adv_plain_ms, _ = cuda_ms(lambda: wf.wavefront_advance(plain, twin, sched, run, 0), 1)
     # Keys read the live flag and the direction (16 bytes a slot); the
     # permutation is written once (4); the gather reads and writes the
-    # live rays' 16 f32 and 3 i32 planes (76 bytes each way).
+    # gathered slots' 16 f32 and 3 (pool: 4) i32 planes.
     part_bytes = n * 16 + n * 4 + m * 76 * 2
+    pool_bytes = p * 16 + p * 4 + p * 80 * 2
     fill_bytes = n * 76
     return dict(slots=n, live=m, compact=pl.compact, match=match,
                 partition=dict(ms=part_ms, plain_ms=part_plain_ms,
-                               bound_ms=part_bytes / HBM_RATE * 1e3, bound_by="bytes"),
+                               bound_ms=part_bytes / HBM_RATE * 1e3, bound_by="bytes",
+                               **library, pool_slots=p, pool_compact=pool_pl.compact,
+                               pool_ms=pool_ms, pool_bound_ms=pool_bytes / HBM_RATE * 1e3,
+                               pool_library_ms=pool_library["library_ms"],
+                               pool_library_perm_equal=pool_library["library_perm_equal"]),
                 raygen=dict(ms=fill_ms, plain_ms=fill_plain_ms,
                             bound_ms=fill_bytes / HBM_RATE * 1e3, bound_by="bytes"),
                 advance=dict(ms=adv_ms, plain_ms=adv_plain_ms,
@@ -2120,6 +2307,7 @@ def main() -> int:
           "nvcc_seconds": {k: v.seconds for k, v in infos.items()},
           "load_seconds": time.perf_counter() - t0, "flags": " ".join(build.NVCC_FLAGS),
           "ptxas": [ln for v in infos.values() for ln in ptxas_instances(v.ptxas_report)],
+          "sass_digests": sass_digests(build, infos),
           "render_kernel_parent_regs_stack_spills": PARENT_RENDER_KERNEL,
           "render_adaptive_kernel_parent_regs_stack_spills": PARENT_ADAPTIVE_KERNEL})
     gate("build", all(v.compiled for v in infos.values()),
@@ -2129,6 +2317,7 @@ def main() -> int:
         arrays = {} if args.save_frame else None
         den = time_denoised(T, mk, 3)
         aov_arrays = {} if args.save_frame else None
+        wave_arrays = {} if args.save_frame else None
         emit({"phase": "main_path_only", "repo": REPO, "ms_per_frame": ms, "repeats": 20,
               "denoised_ms": den["ms"], "denoised_repeats": 3,
               "denoised_launches": den["launches"],
@@ -2137,12 +2326,13 @@ def main() -> int:
               **time_main_kernel(T, mk, 10), "kernel_repeats": 10,
               "routes_kernel_ms": time_routes(T, mk, 10),
               "adaptive_kernel": time_adaptive(T, mk, 5, arrays), "adaptive_repeats": 5,
-              "wavefront": time_wavefront(T, img, 5), "wavefront_repeats": 5,
+              "wavefront": time_wavefront(T, img, 5, wave_arrays), "wavefront_repeats": 5,
               "mean": float(img.mean()), "launches": launches, "card": smi})
         if args.save_frame:
             np.save(args.save_frame, img.cpu().numpy())
             np.savez(os.path.splitext(args.save_frame)[0] + "_adaptive.npz", **arrays)
             np.savez(os.path.splitext(args.save_frame)[0] + "_aov.npz", **aov_arrays)
+            np.savez(os.path.splitext(args.save_frame)[0] + "_wavefront.npz", **wave_arrays)
         return 0
 
     # 3. hash probe
@@ -2773,6 +2963,8 @@ def main() -> int:
              f"iterations, 5 frames counted {w_launches}")
         gate("wavefront_path", stats["host_syncs"] <= read_bound,
              f"{mode}: {stats['host_syncs']} host reads a frame, bound {read_bound}")
+        gate("wavefront_path", stats["sphere_scan"] == "staged",
+             f"{mode}: the bounce kernel scanned by {stats['sphere_scan']}, not the stage")
         gate("wavefront_path", stats["live_ray_bounces"] == main_rays,
              f"{mode}: {stats['live_ray_bounces']} live ray-bounces, the megakernel traced "
              f"{main_rays} rays")
@@ -2795,6 +2987,10 @@ def main() -> int:
           "card": smi})
     gate("wavefront_path", wf_parts["match"]["ok"],
          f"timed fill/partition vs plain at the main shape: {wf_parts['match']}")
+    part = wf_parts["partition"]
+    gate("wavefront_path", part["library_perm_equal"] and part["pool_library_perm_equal"]
+         and part["pool_compact"],
+         f"the partition differs from torch.sort(keys, stable=True) at the main shape: {part}")
     for r in main_part:
         gate("wavefront_path", r["ok"], f"partition/refill vs plain at the main shape: {r}")
     # Scheduling choices, timed on the same frame (the image does not
@@ -3026,6 +3222,8 @@ def main() -> int:
     # 31. the sharded path (K1, K2) on 1, 2 and 4 ranks; 32. threefry
     phase_sharded(T, mk, dev, smi, main_img)
     phase_threefry(T, mk, dev, smi)
+    # 33. the wavefront bounce kernel's staged sphere scan
+    wf_stage = phase_wf_stage(T, mk, wf, dev, smi)
 
     ad_alone = time_adaptive(T, mk, 5)
 
@@ -3118,7 +3316,10 @@ def main() -> int:
                          bound_by="operations" if t_ops >= t_bytes else "bytes",
                          bound_ms_per_frame=max(t_ops, t_bytes),
                          state_traffic_ms=t_bytes, rays_traced=main_rays,
-                         bound_is_lower_bound=False, library_ms=None))
+                         bound_is_lower_bound=False, library_ms=None,
+                         sphere_scan=wv["stats"]["sphere_scan"],
+                         wf_stage_routes=wf_stage["routes"],
+                         wf_stage_launches=wf_stage["launches"]))
     # The device loop's own kernels (wavefront.cu; the ray generation in
     # megakernel.cu), timed at the main path's shape (time_partition);
     # launches are the regeneration-off frames' of phase 21.
@@ -3134,11 +3335,10 @@ def main() -> int:
         fields = {"partition": ("planes_max_abs",), "raygen": ("fill_max_abs", "refill_max_abs"),
                   "advance": ("counts_max_abs",)}[key]
         err = max(r.get(f, 0.0) for r in main_part + [wf_parts["match"]] for f in fields)
-        rows.append(dict(route="cuda", source=source, replaces=replaces, name=row_name,
+        rows.append(dict(t, route="cuda", source=source, replaces=replaces, name=row_name,
                          path=f"main frame, {wf_parts['slots']} slots",
                          launches=wv["launches"].get(row_name, 0), max_abs_err=err,
-                         ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                         bound_by=t["bound_by"], library_ms=None))
+                         library_ms=t.get("library_ms")))
     # K3: its counted operations over the nominal FP32 peak.  K4: its 9
     # operations a round and element at the issue rate of the type; the row
     # times the packed bf16 kernel and carries the f32 kernel's time and

@@ -71,7 +71,7 @@ _MEGAKERNEL_SIGNATURES = {
          _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,  # f0, f1, i0, i1, stride, slots
          _c_ptr, _c_int, _c_int,  # counts, per-ray sample, regen
          _c_uint, _c_int, _c_uint, _c_int,  # sample, bounce, sample base, pixels
-         _c_ptr, _c_ptr, _c_ptr],  # out, rays out, stream
+         _c_ptr, _c_ptr, _c_int, _c_ptr],  # out, rays out, staged, stream
     ),
     "grt_wavefront_raygen": (
         _c_int,

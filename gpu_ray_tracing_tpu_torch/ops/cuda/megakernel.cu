@@ -301,6 +301,130 @@ __device__ __forceinline__ void sphere_scan(const float* __restrict__ sc, int n,
   }
 }
 
+// The staged brute scan, shared by render_aov_kernel and
+// wavefront_bounce_kernel: a block stages the active spheres of a brute-route
+// scene in shared memory as float4 (cx, cy, cz, |c|^2 - r^2), formed with
+// sphere_root's fdot3, in scene order with their scene index beside them
+// (inactive spheres never win, so they are left out; ties and materials are
+// unchanged).  A test is then one broadcast LDS.128 and the quadratic; a
+// negative (or NaN) discriminant skips the root arithmetic, where
+// sphere_root returns false, and the lanes that take it run sphere_root's
+// operations in its order.  So the staged scans find sphere_scan's and
+// sphere_root's hits, windows and winners bit for bit.
+// A block is kStageThreads threads in full 32-lane warps (grt_render
+// launches (32, kStageThreads / 32), grt_wavefront_bounce kStageThreads):
+// the staging's ballots and prefix sums count on it.
+constexpr int kStageThreads = 256;
+constexpr int kStageWarps = kStageThreads / 32;
+static_assert(kStageThreads % 32 == 0 && kStageThreads <= 1024, "whole warps, one block");
+constexpr int kStageSpheres = 1024;  // 16 KB of spheres and 4 KB of indices a block
+
+// Stage the active spheres of [j0, j1) in scene order: s_sph[k] = (cx,
+// cy, cz, |c|^2 - r^2) and s_idx[k] = the scene index.  Returns the count.
+// Every thread of the block calls it (it meets __syncthreads), and the
+// staged table is visible to all when it returns.
+__device__ __forceinline__ int stage_spheres(const float* __restrict__ sc, int n, int j0,
+                                             int j1, float4* s_sph, int* s_idx,
+                                             int* s_warp) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  int count = 0;
+  for (int base = j0; base < j1; base += kStageThreads) {
+    const int j = base + tid;
+    const bool act = j < j1 && __ldg(sc + ACTIVE * n + j) > 0.0f;
+    const unsigned int vote = __ballot_sync(0xffffffffu, act);
+    if (lane == 0) s_warp[warp] = __popc(vote);
+    __syncthreads();
+    int below = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kStageWarps; ++w) {
+      const int c = s_warp[w];
+      below += w < warp ? c : 0;
+      total += c;
+    }
+    if (act) {
+      const int k = count + below + __popc(vote & ((1u << lane) - 1u));
+      const float cx = __ldg(sc + CX * n + j);
+      const float cy = __ldg(sc + CY * n + j);
+      const float cz = __ldg(sc + CZ * n + j);
+      const float rj = __ldg(sc + RAD * n + j);
+      s_sph[k] = make_float4(cx, cy, cz, fdot3(cx, cy, cz, cx, cy, cz) - rj * rj);
+      s_idx[k] = j;
+    }
+    count += total;
+    __syncthreads();  // the table is complete; s_warp may be reused
+  }
+  return count;
+}
+
+// sphere_scan over a staged table: the same window, roots and winner (the
+// winner's scene index is read once, after the scan).  Unrolled by 8: the
+// loads and quadratics of 8 spheres go out ahead of their branches (the
+// fastest of 1, 4 and 8 on the H100; PERF.md, K1g).
+__device__ __forceinline__ void staged_scan(const float4* s_sph, const int* s_idx, int count,
+                                            float t_min, Vec3 o, Vec3 d, const SphereRay& r,
+                                            float& tb, int& best) {
+  int k_best = -1;
+#pragma unroll 8
+  for (int k = 0; k < count; ++k) {
+    const float4 s = s_sph[k];
+    const float h = fdot3(d.x, d.y, d.z, s.x, s.y, s.z) - r.od;
+    const float cc = s.w - 2.0f * fdot3(o.x, o.y, o.z, s.x, s.y, s.z) + r.oo;
+    const float disc = fmaf(h, h, -(r.a * cc));
+    if (disc >= 0.0f) {
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      const float rn = (h - sq) * r.inv_a;
+      const float rf = (h + sq) * r.inv_a;
+      const bool nok = (rn > t_min) & (rn < tb);
+      const bool fok = (rf > t_min) & (rf < tb);
+      if (nok | fok) {
+        tb = nok ? rn : rf;
+        k_best = k;
+      }
+    }
+  }
+  if (k_best >= 0) best = s_idx[k_best];
+}
+
+// The any-hit twin of staged_scan (occluded's sphere loop): true at the
+// first staged sphere with a root in (t_min, window).
+__device__ __forceinline__ bool staged_any_hit(const float4* s_sph, int count, float t_min,
+                                               Vec3 o, Vec3 d, const SphereRay& r,
+                                               float window) {
+#pragma unroll 8
+  for (int k = 0; k < count; ++k) {
+    const float4 s = s_sph[k];
+    const float h = fdot3(d.x, d.y, d.z, s.x, s.y, s.z) - r.od;
+    const float cc = s.w - 2.0f * fdot3(o.x, o.y, o.z, s.x, s.y, s.z) + r.oo;
+    const float disc = fmaf(h, h, -(r.a * cc));
+    if (disc >= 0.0f) {
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      const float rn = (h - sq) * r.inv_a;
+      const float rf = (h + sq) * r.inv_a;
+      if (((rn > t_min) & (rn < window)) | ((rf > t_min) & (rf < window))) return true;
+    }
+  }
+  return false;
+}
+
+// wavefront_bounce_kernel's stage, in the block's dynamic shared memory
+// (wf_stage_bytes(n) of it for a scene of n spheres): the staged count in
+// the first 16 bytes, then up to n float4 spheres and n scene indices.
+constexpr size_t wf_stage_bytes(int n) { return 16 + 20 * (size_t)n; }
+
+__device__ __forceinline__ float4* wf_stage() {
+  extern __shared__ float4 wf_stage_mem[];
+  return wf_stage_mem;
+}
+
+__device__ __forceinline__ int& wf_stage_count() {
+  return *reinterpret_cast<int*>(wf_stage());
+}
+
+__device__ __forceinline__ int* wf_stage_index(int n) {
+  return reinterpret_cast<int*>(wf_stage() + 1 + n);
+}
+
 // Moller-Trumbore on face j of the mesh table (`_tri_intersect`,
 // megakernel.py:439-470): determinant guard 1e-12, u, v >= 0, u + v <= 1,
 // t_min < t < tb.  The cross and inner products round as fused
@@ -369,6 +493,9 @@ __device__ __forceinline__ SphereRay sphere_ray(Vec3 o, Vec3 d) {
   return sr;
 }
 
+// kStaged: the spheres are wavefront_bounce_kernel's stage (wf_stage), not
+// the scene planes; the winner's material is still read from the planes.
+template <bool kStaged = false>
 __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, Vec3 d) {
   const SphereRay sr = sphere_ray(o, d);
   float tb = t_max;
@@ -376,7 +503,10 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
   const float* sc = g.scene;
   const int n = g.n;
   const Vec3 inv = safe_inverse(d);
-  if (g.sphere_bvh.m > 0) {
+  if (kStaged) {
+    staged_scan(wf_stage() + 1, wf_stage_index(n), wf_stage_count(), t_min, o, d, sr, tb,
+                best);
+  } else if (g.sphere_bvh.m > 0) {
     walk_bvh(g.sphere_bvh, o, inv, t_min, tb, [&](int start, int count) {
       sphere_scan(sc, n, start, start + count, t_min, o, d, sr, tb, best);
       return false;
@@ -451,6 +581,8 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
 // sphere or face lies at t_min < t < window along o + t w.  It ends at the
 // first blocker.  "No hit below the window" is the plain version's "nearest
 // t >= window" (ops/integrators.py::nearest_t_scene).
+// kStaged as in closest_hit.
+template <bool kStaged = false>
 __device__ bool occluded(const Geometry& g, float t_min, Vec3 o, Vec3 w, float window) {
   if (!(window > t_min)) return false;
   const SphereRay sr = sphere_ray(o, w);
@@ -465,7 +597,9 @@ __device__ bool occluded(const Geometry& g, float t_min, Vec3 o, Vec3 w, float w
     return false;
   };
   const Vec3 inv = safe_inverse(w);
-  if (g.sphere_bvh.m > 0) {
+  if (kStaged) {
+    blocked = staged_any_hit(wf_stage() + 1, wf_stage_count(), t_min, o, w, sr, window);
+  } else if (g.sphere_bvh.m > 0) {
     walk_bvh(g.sphere_bvh, o, inv, t_min, window, [&](int start, int count) {
       blocked = spheres(start, start + count);
       return blocked;
@@ -782,8 +916,9 @@ struct PathState {
 // instance keeps the register budget of the path it replaces.  kCount adds
 // the rays this bounce traced to `rays` (megakernel.py:951, :1071, :1374,
 // :1416): one for the closest-hit walk and one per NEE shadow ray whose
-// light sample is valid, counted before its visibility test.
-template <bool kNee, bool kCount>
+// light sample is valid, counted before its visibility test.  kStaged
+// scans the spheres of wavefront_bounce_kernel's stage (closest_hit).
+template <bool kNee, bool kCount, bool kStaged = false>
 __device__ __forceinline__ bool path_bounce(const Params& p, PathState& st,
                                             unsigned int seed, unsigned int base0,
                                             unsigned int s_abs, unsigned int pick_seed,
@@ -793,7 +928,7 @@ __device__ __forceinline__ bool path_bounce(const Params& p, PathState& st,
   const int n_lights = ls.L + ls.T;
   const Vec3 o = st.o, d = st.d;
   if (kCount) ++rays;
-  const Hit h = closest_hit(p.geo, p.t_min, p.t_max, o, d);
+  const Hit h = closest_hit<kStaged>(p.geo, p.t_min, p.t_max, o, d);
   if (!h.hit) {
     const Vec3 sk = sky(d);
     st.r = st.r + st.tr * sk.x * p.sky_intensity;
@@ -848,7 +983,7 @@ __device__ __forceinline__ bool path_bounce(const Params& p, PathState& st,
                                  : tri_light_sample(ls, gl - ls.L, h.p, h.n, u1n, u2n);
       if (!ln.ok) continue;
       if (kCount) ++rays;
-      if (occluded(p.geo, p.t_min, h.p, ln.w, ln.reach * 0.999f)) continue;
+      if (occluded<kStaged>(p.geo, p.t_min, h.p, ln.w, ln.reach * 0.999f)) continue;
       float wgt = ln.wgt * (picked >= 0 ? (float)n_lights : 1.0f);
       if (p.mis && !last) wgt = wgt / fmaf(wgt, wgt, 1.0f);
       st.r = st.r + st.tr * h.ar * ln.le.x * wgt;
@@ -946,93 +1081,13 @@ __device__ __forceinline__ unsigned int global_row(const Params& p, int y_local)
 // does only the work whose result is used: nothing that depends on the
 // sphere alone, and no root for a sphere the ray misses (most of them).
 // On the brute route (no sphere BVH, no mesh) a block stages the active
-// spheres in shared memory as float4 (cx, cy, cz, |c|^2 - r^2), formed
-// with sphere_root's fdot3, in scene order with their scene index beside
-// them (inactive spheres never win, so they are left out; ties and
-// materials are unchanged), at most kAovStage a chunk: a larger scene is
-// restaged chunk by chunk for each sample, the window carried across
-// chunks.  A test is then one broadcast LDS.128 and the quadratic; a
-// negative (or NaN) discriminant skips the root arithmetic, where
-// sphere_root returns false, and the lanes that take it run sphere_root's
-// operations in its order.  The hit record keeps only what the modes read
-// (t, the normal, the albedo), inline: no call to closest_hit, whose
-// generic record needs a stack frame.  The sphere-BVH and mesh routes call
-// closest_hit.  Threads outside the frame (ragged blocks) stage and meet
-// every barrier, and trace nothing.
-// A block is kAovThreads threads in full 32-lane warps (grt_render
-// launches (32, kAovThreads / 32)): the staging's ballots and prefix sums
-// count on it.
-constexpr int kAovThreads = 256;
-constexpr int kAovWarps = kAovThreads / 32;
-static_assert(kAovThreads % 32 == 0 && kAovThreads <= 1024, "whole warps, one block");
-constexpr int kAovStage = 1024;  // 16 KB of spheres and 4 KB of indices a block
-
-// Stage the active spheres of [j0, j1) in scene order: s_sph[k] = (cx,
-// cy, cz, |c|^2 - r^2) and s_idx[k] = the scene index.  Returns the count.
-// Every thread of the block calls it (it meets __syncthreads), and the
-// staged table is visible to all when it returns.
-__device__ __forceinline__ int stage_spheres(const float* __restrict__ sc, int n, int j0,
-                                             int j1, float4* s_sph, int* s_idx,
-                                             int* s_warp) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  int count = 0;
-  for (int base = j0; base < j1; base += kAovThreads) {
-    const int j = base + tid;
-    const bool act = j < j1 && __ldg(sc + ACTIVE * n + j) > 0.0f;
-    const unsigned int vote = __ballot_sync(0xffffffffu, act);
-    if (lane == 0) s_warp[warp] = __popc(vote);
-    __syncthreads();
-    int below = 0, total = 0;
-#pragma unroll
-    for (int w = 0; w < kAovWarps; ++w) {
-      const int c = s_warp[w];
-      below += w < warp ? c : 0;
-      total += c;
-    }
-    if (act) {
-      const int k = count + below + __popc(vote & ((1u << lane) - 1u));
-      const float cx = __ldg(sc + CX * n + j);
-      const float cy = __ldg(sc + CY * n + j);
-      const float cz = __ldg(sc + CZ * n + j);
-      const float rj = __ldg(sc + RAD * n + j);
-      s_sph[k] = make_float4(cx, cy, cz, fdot3(cx, cy, cz, cx, cy, cz) - rj * rj);
-      s_idx[k] = j;
-    }
-    count += total;
-    __syncthreads();  // the table is complete; s_warp may be reused
-  }
-  return count;
-}
-
-// sphere_scan over a staged table: the same window, roots and winner (the
-// winner's scene index is read once, after the scan).  Unrolled by 8: the
-// loads and quadratics of 8 spheres issue ahead of their branches (the
-// fastest of 1, 4 and 8 on the H100; PERF.md, K1g).
-__device__ __forceinline__ void staged_scan(const float4* s_sph, const int* s_idx, int count,
-                                            float t_min, Vec3 o, Vec3 d, const SphereRay& r,
-                                            float& tb, int& best) {
-  int k_best = -1;
-#pragma unroll 8
-  for (int k = 0; k < count; ++k) {
-    const float4 s = s_sph[k];
-    const float h = fdot3(d.x, d.y, d.z, s.x, s.y, s.z) - r.od;
-    const float cc = s.w - 2.0f * fdot3(o.x, o.y, o.z, s.x, s.y, s.z) + r.oo;
-    const float disc = fmaf(h, h, -(r.a * cc));
-    if (disc >= 0.0f) {
-      const float sq = sqrtf(fmaxf(disc, 0.0f));
-      const float rn = (h - sq) * r.inv_a;
-      const float rf = (h + sq) * r.inv_a;
-      const bool nok = (rn > t_min) & (rn < tb);
-      const bool fok = (rf > t_min) & (rf < tb);
-      if (nok | fok) {
-        tb = nok ? rn : rf;
-        k_best = k;
-      }
-    }
-  }
-  if (k_best >= 0) best = s_idx[k_best];
-}
+// spheres in shared memory (stage_spheres, staged_scan), at most
+// kStageSpheres a chunk: a larger scene is restaged chunk by chunk for each
+// sample, the window carried across chunks.  The hit record keeps only
+// what the modes read (t, the normal, the albedo), inline: no call to
+// closest_hit, whose generic record needs a stack frame.  The sphere-BVH
+// and mesh routes call closest_hit.  Threads outside the frame (ragged
+// blocks) stage and meet every barrier, and trace nothing.
 
 // What the AOV modes read of a closest hit.
 struct AovHit {
@@ -1070,10 +1125,10 @@ __device__ __forceinline__ AovHit brute_hit(const float* __restrict__ sc, int n,
 }
 
 template <bool kCount, bool kBrute>
-__global__ void __launch_bounds__(kAovThreads) render_aov_kernel(const Params p) {
-  __shared__ float4 s_sph[kBrute ? kAovStage : 1];
-  __shared__ int s_idx[kBrute ? kAovStage : 1];
-  __shared__ int s_warp[kAovWarps];
+__global__ void __launch_bounds__(kStageThreads) render_aov_kernel(const Params p) {
+  __shared__ float4 s_sph[kBrute ? kStageSpheres : 1];
+  __shared__ int s_idx[kBrute ? kStageSpheres : 1];
+  __shared__ int s_warp[kStageWarps];
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y_local = blockIdx.y * blockDim.y + threadIdx.y;
   const bool in_frame = x < p.width && y_local < p.height;
@@ -1086,7 +1141,7 @@ __global__ void __launch_bounds__(kAovThreads) render_aov_kernel(const Params p)
   const int mode = p.mode;
   const float* sc = p.geo.scene;
   const int n = p.geo.n;
-  const bool one_chunk = n <= kAovStage;
+  const bool one_chunk = n <= kStageSpheres;
   int staged = 0;
   if (kBrute && one_chunk) staged = stage_spheres(sc, n, 0, n, s_sph, s_idx, s_warp);
   unsigned int rays = 0u;
@@ -1106,9 +1161,9 @@ __global__ void __launch_bounds__(kAovThreads) render_aov_kernel(const Params p)
       const SphereRay sr = sphere_ray(o, d);
       float tb = p.t_max;
       int best = -1;
-      for (int j0 = 0; j0 < n; j0 += kAovStage) {
+      for (int j0 = 0; j0 < n; j0 += kStageSpheres) {
         if (!one_chunk)
-          staged = stage_spheres(sc, n, j0, min(n, j0 + kAovStage), s_sph, s_idx, s_warp);
+          staged = stage_spheres(sc, n, j0, min(n, j0 + kStageSpheres), s_sph, s_idx, s_warp);
         if (in_frame) staged_scan(s_sph, s_idx, staged, p.t_min, o, d, sr, tb, best);
         if (!one_chunk) __syncthreads();  // scans done before the next chunk is staged
       }
@@ -1686,6 +1741,12 @@ cudaError_t launch_adaptive(const Params& p, const Adaptive& a, cudaStream_t s) 
 // bounce (the sphere scan or BVH walk), plus the state traffic the
 // megakernel keeps in registers: up to 15 planes read and written per live
 // ray and bounce.  Compaction (wavefront.cu) keeps warps full of live rays.
+// On the brute route most of that arithmetic is the sphere scan, and from
+// device memory it costs five loads and the full root arithmetic for every
+// (ray, sphere), where on the main frame 0.634% of the tests need a root.
+// So a block stages the spheres in shared memory once a launch and skips
+// the roots of missed spheres, as render_aov_kernel does
+// (wavefront_bounce_kernel, kStaged).
 struct Wavefront {
   float* f[2];      // two (kWfPlanes, stride) state buffers (the second: compactions)
   int* i[2];        // (2, stride) pid, pix; + sample (smp), + bounce (regeneration)
@@ -1702,7 +1763,7 @@ struct Wavefront {
 };
 
 // One bounce of the ray in slot t, in place; returns whether it goes on.
-template <bool kNee, bool kCount, bool kRegen>
+template <bool kNee, bool kCount, bool kRegen, bool kStaged>
 __device__ __forceinline__ bool wavefront_bounce_slot(const Params& p, const Wavefront& w,
                                                       float* fb, int* ib, int t) {
   float* const f = fb + t;
@@ -1722,7 +1783,8 @@ __device__ __forceinline__ bool wavefront_bounce_slot(const Params& p, const Wav
   const unsigned int base0 = hash_pixel_seeds(pid, 0u, p.frame_seed);
   const unsigned int pick_seed = s_abs ^ wgsl_hash(p.frame_seed);
   unsigned int rays = 0u;
-  const bool live = path_bounce<kNee, kCount>(p, st, seed, base0, s_abs, pick_seed, i, rays);
+  const bool live =
+      path_bounce<kNee, kCount, kStaged>(p, st, seed, base0, s_abs, pick_seed, i, rays);
   float n_rays = 0.0f;
   if (kCount) n_rays = f[WRAYS * ps] + (float)rays;
   if (kRegen) ib[WBNC * ps + t] = i + 1;
@@ -1751,21 +1813,38 @@ __device__ __forceinline__ bool wavefront_bounce_slot(const Params& p, const Wav
 // One bounce of every live ray.  kRegen reads sample and bounce per ray
 // (rays of one launch mix them); without it the bounce is a launch scalar
 // and the sample one too unless w.smp (a batch of samples in one array).
-template <bool kNee, bool kCount, bool kRegen>
-__global__ void __launch_bounds__(256) wavefront_bounce_kernel(const Params p,
-                                                               const Wavefront w) {
-  __shared__ int block_live[8];
+//
+// kStaged (the brute route, grt_wavefront_bounce decides it from the scene
+// before the launch): every thread of the block stages the scene's active
+// spheres in the block's dynamic shared memory (wf_stage) once, before the
+// slot loop, and each closest hit and shadow query of the launch scans the
+// stage with the root skip (staged_scan, staged_any_hit) instead of five
+// global loads and the full root arithmetic a sphere.  A block walks
+// thousands of slots a launch, so one staging serves them all.  The done
+// flag is the same for every thread, so a block returns whole or stages
+// whole; threads without a slot stage too and meet every barrier.
+template <bool kNee, bool kCount, bool kRegen, bool kStaged>
+__global__ void __launch_bounds__(kStageThreads) wavefront_bounce_kernel(const Params p,
+                                                                         const Wavefront w) {
+  __shared__ int block_live[kStageWarps];
+  __shared__ int s_warp[kStaged ? kStageWarps : 1];
   int n = w.n, cur = 0;
   if (w.ctr != nullptr) {
     if (w.ctr[kCtrDone]) return;
     n = w.ctr[kCtrN];
     cur = w.ctr[kCtrCur];
   }
+  if (kStaged) {
+    const int staged = stage_spheres(p.geo.scene, p.geo.n, 0, p.geo.n, wf_stage() + 1,
+                                     wf_stage_index(p.geo.n), s_warp);
+    if (threadIdx.x == 0) wf_stage_count() = staged;
+    __syncthreads();
+  }
   float* const fb = w.f[cur];
   int* const ib = w.i[cur];
   int live = 0;
   for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < n; t += gridDim.x * blockDim.x) {
-    live += wavefront_bounce_slot<kNee, kCount, kRegen>(p, w, fb, ib, t) ? 1 : 0;
+    live += wavefront_bounce_slot<kNee, kCount, kRegen, kStaged>(p, w, fb, ib, t) ? 1 : 0;
   }
   if (w.ctr == nullptr) return;
   for (int off = 16; off > 0; off >>= 1) live += __shfl_xor_sync(0xffffffffu, live, off);
@@ -1872,13 +1951,14 @@ __global__ void __launch_bounds__(256) wavefront_raygen_kernel(const Params p, c
 }
 
 // The launch grid of a wavefront kernel over `slots`: one thread a slot, at
-// most as many blocks as the card holds at once (the kernels walk the rest).
+// most as many blocks of 256 threads and `smem` bytes of dynamic shared
+// memory as the card holds at once (the kernels walk the rest).
 template <typename K>
-int wavefront_grid(K kernel, int slots) {
+int wavefront_grid(K kernel, int slots, size_t smem = 0) {
   int dev = 0, sms = 1, per_sm = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 256, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 256, smem);
   const int need = (slots + 255) / 256;
   const int fill = sms * (per_sm > 0 ? per_sm : 1);
   return need < fill ? (need > 0 ? need : 1) : fill;
@@ -2004,7 +2084,7 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
                                   : launch_adaptive<false, false>(p, a, s));
   }
   if (mode != PATH) {
-    const dim3 block(32, kAovThreads / 32);
+    const dim3 block(32, kStageThreads / 32);
     const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
     if (p.geo.sphere_bvh.m == 0 && p.geo.n_tris == 0) {
       if (count) render_aov_kernel<true, true><<<grid, block, 0, s>>>(p);
@@ -2029,7 +2109,10 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
 // (i32 rows 2 and 3), with `smp` its own sample; a finished sample then
 // goes to slot pix + (sample - sample_base) n_pixels of `out`, else to pix,
 // with the launch scalars `sample` and `bounce`.  `rays_out`, when not
-// null, receives the rays each finished sample traced.
+// null, receives the rays each finished sample traced.  `staged` scans the
+// spheres from a stage in shared memory (wavefront_bounce_kernel): only on
+// the brute route (no sphere BVH) of a scene of at most kStageSpheres
+// spheres; asked for on another scene the launch is refused.
 extern "C" int grt_wavefront_bounce(
     const float* scene, int n, const float* sbvh_f, const int* sbvh_i, int sbvh_m,
     const float* mesh, int n_tris, int smooth, const float* mbvh_f, const int* mbvh_i,
@@ -2038,7 +2121,9 @@ extern "C" int grt_wavefront_bounce(
     unsigned int frame_seed, int max_depth, float t_min, float t_max, int rr_depth,
     float sky_intensity, float clamp, float* f0, float* f1, int* i0, int* i1, int stride,
     int n_slots, int* ctr, int smp, int regen, unsigned int sample, int bounce,
-    unsigned int sample_base, int n_pixels, float* out, float* rays_out, void* stream) {
+    unsigned int sample_base, int n_pixels, float* out, float* rays_out, int staged,
+    void* stream) {
+  if (staged && (sbvh_m > 0 || n > kStageSpheres)) return static_cast<int>(cudaErrorInvalidValue);
   Params p = scene_params(nullptr, scene, n, sbvh_f, sbvh_i, sbvh_m, mesh, n_tris, smooth,
                           mbvh_f, mbvh_i, mbvh_m, lights, n_lights, tri_lights,
                           n_tri_lights, nee, mis, sampler, kx, ky, nbits);
@@ -2056,10 +2141,16 @@ extern "C" int grt_wavefront_bounce(
   if (slots <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool count = rays_out != nullptr;
+  const size_t smem = staged ? wf_stage_bytes(n) : 0;
 #define GRT_WF_LAUNCH(NEE, COUNT, REGEN)                                                  \
   {                                                                                       \
-    const auto kernel = wavefront_bounce_kernel<NEE, COUNT, REGEN>;                       \
-    kernel<<<wavefront_grid(kernel, slots), 256, 0, s>>>(p, w);                           \
+    if (staged) {                                                                         \
+      const auto kernel = wavefront_bounce_kernel<NEE, COUNT, REGEN, true>;               \
+      kernel<<<wavefront_grid(kernel, slots, smem), kStageThreads, smem, s>>>(p, w);      \
+    } else {                                                                              \
+      const auto kernel = wavefront_bounce_kernel<NEE, COUNT, REGEN, false>;              \
+      kernel<<<wavefront_grid(kernel, slots), kStageThreads, 0, s>>>(p, w);               \
+    }                                                                                     \
   }
   if (nee) {
     if (count) {

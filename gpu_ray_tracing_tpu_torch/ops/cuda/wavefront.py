@@ -53,6 +53,12 @@ Design, against the TPU engine:
   sample order afterwards: the image is the same in every run and equals
   the sample-major loop's.  The buffer holds at most REGEN_BATCH samples; a
   larger spp runs one pool per batch.
+- **Spheres staged a block.**  On the brute route (no sphere BVH) of a
+  scene of at most STAGE_SPHERES spheres, each block of the bounce kernel
+  stages the active spheres in shared memory once a launch and skips the
+  roots of the spheres a ray misses; a larger brute scene is scanned from
+  device memory.  `Engine.sphere_scan` decides this from the scene before
+  the launch, and both scans find the same hits bit for bit.
 - **Host synchronisation.**  The loop's counts live in a small i32 tensor
   on the device: the array's slot count, its live rays, its buffer, the
   stream cursor and a "done" flag.  Every kernel of an iteration reads them
@@ -121,6 +127,10 @@ PLAIN_SAMPLE_SLOTS = 1 << 20
 #: Iterations of a regenerating pool between two reads of its done flag.
 POLL_EVERY = 8
 SORTS = ("octant", "octant-flat", "spatial", "live")
+#: Spheres the bounce kernel's block stages in shared memory
+#: (megakernel.cu::kStageSpheres): a brute-route scene of at most this many
+#: spheres is scanned from the stage, a larger one from device memory.
+STAGE_SPHERES = 1024
 # Slots the partition's keys kernel ranks a block (wavefront.cu::kTile).
 _TILE = 2048
 
@@ -137,8 +147,10 @@ _BOUNDS_RESET = (_ordered(3.4e38), _ordered(-3.4e38))
 #: What the last render did: bounce and ray-generation launches that ran
 #: over rays, compactions, live ray-bounces, the live rays entering each
 #: iteration (per bounce, summed over samples, without regeneration), all
-#: counted on the device; host reads of the device (`host_syncs`), and the
-#: launches the host enqueued (`enqueued`).
+#: counted on the device; host reads of the device (`host_syncs`), the
+#: launches the host enqueued (`enqueued`), and how the bounce kernel
+#: scanned the spheres (`sphere_scan`: Engine.sphere_scan, or 'plain' for
+#: the plain version).
 LAST_RUN: dict = {}
 
 
@@ -261,6 +273,15 @@ class Engine:
     def route(self, regen: bool) -> str:
         return ("wavefront:" + self.packed().route + ("+regen" if regen else "")
                 + ("+rays" if self.count_rays else ""))
+
+    def sphere_scan(self) -> str:
+        """How the bounce kernel scans this scene's spheres, decided from the
+        scene alone: 'sphere_bvh' (the walk), 'staged' (a brute scan of at
+        most STAGE_SPHERES spheres from shared memory) or 'global' (a
+        larger brute scan from device memory)."""
+        if self.scene.sphere_bvh is not None:
+            return "sphere_bvh"
+        return "staged" if self.scene.spheres.count <= STAGE_SPHERES else "global"
 
 
 def new_state(n: int, regen: bool, device, *, per_ray_sample: bool = False
@@ -655,7 +676,7 @@ def _bounce_launch(eng: Engine, f, i, stride: int, n: int, *, ctr=None, regen: b
             int(per_ray_sample), int(regen), int(sample) & 0xFFFFFFFF, int(bounce),
             int(sample_base) & 0xFFFFFFFF, int(n_pixels), out.data_ptr(),
             None if rays_out is None else rays_out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(eng.sphere_scan() == "staged"), torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "wavefront_bounce")
     LAUNCHES[eng.route(regen)] += 1
 
@@ -962,7 +983,7 @@ def _render(scene_or_spheres, camera, *, plain: bool, width, height, sample_inde
     LAST_RUN.clear()
     LAST_RUN.update(run.counts(regenerate, max(max_depth, 0)), regenerate=bool(regenerate),
                     sort=sort, sample_batch=None if regenerate else batch,
-                    poll_every=POLL_EVERY)
+                    poll_every=POLL_EVERY, sphere_scan="plain" if plain else eng.sphere_scan())
     # The megakernel's mean is an IEEE division; torch divides a CUDA tensor
     # by a Python number as a multiplication by its reciprocal, which rounds
     # differently unless spp is a power of two.

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 import gpu_ray_tracing_tpu_torch as T
-from chip_smoke import sphere_cloud
+from chip_smoke import active_only, sphere_cloud, with_ties
 from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as mk
 
 # The suite runs in several worker processes at once: one torch thread
@@ -566,6 +566,36 @@ def test_wavefront_equals_megakernel_bit_for_bit(dev, route):
         b = wf.render_wavefront(scene, cam, regenerate=True, **kw)
         assert torch.equal(a, b)
         torch.testing.assert_close(a, want, atol=3e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["inactive", "ties"])
+def test_staged_bounce_equals_render_cuda_bit_for_bit(dev, case):
+    """The bounce kernel's staged sphere scan against render_cuda's scan
+    from device memory, One-Weekend 96x72: every third sphere after the
+    ground inactive, and its ten largest spheres duplicated with another
+    albedo (ties the first index wins).  Regeneration off, image and ray
+    counts, and on, bit for bit; each frame also equals its twin's (the
+    scene of the active spheres; One-Weekend itself)."""
+    from gpu_ray_tracing_tpu_torch.ops.cuda import wavefront as wf
+
+    ow = T.as_scene(T.one_weekend_scene(0)).spheres.to(dev)
+    if case == "inactive":
+        spheres = dataclasses.replace(ow, radii=ow.radii.clone())
+        spheres.radii[1::3] = 0.0
+        twin = active_only(T, spheres)
+    else:
+        spheres, twin = with_ties(T, ow), ow
+    scene, twin = T.as_scene(spheres), T.as_scene(twin)
+    cam = T.derive_camera(T.CameraSettings.default(), 96, 72).to(dev)
+    kw = dict(width=96, height=72, spp=2, max_depth=12, t_min=1e-3, frame_seed=13)
+    want, want_rays = mk.render_cuda(scene, cam, return_ray_count=True, **kw)
+    got, rays = wf.render_wavefront(scene, cam, return_ray_count=True, **kw)
+    assert wf.LAST_RUN["sphere_scan"] == "staged"
+    assert torch.equal(got, want) and torch.equal(rays, want_rays)
+    assert torch.equal(wf.render_wavefront(twin, cam, **kw), want)
+    regen = wf.render_wavefront(scene, cam, regenerate=True, **kw)
+    assert torch.equal(regen, want)
+    assert torch.equal(wf.render_wavefront(twin, cam, regenerate=True, **kw), want)
 
 
 def _partition_array(wf, dev, cap, n, regen, sort, live_p, seed):

@@ -349,11 +349,41 @@ def _jax_bounce(js, ints, ids, planes, *, regen, max_depth):
     return [np.asarray(o) for o in out]
 
 
-@pytest.mark.parametrize("regen", [False, True], ids=["scalar", "per_lane"])
-def test_one_bounce_against_wf_kernel(regen):
+def _bounce_scene(case: str):
+    """One-Weekend as a JAX scene; 'inactive': every third sphere after the
+    ground has radius 0; 'ties': its ten largest spheres appended again in
+    scene order with albedo 1 - albedo, exact ties that the first index
+    must win."""
+    js = J.models.scene.as_scene(J.one_weekend_scene(jax.random.key(0)))
+    if case == "one_weekend":
+        return js
+    fields = [f.name for f in dataclasses.fields(J.Spheres)]
+    sp = {f: np.array(getattr(js.spheres, f)) for f in fields}
+    if case == "inactive":
+        sp["radii"][1::3] = 0.0
+    else:
+        dup = np.sort(np.argsort(-sp["radii"], kind="stable")[:10])
+        extra = {f: v[dup] for f, v in sp.items()}
+        extra["albedo"] = 1.0 - extra["albedo"]
+        sp = {f: np.concatenate([sp[f], extra[f]]) for f in fields}
+    return J.models.scene.as_scene(J.Spheres(**{f: jnp.asarray(v) for f, v in sp.items()}))
+
+
+@pytest.mark.parametrize("regen,case", [
+    pytest.param(False, "one_weekend", id="scalar"),
+    pytest.param(True, "one_weekend", id="per_lane"),
+    pytest.param(False, "inactive", id="scalar-inactive"),
+    pytest.param(True, "inactive", id="per_lane-inactive"),
+    pytest.param(False, "ties", id="scalar-ties"),
+    pytest.param(True, "ties", id="per_lane-ties"),
+])
+def test_one_bounce_against_wf_kernel(regen, case):
     """The same numpy-seeded ray state through JAX's `_wf_kernel` (Pallas,
     interpret mode) and through wavefront_bounce_reference, one bounce of
-    One-Weekend 64 x 48 with the (sample, bounce) scalar or per lane.  The
+    One-Weekend 64 x 48 with the (sample, bounce) scalar or per lane; also
+    with every third sphere inactive and with ten spheres duplicated (ties
+    go to the first in scene order): the rules the kernel's staged scan
+    keeps (tests/test_torch_cuda.py holds it to render_cuda).  The
     live masks are equal and the bounce's radiance agrees within 1e-5 on
     every ray.  Of the rays that go on, at most 0.2% take another hit
     (interpret-mode Pallas departs from JAX's jitted pieces there, which
@@ -366,7 +396,7 @@ def test_one_bounce_against_wf_kernel(regen):
     w, h, p, n = 64, 48, 64 * 48, 4096
     seed, depth = 11, 30
     rng = np.random.default_rng(5 + regen)
-    js = J.models.scene.as_scene(J.one_weekend_scene(jax.random.key(0)))
+    js = _bounce_scene(case)
     ts = T.from_reference(js)
     cam = T.derive_camera(T.CameraSettings.default(), w, h)
     local = np.arange(n, dtype=np.int32)
@@ -417,6 +447,31 @@ def test_one_bounce_against_wf_kernel(regen):
     rest = gap[:, ~flipped]
     assert rest[:6].mean() < 1e-4 and rest[:6].max() < 1e-2, (rest[:6].mean(), rest[:6].max())
     assert rest[6:9].max() < 1e-6 and rest[9].max() == 0.0, rest[6:].max(1)
+
+
+def _spheres(n: int):
+    return T.Spheres(torch.zeros((n, 3)), torch.ones(n), torch.full((n, 3), 0.5),
+                     torch.zeros(n, dtype=torch.int32), torch.zeros(n))
+
+
+@pytest.mark.parametrize("case,want", [
+    ("none", "staged"), ("one_weekend", "staged"), ("stage_full", "staged"),
+    ("stage_over", "global"), ("sphere_bvh", "sphere_bvh"), ("mesh", "staged")])
+def test_sphere_scan_is_decided_from_the_scene(case, want):
+    """How the bounce kernel scans spheres (Engine.sphere_scan) follows from
+    the scene alone: a brute scan of at most STAGE_SPHERES spheres (a mesh
+    beside them or not, inactive ones counted) from the stage, a larger one
+    from device memory, a sphere BVH by its walk.  A plain render reports
+    'plain' in LAST_RUN."""
+    scene = {"none": lambda: _spheres(0), "one_weekend": lambda: T.one_weekend_scene(0),
+             "stage_full": lambda: _spheres(twf.STAGE_SPHERES),
+             "stage_over": lambda: _spheres(twf.STAGE_SPHERES + 1),
+             "sphere_bvh": _sphere_bvh_scene, "mesh": _mesh_scene}[case]()
+    cam = T.derive_camera(T.CameraSettings.default(), 8, 6)
+    assert twf.Engine(scene, cam, 0, 2, 1e-3, total_width=8).sphere_scan() == want
+    if case != "none":  # the plain scan's reduction needs a sphere
+        T.render_wavefront_reference(scene, cam, width=8, height=6, max_depth=2, t_min=1e-3)
+        assert twf.LAST_RUN["sphere_scan"] == "plain"
 
 
 def test_engine_against_jax_render_wavefront():
