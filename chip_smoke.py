@@ -17,7 +17,9 @@ card in phases, one JSON line each:
                   instance's SASS (cuobjdump) to compare two checkouts' builds
   3. hash_probe   the kernel's hashes vs ops/rng.py on 1M u32 values: bit-exact;
      sampler_probe  the kernel's stratified (4,4) and Sobol (nbits 5) remaps at
-                  pair ids 5-8 on 1M (pixel id, sample) pairs: bit-exact
+                  pair ids 5-8 on 1M (pixel id, sample) pairs: bit-exact; each
+                  kernel timed alone behind the spin kernel on inputs packed
+                  once (probe_launches), the wrapper's call beside it
   4. goldens      backend='cuda' renders vs the committed goldens (mesh_ico,
                   nee_light, nee_mis, many_mis and sobol_base included), at
                   tests/test_goldens.py's decision-flip thresholds; cornell_48x48
@@ -103,15 +105,18 @@ card in phases, one JSON line each:
                   <= 3e-5 from the first, twice for the run-to-run difference,
                   host reads at most one every POLL_EVERY iterations plus one;
                   both split into device time by kernel (bounce, ray generation,
-                  partition, step, other) and idle time (torch.profiler); the
-                  launches counted against the schedule the host must enqueue
-                  for the iterations the device counted; the loop's kernels
-                  timed at the main shape and held there to their plain
-                  versions (the 16 samples' 14.7 M-slot array and the
-                  921,600-slot pool, every sort: fill, partition, refill and
-                  step), the partition at both shapes beside torch.sort(keys,
-                  stable=True) + index_select on the same keys (the same
-                  permutation); the sort keys, compaction thresholds and sample
+                  partition and each of its kernels, step, other) and idle time
+                  (torch.profiler), and every partition call of a frame with its
+                  slots, live rays, what it did and its device ms
+                  (partition_calls); the launches counted against the schedule
+                  the host must enqueue for the iterations the device counted;
+                  the loop's kernels timed at the main shape and held there to
+                  their plain versions (the 16 samples' 14.7 M-slot array and
+                  the 921,600-slot pool, every sort: fill, partition, refill and
+                  step), the partition alone at both shapes, split by kernel,
+                  beside torch.sort(keys, stable=True) + index_select on the
+                  same keys (the same permutation); the sort keys, compaction
+                  thresholds and sample
                   batches, three runs each; and small frames on the other
                   routes, each bit-equal to render_cuda
  22. fma_peak     the FP32 probe (K3) vs its plain version at 32 rounds, then
@@ -262,8 +267,9 @@ under fma_peak and bf16_probe.  Then the kernels line (the megakernel once
 per path: brute, sphere_bvh, mesh_bvh, mesh_bvh+nee, brute+nee, brute+sobol,
 brute+aov_normal, brute+guides, brute+adaptive, mesh_bvh+nee+adaptive (with
 the kernel alone and its cluster size), the hash and sampler probes, wavefront:brute, wavefront:brute+regen,
-wavefront_partition, wavefront_raygen, wavefront_advance, fma_peak and
-bf16_probe), each row with its least time
+wavefront_partition (with its kernels' split at both shapes, the pool's
+times and a frame's calls, off and on), wavefront_raygen, wavefront_advance,
+fma_peak and bf16_probe), each row with its least time
 on the card (`bound_ms`, from the rays its counters measured at that row's
 shape and, on a brute scan, the share of sphere tests that need roots in
 the row's plain version on the same inputs), the card's `nvidia-smi` name and power limit, and last
@@ -302,6 +308,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -406,7 +413,6 @@ def sass_digests(build, infos: dict) -> dict:
     per-file tag taken out of the names), so that the builds of two
     checkouts compare function by function."""
     import hashlib
-    import re
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     out = {}
@@ -468,6 +474,37 @@ def alone_ms(fn, repeats: int) -> float:
 def kernel_ms(mk, scene, cam, kw: dict, repeats: int) -> float:
     """alone_ms of render_cuda(scene, cam, **kw)."""
     return alone_ms(lambda: mk.render_cuda(scene, cam, **kw), repeats)
+
+
+def probe_launches(mk, values, samples, salts, pairs) -> dict:
+    """The two probe kernels' launchers on tensors packed once on the card
+    (the values, salts and outputs the wrappers would make a call), so that
+    alone_ms times the kernel and not the wrapper's host copies,
+    allocations and u32 conversions; each returns its first output plane,
+    to check that it is the wrapper's kernel.  These launches are timings
+    and do not count."""
+    lib, dev, n = mk.build.load(), values.device, values.numel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    salt_t = torch.tensor(np.asarray(salts, np.uint32).view(np.int32), device=dev)
+    hash_out = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)] + [
+        torch.empty((len(salts), n), dtype=dt, device=dev) for dt in (torch.int32, torch.float32)]
+
+    def hash_launch(sample_index=5, frame_seed=99):
+        mk.build.check(lib.grt_hash_probe(
+            values.data_ptr(), n, salt_t.data_ptr(), len(salts), sample_index, frame_seed,
+            *[t.data_ptr() for t in hash_out], stream), "hash_probe")
+        return hash_out[0]
+    pair_t = torch.tensor(pairs, dtype=torch.int32, device=dev)
+    uv = [torch.empty((len(pairs), n), dtype=torch.float32, device=dev) for _ in range(2)]
+
+    def sampler_launch(spec, frame_seed=99):
+        kind, kx, ky, nbits = mk._sampler_args(spec)
+        mk.build.check(lib.grt_sampler_probe(
+            values.data_ptr(), samples.data_ptr(), n, pair_t.data_ptr(), len(pairs),
+            frame_seed, kind, kx, ky, nbits, uv[0].data_ptr(), uv[1].data_ptr(), stream),
+            "sampler_probe")
+        return uv[0]
+    return dict(hash=hash_launch, sampler=sampler_launch)
 
 
 def against_plain(T, mk, run, scene, cam, kw, flip: float, mean_tol: float,
@@ -1142,19 +1179,19 @@ def partition_vs_plain(wf, sc, cam, w: int, h: int, spp: int = 4,
 def library_partition(arr, pl, repeats: int) -> dict:
     """The partition as PyTorch calls (the yardstick; the port never calls
     them): torch.sort(keys, stable=True), whose indices are the permutation
-    the partition kernels compute from the same keys (the int16 keys
-    wf_keys_kernel wrote to arr.keys), and index_select of the gathered
-    slots' state planes.  The mean ms of `repeats` calls (CUDA events, one
-    warm-up), and whether the permutation equals the kernels' (arr.perm)."""
+    the partition kernels compute from the same keys (the int16 keys the
+    kernels wrote to arr.keys), and index_select of the gathered slots'
+    state planes.  Their time alone (alone_ms over `repeats` calls), and
+    whether the permutation equals the kernels' (arr.perm)."""
     n, m = pl.n, pl.n if arr.regen else pl.live
     keys, f, i = arr.keys[:n], arr.f[pl.cur], arr.i[pl.cur]
 
     def call():
         perm = torch.sort(keys, stable=True).indices
         return perm, f.index_select(1, perm[:m]), i.index_select(1, perm[:m])
-    call()
-    ms, (perm, _, _) = cuda_ms(call, repeats)
-    return dict(library_ms=ms, library_perm_equal=bool(torch.equal(perm, arr.perm[:n].long())))
+    ms = alone_ms(call, repeats)
+    return dict(library_ms=ms, library_perm_equal=bool(torch.equal(call()[0],
+                                                                   arr.perm[:n].long())))
 
 
 def time_partition(wf, sc, cam, w: int, h: int, spp: int, repeats: int = 10) -> dict:
@@ -1162,12 +1199,14 @@ def time_partition(wf, sc, cam, w: int, h: int, spp: int, repeats: int = 10) -> 
     samples of the (w x h) frame filled and bounced once on the card, then
     the first compaction (sort 'octant'), the stream fill and the step, each
     timed on the card (CUDA events, the mean of `repeats` calls on a copy
-    of the state) and as its plain version once; with the least bytes each
-    must move.  The fill and the partition are held to their plain
-    versions' results on the same state (`match`: as partition_vs_plain).
+    of the state; the partition alone, behind the spin kernel) and as its
+    plain version once; with the least bytes each must move.  The fill and
+    the partition are held to their plain versions' results on the same
+    state (`match`: as partition_vs_plain).
     The partition is also timed on the regenerating pool's first
     compaction (w x h slots), and at both shapes against its PyTorch
-    yardstick (library_partition)."""
+    yardstick (library_partition); at both shapes each partition kernel's
+    device ms (partition_split)."""
     dev, p = sc.device, w * h
     frame = dict(p=p, width=w, height=h, y_offset=0, row_stride=1)
     eng = wf.Engine(sc, cam, 7, 30, 1e-3, total_width=w)
@@ -1188,7 +1227,8 @@ def time_partition(wf, sc, cam, w: int, h: int, spp: int, repeats: int = 10) -> 
     twin = _clone_array(wf, arr)
     # Until the step, a partition reads the same counts and buffer: calling
     # it again repeats the same work.
-    part_ms, _ = cuda_ms(lambda: wf.wavefront_partition(eng, arr, sched), repeats)
+    part_ms = alone_ms(lambda: wf.wavefront_partition(eng, arr, sched), repeats)
+    split = partition_split(lambda: wf.wavefront_partition(eng, arr, sched), repeats)
     part_plain_ms, _ = cuda_ms(lambda: wf.wavefront_partition(plain, twin, sched), 1)
     n, m, o = pl.n, pl.live, pl.cur ^ int(pl.compact)
     match.update(perm_equal=bool(torch.equal(arr.perm[:n], twin.perm[:n])),
@@ -1206,7 +1246,8 @@ def time_partition(wf, sc, cam, w: int, h: int, spp: int, repeats: int = 10) -> 
     wf._bounce_step(eng, pool, pool_run, bounce=0, sample_base=0, n_pixels=p, out=out)
     torch.cuda.synchronize()
     pool_pl = wf._plan(pool.ctr, pool_sched)
-    pool_ms, _ = cuda_ms(lambda: wf.wavefront_partition(eng, pool, pool_sched), repeats)
+    pool_ms = alone_ms(lambda: wf.wavefront_partition(eng, pool, pool_sched), repeats)
+    pool_split = partition_split(lambda: wf.wavefront_partition(eng, pool, pool_sched), repeats)
     pool_library = library_partition(pool, pool_pl, repeats)
     del pool
     adv_ms, _ = cuda_ms(lambda: wf.wavefront_advance(eng, arr, sched, run, 0), repeats)
@@ -1218,10 +1259,11 @@ def time_partition(wf, sc, cam, w: int, h: int, spp: int, repeats: int = 10) -> 
     pool_bytes = p * 16 + p * 4 + p * 80 * 2
     fill_bytes = n * 76
     return dict(slots=n, live=m, compact=pl.compact, match=match,
-                partition=dict(ms=part_ms, plain_ms=part_plain_ms,
+                partition=dict(ms=part_ms, plain_ms=part_plain_ms, by_kernel_ms=split,
                                bound_ms=part_bytes / HBM_RATE * 1e3, bound_by="bytes",
                                **library, pool_slots=p, pool_compact=pool_pl.compact,
-                               pool_ms=pool_ms, pool_bound_ms=pool_bytes / HBM_RATE * 1e3,
+                               pool_ms=pool_ms, pool_by_kernel_ms=pool_split,
+                               pool_bound_ms=pool_bytes / HBM_RATE * 1e3,
                                pool_library_ms=pool_library["library_ms"],
                                pool_library_perm_equal=pool_library["library_perm_equal"]),
                 raygen=dict(ms=fill_ms, plain_ms=fill_plain_ms,
@@ -1230,37 +1272,114 @@ def time_partition(wf, sc, cam, w: int, h: int, spp: int, repeats: int = 10) -> 
                              bound_ms=(4 * 8 + 8 * 6) / HBM_RATE * 1e3, bound_by="bytes"))
 
 
-def device_breakdown(fn) -> dict:
-    """Device milliseconds of one call of fn by kernel (torch.profiler): the
-    wavefront bounce kernel, its ray generation (fill and refill), the
-    partition (wf_bounds/keys/scan/perm/gather kernels), the loop's step
-    (wf_advance_kernel), and everything else (the fold, the fills and
-    copies); and from the same call the span from the first kernel's start
-    to the last one's end and the share of it in which no kernel ran.  The
-    profiler slows the host, so the idle share is that of a profiled
-    frame."""
+def _is_partition(name: str) -> bool:
+    """Whether a device kernel is one of the partition's (wavefront.cu)."""
+    return "wf_" in name and "wf_advance_kernel" not in name
+
+
+def _kernel_name(name: str) -> str:
+    """A kernel's own name in the profiler's demangled signature."""
+    m = re.search(r"(\w+_kernel)\b", name)
+    return m.group(1) if m else name
+
+
+def _device_events(fn):
+    """The device events of one call of fn (torch.profiler), in start
+    order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA),
+                  key=lambda ev: ev.time_range.start)
+
+
+def device_breakdown(fn) -> dict:
+    """Device milliseconds of one call of fn by kernel (torch.profiler): the
+    wavefront bounce kernel, its ray generation (fill and refill), the
+    partition (the wf_ kernels of wavefront.cu but the step; each of them
+    apart under `partition_by_kernel_ms`), the loop's step
+    (wf_advance_kernel), and everything else (the fold, the fills and
+    copies); and from the same call the span from the first kernel's start
+    to the last one's end and the share of it in which no kernel ran.  The
+    profiler slows the host, so the idle share is that of a profiled
+    frame."""
     groups = {"bounce_kernel_ms": 0.0, "raygen_and_refill_kernel_ms": 0.0,
               "partition_kernels_ms": 0.0, "advance_kernel_ms": 0.0, "other_kernels_ms": 0.0}
+    split: dict = {}
     first, last = float("inf"), 0.0
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
+    for ev in _device_events(fn):
+        ms = ev.time_range.elapsed_us() / 1e3
         key = ("bounce_kernel_ms" if "wavefront_bounce_kernel" in ev.name else
                "raygen_and_refill_kernel_ms" if "wavefront_raygen_kernel" in ev.name else
                "advance_kernel_ms" if "wf_advance_kernel" in ev.name else
-               "partition_kernels_ms" if "wf_" in ev.name else
+               "partition_kernels_ms" if _is_partition(ev.name) else
                "other_kernels_ms")
-        groups[key] += ev.time_range.elapsed_us() / 1e3
+        groups[key] += ms
+        if key == "partition_kernels_ms":
+            split[_kernel_name(ev.name)] = split.get(_kernel_name(ev.name), 0.0) + ms
         first, last = min(first, ev.time_range.start), max(last, ev.time_range.end)
     span = (last - first) / 1e3
-    return dict(groups, profiled_device_span_ms=span,
+    return dict(groups, partition_by_kernel_ms=split, profiled_device_span_ms=span,
                 device_idle_share=1.0 - sum(groups.values()) / span)
+
+
+def partition_split(fn, repeats: int) -> dict:
+    """Device ms a call of each partition kernel over `repeats` calls of fn
+    (torch.profiler, after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(repeats):
+            fn()
+    split: dict = {}
+    for ev in _device_events(calls):
+        if _is_partition(ev.name):
+            name = _kernel_name(ev.name)
+            split[name] = split.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / repeats
+    return split
+
+
+def partition_calls(wf, fn) -> dict:
+    """Every partition call of one call of fn (a wavefront frame): the counts
+    it read (a device copy of the array's counts taken before the call, read
+    after the frame), so its slots n, its live rays, and whether it
+    compacted or only ranked a refill's dead slots; and its kernels' device
+    ms (torch.profiler: the partition kernels that run between two other
+    kernels are one call's).  Returns the list and its sums."""
+    snaps = []
+    real = wf.wavefront_partition
+
+    def spy(eng, arr, sched, run=None):
+        snaps.append((arr.ctr.clone(), sched))
+        return real(eng, arr, sched, run)
+    wf.wavefront_partition = spy
+    try:
+        events = _device_events(fn)
+    finally:
+        wf.wavefront_partition = real
+    segments, current = [], None
+    for ev in events:
+        if not _is_partition(ev.name):
+            current = None
+            continue
+        if current is None:
+            current = {}
+            segments.append(current)
+        name = _kernel_name(ev.name)
+        current[name] = current.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    rows = []
+    for (ctr, sched), kernels in zip(snaps, segments):
+        pl = wf._plan(ctr, sched)
+        rows.append(dict(n=pl.n, live=pl.live, compact=pl.compact, rank=pl.rank,
+                         ms=sum(kernels.values()), kernels=kernels))
+    work = [r["ms"] for r in rows if r["compact"] or r["rank"]]
+    total = sum(r["ms"] for r in rows)
+    return dict(calls=rows, count=len(rows), segments=len(segments), ms=total,
+                working_calls=len(work), working_ms=sum(work), idle_calls_ms=total - sum(work))
 
 
 def lit_scenes(T) -> dict:
@@ -2341,36 +2460,45 @@ def main() -> int:
     values[:2] = (0, 2**32 - 1)
     vt = torch.from_numpy(values.view(np.int32).copy()).to(dev)
     salts = [1, 2, 3, 4, 16, 17, 18, 1000]
-    got = mk.hash_probe(vt, salts, 5, 99)
-    want = mk.hash_probe_reference(vt, salts, 5, 99)
-    exact = {k: bool(torch.equal(got[k], want[k])) for k in want}
-    hash_ms, _ = cuda_ms(lambda: mk.hash_probe(vt, salts, 5, 99), 5)
-    hash_plain_ms, _ = cuda_ms(lambda: mk.hash_probe_reference(vt, salts, 5, 99), 1)
-    emit({"phase": "hash_probe", "n": int(values.size), "salts": salts, "bit_exact": exact,
-          "ms": hash_ms, "plain_ms": hash_plain_ms})
-    gate("hash_probe", all(exact.values()), f"hashes differ: {exact}")
-    probes = {"hash_probe": dict(launches=mk.LAUNCHES["hash_probe"], ms=hash_ms,
-                                 plain_ms=hash_plain_ms, max_abs_err=0.0 if all(exact.values())
-                                 else float("nan"))}
     # The sampler's remaps at pair ids 5-8 (AA, scatter, lens, NEE light 0)
     # on (pixel id, sample) pairs from the same values.
     samples = torch.from_numpy(np.roll(values, 1).view(np.int32).copy()).to(dev)
     pairs = [5, 6, 7, 8]
+    launches = probe_launches(mk, vt, samples, salts, pairs)
+    got = mk.hash_probe(vt, salts, 5, 99)
+    want = mk.hash_probe_reference(vt, salts, 5, 99)
+    exact = {k: bool(torch.equal(got[k], want[k])) for k in want}
+    same_kernel = bool(torch.equal(mk.rng_ops.as_u32(launches["hash"]()), got["wgsl_hash"]))
+    hash_ms = alone_ms(launches["hash"], 5)
+    hash_wrapper_ms, _ = cuda_ms(lambda: mk.hash_probe(vt, salts, 5, 99), 5)
+    hash_plain_ms, _ = cuda_ms(lambda: mk.hash_probe_reference(vt, salts, 5, 99), 1)
+    emit({"phase": "hash_probe", "n": int(values.size), "salts": salts, "bit_exact": exact,
+          "ms": hash_ms, "wrapper_ms": hash_wrapper_ms, "plain_ms": hash_plain_ms})
+    gate("hash_probe", all(exact.values()), f"hashes differ: {exact}")
+    gate("hash_probe", same_kernel, "the timed launch differs from the wrapper's")
+    probes = {"hash_probe": dict(launches=mk.LAUNCHES["hash_probe"], ms=hash_ms,
+                                 wrapper_ms=hash_wrapper_ms, plain_ms=hash_plain_ms,
+                                 max_abs_err=0.0 if all(exact.values()) else float("nan"))}
     mk.LAUNCHES.clear()
-    errs, sampler_ms, sampler_plain_ms = [], 0.0, 0.0
+    errs, sampler_ms, sampler_wrapper_ms, sampler_plain_ms = [], 0.0, 0.0, 0.0
     for spec in (("stratified", 4, 4), ("sobol", 5)):
         got = mk.sampler_probe(vt, samples, 99, spec, pairs)
         want = mk.sampler_probe_reference(vt, samples, 99, spec, pairs)
         exact = all(torch.equal(got[k], want[k]) for k in want)
         errs.append(max(float((got[k] - want[k]).abs().max()) for k in want))
-        t_k, _ = cuda_ms(lambda: mk.sampler_probe(vt, samples, 99, spec, pairs), 5)
+        same_kernel = bool(torch.equal(launches["sampler"](spec), got["u1"]))
+        t_k = alone_ms(lambda: launches["sampler"](spec), 5)
+        t_w, _ = cuda_ms(lambda: mk.sampler_probe(vt, samples, 99, spec, pairs), 5)
         t_p, _ = cuda_ms(lambda: mk.sampler_probe_reference(vt, samples, 99, spec, pairs), 1)
-        sampler_ms, sampler_plain_ms = sampler_ms + t_k, sampler_plain_ms + t_p
+        sampler_ms, sampler_wrapper_ms = sampler_ms + t_k, sampler_wrapper_ms + t_w
+        sampler_plain_ms += t_p
         emit({"phase": "sampler_probe", "spec": list(spec), "n": int(values.size),
-              "pairs": pairs, "bit_exact": exact, "ms": t_k, "plain_ms": t_p})
+              "pairs": pairs, "bit_exact": exact, "ms": t_k, "wrapper_ms": t_w, "plain_ms": t_p})
         gate("sampler_probe", exact, f"{spec}: the kernel's remaps differ from ops/rng.py")
+        gate("sampler_probe", same_kernel, f"{spec}: the timed launch differs from the wrapper's")
     probes["sampler_probe"] = dict(launches=mk.LAUNCHES["sampler_probe"], ms=sampler_ms,
-                                   plain_ms=sampler_plain_ms, max_abs_err=max(errs))
+                                   wrapper_ms=sampler_wrapper_ms, plain_ms=sampler_plain_ms,
+                                   max_abs_err=max(errs))
 
     # 4. goldens, through the public entry point with backend='cuda'
     base_cam = T.CameraSettings.make(**BASE_CAMERA)
@@ -2913,13 +3041,14 @@ def main() -> int:
         w_launches, stats = dict(mk.LAUNCHES), dict(wf.LAST_RUN)
         again = run()
         busy = device_breakdown(run)
+        calls = partition_calls(wf, run)
         p_ms, p_img = cuda_ms(lambda: wf.render_wavefront_reference(
             main_dev, cam6, regenerate=mode == "on", **kw_main), 1)
         route = "wavefront:brute" + ("+regen" if mode == "on" else "")
         live = stats.pop("live_per_iteration")
         m21 = T.images_match(w_img, p_img, 0.01, 2e-4)
         wave[mode] = dict(ms=w_ms, img=w_img, launches=w_launches, plain_ms=p_ms, route=route,
-                          max_abs=m21.max_abs, stats=stats, busy=busy)
+                          max_abs=m21.max_abs, stats=stats, busy=busy, calls=calls)
         vs_mega = float((w_img - main_img).abs().max())
         iterations = stats["bounce_launches"]
         read_bound = 1 if mode == "off" else -(-iterations // wf.POLL_EVERY) + 1
@@ -2933,7 +3062,7 @@ def main() -> int:
               "host_reads_bound": read_bound, "live_rays_per_iteration": live,
               "live_share_per_iteration": [v / (1280 * 720 * (16 if mode == "off" else 1))
                                            for v in live],
-              **busy,
+              **busy, "partition_calls": calls,
               "plain_ms": p_ms, "vs_plain": {"flip_frac": m21.flip_frac,
                                               "mean_abs": m21.mean_abs,
                                               "max_abs": m21.max_abs, "limits": [0.01, 2e-4]},
@@ -2961,6 +3090,9 @@ def main() -> int:
              and stats["enqueued"] == want and 0 < iterations <= want["bounce"],
              f"{mode}: the schedule is {want} a frame, the device counted {iterations} "
              f"iterations, 5 frames counted {w_launches}")
+        gate("wavefront_path", calls["count"] == calls["segments"] == want["partition"],
+             f"{mode}: {calls['count']} partition calls and {calls['segments']} runs of "
+             f"partition kernels in the profiled frame, the schedule is {want['partition']}")
         gate("wavefront_path", stats["host_syncs"] <= read_bound,
              f"{mode}: {stats['host_syncs']} host reads a frame, bound {read_bound}")
         gate("wavefront_path", stats["sphere_scan"] == "staged",
@@ -3335,10 +3467,20 @@ def main() -> int:
         fields = {"partition": ("planes_max_abs",), "raygen": ("fill_max_abs", "refill_max_abs"),
                   "advance": ("counts_max_abs",)}[key]
         err = max(r.get(f, 0.0) for r in main_part + [wf_parts["match"]] for f in fields)
+        extra = {}
+        if key == "partition":
+            # A frame's partition calls (the profiled frames of phase 21):
+            # [slots, live rays, compacted, ranked a refill, device ms].
+            extra = {f"frame_{mode}": dict(
+                ms=wave[mode]["busy"]["partition_kernels_ms"],
+                by_kernel_ms=wave[mode]["busy"]["partition_by_kernel_ms"],
+                calls=[[c["n"], c["live"], int(c["compact"]), int(c["rank"]), c["ms"]]
+                       for c in wave[mode]["calls"]["calls"]])
+                for mode in ("off", "on")}
         rows.append(dict(t, route="cuda", source=source, replaces=replaces, name=row_name,
                          path=f"main frame, {wf_parts['slots']} slots",
                          launches=wv["launches"].get(row_name, 0), max_abs_err=err,
-                         library_ms=t.get("library_ms")))
+                         library_ms=t.get("library_ms"), **extra))
     # K3: its counted operations over the nominal FP32 peak.  K4: its 9
     # operations a round and element at the issue rate of the type; the row
     # times the packed bf16 kernel and carries the f32 kernel's time and

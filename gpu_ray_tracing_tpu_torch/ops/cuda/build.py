@@ -116,7 +116,8 @@ _WAVEFRONT_SIGNATURES = {
         [_c_ptr, *_SCHED_ARGS,  # counts, schedule
          _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,  # f0, f1, i0, i1, i planes, stride
          _c_int, _c_int, _c_int,  # sort, bounce bucket, live keys
-         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],  # keys, rank, hist, perm, bounds, stream
+         _c_ptr, _c_ptr, _c_ptr,  # keys, look-back status, ticket and epoch
+         _c_ptr, _c_ptr, _c_ptr],  # perm, bounds, stream
     ),
     "grt_wf_advance": (
         _c_int,

@@ -37,8 +37,11 @@ Design, against the TPU engine:
   that is all its gathers move; here every slot moves on its own, and a
   ray's stream is unchanged by it, since every draw keys on (pixel id,
   sample, frame seed, salt).  The partition is a counting sort over the
-  sort's keys (at most 8 * 64 * 4 + 1), written by hand without atomics:
-  it gives exactly `_permutation`'s order.
+  sort's keys (at most 8 * 64 * 4 + 1) and 2,048-slot tiles, written by
+  hand: keys and a chained scan of their tile counts, then a scatter
+  through shared memory.  No result depends on an atomic (a ticket counter
+  only hands out the tiles in order), so it gives exactly `_permutation`'s
+  order.
 - **Samples are batched.**  Without regeneration a batch of samples (as
   many as SAMPLE_SLOTS slots hold on the card, PLAIN_SAMPLE_SLOTS in the
   plain version) is traced in one array, each ray carrying
@@ -131,7 +134,7 @@ SORTS = ("octant", "octant-flat", "spatial", "live")
 #: (megakernel.cu::kStageSpheres): a brute-route scene of at most this many
 #: spheres is scanned from the stage, a larger one from device memory.
 STAGE_SPHERES = 1024
-# Slots the partition's keys kernel ranks a block (wavefront.cu::kTile).
+# Slots of one tile of the partition (wavefront.cu::kTile).
 _TILE = 2048
 
 
@@ -390,9 +393,14 @@ class RayArray:
         self.ctr = torch.zeros(CTR_WORDS, dtype=torch.int32, device=device)
         self.code, self.bucket, self.n_keys = _sort_code(sort, regen)
         self.keys = torch.empty(cap, dtype=torch.int16, device=device)
-        self.rank = torch.empty(cap, dtype=torch.int32, device=device)
-        self.hist = torch.empty((self.n_keys + 1) * -(-cap // _TILE), dtype=torch.int32,
-                                device=device)
+        # The partition's look-back words (a key's count or prefix, tagged
+        # with the call's epoch), one per key and tile, and its tile ticket
+        # and next epoch: words of epoch 0 are unpublished, and the first
+        # call is epoch 1.
+        self.status = torch.zeros((self.n_keys + 1) * -(-cap // _TILE), dtype=torch.int64,
+                                  device=device)
+        self.sync = torch.zeros(2, dtype=torch.int32, device=device)
+        self.sync[1] = 1
         self.perm = torch.empty(cap, dtype=torch.int32, device=device)
         self.bounds = torch.empty(6, dtype=torch.int32, device=device)
         self.reset_bounds()
@@ -770,7 +778,9 @@ def wavefront_partition(eng: Engine, arr: RayArray, sched: Schedule,
     order (arr.perm) and the state planes gathered into the other buffer;
     or, when a pool only refills, its dead slots' order.  On the card it
     launches the partition kernels of ops/cuda/wavefront.cu (a stable
-    counting sort); elsewhere the plain version."""
+    counting sort over 2,048-slot tiles: keys and a chained scan of their
+    counts, then a scatter through shared memory); elsewhere the plain
+    version."""
     if run is not None:
         run.enqueued["partition"] += 1
     if not eng.on_card(arr.f):
@@ -780,8 +790,8 @@ def wavefront_partition(eng: Engine, arr: RayArray, sched: Schedule,
     with torch.cuda.device(dev):
         rc = lib.grt_wf_partition(
             arr.ctr.data_ptr(), *sched.args(), *arr.buffers(), arr.rows, arr.cap, arr.code,
-            int(arr.bucket), arr.n_keys, arr.keys.data_ptr(), arr.rank.data_ptr(),
-            arr.hist.data_ptr(), arr.perm.data_ptr(), arr.bounds.data_ptr(),
+            int(arr.bucket), arr.n_keys, arr.keys.data_ptr(), arr.status.data_ptr(),
+            arr.sync.data_ptr(), arr.perm.data_ptr(), arr.bounds.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "wavefront_partition", "wavefront")
     LAUNCHES["wavefront_partition"] += 1

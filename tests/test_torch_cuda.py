@@ -611,21 +611,32 @@ def _partition_array(wf, dev, cap, n, regen, sort, live_p, seed):
     return arr, live
 
 
-@pytest.mark.parametrize("case", ["random", "all_dead", "all_live", "one_ray"])
+@pytest.mark.parametrize("case", ["random", "all_dead", "all_live", "one_ray", "tile_minus_one",
+                                  "one_tile", "tile_plus_one", "three_tiles_plus_one",
+                                  "far_below_cap", "after_a_no_op"])
 @pytest.mark.parametrize("sort", ["octant", "octant-flat", "spatial", "live"])
 @pytest.mark.parametrize("regen", [False, True], ids=["samples", "regen"])
 def test_partition_kernel_equals_permutation(dev, regen, sort, case):
-    """The stable counting sort of ops/cuda/wavefront.cu (keys, block ranks,
-    scan, permutation, gather) against `_permutation` (torch sort keys and
-    a stable argsort) on the same state: the permutation of every slot and
-    the gathered planes exactly, and the step's new slot count; under
-    regeneration with the bounce bucket, and, when only a refill follows,
-    the dead slots' order.  An all-dead, an all-live and a one-ray array
-    included."""
+    """The stable counting sort of ops/cuda/wavefront.cu (keys and the
+    chained scan of their tile counts, then the scatter through shared
+    memory) against `_permutation` (torch sort keys and a stable argsort)
+    on the same state: the permutation of every slot and the gathered
+    planes exactly, and the step's new slot count; under regeneration with
+    the bounce bucket ('spatial': 2,049 keys), and, when only a refill
+    follows, the dead slots' order.  An all-dead, an all-live and a one-ray
+    array included; slot counts at the 2,048-slot tile's edges and three
+    tiles plus one; 3,000 slots of a 300,000-slot array whose slots past
+    3,000 hold live rays (the grid must not read them); and a call after
+    one that had nothing to do (the loop was over)."""
     from gpu_ray_tracing_tpu_torch.ops.cuda import wavefront as wf
 
     cap, n, live_p = {"random": (300_000, 299_937, 0.4), "all_dead": (5000, 5000, 0.0),
-                      "all_live": (5000, 5000, 1.0), "one_ray": (64, 1, 1.0)}[case]
+                      "all_live": (5000, 5000, 1.0), "one_ray": (64, 1, 1.0),
+                      "tile_minus_one": (2047, 2047, 0.4), "one_tile": (2048, 2048, 0.4),
+                      "tile_plus_one": (2049, 2049, 0.4),
+                      "three_tiles_plus_one": (6145, 6145, 0.4),
+                      "far_below_cap": (300_000, 3_000, 0.5),
+                      "after_a_no_op": (20_000, 19_999, 0.4)}[case]
     scene, cam = _one_weekend(dev, 16, 8)
     eng = wf.Engine(scene, cam, 3, 8, 1e-3, total_width=16)
     for threshold in (1.1, 0.0):
@@ -635,6 +646,10 @@ def test_partition_kernel_equals_permutation(dev, regen, sort, case):
         sched = wf.Schedule(threshold, 0.25, 3 * n, n, regen=regen)
         compact = (regen or live > 0) and threshold > 1.0
         rank = regen and not compact and live < n
+        if case == "after_a_no_op":
+            arr.ctr[wf.CTR_DONE] = 1
+            wf.wavefront_partition(eng, arr, sched)
+            arr.ctr[wf.CTR_DONE] = 0
         wf.wavefront_partition(eng, arr, sched)
         run = wf._Run(dev, 4)
         wf.wavefront_advance(eng, arr, sched, run, 0)

@@ -327,6 +327,52 @@ def test_compaction_helpers_equal_jax_exactly():
             assert np.array_equal(got.numpy(), want), (use_bounce, use_origins)
 
 
+@pytest.mark.parametrize("n", [2047, 2048, 2049, 3 * 2048 + 1])
+@pytest.mark.parametrize("sort", twf.SORTS)
+@pytest.mark.parametrize("regen", [False, True], ids=["samples", "regen"])
+def test_partition_reference_equals_jax_at_tile_edges(regen, sort, n):
+    """The partition's plain version on a RayArray (wavefront_partition_reference:
+    `_permutation` and the gathers) against JAX's `_sort_rows_octant` /
+    `_partition_live` on the same one-ray rows, at slot counts around the
+    kernels' 2,048-slot tile: every sort, with the bounce bucket under
+    regeneration ('spatial': 2,049 keys) and without it, the permutation
+    and the gathered planes exactly; and, when a pool only refills, the
+    dead slots' order.  The card tests hold the kernels to this plain
+    version."""
+    rng = np.random.default_rng(n + 7 * twf.SORTS.index(sort) + 100 * regen)
+    cap = n + 5
+    arr = twf.RayArray(cap, regen, sort, "cpu")
+    arr.f.copy_(torch.from_numpy(rng.normal(size=arr.f.shape).astype(np.float32)))
+    arr.f[:, twf.LIVE] = torch.from_numpy((rng.random((2, cap)) < 0.4).astype(np.float32))
+    arr.i.copy_(torch.from_numpy(rng.integers(-1, 9, arr.i.shape).astype(np.int32)))
+    f, i = arr.f[0].numpy().copy(), arr.i[0].numpy().copy()
+    live_rows = f[twf.LIVE, :n]
+    live = int((live_rows > 0.5).sum())
+    col = lambda r: jnp.asarray(f[r, :n, None])
+    if sort == "live":
+        want = np.asarray(jwf._partition_live(jnp.asarray(live_rows)))
+    else:
+        want = np.asarray(jwf._sort_rows_octant(
+            jnp.asarray(live_rows), col(twf.DX), col(twf.DY), col(twf.DZ),
+            bounce_rows=jnp.asarray(i[twf.BNC, :n]) if regen and sort != "octant-flat" else None,
+            origins=(col(twf.OX), col(twf.OY), col(twf.OZ)) if sort == "spatial" else None))
+    for threshold in (1.1, 0.0):
+        arr.ctr.copy_(torch.tensor([n, live, 0, 0, 0, live, 0, 0], dtype=torch.int32))
+        arr.perm.fill_(-1)
+        sched = twf.Schedule(threshold, 0.25, 3 * n, n, regen=regen)
+        twf.wavefront_partition_reference(arr, sched)
+        if threshold > 1.0:
+            m = n if regen else live
+            assert np.array_equal(arr.perm[:n].numpy(), want)
+            assert np.array_equal(arr.f[1, :, :m].numpy(), f[:, want[:m]])
+            assert np.array_equal(arr.i[1, :, :m].numpy(), i[:, want[:m]])
+        elif regen:
+            assert np.array_equal(arr.perm[:n].numpy(),
+                                  np.asarray(jwf._partition_live(jnp.asarray(live_rows))))
+        else:
+            assert bool((arr.perm == -1).all())
+
+
 def _jax_bounce(js, ints, ids, planes, *, regen, max_depth):
     """One launch of JAX's `_wf_kernel` in interpret mode over (rows, 128)
     planes, as render_wavefront builds it for a brute-scan scene."""
