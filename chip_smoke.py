@@ -256,10 +256,24 @@ card in phases, one JSON line each:
                   against One-Weekend, One-Weekend beside an icosphere(4),
                   _nee_scene's NEE+MIS (the staged shadow query) and a ragged
                   1283x717 frame; each case's scan (LAST_RUN) gated
+ 34. bvh_stage    render_kernel's staged BVH route (a block copies a small
+                  BVH scene to shared memory once a launch and walks it
+                  there) at 1280x720 on stage_scenes' edge cases: the
+                  Cornell box, config 3, a stage exactly at the cap and one
+                  record above it (the global walk), a sphere BVH beside a
+                  mesh, inactive spheres inside leaves, zero-area and
+                  edge-on faces, a floor of quads (shared diagonals), 81
+                  lights under NEE+MIS and a ragged frame: each launched
+                  twice (identical), bit for bit, ray counts included,
+                  against the global walk (STAGE_BYTES 0) and
+                  render_wavefront without regeneration, on the route
+                  pack_scene decides ("+staged" in the launch key)
 
 Every phase that launches the megakernel gates its launch count on its own
 route key (megakernel:brute, :sphere_bvh, :mesh_bvh, suffixed +nee,
-+sobol/+stratified, +adaptive and +rays when the launch ran them); the
++sobol/+stratified, +staged, +adaptive and +rays when the launch ran
+them: phases 7, 9 (config 3), 11 (81 lights) and 12 take the staged
+route); the
 wavefront bounce kernel counts under wavefront:<route>[+regen][+rays], its
 ray generation under wavefront_raygen, the partition under
 wavefront_partition, the loop's step under wavefront_advance, the probes
@@ -272,7 +286,10 @@ times and a frame's calls, off and on), wavefront_raygen, wavefront_advance,
 fma_peak and bf16_probe), each row with its least time
 on the card (`bound_ms`, from the rays its counters measured at that row's
 shape and, on a brute scan, the share of sphere tests that need roots in
-the row's plain version on the same inputs), the card's `nvidia-smi` name and power limit, and last
+the row's plain version on the same inputs; on the BVH rows the walks that
+plain version counted: nodes, faces, sphere tests and roots of its closest
+hits, one box and one leaf a shadow ray, with the walk render_kernel took,
+its stage's bytes and the blocks an SM), the card's `nvidia-smi` name and power limit, and last
 {"ok": true, "device": {...}}.  A failed gate exits nonzero before that line.
 Without a CUDA device, or outside the repository, it exits nonzero and prints
 no result.  It needs no network and starts no process that outlives it.
@@ -293,10 +310,21 @@ one inverse-rendering step at phase 27's settings (forward and backward,
 the median of 5), and prints one JSON line; with `--save-frame PATH` it
 also saves the frame as a .npy file, each adaptive frame's image, spp map,
 ray counts and six state planes in PATH's stem + "_adaptive.npz", the
-AOV planes in PATH's stem + "_aov.npz", and the two wavefront frames
-(regeneration off and on) in PATH's stem + "_wavefront.npz".  "The kernel
+AOV planes in PATH's stem + "_aov.npz", the two wavefront frames
+(regeneration off and on) in PATH's stem + "_wavefront.npz", and the
+frames of the routes timed alone (configs 3 and 4, the Cornell box, the
+night scene, the progressive step) in PATH's stem + "_routes.npz".  "The kernel
 alone" is the device time of render_cuda calls queued behind a spin
-kernel, so the host's packing per call does not show.  Copied into
+kernel, so the host's packing per call does not show.
+
+    python3 chip_smoke.py --route-variants
+
+runs phases 1 and 2, builds the copies of megakernel.cu that
+ROUTE_VARIANTS names (each differing from the checkout's as its name
+says), times the kernel alone on the Cornell box and configs 3 and 4 with
+the checkout's build, its global walk and each copy in turns, holds each
+exact copy's frames to the checkout's, counts the walks of each frame's
+plain version, and prints one JSON line.  Copied into
 another checkout and run there, it times that checkout's package: run two
 checkouts in turns (A, B, B, A) within one machine to compare two builds of
 the kernel, and compare their saved frames bit for bit.
@@ -444,17 +472,32 @@ def cuda_ms(fn, repeats: int) -> tuple[float, object]:
     return start.elapsed_time(end) / repeats, out
 
 
-def plain_run(fn) -> tuple[float, object, float | None]:
+# The walks plain_run counted last (walks=True): ops/intersect.BVH_VISITS.
+LAST_WALKS: dict = {}
+
+
+def plain_run(fn, walks: bool = False) -> tuple[float, object, float | None]:
     """cuda_ms(fn, 1) of a plain version's call, and the share of its
     brute-scan (ray, active sphere) tests whose discriminant is not
     negative (ops/intersect.SPHERE_TESTS; None where it ran no brute scan).
-    Counting adds a compare and a sum to each scan."""
+    Counting adds a compare and a sum to each scan.  With `walks` it also
+    counts the kernel's walks for the plain version's live rays
+    ("closest") and shadow rays ("shadow") into LAST_WALKS
+    (ops/intersect.BVH_VISITS: nodes, leaves, faces, spheres, roots,
+    rays), which replays each query's walk in the kernel's order and adds
+    its time to the call's."""
     from gpu_ray_tracing_tpu_torch.ops import intersect
     intersect.SPHERE_TESTS = counts = {"tests": 0, "roots": 0}
+    visits = {}
+    if walks:
+        intersect.BVH_VISITS = visits
     try:
         ms, out = cuda_ms(fn, 1)
     finally:
         intersect.SPHERE_TESTS = None
+        intersect.BVH_VISITS = None
+    LAST_WALKS.clear()
+    LAST_WALKS.update(visits)
     tests = int(counts["tests"])
     return ms, out, int(counts["roots"]) / tests if tests else None
 
@@ -508,23 +551,28 @@ def probe_launches(mk, values, samples, salts, pairs) -> dict:
 
 
 def against_plain(T, mk, run, scene, cam, kw, flip: float, mean_tol: float,
-                  warmup: int = 1, plain=None) -> dict:
+                  warmup: int = 1, plain=None, walks: bool = False) -> dict:
     """Reset the launch counts, call `run` (a kernel path) `warmup` times
     and 5 timed times (CUDA events), read the counts, then render the same
     frame with the plain version once (render_reference(scene, cam, **kw);
-    its launches do not count; plain_run's root share) unless `plain`
-    gives (image, ms, root share) already.  The kernel's image is matched
-    to the plain one at (flip, mean_tol)."""
+    its launches do not count; plain_run's root share, and with `walks`
+    its counted walks) unless `plain` gives (image, ms, root share)
+    already.  The kernel's image is matched to the plain one at (flip,
+    mean_tol)."""
     mk.LAUNCHES.clear()
     for _ in range(warmup):
         run()
     ms, img = cuda_ms(run, 5)
     launches = dict(mk.LAUNCHES)
+    counted = {}
     if plain is None:
-        plain_ms, plain_img, share = plain_run(lambda: mk.render_reference(scene, cam, **kw))
+        plain_ms, plain_img, share = plain_run(lambda: mk.render_reference(scene, cam, **kw),
+                                               walks)
+        counted = dict(LAST_WALKS)
     else:
         plain_img, plain_ms, share = plain
     return dict(img=img, plain_img=plain_img, ms=ms, plain_ms=plain_ms, root_share=share,
+                walks=counted,
                 launches=launches, finite=bool(torch.isfinite(img).all()),
                 mean=float(img.mean()), match=T.images_match(img, plain_img, flip, mean_tol))
 
@@ -818,6 +866,135 @@ def phase_wf_stage(T, mk, wf, dev, smi: str) -> dict:
                 launches=sum(sum(r[m]["launches"].values()) for r in rows for m in ("off", "on")))
 
 
+def _quads(T, quads, **mat_kw):
+    """A mesh of two-triangle quads a-b-c-d (winding order)."""
+    verts = np.asarray([v for q in quads for v in q], np.float32)
+    faces = np.asarray([[4 * i + a, 4 * i + b, 4 * i + c] for i in range(len(quads))
+                        for a, b, c in ((0, 1, 2), (0, 2, 3))], np.int64)
+    return T.make_mesh(verts, faces, **mat_kw)
+
+
+def stage_scenes(T, stage_bytes: int) -> dict:
+    """The edge cases of render_kernel's BVH stage (phase 34 and
+    tests/test_torch_cuda.py), on the CPU: {name: (scene, camera settings,
+    render keywords)}.  `stage_bytes` is the stage's cap
+    (megakernel.STAGE_BYTES): "at_cap" fills it exactly (a box of 12 faces
+    and brute spheres beside it) and "above_cap" holds one sphere more (16
+    bytes: the global walk).  "mesh_and_sphere_bvh": a sphere BVH over 300
+    spheres beside an icosphere(1); "inactive_in_leaves": a 400-sphere BVH
+    whose every fifth sphere is then made inactive inside its leaf (its
+    radius negated); "degenerate_faces": zero-area faces (every ray
+    near-parallel) and faces edge-on to the camera beside a box;
+    "quad_diagonals": a floor of
+    8 x 8 quads, so rays land on shared diagonals (equal t on both
+    triangles: the first face must win); "many_lights": 81 lights
+    (NEE+MIS, one light picked a bounce); "cornell_ragged": the Cornell box
+    in a ragged frame."""
+    ow_cam = T.CameraSettings.default()
+    lk = dict(nee=True, mis=True, sky_intensity=0.0)
+    box = T.transform_mesh(T.box(albedo=(0.8, 0.3, 0.2)), 1.2, (0.0, 0.6, -1.0))
+    probe = T.make_scene(sphere_cloud(T, 1, "cpu"), box, sphere_bvh=False)
+    mesh_bytes = 16 * (3 * probe.mesh.num_triangles + 2 * probe.bvh.num_nodes)
+    n_cap = (stage_bytes - mesh_bytes) // 16
+    at_cap = T.make_scene(sphere_cloud(T, n_cap, "cpu", seed=34), box, sphere_bvh=False)
+    above = T.make_scene(sphere_cloud(T, n_cap + 1, "cpu", seed=34), box, sphere_bvh=False)
+    ico = T.transform_mesh(T.icosphere(1, albedo=(0.75, 0.6, 0.45)), 0.8, (1.5, 0.8, 0.5))
+    both = T.make_scene(sphere_cloud(T, 300, "cpu", seed=35), ico, sphere_bvh=True)
+    holes = T.make_scene(sphere_cloud(T, 400, "cpu", seed=36), sphere_bvh=True)
+    radii = holes.spheres.radii.clone()
+    radii[1::5] = -radii[1::5]  # inactive, yet a sphere if its sign were ignored
+    holes = dataclasses.replace(holes, spheres=dataclasses.replace(holes.spheres, radii=radii))
+    # The default camera looks from (13, 2, 3) at the origin: faces in
+    # vertical planes through its eye are edge-on to its rays.
+    eye = np.asarray([13.0, 2.0, 3.0], np.float32)
+    side = np.asarray([-3.0, 0.0, 13.0], np.float32) / np.hypot(3.0, 13.0)
+    edge_on = [[eye + a * np.asarray([-13.0, -2.0, -3.0]) / 13.5 + b * np.asarray([0, 1, 0])
+                for a, b in ((8, -1), (16, -1), (16, 1), (8, 1))],
+               [eye + a * side + b * np.asarray([0, 1, 0]) for a, b in ((-3, -1), (3, -1),
+                                                                      (3, 1), (-3, 1))]]
+    flat = [[np.asarray(c, np.float32)] * 4 for c in ((0.0, 1.0, 0.0), (2.0, 0.5, -1.0))]
+    degenerate = T.make_scene(sphere_cloud(T, 40, "cpu", seed=37), T.merge_meshes(
+        box, _quads(T, edge_on, albedo=(0.3, 0.8, 0.3)), _quads(T, flat, albedo=(0.9, 0.9, 0.2))))
+    g = np.linspace(-4.0, 4.0, 9)
+    tiles = [[(g[i], 0.01, g[j]), (g[i + 1], 0.01, g[j]), (g[i + 1], 0.01, g[j + 1]),
+              (g[i], 0.01, g[j + 1])] for i in range(8) for j in range(8)]
+    diagonals = T.make_scene(sphere_cloud(T, 30, "cpu", seed=38),
+                             _quads(T, tiles, albedo=(0.6, 0.6, 0.6), mat_kind=T.METAL,
+                                    mat_param=0.0))
+    base = dict(spp=2, max_depth=8)
+    return {
+        "cornell_nee_mis": (T.cornell_box_scene(), T.cornell_camera(), dict(base, **lk)),
+        "config3": (T.make_scene(T.one_weekend_scene(0, grid_min=-11, grid_max=11)), ow_cam,
+                    dict(spp=1, max_depth=50)),
+        "at_cap": (at_cap, ow_cam, base),
+        "above_cap": (above, ow_cam, base),
+        "mesh_and_sphere_bvh": (both, ow_cam, base),
+        "inactive_in_leaves": (holes, ow_cam, base),
+        "degenerate_faces": (degenerate, ow_cam, base),
+        "quad_diagonals": (diagonals, ow_cam, base),
+        "many_lights": (lit_scenes(T)["many_lights"], T.CameraSettings.make(**BASE_CAMERA),
+                        dict(spp=2, max_depth=4, **lk)),
+        "cornell_ragged": (T.cornell_box_scene(), T.cornell_camera(),
+                           dict(base, width=1283, height=717, **lk)),
+    }
+
+
+def bvh_stage_case(T, mk, wf, dev, name: str, scene, cam_s, cfg_kw: dict) -> dict:
+    """Phase 34, one case: render_cuda twice with ray counts (identical),
+    on the route pack_scene decides (staged when stage_bytes_of > 0), bit
+    for bit against the same frame on the global walk (STAGE_BYTES 0) and
+    through the wavefront engine without regeneration (whose bounce walks
+    the global arrays), ray counts included."""
+    kw = dict(cfg_kw)
+    w, h = kw.pop("width", 1280), kw.pop("height", 720)
+    sc = T.as_scene(scene).to(dev)
+    cam = T.derive_camera(cam_s, w, h).to(dev)
+    kw = dict(width=w, height=h, t_min=1e-3, frame_seed=34, **kw)
+    stage = mk.stage_bytes_of(sc)
+    mk.LAUNCHES.clear()
+    img, rays = mk.render_cuda(sc, cam, return_ray_count=True, **kw)
+    again, rays_again = mk.render_cuda(sc, cam, return_ray_count=True, **kw)
+    launches = dict(mk.LAUNCHES)
+    cap = mk.STAGE_BYTES
+    mk.STAGE_BYTES = 0
+    try:
+        g_img, g_rays = mk.render_cuda(sc, cam, return_ray_count=True, **kw)
+    finally:
+        mk.STAGE_BYTES = cap
+    w_img, w_rays = wf.render_wavefront(sc, cam, regenerate=False, return_ray_count=True, **kw)
+    r = dict(case=name, size=[w, h], spp=kw["spp"], max_depth=kw["max_depth"],
+             spheres=sc.spheres.count, faces=0 if sc.mesh is None else sc.mesh.num_triangles,
+             stage_bytes=stage, launches=launches,
+             repeat_identical=bool(torch.equal(img, again) and torch.equal(rays, rays_again)),
+             equals_global=bool(torch.equal(img, g_img) and torch.equal(rays, g_rays)),
+             equals_wavefront=bool(torch.equal(img, w_img) and torch.equal(rays, w_rays)),
+             max_abs_vs_global=float((img - g_img).abs().max()),
+             max_abs_vs_wavefront=float((img - w_img).abs().max()),
+             rays_traced=float(rays.double().sum()))
+    staged_keys = [k for k in launches if "+staged" in k]
+    r["route_ok"] = (sum(launches.values()) == 2
+                     and len(staged_keys) == (1 if stage else 0))
+    r["ok"] = (r["repeat_identical"] and r["equals_global"] and r["equals_wavefront"]
+               and r["route_ok"] and bool(torch.isfinite(img).all()))
+    return r
+
+
+def phase_bvh_stage(T, mk, wf, dev, smi: str) -> dict:
+    """Phase 34, bvh_stage: render_kernel's staged BVH route at 1280x720 on
+    stage_scenes' edge cases (the Cornell box and config 3 among them), each
+    bit for bit against the global walk and the wavefront engine."""
+    cases = stage_scenes(T, mk.STAGE_BYTES)
+    rows = [bvh_stage_case(T, mk, wf, dev, name, *case) for name, case in cases.items()]
+    emit({"phase": "bvh_stage", "cases": rows, "cap_bytes": mk.STAGE_BYTES, "card": smi})
+    for r in rows:
+        gate("bvh_stage", r["ok"], f"{r['case']}: {r}")
+    gate("bvh_stage", [r["stage_bytes"] for r in rows if r["case"] in ("at_cap", "above_cap")]
+         == [mk.STAGE_BYTES, 0], "the cap's edge cases took the wrong route")
+    return dict(cases=len(rows), staged=sum(1 for r in rows if r["stage_bytes"]),
+                launches=sum(sum(r["launches"].values()) for r in rows),
+                all_equal=all(r["ok"] for r in rows))
+
+
 def mesh_scene(T, subdivisions: int):
     """benchmarks/parity_check.py::_mesh_scene, and run.py's config 4 at
     subdivisions=6."""
@@ -826,13 +1003,12 @@ def mesh_scene(T, subdivisions: int):
     return T.make_scene(ground, T.transform_mesh(ico, 0.8, (0.0, 0.8, 0.0)))
 
 
-def time_routes(T, mk, repeats: int) -> dict:
-    """The kernel alone (kernel_ms over `repeats` launches) on the frames
-    of phases 9, 10, 12 and 11's night case, and on one 1-spp step of
-    phase 18, each with its phase's seed: {route: ms}."""
-    dev = torch.device("cuda", 0)
+def route_frames(T) -> dict:
+    """The frames time_routes times: phases 9, 10, 12 and 11's night case,
+    and one 1-spp step of phase 18, each with its phase's seed: {route:
+    (scene, camera settings, width, height, render_cuda keywords)}."""
     ow, lk = T.CameraSettings.default(), dict(nee=True, mis=True)
-    frames = {
+    return {
         "config3": (T.make_scene(T.one_weekend_scene(0, grid_min=-11, grid_max=11)), ow,
                     1280, 720, dict(spp=1, max_depth=50, frame_seed=3)),
         "config4": (mesh_scene(T, 6), T.CameraSettings.make(**MESH_CAMERA), 640, 480,
@@ -844,12 +1020,180 @@ def time_routes(T, mk, repeats: int) -> dict:
         "progressive_step": (T.one_weekend_scene(0), ow, 1280, 720,
                              dict(spp=1, max_depth=30, frame_seed=7, sample_index=5)),
     }
+
+
+def route_inputs(T, frame) -> tuple:
+    """(scene, camera, render_cuda keywords) of a route_frames entry, on the card."""
+    dev = torch.device("cuda", 0)
+    scene, cam_s, w, h, kw = frame
+    return (T.as_scene(scene).to(dev), T.derive_camera(cam_s, w, h).to(dev),
+            dict(width=w, height=h, t_min=1e-3, **kw))
+
+
+def time_routes(T, mk, repeats: int, arrays: dict | None = None) -> dict:
+    """The kernel alone (kernel_ms over `repeats` launches) on each of
+    route_frames' frames: {route: ms}; with `arrays` it stores each frame
+    there, for a byte comparison between checkouts."""
     out = {}
-    for name, (scene, cam_s, w, h, kw) in frames.items():
-        cam = T.derive_camera(cam_s, w, h).to(dev)
-        out[name] = kernel_ms(mk, scene.to(dev), cam, dict(width=w, height=h, t_min=1e-3, **kw),
-                              repeats)
+    for name, frame in route_frames(T).items():
+        sc, cam, kw = route_inputs(T, frame)
+        out[name] = kernel_ms(mk, sc, cam, kw, repeats)
+        if arrays is not None:
+            arrays[name] = mk.render_cuda(sc, cam, **kw).cpu().numpy()
     return out
+
+
+# Copies of megakernel.cu for --route-variants, each differing from it as
+# its name says, by (text, replacement) pairs that must each match once:
+# the split of the BVH routes' time (the Cornell box, configs 3 and 4) and
+# the staged route's design choices.  "shadow_query_none" answers every
+# NEE shadow query "not occluded" at once (its frames differ: a timing
+# only); the others are exact, and their frames must equal the source's.
+# On the global walk: "tri_exit_after_u" leaves Moller-Trumbore after u
+# where u cannot hit (the staged walk's too: both call tri_rows), "sphere_root_skip" skips the roots of a negative
+# discriminant, "walk_nodes_again" walks each closest hit's BVH a second
+# time in its final window without testing a leaf (the time of the nodes
+# alone).  On the staged walk: "staged_walk_nodes_again" likewise,
+# "staged_tri_exit_after_u" leaves a staged face's test after u where u
+# cannot hit and after v where v cannot, "staged_ring16" gives the staged
+# route the global route's 16-row ring (more shared memory a block), and
+# "staged_min_blocks_6" / "_7" ask the compiler for registers enough for 6
+# or 7 blocks an SM (__launch_bounds__).
+ROUTE_VARIANTS = {
+    "shadow_query_none": [(
+        "  if (!(window > t_min)) return false;\n  const SphereRay sr = sphere_ray(o, w);",
+        "  if (window == window) return false;\n  const SphereRay sr = sphere_ray(o, w);")],
+    "tri_exit_after_u": [(
+        "  const float u = fdot3(tv.x, tv.y, tv.z, pv.x, pv.y, pv.z) * inv_det;\n  const Vec3 qv",
+        "  const float u = fdot3(tv.x, tv.y, tv.z, pv.x, pv.y, pv.z) * inv_det;\n"
+        "  if (near_parallel | !(u >= 0.0f) | (u > 1.0f)) return false;\n  const Vec3 qv")],
+    "sphere_root_skip": [(
+        "  const float disc = fmaf(h, h, -(r.a * cc));\n  const float sq = sqrtf(fmaxf(disc, 0.0f));"
+        "\n  const float rn = (h - sq) * r.inv_a;",
+        "  const float disc = fmaf(h, h, -(r.a * cc));\n  if (!(disc >= 0.0f)) return false;\n"
+        "  const float sq = sqrtf(fmaxf(disc, 0.0f));\n  const float rn = (h - sq) * r.inv_a;")],
+    "walk_nodes_again": [(
+        "      sphere_scan(sc, n, start, start + count, t_min, o, d, sr, tb, best);\n"
+        "      return false;\n    });\n",
+        "      sphere_scan(sc, n, start, start + count, t_min, o, d, sr, tb, best);\n"
+        "      return false;\n    });\n    int sink = 0;\n"
+        "    walk_bvh(g.sphere_bvh, o, inv, t_min, tb, [&](int start, int count) {\n"
+        "      sink ^= start * 31 + count;\n      return false;\n    });\n"
+        "    if (sink == 0x13572468) tb = 0.0f;\n"), (
+        "      tri_scan(g.mesh, start, start + count, t_min, o, d, tb, tri, bu, bv);\n"
+        "      return false;\n    });\n",
+        "      tri_scan(g.mesh, start, start + count, t_min, o, d, tb, tri, bu, bv);\n"
+        "      return false;\n    });\n    int sink = 0;\n"
+        "    walk_bvh(g.mesh_bvh, o, inv, t_min, tb, [&](int start, int count) {\n"
+        "      sink ^= start * 31 + count;\n      return false;\n    });\n"
+        "    if (sink == 0x13572468) tb = 0.0f;\n")],
+    "staged_walk_nodes_again": [(
+        "      staged_range(st.sph, start, start + count, t_min, o, d, sr, tb, best);\n"
+        "      return false;\n    });\n",
+        "      staged_range(st.sph, start, start + count, t_min, o, d, sr, tb, best);\n"
+        "      return false;\n    });\n    int sink = 0;\n"
+        "    walk_staged(st.snode, o, inv, t_min, tb, [&](int start, int count) {\n"
+        "      sink ^= start * 31 + count;\n      return false;\n    });\n"
+        "    if (sink == 0x13572468) tb = 0.0f;\n"), (
+        "          bv = v;\n        }\n      }\n      return false;\n    });\n",
+        "          bv = v;\n        }\n      }\n      return false;\n    });\n"
+        "    int sink = 0;\n"
+        "    walk_staged(st.mnode, o, inv, t_min, tb, [&](int start, int count) {\n"
+        "      sink ^= start * 31 + count;\n      return false;\n    });\n"
+        "    if (sink == 0x13572468) tb = 0.0f;\n")],
+    "staged_tri_exit_after_u": [(
+        "  return tri_rows(f[3 * j], f[3 * j + 1], f[3 * j + 2], t_min, o, d, tb, t_out, u_out,"
+        " v_out);\n",
+        "  const float4 r0 = f[3 * j], r1 = f[3 * j + 1], r2 = f[3 * j + 2];\n"
+        "  const Vec3 v0 = {r0.x, r0.y, r0.z};\n  const Vec3 e1 = {r0.w, r1.x, r1.y};\n"
+        "  const Vec3 e2 = {r1.z, r1.w, r2.x};\n"
+        "  const Vec3 pv = {fmaf(d.y, e2.z, -(d.z * e2.y)), fmaf(d.z, e2.x, -(d.x * e2.z)),\n"
+        "                   fmaf(d.x, e2.y, -(d.y * e2.x))};\n"
+        "  const float det = fdot3(e1.x, e1.y, e1.z, pv.x, pv.y, pv.z);\n"
+        "  const bool near_parallel = fabsf(det) < 1e-12f;\n"
+        "  const float inv_det = 1.0f / (near_parallel ? 1.0f : det);\n"
+        "  const Vec3 tv = {o.x - v0.x, o.y - v0.y, o.z - v0.z};\n"
+        "  const float u = fdot3(tv.x, tv.y, tv.z, pv.x, pv.y, pv.z) * inv_det;\n"
+        "  if (near_parallel | !(u >= 0.0f) | (u > 1.0f)) return false;\n"
+        "  const Vec3 qv = {fmaf(tv.y, e1.z, -(tv.z * e1.y)), fmaf(tv.z, e1.x, -(tv.x * e1.z)),\n"
+        "                   fmaf(tv.x, e1.y, -(tv.y * e1.x))};\n"
+        "  const float v = fdot3(d.x, d.y, d.z, qv.x, qv.y, qv.z) * inv_det;\n"
+        "  if (!(v >= 0.0f) | !(u + v <= 1.0f)) return false;\n"
+        "  const float t = fdot3(e2.x, e2.y, e2.z, qv.x, qv.y, qv.z) * inv_det;\n"
+        "  t_out = t;\n  u_out = u;\n  v_out = v;\n  return (t > t_min) & (t < tb);\n")],
+    "staged_ring16": [
+        ("constexpr int kStagedRingRows = 8;", "constexpr int kStagedRingRows = 16;"),
+        ("static_assert(kRegenWarps * (kRingRows - kStagedRingRows)", "static_assert(true ||"
+         " kRegenWarps * (kRingRows - kStagedRingRows)")],
+    "staged_min_blocks_6": [(
+        "__global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(",
+        "__global__ void __launch_bounds__(kRegenWarps * 32, kStaged ? 6 : 1) render_kernel(")],
+    "staged_min_blocks_7": [(
+        "__global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(",
+        "__global__ void __launch_bounds__(kRegenWarps * 32, kStaged ? 7 : 1) render_kernel(")],
+}
+# The frames --route-variants times: the BVH routes of route_frames.
+VARIANT_ROUTES = ("cornell_nee_mis", "config3", "config4")
+
+
+def route_variants(T, mk, build, repeats: int, smi: str) -> dict:
+    """--route-variants: build the ROUTE_VARIANTS copies of megakernel.cu
+    (one nvcc each, side by side, into the build directory), then time the
+    kernel alone on VARIANT_ROUTES' frames with the checkout's library, the
+    same with no scene staged ("global", where the checkout has a stage)
+    and each copy, in turns (source, the others, source, the others
+    reversed), each one's frame compared with the source's; and count the
+    walks of each frame's plain version (plain_run's walks).  A variant
+    whose text does not match the source is reported and not built."""
+    import concurrent.futures
+    src_path = build.TARGETS["megakernel"].source
+    src = open(src_path).read()
+    out_dir = os.path.join(build.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    texts, skipped = {}, {}
+    for name, edits in ROUTE_VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                skipped[name] = f"matches {text.count(old)} times: {old[:60]!r}"
+                break
+            text = text.replace(old, new)
+        else:
+            path = os.path.join(out_dir, f"megakernel_{name}.cu")
+            with open(path, "w") as f:
+                f.write(text)
+            texts[name] = path
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(texts))) as pool:
+        built = dict(zip(texts, pool.map(lambda kv: build.compile_copy(
+            "megakernel", kv[1], kv[1][:-3] + ".so"), texts.items())))
+    base_lib = build.load()
+    # "global": the source's library with no scene staged (STAGE_BYTES 0).
+    libs = {"source": base_lib, "global": base_lib, **{k: v[0] for k, v in built.items()}}
+    frames = {k: route_inputs(T, route_frames(T)[k]) for k in VARIANT_ROUTES}
+    order = list(libs) + ["source"] + list(libs)[1:][::-1]
+    times = {k: {r: [] for r in frames} for k in libs}
+    equal = {k: {} for k in libs if k != "source"}
+    want = {r: mk.render_cuda(*inp[:2], **inp[2]) for r, inp in frames.items()}
+    cap = mk.STAGE_BYTES
+    try:
+        for name in order:
+            build._libs["megakernel"] = libs[name]
+            mk.STAGE_BYTES = 0 if name == "global" else cap
+            for r, (sc, cam, kw) in frames.items():
+                times[name][r].append(kernel_ms(mk, sc, cam, kw, repeats))
+                if name in equal and r not in equal[name]:
+                    equal[name][r] = bool(torch.equal(mk.render_cuda(sc, cam, **kw), want[r]))
+    finally:
+        build._libs["megakernel"] = base_lib
+        mk.STAGE_BYTES = cap
+    walks = {}
+    for r, (sc, cam, kw) in frames.items():
+        plain_ms, _, share = plain_run(lambda: mk.render_reference(sc, cam, **kw), walks=True)
+        walks[r] = dict(LAST_WALKS, plain_ms=plain_ms, root_share=share)
+    return dict(times_ms=times, frame_equals_source=equal, skipped=skipped, walks=walks,
+                ptxas={k: [ln for ln in ptxas_instances(v[1]) if "render_kernel" in ln]
+                       for k, v in built.items()},
+                repeats=repeats, card=smi)
 
 
 def regen_schedule(T, mk, wf, cases) -> list[dict]:
@@ -1016,22 +1360,58 @@ def ray_flops(sc, root_share: float | None) -> float:
     return flops
 
 
-def bound(T, mk, sc, rays_traced: float, out_bytes: int, root_share: float | None) -> dict:
-    """bound_ms of a megakernel row: the larger of its FP32 work (rays
-    traced x ray_flops at the plain version's root share on the same
-    inputs) over FP32_PEAK and its bytes (the scene's arrays and the camera
-    read once, `out_bytes` written once) over HBM_RATE.  On a BVH route,
-    or a brute scan with no share counted, the work is a lower bound."""
+def walk_flops(sc, walks: dict) -> dict:
+    """The FP32 work of a frame's walks as plain_run counted them on the
+    plain version (walks=True): every closest hit's counted nodes (23
+    flops), faces (45) and sphere tests (17, and 6 more for each root),
+    and for each shadow ray one box and one leaf of the tree's mean size
+    (its any-hit walk ends at the first blocker, which the plain version's
+    count does not see: a lower bound).  Returns the flops, the rays they
+    cover and each query's counts per ray."""
+    c, sh = walks.get("closest", {}), walks.get("shadow", {})
+    closest = (c.get("nodes", 0) * BOX_FLOPS + c.get("faces", 0) * TRI_FLOPS
+               + c.get("spheres", 0) * SPHERE_TEST_FLOPS + c.get("roots", 0) * SPHERE_ROOT_FLOPS)
+    tree, prim = ((sc.bvh, TRI_FLOPS) if sc.mesh is not None
+                  else (sc.sphere_bvh, SPHERE_TEST_FLOPS))
+    shadow_ray = BOX_FLOPS + (_mean_leaf(tree) * prim if tree is not None else 0.0)
+    per_ray = {q: {k: v / w["rays"] for k, v in w.items() if k != "rays"}
+               for q, w in walks.items() if w.get("rays")}
+    return dict(flops=closest + sh.get("rays", 0) * shadow_ray,
+                rays=c.get("rays", 0) + sh.get("rays", 0), per_ray=per_ray,
+                shadow_ray_flops=shadow_ray)
+
+
+def bound(T, mk, sc, rays_traced: float, out_bytes: int, root_share: float | None,
+          walks: dict | None = None) -> dict:
+    """bound_ms of a megakernel row: the larger of its FP32 work over
+    FP32_PEAK and its bytes (the scene's arrays and the camera read once,
+    `out_bytes` written once) over HBM_RATE.  The work is, with `walks`
+    (plain_run's counted walks on the same inputs), walk_flops' per ray
+    times the rays traced; else rays traced x ray_flops at the plain
+    version's root share.  Without walks a BVH route's work is a lower
+    bound (one box and one leaf a ray), as is a brute scan's with no share
+    counted; with them only the shadow rays' part is (walk_flops)."""
     sc = T.as_scene(sc)
     brute = sc.sphere_bvh is None and bool((sc.spheres.radii > 0).any())
-    lower = (sc.sphere_bvh is not None or sc.mesh is not None
-             or (brute and root_share is None))
+    bvh = sc.sphere_bvh is not None or sc.mesh is not None
+    lower = (not walks and (bvh or (brute and root_share is None))) or bool(
+        walks and walks.get("shadow", {}).get("rays"))
     in_bytes = sum(t.numel() * t.element_size() for t in mk.dataclass_tensors(sc)) + 96
-    t_ops = rays_traced * ray_flops(sc, root_share) / FP32_PEAK * 1e3
+    extra = {}
+    if walks:
+        wf_ = walk_flops(sc, walks)
+        flops = rays_traced * wf_["flops"] / max(wf_["rays"], 1)
+        extra = dict(counted_walks=wf_["per_ray"], counted_rays=wf_["rays"],
+                     shadow_ray_flops=wf_["shadow_ray_flops"],
+                     uncounted_bound_ms=rays_traced * ray_flops(sc, root_share)
+                     / FP32_PEAK * 1e3)
+    else:
+        flops = rays_traced * ray_flops(sc, root_share)
+    t_ops = flops / FP32_PEAK * 1e3
     t_bytes = (in_bytes + out_bytes) / HBM_RATE * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
                 else "bytes", rays_traced=rays_traced, root_share=root_share,
-                bound_is_lower_bound=lower, library_ms=None)
+                bound_is_lower_bound=lower, library_ms=None, **extra)
 
 
 def bounce_vs_plain(wf, sc, cam, w: int, h: int, *, regen: bool, bounces: int = 6,
@@ -2388,6 +2768,9 @@ def main() -> int:
                     help="build, time the main path over 20 frames, print one JSON line")
     ap.add_argument("--save-frame", metavar="PATH",
                     help="with --main-path-only: save the timed frame as a .npy file")
+    ap.add_argument("--route-variants", action="store_true",
+                    help="build, time the BVH routes against copies of megakernel.cu "
+                         "(ROUTE_VARIANTS), count their walks, print one JSON line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
@@ -2431,19 +2814,23 @@ def main() -> int:
           "render_adaptive_kernel_parent_regs_stack_spills": PARENT_ADAPTIVE_KERNEL})
     gate("build", all(v.compiled for v in infos.values()),
          "a library was not compiled from the checkout")
+    if args.route_variants:
+        emit({"phase": "route_variants", **route_variants(T, mk, build, 10, smi)})
+        return 0
     if args.main_path_only:
         ms, img, launches = time_main_path(T, mk, 20)
         arrays = {} if args.save_frame else None
         den = time_denoised(T, mk, 3)
         aov_arrays = {} if args.save_frame else None
         wave_arrays = {} if args.save_frame else None
+        route_arrays = {} if args.save_frame else None
         emit({"phase": "main_path_only", "repo": REPO, "ms_per_frame": ms, "repeats": 20,
               "denoised_ms": den["ms"], "denoised_repeats": 3,
               "denoised_launches": den["launches"],
               "aov_kernel_ms": time_aov(T, mk, 10, aov_arrays), "aov_repeats": 10,
               "inverse_step": time_inverse_step(T, dev, 5), "inverse_repeats": 5,
               **time_main_kernel(T, mk, 10), "kernel_repeats": 10,
-              "routes_kernel_ms": time_routes(T, mk, 10),
+              "routes_kernel_ms": time_routes(T, mk, 10, route_arrays),
               "adaptive_kernel": time_adaptive(T, mk, 5, arrays), "adaptive_repeats": 5,
               "wavefront": time_wavefront(T, img, 5, wave_arrays), "wavefront_repeats": 5,
               "mean": float(img.mean()), "launches": launches, "card": smi})
@@ -2452,6 +2839,7 @@ def main() -> int:
             np.savez(os.path.splitext(args.save_frame)[0] + "_adaptive.npz", **arrays)
             np.savez(os.path.splitext(args.save_frame)[0] + "_aov.npz", **aov_arrays)
             np.savez(os.path.splitext(args.save_frame)[0] + "_wavefront.npz", **wave_arrays)
+            np.savez(os.path.splitext(args.save_frame)[0] + "_routes.npz", **route_arrays)
         return 0
 
     # 3. hash probe
@@ -2627,8 +3015,8 @@ def main() -> int:
           "card": smi, "ok": m7.ok and m7w.ok})
     gate("sphere_bvh", m7.ok, f"walk vs plain: {m7}")
     gate("sphere_bvh", m7w.ok, f"walk vs brute kernel: {m7w}")
-    gate("sphere_bvh", walk["launches"] == {"megakernel:sphere_bvh": 6},
-         f"expected 6 sphere-BVH launches, counted {walk['launches']}")
+    gate("sphere_bvh", walk["launches"] == {"megakernel:sphere_bvh+staged": 6},
+         f"expected 6 staged sphere-BVH launches, counted {walk['launches']}")
     gate("sphere_bvh", brute["launches"] == {"megakernel:brute": 6},
          f"expected 6 brute-scan launches, counted {brute['launches']}")
 
@@ -2658,7 +3046,7 @@ def main() -> int:
         ("config1", "brute", T.as_scene(T.base_scene()), base_cam,
          T.RenderConfig(width=800, height=600, spp=1, integrator="normal", backend="cuda"), 1,
          0.01, 2e-4),
-        ("config3", "sphere_bvh", final, T.CameraSettings.default(),
+        ("config3", "sphere_bvh+staged", final, T.CameraSettings.default(),
          T.RenderConfig(width=1280, height=720, spp=1, max_depth=50, backend="cuda"), 3,
          0.02, 2e-3),
         ("config4", "mesh_bvh", mesh_scene(T, 6), mesh_cam,
@@ -2671,7 +3059,7 @@ def main() -> int:
             kw["mode"] = cfg.integrator
         inputs = (scene.to(dev), T.derive_camera(cam, cfg.width, cfg.height).to(dev), kw)
         r = against_plain(T, mk, lambda: T.render(scene, cam, cfg, frame_seed=seed), *inputs,
-                          flip, mean_tol, warmup=2)
+                          flip, mean_tol, warmup=2, walks=phase != "config1")
         m = r["match"]
         # The kernel alone, as phases 12-13 time it: render() of these short
         # frames is host-bound.
@@ -2698,7 +3086,7 @@ def main() -> int:
         ("nee", "brute+nee", lit["nee"], BASE_CAMERA,
          T.RenderConfig(width=320, height=240, spp=4, max_depth=8, sky_intensity=0.0,
                         nee=True, mis=True, russian_roulette_depth=3)),
-        ("many_lights", "mesh_bvh+nee", lit["many_lights"], BASE_CAMERA,
+        ("many_lights", "mesh_bvh+nee+staged", lit["many_lights"], BASE_CAMERA,
          T.RenderConfig(width=320, height=240, spp=4, max_depth=4, sky_intensity=0.0,
                         nee=True, mis=True)),
         ("night", "brute+nee", lit["night"], NIGHT_CAMERA,
@@ -2727,7 +3115,7 @@ def main() -> int:
     # 12-13. the lit path and the samplers at full frame size, through the
     # public entry point, each held to the plain version of the same frame.
     for phase, route, scene, cam, cfg, seed, flip, mean_tol in (
-        ("lit_path", "mesh_bvh+nee", T.cornell_box_scene(), T.cornell_camera(),
+        ("lit_path", "mesh_bvh+nee+staged", T.cornell_box_scene(), T.cornell_camera(),
          T.RenderConfig(width=1280, height=720, spp=16, max_depth=30, sky_intensity=0.0,
                         nee=True, mis=True, backend="cuda"), 0, 0.015, 1e-3),
         ("sampler_path", "brute+sobol", T.one_weekend_scene(0), T.CameraSettings.default(),
@@ -2742,7 +3130,7 @@ def main() -> int:
         cam_dev = T.derive_camera(cam, cfg.width, cfg.height).to(dev)
         kw = render_kw(cfg, seed)
         r = against_plain(T, mk, lambda: T.render(scene, cam, cfg, frame_seed=seed), sc_dev,
-                          cam_dev, kw, flip, mean_tol, warmup=2)
+                          cam_dev, kw, flip, mean_tol, warmup=2, walks=phase == "lit_path")
         # The kernel alone, scene and camera already on the card: short
         # frames are host-bound in render() (PERF.md section 5).
         k_ms = kernel_ms(mk, sc_dev, cam_dev, kw, 5)
@@ -3356,6 +3744,8 @@ def main() -> int:
     phase_threefry(T, mk, dev, smi)
     # 33. the wavefront bounce kernel's staged sphere scan
     wf_stage = phase_wf_stage(T, mk, wf, dev, smi)
+    # 34. render_kernel's staged BVH route on its edge cases
+    bvh_stage_row = phase_bvh_stage(T, mk, wf, dev, smi)
 
     ad_alone = time_adaptive(T, mk, 5)
 
@@ -3370,15 +3760,24 @@ def main() -> int:
              max_abs_err=m6.max_abs, ms=frame_ms, plain_ms=plain_ms, **main_bound,
              kernel_ms=main_kernel["kernel_ms"]),
     ]
-    for p in (paths["config3"], paths["config4"], paths["mesh_bvh+nee"], nee_runs["night"],
-              paths["brute+sobol"]):
+    for p in (paths["config3"], paths["config4"], paths["mesh_bvh+nee+staged"],
+              nee_runs["night"], paths["brute+sobol"]):
         sc, cam, kw = p["inputs"]
         b = bound(T, mk, sc, rays_of(sc, cam, kw), 3 * 4 * kw["width"] * kw["height"],
-                  p["root_share"])
-        rows.append(dict(kernel, name="megakernel:" + p["route"], path=p["route"],
-                         launches=p["launches"].get("megakernel:" + p["route"], 0),
-                         max_abs_err=p["match"].max_abs, ms=p["ms"], plain_ms=p["plain_ms"],
-                         kernel_ms=p.get("kernel_ms"), **b))
+                  p["root_share"], p.get("walks"))
+        row = dict(kernel, name="megakernel:" + p["route"], path=p["route"],
+                   launches=p["launches"].get("megakernel:" + p["route"], 0),
+                   max_abs_err=p["match"].max_abs, ms=p["ms"], plain_ms=p["plain_ms"],
+                   kernel_ms=p.get("kernel_ms"), **b)
+        if T.as_scene(sc).sphere_bvh is not None or T.as_scene(sc).mesh is not None:
+            # The BVH routes: the walk render_kernel took, its stage, the
+            # blocks an SM with it, and (phase 34) the staged edge cases.
+            stage = mk.stage_bytes_of(T.as_scene(sc))
+            row.update(walk="staged" if stage else "global", stage_bytes=stage,
+                       blocks_per_sm=mk.render_occupancy(kw.get("nee", False), False,
+                                                         bool(stage), stage),
+                       bvh_stage_cases=bvh_stage_row)
+        rows.append(row)
     # render_aov_kernel: BASELINE config 1, one primary ray a pixel.
     sc1, cam1, kw1 = paths["config1"]["inputs"]
     rows.append(dict(kernel, name="megakernel:brute+aov_normal", path="brute, normal AOV",

@@ -61,8 +61,10 @@ _MEGAKERNEL_SIGNATURES = {
          _c_float, _c_int,  # ... clamp, spp
          _c_ptr, _c_ptr, _c_ptr,  # out, rays, adaptive state
          _c_int, _c_int, _c_int, _c_float,  # tile rows, min spp, chunk, tol
-         _c_ptr, _c_ptr],  # pixel-group cursor, stream
+         _c_ptr, _c_int, _c_ptr],  # pixel-group cursor, BVH stage bytes, stream
     ),
+    # nee, count, staged, stage bytes, blocks an SM (out)
+    "grt_render_occupancy": (_c_int, [_c_int, _c_int, _c_int, _c_int, _c_ptr]),
     "grt_wavefront_bounce": (
         _c_int,
         [*_SCENE_ARGS,
@@ -191,13 +193,13 @@ def _nvcc_version(path: str) -> str:
     return lines[-1] if lines else out
 
 
-def _compile(path: str, target: _Target) -> tuple[float, str]:
+def _compile(path: str, target: _Target, extra: tuple = ()) -> tuple[float, str]:
     """Compile a target's source into its library (atomically); returns
     (seconds, ptxas report)."""
     tmp = f"{target.library}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [path, *NVCC_FLAGS, "-o", tmp, target.source],
+        [path, *NVCC_FLAGS, *extra, "-o", tmp, target.source],
         capture_output=True, text=True, timeout=900,
     )
     seconds = time.perf_counter() - t0
@@ -265,6 +267,23 @@ def build_all() -> dict[str, BuildInfo]:
             for name, b in zip(missing, built):
                 _bind(name, path, b)
         return dict(_infos)
+
+
+def compile_copy(name: str, source: str, library: str) -> tuple[ctypes.CDLL, str]:
+    """Compile `source`, a copy of target `name`'s source that differs from
+    it (a measurement's variant), with the same flags into `library`, and
+    bind it with the target's signatures without making it the target's
+    library; returns (library, ptxas report)."""
+    target = TARGETS[name]
+    copy = _Target(source, library, target.signatures)
+    # The copy includes the target's headers from the target's directory.
+    _, report = _compile(nvcc(), copy, ("-I", os.path.dirname(target.source)))
+    lib = ctypes.CDLL(library)
+    for fn_name, (restype, argtypes) in target.signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib, report
 
 
 def build_info(name: str = "megakernel") -> BuildInfo:

@@ -32,8 +32,10 @@
 // sample is otherwise valid start one.  Divergence is the other cost: in a
 // loop of one thread per pixel a thread whose path ended idles until its
 // warp's deepest path ends, which render_kernel avoids by regenerating
-// paths per warp.  It stages only its finished samples in shared memory,
-// the scene not at all, and it is built with -fmad=false and without fast
+// paths per warp.  It stages its finished samples in shared memory and,
+// on a small BVH scene, the scene itself (the staged route: nodes, faces
+// and spheres copied once a launch, the roots of missed spheres skipped;
+// the global walk otherwise).  It is built with -fmad=false and without fast
 // math, so the compiler contracts nothing on its own.  Fused multiply-adds
 // appear only where written (fmaf), where the
 // reference's own rounding (XLA:CPU contracts a*b+c, and the goldens carry
@@ -430,11 +432,12 @@ __device__ __forceinline__ int* wf_stage_index(int n) {
 // t_min < t < tb.  The cross and inner products round as fused
 // multiply-adds, as the reference renders them (ops/rounding.py::cross,
 // dot3).  A winner keeps its barycentrics for the smooth normal.
-__device__ __forceinline__ bool tri_test(const float* __restrict__ tbl, int j, float t_min,
-                                         Vec3 o, Vec3 d, float tb, float& t_out,
-                                         float& u_out, float& v_out) {
-  const float4* row = reinterpret_cast<const float4*>(tbl + (size_t)j * kTriSlots);
-  const float4 r0 = __ldg(row), r1 = __ldg(row + 1), r2 = __ldg(row + 2);
+// Its arithmetic on a face's first three float4 of the row (v0, e1, e2),
+// wherever they were read from (tri_test: the table; staged_tri: the
+// BVH stage).
+__device__ __forceinline__ bool tri_rows(float4 r0, float4 r1, float4 r2, float t_min, Vec3 o,
+                                         Vec3 d, float tb, float& t_out, float& u_out,
+                                         float& v_out) {
   const Vec3 v0 = {r0.x, r0.y, r0.z};
   const Vec3 e1 = {r0.w, r1.x, r1.y};
   const Vec3 e2 = {r1.z, r1.w, r2.x};
@@ -454,6 +457,14 @@ __device__ __forceinline__ bool tri_test(const float* __restrict__ tbl, int j, f
   v_out = v;
   return !near_parallel & (u >= 0.0f) & (v >= 0.0f) & (u + v <= 1.0f) & (t > t_min) &
          (t < tb);
+}
+
+__device__ __forceinline__ bool tri_test(const float* __restrict__ tbl, int j, float t_min,
+                                         Vec3 o, Vec3 d, float tb, float& t_out,
+                                         float& u_out, float& v_out) {
+  const float4* row = reinterpret_cast<const float4*>(tbl + (size_t)j * kTriSlots);
+  return tri_rows(__ldg(row), __ldg(row + 1), __ldg(row + 2), t_min, o, d, tb, t_out, u_out,
+                  v_out);
 }
 
 __device__ __forceinline__ void tri_scan(const float* __restrict__ tbl, int j0, int j1,
@@ -480,6 +491,183 @@ struct Geometry {
   Bvh mesh_bvh;
 };
 
+// Where closest_hit and occluded read the geometry: the global arrays,
+// wavefront_bounce_kernel's sphere stage (wf_stage, the brute route), or
+// render_kernel's BVH stage (bvh_stage below).
+enum Stage { kGlobal = 0, kSphereStage = 1, kBvhStage = 2 };
+
+// render_kernel's BVH stage: a block copies a small BVH scene (its spheres,
+// BVH nodes and faces) into its dynamic shared memory once a launch, and
+// every walk of the launch reads it there: a node is two LDS.128 instead
+// of eight scalar loads from eight planes, a sphere one instead of five,
+// a face three.  The layout, in float4 records from the stage's base:
+//   spheres       [0, n)              (cx, cy, cz, |c|^2 - r^2), in scene
+//                                     (on a sphere BVH: leaf) order
+//   sphere nodes  [n, n + 2 ms)       two records a node (below)
+//   faces         [.., + 3 F)         slots 0-11 of the mesh table row
+//                                     (v0, e1, e2 and 3 unread slots)
+//   mesh nodes    [.., + 2 mm)
+// A node is (min x, min y, min z, max x), (max y, max z, miss link, start
+// << 16 | count) with the links' int bits: the bounds and links of
+// bvh_planes bit for bit (a stage holds at most kBvhStageBytes / 16 <
+// 2^15 records, so start and count fit 16 bits; an inner node's -1 start
+// keeps the word negative).  |c|^2 - r^2 is sphere_root's, formed with
+// the same fdot3; an inactive sphere (ACTIVE not > 0, which sphere_root
+// tests) gets a NaN there instead, so its discriminant is NaN, fails
+// `disc >= 0` and the sphere never wins, as in sphere_root.
+// ops/cuda/megakernel.py::bvh_stage_bytes decides the route from the same
+// counts; grt_render refuses a stage of other bytes.
+constexpr int kBvhStageBytes = 16384;
+static_assert(kBvhStageBytes / 16 < (1 << 15), "start and count fit 16 bits");
+
+__host__ __device__ constexpr size_t bvh_stage_bytes(int n, int ms, int n_tris, int mm) {
+  return 16 * ((size_t)n + 2 * (size_t)ms + 3 * (size_t)n_tris + 2 * (size_t)mm);
+}
+
+__device__ __forceinline__ float4* bvh_stage_mem() {
+  extern __shared__ float4 bvh_stage_base[];
+  return bvh_stage_base;
+}
+
+struct BvhStage {
+  const float4* sph;    // spheres
+  const float4* snode;  // sphere-BVH nodes
+  const float4* tri;    // faces
+  const float4* mnode;  // mesh-BVH nodes
+};
+
+__device__ __forceinline__ BvhStage bvh_stage(const Geometry& g) {
+  const float4* base = bvh_stage_mem();
+  BvhStage s;
+  s.sph = base;
+  s.snode = s.sph + g.n;
+  s.tri = s.snode + 2 * g.sphere_bvh.m;
+  s.mnode = s.tri + 3 * g.n_tris;
+  return s;
+}
+
+// Copy a BVH's nodes into the stage: the threads of the block stride over
+// them.
+__device__ __forceinline__ void stage_nodes(const Bvh& b, float4* dst) {
+  for (int k = threadIdx.x; k < b.m; k += blockDim.x) {
+    const int start = __ldg(b.i + LSTART * b.m + k);
+    const int count = __ldg(b.i + LCOUNT * b.m + k);
+    dst[2 * k] = make_float4(__ldg(b.f + BMINX * b.m + k), __ldg(b.f + BMINY * b.m + k),
+                             __ldg(b.f + BMINZ * b.m + k), __ldg(b.f + BMAXX * b.m + k));
+    dst[2 * k + 1] = make_float4(
+        __ldg(b.f + BMAXY * b.m + k), __ldg(b.f + BMAXZ * b.m + k),
+        __int_as_float(__ldg(b.i + LMISS * b.m + k)),
+        __int_as_float((int)(((unsigned int)start << 16) | ((unsigned int)count & 0xffffu))));
+  }
+}
+
+// Stage the scene of a block (a 1-D block: the threads stride over the
+// records; no ballots, so any block shape will do).  Every thread of the
+// block calls it once, before any walk, and meets its barrier.
+__device__ __forceinline__ void stage_bvh(const Geometry& g) {
+  float4* const base = bvh_stage_mem();
+  const float* sc = g.scene;
+  const int n = g.n;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const float cx = __ldg(sc + CX * n + j);
+    const float cy = __ldg(sc + CY * n + j);
+    const float cz = __ldg(sc + CZ * n + j);
+    const float rj = __ldg(sc + RAD * n + j);
+    const bool act = __ldg(sc + ACTIVE * n + j) > 0.0f;
+    base[j] = make_float4(cx, cy, cz,
+                          act ? fdot3(cx, cy, cz, cx, cy, cz) - rj * rj : __int_as_float(0x7fffffff));
+  }
+  stage_nodes(g.sphere_bvh, base + n);
+  float4* const tri = base + n + 2 * g.sphere_bvh.m;
+  for (int k = threadIdx.x; k < 3 * g.n_tris; k += blockDim.x)
+    tri[k] = __ldg(reinterpret_cast<const float4*>(g.mesh + (size_t)(k / 3) * kTriSlots) + k % 3);
+  stage_nodes(g.mesh_bvh, tri + 3 * g.n_tris);
+  __syncthreads();
+}
+
+// walk_bvh over staged nodes: the same slab arithmetic, tests, order and
+// links, the node's two records read at once.
+template <class Leaf>
+__device__ __forceinline__ void walk_staged(const float4* nodes, Vec3 o, Vec3 inv, float t_min,
+                                            const float& tb, Leaf leaf) {
+  int node = 0;
+  while (node >= 0) {
+    const float4 a = nodes[2 * node], b = nodes[2 * node + 1];
+    const float t0x = (a.x - o.x) * inv.x;
+    const float t0y = (a.y - o.y) * inv.y;
+    const float t0z = (a.z - o.z) * inv.z;
+    const float t1x = (a.w - o.x) * inv.x;
+    const float t1y = (b.x - o.y) * inv.y;
+    const float t1z = (b.y - o.z) * inv.z;
+    const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+    const float tn_eff = fmaxf(tn, t_min);
+    const bool enter = (tf >= tn_eff) & (tn_eff < tb);
+    const int link = __float_as_int(b.w);
+    if (enter & (link >= 0)) {
+      if (leaf(link >> 16, link & 0xffff)) return;
+    }
+    node = (enter & (link < 0)) ? node + 1 : __float_as_int(b.z);
+  }
+}
+
+// sphere_scan over staged spheres [j0, j1), each sphere c = (cx, cy, cz,
+// |c|^2 - r^2): sphere_root's quadratic, window and root pick, in its
+// order.  A negative or NaN discriminant skips the roots: sphere_root
+// returns false there whatever the roots are (its result is a conjunction
+// with disc >= 0), so the skip is exact.
+__device__ __forceinline__ void staged_range(const float4* s, int j0, int j1, float t_min,
+                                             Vec3 o, Vec3 d, const SphereRay& r, float& tb,
+                                             int& best) {
+  for (int j = j0; j < j1; ++j) {
+    const float4 c = s[j];
+    const float h = fdot3(d.x, d.y, d.z, c.x, c.y, c.z) - r.od;
+    const float cc = c.w - 2.0f * fdot3(o.x, o.y, o.z, c.x, c.y, c.z) + r.oo;
+    const float disc = fmaf(h, h, -(r.a * cc));
+    if (disc >= 0.0f) {
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      const float rn = (h - sq) * r.inv_a;
+      const float rf = (h + sq) * r.inv_a;
+      const bool nok = (rn > t_min) & (rn < tb);
+      const bool fok = (rf > t_min) & (rf < tb);
+      if (nok | fok) {
+        tb = nok ? rn : rf;
+        best = j;
+      }
+    }
+  }
+}
+
+// The any-hit twin (occluded's sphere loop): true at the first staged
+// sphere of [j0, j1) with a root in (t_min, window).
+__device__ __forceinline__ bool staged_range_any(const float4* s, int j0, int j1, float t_min,
+                                                 Vec3 o, Vec3 d, const SphereRay& r,
+                                                 float window) {
+  for (int j = j0; j < j1; ++j) {
+    const float4 c = s[j];
+    const float h = fdot3(d.x, d.y, d.z, c.x, c.y, c.z) - r.od;
+    const float cc = c.w - 2.0f * fdot3(o.x, o.y, o.z, c.x, c.y, c.z) + r.oo;
+    const float disc = fmaf(h, h, -(r.a * cc));
+    if (disc >= 0.0f) {
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      const float rn = (h - sq) * r.inv_a;
+      const float rf = (h + sq) * r.inv_a;
+      if (((rn > t_min) & (rn < window)) | ((rf > t_min) & (rf < window))) return true;
+    }
+  }
+  return false;
+}
+
+// tri_test on staged face j.  It tests every conjunct, as tri_test does:
+// leaving after u where u cannot hit, exact as that is, made the Cornell
+// box slower on the H100 (PERF.md, K1b): a branch per lane in a leaf
+// whose lanes seldom all leave.
+__device__ __forceinline__ bool staged_tri(const float4* f, int j, float t_min, Vec3 o,
+                                           Vec3 d, float tb, float& t_out, float& u_out,
+                                           float& v_out) {
+  return tri_rows(f[3 * j], f[3 * j + 1], f[3 * j + 2], t_min, o, d, tb, t_out, u_out, v_out);
+}
+
 // Closest hit over spheres, then mesh, in one record (`_closest_hit`,
 // megakernel.py:632-761): the mesh walk starts from the sphere stage's
 // window, so a face wins only strictly closer, as in
@@ -493,9 +681,10 @@ __device__ __forceinline__ SphereRay sphere_ray(Vec3 o, Vec3 d) {
   return sr;
 }
 
-// kStaged: the spheres are wavefront_bounce_kernel's stage (wf_stage), not
-// the scene planes; the winner's material is still read from the planes.
-template <bool kStaged = false>
+// kStage: kSphereStage scans wavefront_bounce_kernel's stage (wf_stage),
+// kBvhStage walks render_kernel's (bvh_stage), not the scene planes and
+// mesh table; the winner's material is still read from those.
+template <int kStage = kGlobal>
 __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, Vec3 d) {
   const SphereRay sr = sphere_ray(o, d);
   float tb = t_max;
@@ -503,9 +692,17 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
   const float* sc = g.scene;
   const int n = g.n;
   const Vec3 inv = safe_inverse(d);
-  if (kStaged) {
+  const BvhStage st = kStage == kBvhStage ? bvh_stage(g) : BvhStage{};
+  if (kStage == kSphereStage) {
     staged_scan(wf_stage() + 1, wf_stage_index(n), wf_stage_count(), t_min, o, d, sr, tb,
                 best);
+  } else if (kStage == kBvhStage && g.sphere_bvh.m > 0) {
+    walk_staged(st.snode, o, inv, t_min, tb, [&](int start, int count) {
+      staged_range(st.sph, start, start + count, t_min, o, d, sr, tb, best);
+      return false;
+    });
+  } else if (kStage == kBvhStage) {
+    staged_range(st.sph, 0, n, t_min, o, d, sr, tb, best);
   } else if (g.sphere_bvh.m > 0) {
     walk_bvh(g.sphere_bvh, o, inv, t_min, tb, [&](int start, int count) {
       sphere_scan(sc, n, start, start + count, t_min, o, d, sr, tb, best);
@@ -516,7 +713,20 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
   }
   int tri = -1;
   float bu = 0.0f, bv = 0.0f;
-  if (g.n_tris > 0) {
+  if (kStage == kBvhStage && g.n_tris > 0) {
+    walk_staged(st.mnode, o, inv, t_min, tb, [&](int start, int count) {
+      for (int j = start; j < start + count; ++j) {
+        float t, u, v;
+        if (staged_tri(st.tri, j, t_min, o, d, tb, t, u, v)) {
+          tb = t;
+          tri = j;
+          bu = u;
+          bv = v;
+        }
+      }
+      return false;
+    });
+  } else if (g.n_tris > 0) {
     walk_bvh(g.mesh_bvh, o, inv, t_min, tb, [&](int start, int count) {
       tri_scan(g.mesh, start, start + count, t_min, o, d, tb, tri, bu, bv);
       return false;
@@ -581,14 +791,39 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
 // sphere or face lies at t_min < t < window along o + t w.  It ends at the
 // first blocker.  "No hit below the window" is the plain version's "nearest
 // t >= window" (ops/integrators.py::nearest_t_scene).
-// kStaged as in closest_hit.
-template <bool kStaged = false>
+// kStage as in closest_hit.
+template <int kStage = kGlobal>
 __device__ bool occluded(const Geometry& g, float t_min, Vec3 o, Vec3 w, float window) {
   if (!(window > t_min)) return false;
   const SphereRay sr = sphere_ray(o, w);
   const float* sc = g.scene;
   const int n = g.n;
   bool blocked = false;
+  if (kStage == kBvhStage) {
+    const BvhStage st = bvh_stage(g);
+    const Vec3 inv = safe_inverse(w);
+    if (g.sphere_bvh.m > 0) {
+      walk_staged(st.snode, o, inv, t_min, window, [&](int start, int count) {
+        blocked = staged_range_any(st.sph, start, start + count, t_min, o, w, sr, window);
+        return blocked;
+      });
+    } else {
+      blocked = staged_range_any(st.sph, 0, n, t_min, o, w, sr, window);
+    }
+    if (!blocked && g.n_tris > 0) {
+      walk_staged(st.mnode, o, inv, t_min, window, [&](int start, int count) {
+        for (int j = start; j < start + count; ++j) {
+          float t, u, v;
+          if (staged_tri(st.tri, j, t_min, o, w, window, t, u, v)) {
+            blocked = true;
+            return true;
+          }
+        }
+        return false;
+      });
+    }
+    return blocked;
+  }
   const auto spheres = [&](int j0, int j1) {
     for (int j = j0; j < j1; ++j) {
       float root;
@@ -597,7 +832,7 @@ __device__ bool occluded(const Geometry& g, float t_min, Vec3 o, Vec3 w, float w
     return false;
   };
   const Vec3 inv = safe_inverse(w);
-  if (kStaged) {
+  if (kStage == kSphereStage) {
     blocked = staged_any_hit(wf_stage() + 1, wf_stage_count(), t_min, o, w, sr, window);
   } else if (g.sphere_bvh.m > 0) {
     walk_bvh(g.sphere_bvh, o, inv, t_min, window, [&](int start, int count) {
@@ -916,9 +1151,9 @@ struct PathState {
 // instance keeps the register budget of the path it replaces.  kCount adds
 // the rays this bounce traced to `rays` (megakernel.py:951, :1071, :1374,
 // :1416): one for the closest-hit walk and one per NEE shadow ray whose
-// light sample is valid, counted before its visibility test.  kStaged
-// scans the spheres of wavefront_bounce_kernel's stage (closest_hit).
-template <bool kNee, bool kCount, bool kStaged = false>
+// light sample is valid, counted before its visibility test.  kStage
+// names the stage closest_hit and occluded read (kGlobal: none).
+template <bool kNee, bool kCount, int kStage = kGlobal>
 __device__ __forceinline__ bool path_bounce(const Params& p, PathState& st,
                                             unsigned int seed, unsigned int base0,
                                             unsigned int s_abs, unsigned int pick_seed,
@@ -928,7 +1163,7 @@ __device__ __forceinline__ bool path_bounce(const Params& p, PathState& st,
   const int n_lights = ls.L + ls.T;
   const Vec3 o = st.o, d = st.d;
   if (kCount) ++rays;
-  const Hit h = closest_hit<kStaged>(p.geo, p.t_min, p.t_max, o, d);
+  const Hit h = closest_hit<kStage>(p.geo, p.t_min, p.t_max, o, d);
   if (!h.hit) {
     const Vec3 sk = sky(d);
     st.r = st.r + st.tr * sk.x * p.sky_intensity;
@@ -983,7 +1218,7 @@ __device__ __forceinline__ bool path_bounce(const Params& p, PathState& st,
                                  : tri_light_sample(ls, gl - ls.L, h.p, h.n, u1n, u2n);
       if (!ln.ok) continue;
       if (kCount) ++rays;
-      if (occluded<kStaged>(p.geo, p.t_min, h.p, ln.w, ln.reach * 0.999f)) continue;
+      if (occluded<kStage>(p.geo, p.t_min, h.p, ln.w, ln.reach * 0.999f)) continue;
       float wgt = ln.wgt * (picked >= 0 ? (float)n_lights : 1.0f);
       if (p.mis && !last) wgt = wgt / fmaf(wgt, wgt, 1.0f);
       st.r = st.r + st.tr * h.ar * ln.le.x * wgt;
@@ -1250,14 +1485,33 @@ __global__ void __launch_bounds__(kStageThreads) render_aov_kernel(const Params 
 // spheres are 2.67 ms at the nominal 67 TFLOP/s and 6.5 ms at the 27.5
 // TFLOP/s the slab-mix probe measures).  Divergence between lanes that
 // start a path and lanes deep in one is the remaining loss.
+//
+// kStaged, the staged BVH route (render_kernel's K1b and K1c): a scene
+// with a sphere BVH or a mesh whose stage (bvh_stage_bytes) is at most
+// kBvhStageBytes is copied by every block into its dynamic shared memory
+// once, before the regeneration loop (no barrier inside it: a warp's
+// lanes leave the loop at their own time), and every closest hit and
+// shadow query walks the stage (walk_staged, staged_range, staged_tri):
+// the same tree, visiting order, windows, strict `<` and arithmetic as the
+// global walk, so the same winners, ties included, bit for bit, with the
+// roots of missed spheres skipped (staged_range).  Its ring is half the
+// global route's, so that ring and stage together take no more shared
+// memory than the global ring alone: the blocks an SM are not fewer
+// (launch_render).  ops/cuda/megakernel.py::pack_scene decides the route
+// from the scene.
 constexpr int kRegenWarps = 4;   // warps a block
 constexpr int kRingRows = 16;    // rows of 32 items a warp holds (a power of 2)
-constexpr int kRingSlots = kRingRows * 32;
+constexpr int kStagedRingRows = 8;  // ... on the staged route
+static_assert(kRegenWarps * (kRingRows - kStagedRingRows) * 32 * 16 >= kBvhStageBytes,
+              "the staged route's ring and stage fit the global ring's shared memory");
 
-template <bool kNee, bool kCount>
+template <bool kNee, bool kCount, bool kStaged>
 __global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(const Params p) {
+  constexpr int kRows = kStaged ? kStagedRingRows : kRingRows;
+  constexpr int kRingSlots = kRows * 32;
   // Slot of an item: r, g, b as bits, then the rays it traced + 1 (0: open).
   __shared__ uint4 ring_all[kRegenWarps][kRingSlots];
+  if (kStaged) stage_bvh(p.geo);
   constexpr unsigned int kFull = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   uint4* const ring = ring_all[threadIdx.x >> 5];
@@ -1285,9 +1539,9 @@ __global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(const Params p
   unsigned int acc_rays = 0u;
   while (true) {
     // Refill: draw groups while the idle lanes need items, then hand them
-    // the next items in lane order, at most 16 rows past the oldest.
+    // the next items in lane order, at most kRows rows past the oldest.
     const unsigned int idle = __ballot_sync(kFull, !active);
-    int limit = min(next + __popc(idle), (fold + kRingRows) * 32);
+    int limit = min(next + __popc(idle), (fold + kRows) * 32);
     while (!exhausted && opened * group_items < limit) {
       int g = 0;
       if (lane == 0) g = atomicAdd(p.cursor, 1);
@@ -1332,8 +1586,8 @@ __global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(const Params p
     next = limit;
     // One bounce of every path; a path that ends hands its sample to its slot.
     if (active) {
-      const bool live =
-          path_bounce<kNee, kCount>(p, st, seed, base0, s_abs, s_abs ^ frame_hash, i, rays);
+      const bool live = path_bounce<kNee, kCount, kStaged ? kBvhStage : kGlobal>(
+          p, st, seed, base0, s_abs, s_abs ^ frame_hash, i, rays);
       if (!live || ++i >= p.max_depth) {
         clamp_sample(p, st.r, st.g, st.b);
         ring[item & (kRingSlots - 1)] = make_uint4(
@@ -1344,7 +1598,7 @@ __global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(const Params p
     __syncwarp();
     // Fold the finished rows, oldest first; each pixel in sample order.
     while (fold < opened * p.spp) {
-      uint4* const slot = ring + (fold & (kRingRows - 1)) * 32 + lane;
+      uint4* const slot = ring + (fold & (kRows - 1)) * 32 + lane;
       const uint4 v = *slot;
       const int fold_group = __shfl_sync(kFull, my_group, fold_q & 31);
       if (__ballot_sync(kFull, v.w != 0u) != kFull) break;
@@ -1373,7 +1627,7 @@ __global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(const Params p
     if (fold_q >= 32) {
       // Rebase the counters by 32 groups, which keeps every slot, ring row
       // and group lane, so that item indices stay small (fold_q < 48 here:
-      // a pass folds at most the ring's 16 rows).
+      // a pass folds at most the ring's 16 or 8 rows).
       opened -= 32;
       fold_q -= 32;
       fold -= 32 * p.spp;
@@ -1384,20 +1638,27 @@ __global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(const Params p
   }
 }
 
+// The blocks of render_kernel<kNee, kCount, kStaged> an SM holds at once
+// with `smem` bytes of dynamic shared memory, the ring in the largest
+// shared memory carve-out.
+template <bool kNee, bool kCount, bool kStaged>
+cudaError_t render_occupancy(size_t smem, int* per_sm) {
+  const auto kernel = render_kernel<kNee, kCount, kStaged>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kRegenWarps * 32, smem);
+  return e;
+}
+
 // Launch render_kernel on a persistent grid: as many blocks as fit on the
-// card at once (fewer for a small frame), the ring in the largest shared
-// memory carve-out.
-template <bool kNee, bool kCount>
-cudaError_t launch_render(const Params& p, cudaStream_t s) {
-  const auto kernel = render_kernel<kNee, kCount>;
+// card at once (fewer for a small frame), with `smem` bytes of stage.
+template <bool kNee, bool kCount, bool kStaged>
+cudaError_t launch_render(const Params& p, size_t smem, cudaStream_t s) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRegenWarps * 32, 0);
+  if (e == cudaSuccess) e = render_occupancy<kNee, kCount, kStaged>(smem, &per_sm);
   if (e != cudaSuccess) return e;
   const long long n_pix = (long long)p.width * p.height;
   // A path takes at least one bounce, and a warp's item indices (less than
@@ -1407,7 +1668,7 @@ cudaError_t launch_render(const Params& p, cudaStream_t s) {
     return cudaErrorInvalidValue;
   const long long wanted = ((n_pix + 31) / 32 + kRegenWarps - 1) / kRegenWarps;
   const int grid = (int)std::max(1LL, std::min(wanted, (long long)std::max(per_sm, 1) * sms));
-  kernel<<<grid, kRegenWarps * 32, 0, s>>>(p);
+  render_kernel<kNee, kCount, kStaged><<<grid, kRegenWarps * 32, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -1783,8 +2044,8 @@ __device__ __forceinline__ bool wavefront_bounce_slot(const Params& p, const Wav
   const unsigned int base0 = hash_pixel_seeds(pid, 0u, p.frame_seed);
   const unsigned int pick_seed = s_abs ^ wgsl_hash(p.frame_seed);
   unsigned int rays = 0u;
-  const bool live =
-      path_bounce<kNee, kCount, kStaged>(p, st, seed, base0, s_abs, pick_seed, i, rays);
+  const bool live = path_bounce<kNee, kCount, kStaged ? kSphereStage : kGlobal>(
+      p, st, seed, base0, s_abs, pick_seed, i, rays);
   float n_rays = 0.0f;
   if (kCount) n_rays = f[WRAYS * ps] + (float)rays;
   if (kRegen) ib[WBNC * ps + t] = i + 1;
@@ -2039,7 +2300,10 @@ Params scene_params(const float* cam, const float* scene, int n, const float* sb
 // width), the rays traced per pixel.  With `state` (6, height,
 // width) the adaptive loop runs (spp is its budget) and updates the state;
 // `out` is then optional (the one-shot mean).  The path integrator's fixed
-// loop needs `cursor`, one int in device memory set to 0.
+// loop needs `cursor`, one int in device memory set to 0, and walks a BVH
+// scene from its shared-memory stage when `bvh_stage` is the stage's bytes
+// (bvh_stage_bytes of the scene's counts, at most kBvhStageBytes; 0: the
+// global walk); any other stage is refused.
 extern "C" int grt_render(const float* cam, const float* scene, int n,
                           const float* sbvh_f, const int* sbvh_i, int sbvh_m,
                           const float* mesh, int n_tris, int smooth,
@@ -2052,7 +2316,7 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
                           float t_max, int mode, int rr_depth, float sky_intensity,
                           float clamp, int spp, float* out, float* rays, float* state,
                           int tile_rows, int min_spp, int chunk, float tol, int* cursor,
-                          void* stream) {
+                          int bvh_stage, void* stream) {
   Params p = scene_params(cam, scene, n, sbvh_f, sbvh_i, sbvh_m, mesh, n_tris, smooth,
                           mbvh_f, mbvh_i, mbvh_m, lights, n_lights, tri_lights,
                           n_tri_lights, nee, mis, sampler, kx, ky, nbits);
@@ -2075,6 +2339,11 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
   p.cursor = cursor;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool count = rays != nullptr;
+  if (bvh_stage != 0 &&
+      (state != nullptr || mode != PATH || (sbvh_m == 0 && n_tris == 0) ||
+       bvh_stage > kBvhStageBytes ||
+       (size_t)bvh_stage != bvh_stage_bytes(n, sbvh_m, n_tris, mbvh_m)))
+    return static_cast<int>(cudaErrorInvalidValue);  // the path loop on a small BVH scene only
   if (state != nullptr) {
     if (mode == GUIDES) return static_cast<int>(cudaErrorInvalidValue);  // one plane a loop
     const Adaptive a = {state, tile_rows, min_spp, chunk, tol};
@@ -2095,10 +2364,33 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
     }
     return static_cast<int>(cudaGetLastError());
   }
-  if (nee) return static_cast<int>(count ? launch_render<true, true>(p, s)
-                                         : launch_render<true, false>(p, s));
-  return static_cast<int>(count ? launch_render<false, true>(p, s)
-                                : launch_render<false, false>(p, s));
+  const size_t smem = (size_t)bvh_stage;
+  if (bvh_stage != 0) {
+    if (nee) return static_cast<int>(count ? launch_render<true, true, true>(p, smem, s)
+                                           : launch_render<true, false, true>(p, smem, s));
+    return static_cast<int>(count ? launch_render<false, true, true>(p, smem, s)
+                                  : launch_render<false, false, true>(p, smem, s));
+  }
+  if (nee) return static_cast<int>(count ? launch_render<true, true, false>(p, 0, s)
+                                         : launch_render<true, false, false>(p, 0, s));
+  return static_cast<int>(count ? launch_render<false, true, false>(p, 0, s)
+                                : launch_render<false, false, false>(p, 0, s));
+}
+
+// The blocks an SM of render_kernel<nee, count, staged> holds with `smem`
+// bytes of stage, into *per_sm (for measurement); returns the CUDA error.
+extern "C" int grt_render_occupancy(int nee, int count, int staged, int smem, int* per_sm) {
+  const size_t b = (size_t)smem;
+  if (staged) {
+    if (nee) return static_cast<int>(count ? render_occupancy<true, true, true>(b, per_sm)
+                                           : render_occupancy<true, false, true>(b, per_sm));
+    return static_cast<int>(count ? render_occupancy<false, true, true>(b, per_sm)
+                                  : render_occupancy<false, false, true>(b, per_sm));
+  }
+  if (nee) return static_cast<int>(count ? render_occupancy<true, true, false>(b, per_sm)
+                                         : render_occupancy<true, false, false>(b, per_sm));
+  return static_cast<int>(count ? render_occupancy<false, true, false>(b, per_sm)
+                                : render_occupancy<false, false, false>(b, per_sm));
 }
 
 // One wavefront bounce over the ray array in (f0, i0) ((16, stride) f32 and

@@ -30,6 +30,7 @@ state planes.
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -62,11 +63,12 @@ from gpu_ray_tracing_tpu_torch.ops.rounding import fma
 #: "sampler_probe"): each wrapper adds one where it launches, keyed by the
 #: geometry the launch was given (a mesh, else a sphere BVH, else the brute
 #: scan), suffixed "+nee" when the launch ran next-event estimation,
-#: "+stratified" or "+sobol" when it ran that sampler, "+adaptive" when it
-#: ran the adaptive loop, "+guides" for render_guides' launch and "+rays"
-#: when it counted rays (e.g. "megakernel:mesh_bvh+nee",
-#: "megakernel:brute+adaptive", "megakernel:brute+guides"), so a run can
-#: show which paths it used.
+#: "+stratified" or "+sobol" when it ran that sampler, "+staged" when the
+#: path loop walked the scene from its shared-memory stage
+#: (PackedScene.stage_bytes), "+adaptive" when it ran the adaptive loop,
+#: "+guides" for render_guides' launch and "+rays" when it counted rays
+#: (e.g. "megakernel:mesh_bvh+nee+staged", "megakernel:brute+adaptive",
+#: "megakernel:brute+guides"), so a run can show which paths it used.
 LAUNCHES: collections.Counter = collections.Counter()
 
 # Rows of the (16, N) scene planes (the Pallas layout, megakernel.py:84).
@@ -95,6 +97,11 @@ _TRI_SLOTS = 32
 TILE_ROWS = 32
 AOV_TILE_ROWS = 64
 TILE_COLS = 128
+
+# render_kernel's staged BVH route (megakernel.cu, kBvhStageBytes): a scene
+# with a sphere BVH or a mesh whose stage takes at most STAGE_BYTES of a
+# block's shared memory is walked from there.
+STAGE_BYTES = 16384
 
 # Pixels x spheres elements per chunk of the plain version's (P, N) planes.
 _CPU_BLOCK = 1 << 22
@@ -528,17 +535,40 @@ def dataclass_tensors(obj) -> list[torch.Tensor]:
     return out
 
 
+def bvh_stage_bytes(n_spheres: int, sphere_nodes: int, n_tris: int, mesh_nodes: int) -> int:
+    """Bytes of render_kernel's BVH stage for a scene of these counts
+    (megakernel.cu::bvh_stage_bytes): 16 a sphere, 32 a node of either BVH,
+    48 a face."""
+    return 16 * (n_spheres + 2 * sphere_nodes + 3 * n_tris + 2 * mesh_nodes)
+
+
+def stage_bytes_of(sc: Scene) -> int:
+    """The BVH stage render_kernel walks for scene `sc`: its bytes when the
+    scene has a sphere BVH or a mesh (behind its BVH) and they are at most
+    STAGE_BYTES, else 0 (the global walk; the brute route always takes
+    it).  Decided from the scene alone, before a launch."""
+    ms = sc.sphere_bvh.num_nodes if sc.sphere_bvh is not None else 0
+    f, mm = (sc.mesh.num_triangles, sc.bvh.num_nodes) if sc.mesh is not None else (0, 0)
+    if not ms and not f:
+        return 0
+    b = bvh_stage_bytes(sc.spheres.count, ms, f, mm)
+    return b if b <= STAGE_BYTES else 0
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedScene:
     """A scene as the kernels read it: `args`, the scene, light and sampler
     arguments every render entry point of the library takes, in C order
-    (pointers into `tensors`, which this object keeps alive), and `route`,
+    (pointers into `tensors`, which this object keeps alive), `route`,
     the launch-count key of the geometry and options ("brute",
-    "sphere_bvh" or "mesh_bvh", suffixed "+nee" and "+<sampler>")."""
+    "sphere_bvh" or "mesh_bvh", suffixed "+nee" and "+<sampler>"), and
+    `stage_bytes`, the BVH stage of render_kernel's path loop
+    (stage_bytes_of; 0: the global walk)."""
 
     args: tuple
     tensors: tuple
     route: str
+    stage_bytes: int
 
 
 def pack_scene(sc: Scene, nee: bool, mis: bool, sampler_spec: tuple | None) -> PackedScene:
@@ -570,7 +600,8 @@ def pack_scene(sc: Scene, nee: bool, mis: bool, sampler_spec: tuple | None) -> P
     )
     route = "mesh_bvh" if n_tris else "sphere_bvh" if nodes(sbvh) else "brute"
     route += ("+nee" if nee else "") + ("" if kind == 0 else "+" + sampler_spec[0])
-    return PackedScene(args, (planes, *sbvh, table, *mbvh, lplanes, tplanes), route)
+    return PackedScene(args, (planes, *sbvh, table, *mbvh, lplanes, tplanes), route,
+                       stage_bytes_of(sc))
 
 
 def _require_cuda(*tensors: torch.Tensor) -> torch.device:
@@ -624,7 +655,9 @@ def render_cuda(
     (height, width, 3) f32 mean on the scene's CUDA device.  Same signature
     and stream as render_reference (whose default light_pick='sample' is
     the kernel's > 4-light pick).  A scene with a sphere BVH walks it; a
-    mesh must have its BVH (make_scene builds one).
+    mesh must have its BVH (make_scene builds one).  The fixed path loop
+    walks a BVH scene of at most STAGE_BYTES of stage (stage_bytes_of) from
+    shared memory, with the same bits ("+staged" in LAUNCHES).
 
     The options of render_pallas: `adaptive_tol > 0` makes spp a per-tile
     budget (the adaptive kernel, a cluster of blocks per tile); `return_spp_map` and
@@ -644,14 +677,16 @@ def render_cuda(
     rays = (torch.zeros((height, width), dtype=torch.float32, device=dev)
             if return_ray_count else None)
     # The path kernel's pixel-group cursor, zero at launch.
-    cursor = (torch.zeros(1, dtype=torch.int32, device=dev)
-              if plan.state is None and mode == "path" else None)
+    path_loop = plan.state is None and mode == "path"
+    cursor = torch.zeros(1, dtype=torch.int32, device=dev) if path_loop else None
+    stage = packed.stage_bytes if path_loop else 0
     _launch(packed, camera, dev, MODES[mode], out, rays, plan, cursor, width=width,
             height=height, sample_index=sample_index, frame_seed=frame_seed,
             y_offset=y_offset, row_stride=row_stride, max_depth=max_depth, t_min=t_min,
             t_max=t_max, russian_roulette_depth=russian_roulette_depth,
-            sky_intensity=sky_intensity, clamp=clamp, spp=spp)
-    route = packed.route + ("+adaptive" if plan.state is not None else "")
+            sky_intensity=sky_intensity, clamp=clamp, spp=spp, stage=stage)
+    route = (packed.route + ("+staged" if stage else "")
+             + ("+adaptive" if plan.state is not None else ""))
     LAUNCHES["megakernel:" + route + ("+rays" if rays is not None else "")] += 1
     return _outputs(out, plan, spp, return_spp_map, rays)
 
@@ -660,8 +695,9 @@ def _launch(packed: PackedScene, camera: Camera, dev: torch.device, mode: int, o
             plan: _AdaptivePlan, cursor, *, width: int, height: int, sample_index: int,
             frame_seed: int, y_offset: int, row_stride: int, max_depth: int, t_min: float,
             t_max: float, russian_roulette_depth: int, sky_intensity: float, clamp: float,
-            spp: int) -> None:
-    """One grt_render launch on dev's current stream; raises if refused."""
+            spp: int, stage: int = 0) -> None:
+    """One grt_render launch on dev's current stream, walking a BVH stage
+    of `stage` bytes (0: none); raises if refused."""
     lib = build.load()
     cam = camera_vector(camera).contiguous()
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -675,7 +711,8 @@ def _launch(packed: PackedScene, camera: Camera, dev: torch.device, mode: int, o
             max_depth, float(t_min), float(t_max), mode,
             int(russian_roulette_depth), float(sky_intensity), float(clamp),
             spp, ptr(out), ptr(rays), ptr(plan.state),
-            plan.tile_rows, plan.min_spp, plan.chunk, plan.tol, ptr(cursor), stream,
+            plan.tile_rows, plan.min_spp, plan.chunk, plan.tol, ptr(cursor), int(stage),
+            stream,
         )
     build.check(rc, "megakernel")
 
@@ -784,6 +821,17 @@ def adaptive_cluster(blocks: int | None = None) -> int:
     if blocks is not None and not 0 <= blocks <= 16:
         raise ValueError(f"a tile's cluster has 1-16 blocks (0: the launcher's), got {blocks}")
     return build.load().grt_adaptive_cluster(-1 if blocks is None else int(blocks))
+
+
+def render_occupancy(nee: bool, count: bool, staged: bool, stage_bytes: int = 0) -> int:
+    """The blocks of render_kernel<nee, count, staged> one SM of the current
+    card holds at once with `stage_bytes` of BVH stage (the launcher's own
+    occupancy query; for measurement)."""
+    per_sm = ctypes.c_int(0)
+    build.check(build.load().grt_render_occupancy(int(nee), int(count), int(staged),
+                                                  int(stage_bytes), ctypes.byref(per_sm)),
+                "render_occupancy")
+    return per_sm.value
 
 
 def hash_probe_reference(values: torch.Tensor, salts, sample_index: int,

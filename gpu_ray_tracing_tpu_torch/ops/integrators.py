@@ -26,6 +26,7 @@ import torch
 
 from gpu_ray_tracing_tpu_torch.models.scene import as_scene, sphere_light_ids
 from gpu_ray_tracing_tpu_torch.models.spheres import EMISSIVE, LAMBERTIAN
+from gpu_ray_tracing_tpu_torch.ops import intersect as intersect_ops
 from gpu_ray_tracing_tpu_torch.ops import rng as rng_ops
 from gpu_ray_tracing_tpu_torch.ops.intersect import (
     Hit,
@@ -394,6 +395,10 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
                 t = nearest_t_scene(pnt.reshape(-1, 3)[idx], omega.reshape(-1, 3)[idx],
                                     sc, t_min, t_max)
                 vis.reshape(-1)[idx] = t >= window.reshape(-1)[idx]
+                if intersect_ops.BVH_VISITS is not None:
+                    intersect_ops.count_walks(pnt.reshape(-1, 3)[idx],
+                                              omega.reshape(-1, 3)[idx], sc, t_min,
+                                              window.reshape(-1)[idx], "shadow")
         return vis
 
     def remapped(u1, u2, rot_salt):
@@ -406,6 +411,11 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
 
     if ctx.count_rays:
         rays_box[0] = rays_box[0] + live.to(torch.float32)
+    if intersect_ops.BVH_VISITS is not None:
+        # The kernel's walks for the live rays (ops/intersect.BVH_VISITS).
+        lv = live.reshape(-1)
+        intersect_ops.count_walks(o.reshape(-1, 3)[lv], d.reshape(-1, 3)[lv], sc, t_min, t_max,
+                                  "closest")
     if mis:
         hit, albedo, kind, param, mesh_won = intersect_scene(
             o, d, sc, t_min, t_max, want_mesh_wins=True)

@@ -26,6 +26,24 @@ from gpu_ray_tracing_tpu_torch.ops.rounding import cross, dot3, fma, sqrt
 # of a frame's closest hits; it is None otherwise.
 SPHERE_TESTS: dict | None = None
 
+# While this is a dict, the walks that are asked to count (`count=` of
+# intersect_bvh and walk_sphere_bvh; `count_walks`) add what they did under
+# BVH_VISITS[count]: "nodes" visited, "leaves" entered, "faces" and
+# "spheres" tested, "roots" (sphere tests whose discriminant is not
+# negative) and "rays" (ints).  The plain integrator asks for it on its
+# live rays ("closest") and its shadow rays ("shadow"), so chip_smoke.py
+# counts the walks a frame needs; it is None otherwise.
+BVH_VISITS: dict | None = None
+
+
+def _visit(count: str | None, **added) -> None:
+    """Add `added` (ints or 0-d tensors) under BVH_VISITS[count]."""
+    if BVH_VISITS is None or count is None:
+        return
+    slot = BVH_VISITS.setdefault(count, {})
+    for k, v in added.items():
+        slot[k] = slot.get(k, 0) + int(v)
+
 
 @dataclasses.dataclass(frozen=True)
 class Hit:
@@ -219,7 +237,8 @@ def _mesh_hit_record(o, d, mesh, t_best, idx, any_hit, batch_shape) -> Hit:
     )
 
 
-def intersect_bvh(origins, dirs, mesh, bvh, t_min: float, t_max: float) -> Hit:
+def intersect_bvh(origins, dirs, mesh, bvh, t_min: float, t_max,
+                  count: str | None = None) -> Hit:
     """Stackless threaded-BVH closest hit (ops/bvh.py layout).
 
     Every ray carries one cursor: a box whose slab interval overlaps the
@@ -236,6 +255,13 @@ def intersect_bvh(origins, dirs, mesh, bvh, t_min: float, t_max: float) -> Hit:
     is recomputed with one differentiable Moller-Trumbore of that face
     (the same function of the same inputs, so the same value), and the hit
     record is built from it.
+
+    `t_max` is a float, or one window a ray ((...,) tensor: the kernel's
+    mesh walk starts from the spheres' closest hit).  With `count` it adds
+    the nodes it visited, the leaves it entered and the faces it tested to
+    BVH_VISITS[count] (while that is a dict): the kernel's walk, which
+    visits the same nodes in the same order and tests every face of an
+    entered leaf.
     """
     batch_shape = origins.shape[:-1]
     o_diff = origins.reshape(-1, 3)
@@ -246,8 +272,13 @@ def intersect_bvh(origins, dirs, mesh, bvh, t_min: float, t_max: float) -> Hit:
     p = o.shape[0]
     dev = o.device
     inv_d = 1.0 / torch.where(torch.abs(d) < 1e-20, 1e-20, d)
-    t_out = torch.full((p,), t_max, dtype=torch.float32, device=dev)
+    if isinstance(t_max, torch.Tensor):
+        t_max = t_max.detach().reshape(p).to(torch.float32)
+        t_out = t_max.clone()
+    else:
+        t_out = torch.full((p,), t_max, dtype=torch.float32, device=dev)
     idx_out = torch.full((p,), -1, dtype=torch.int64, device=dev)
+    counting = BVH_VISITS is not None and count is not None
 
     ids = torch.arange(p, device=dev)
     node = torch.zeros(p, dtype=torch.int64, device=dev)
@@ -258,6 +289,8 @@ def intersect_bvh(origins, dirs, mesh, bvh, t_min: float, t_max: float) -> Hit:
     lcount = bvh.leaf_count.long()
     ks = torch.arange(bvh.leaf_size, device=dev)
     while ids.numel():
+        if counting:
+            _visit(count, nodes=ids.numel())
         t0 = (bvh.bbox_min[node] - so) * sinv
         t1 = (bvh.bbox_max[node] - so) * sinv
         tn = torch.amax(torch.minimum(t0, t1), dim=-1)
@@ -270,6 +303,8 @@ def intersect_bvh(origins, dirs, mesh, bvh, t_min: float, t_max: float) -> Hit:
             tri = ls[leaf, None] + ks  # (L, K)
             valid = ks < lcount[node[leaf], None]
             tri = torch.where(valid, tri, 0)
+            if counting:
+                _visit(count, leaves=leaf.numel(), faces=valid.sum())
             t, _, _, hit = _moller_trumbore(
                 so[leaf, None], sd[leaf, None], mesh.v0[tri], mesh.e1[tri], mesh.e2[tri],
                 t_min, tb[leaf, None])
@@ -292,3 +327,105 @@ def intersect_bvh(origins, dirs, mesh, bvh, t_min: float, t_max: float) -> Hit:
                                      mesh_diff.e2[idx], t_min, t_max)
     t_best = torch.where(any_hit, t_re, t_max)
     return _mesh_hit_record(o_diff, d_diff, mesh_diff, t_best, idx, any_hit, batch_shape)
+
+
+# --- counting the kernel's walks ---------------------------------------------
+
+
+def walk_sphere_bvh(origins, dirs, spheres: Spheres, bvh, t_min: float, t_max,
+                    count: str | None = None):
+    """The CUDA kernel's closest hit through a sphere BVH, in plain
+    PyTorch: one cursor a ray over the threaded tree (ops/bvh.py), a box
+    entered when its slab interval overlaps (t_min, tb), and each entered
+    leaf's spheres tested one after another against the shrinking window
+    tb with the near-then-far root pick (`_roots`), strict `<` (the first
+    of equal roots wins).  Leaves lie in index order along the walk, so a
+    winner is the one of least t and least index among the spheres of the
+    leaves entered.  `t_max` is a float or one window a ray.  Returns ((P,)
+    t, (P,) int64 index or -1, (P,) hit) for flat rays (P, 3).  With
+    `count` it adds its nodes, leaves, sphere tests (active spheres) and
+    roots to BVH_VISITS[count].
+
+    The plain integrator scans every sphere instead (intersect_spheres);
+    this walk serves the counters and the tests."""
+    o, d = origins.reshape(-1, 3), dirs.reshape(-1, 3)
+    p, dev = o.shape[0], o.device
+    if isinstance(t_max, torch.Tensor):
+        tb = t_max.reshape(p).to(torch.float32).clone()
+    else:
+        tb = torch.full((p,), t_max, dtype=torch.float32, device=dev)
+    t_out, best_out = tb.clone(), torch.full((p,), -1, dtype=torch.int64, device=dev)
+    best = best_out.clone()
+    inv = 1.0 / torch.where(torch.abs(d) < 1e-20, 1e-20, d)
+    ids = torch.arange(p, device=dev)
+    node = torch.zeros(p, dtype=torch.int64, device=dev)
+    miss, lstart, lcount = (x.long() for x in (bvh.miss_link, bvh.leaf_start, bvh.leaf_count))
+    centers, radii = spheres.centers, spheres.radii
+    ks = torch.arange(bvh.leaf_size, device=dev)
+    so, sd, sinv = o, d, inv
+    while ids.numel():
+        _visit(count, nodes=ids.numel())
+        t0 = (bvh.bbox_min[node] - so) * sinv
+        t1 = (bvh.bbox_max[node] - so) * sinv
+        tn = torch.amax(torch.minimum(t0, t1), dim=-1)
+        tf = torch.amin(torch.maximum(t0, t1), dim=-1)
+        box_hit = (tf >= torch.clamp(tn, min=t_min)) & (tn < tb)
+        ls = lstart[node]
+        leaf = torch.nonzero(box_hit & (ls >= 0)).squeeze(1)
+        if leaf.numel():
+            # The leaf's spheres against the window at its entry: the
+            # window only shrinks, so a sphere the one-by-one scan takes is
+            # one whose root here is below the window so far, and the scan
+            # ends on the first sphere of least root.
+            j = ls[leaf, None] + ks
+            real = ks < lcount[node[leaf], None]
+            j = torch.where(real, j, 0)
+            tally = {"tests": 0, "roots": 0}
+            root, valid = _roots(so[leaf, None], sd[leaf, None], centers[j],
+                                 torch.where(real, radii[j], 0.0), t_min, tb[leaf, None], tally)
+            _visit(count, leaves=leaf.numel(), spheres=tally["tests"], roots=tally["roots"])
+            t_leaf, k = torch.min(torch.where(valid, root, torch.inf), dim=-1)
+            take = t_leaf < tb[leaf]
+            tb[leaf] = torch.where(take, t_leaf, tb[leaf])
+            best[leaf] = torch.where(take, j.gather(1, k[:, None]).squeeze(1), best[leaf])
+        node = torch.where(box_hit & (ls < 0), node + 1, miss[node])
+        done = node < 0
+        if bool(done.any()):
+            t_out[ids[done]] = tb[done]
+            best_out[ids[done]] = best[done]
+            keep = ~done
+            ids, node, so, sd, sinv, tb, best = (
+                x[keep] for x in (ids, node, so, sd, sinv, tb, best))
+    return t_out, best_out, best_out >= 0
+
+
+def count_walks(origins, dirs, sc, t_min: float, t_max, count: str) -> None:
+    """Add to BVH_VISITS[count] the work of the CUDA kernel's closest-hit
+    query for flat rays (P, 3) in the window (t_min, t_max) (a float or
+    one a ray) on scene `sc`: the rays, then the spheres (the sphere-BVH
+    walk, or every active sphere of the brute scan with its roots), then
+    the mesh walk from the spheres' closest hit, as the kernel orders
+    them.  A shadow ray's any-hit query ends at its first blocker, so for
+    shadow rays this counts at least the kernel's work."""
+    if BVH_VISITS is None:
+        return
+    o, d = origins.reshape(-1, 3), dirs.reshape(-1, 3)
+    _visit(count, rays=o.shape[0])
+    if o.shape[0] == 0:
+        return
+    with torch.no_grad():
+        if sc.sphere_bvh is not None:
+            t_s, _, _ = walk_sphere_bvh(o, d, sc.spheres, sc.sphere_bvh, t_min, t_max, count)
+        elif sc.spheres.count == 0:
+            t_s = t_max
+        else:
+            window = t_max.reshape(-1, 1) if isinstance(t_max, torch.Tensor) else t_max
+            tally = {"tests": 0, "roots": 0}
+            root, valid = _roots(o[:, None, :], d[:, None, :], sc.spheres.centers,
+                                 sc.spheres.radii, t_min, window, tally)
+            _visit(count, spheres=tally["tests"], roots=tally["roots"])
+            far = (t_max.reshape(-1, 1) if isinstance(t_max, torch.Tensor)
+                   else torch.full_like(root[:, :1], t_max))
+            t_s = torch.amin(torch.where(valid, root, far), dim=-1)
+        if sc.mesh is not None and sc.bvh is not None:
+            intersect_bvh(o, d, sc.mesh, sc.bvh, t_min, t_s, count=count)

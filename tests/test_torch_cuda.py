@@ -20,7 +20,7 @@ import pytest
 import torch
 
 import gpu_ray_tracing_tpu_torch as T
-from chip_smoke import active_only, sphere_cloud, with_ties
+from chip_smoke import active_only, sphere_cloud, stage_scenes, with_ties
 from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as mk
 
 # The suite runs in several worker processes at once: one torch thread
@@ -128,12 +128,14 @@ def test_sphere_bvh_matches_brute_reference(dev, mode):
     """The walked sphere BVH against the plain version's scan of the same
     reordered spheres, at the sphere-BVH contract (flip <= 2%, mean <
     2e-3: which leaves a walk scans can flip far-root decisions), and
-    against the brute kernel on the same spheres at the standard 1% / 2e-4."""
+    against the brute kernel on the same spheres at the standard 1% / 2e-4.
+    The path loop walks this small scene from its stage ("+staged")."""
     scene, cam = _sphere_bvh_scene(dev, 128, 72)
     kw = dict(width=128, height=72, spp=2, max_depth=10, t_min=1e-3, frame_seed=6, mode=mode)
-    before = mk.LAUNCHES["megakernel:sphere_bvh"]
+    key = "megakernel:sphere_bvh" + ("+staged" if mode == "path" else "")
+    before = mk.LAUNCHES[key]
     walk = mk.render_cuda(scene, cam, **kw)
-    assert mk.LAUNCHES["megakernel:sphere_bvh"] == before + 1
+    assert mk.LAUNCHES[key] == before + 1
     _assert_match(walk, mk.render_reference(scene, cam, **kw), 0.02, 2e-3)
     brute = mk.render_cuda(dataclasses.replace(scene, sphere_bvh=None), cam, **kw)
     _assert_match(walk, brute)
@@ -197,17 +199,18 @@ def _many_lights_scene():
 
 
 @pytest.mark.parametrize("scene,route,mis", [
-    ("nee", "brute", False), ("nee", "brute", True),
-    ("many", "mesh_bvh", False), ("many", "mesh_bvh", True),
+    ("nee", "brute+nee", False), ("nee", "brute+nee", True),
+    ("many", "mesh_bvh+nee+staged", False), ("many", "mesh_bvh+nee+staged", True),
 ])
 def test_nee_kernel_matches_render_reference(dev, scene, route, mis):
     """The kernel's NEE against its plain version (light_pick='sample', the
-    kernel's > 4-light pick) at the standard 1% / 2e-4, on its +nee key."""
+    kernel's > 4-light pick) at the standard 1% / 2e-4, on its +nee key
+    (the 80-face mesh walked from the BVH stage)."""
     sc = (_nee_scene() if scene == "nee" else _many_lights_scene()).to(dev)
     cam = T.derive_camera(BASE_CAMERA, 96, 72).to(dev)
     kw = dict(width=96, height=72, spp=2, max_depth=6, t_min=1e-3, frame_seed=9,
               sky_intensity=0.0, nee=True, mis=mis, russian_roulette_depth=3)
-    key = f"megakernel:{route}+nee"
+    key = f"megakernel:{route}"
     before = mk.LAUNCHES[key]
     got = mk.render_cuda(sc, cam, **kw)
     torch.cuda.synchronize()
@@ -264,6 +267,82 @@ def test_cornell_matches_render_reference(dev):
               nee=True, mis=True, frame_seed=13)
     _assert_match(mk.render_cuda(sc, cam, **kw), mk.render_reference(sc, cam, **kw),
                   0.015, 1e-3)
+
+
+# --- render_kernel's staged BVH route (K1b, K1c) -----------------------------
+
+
+@pytest.mark.parametrize("case", [
+    "cornell_nee_mis", "config3", "at_cap", "above_cap", "mesh_and_sphere_bvh",
+    "inactive_in_leaves", "degenerate_faces", "quad_diagonals", "many_lights",
+    "cornell_ragged"])
+def test_staged_bvh_route_equals_wavefront_and_global_walk(dev, case, monkeypatch):
+    """render_kernel's BVH stage (a block copies a small BVH scene to shared
+    memory once a launch and walks it there) on chip_smoke.stage_scenes'
+    edge cases at an eighth of their size: render() equals
+    render(backend='wavefront', regenerate='off'), whose bounce walks the
+    global arrays, bit for bit, and render_cuda's image and ray counts
+    equal the wavefront engine's and the global walk's (STAGE_BYTES 0, the
+    route before the stage); the stage's cap and one record above it
+    take the staged and the global route."""
+    from gpu_ray_tracing_tpu_torch.ops.cuda import wavefront as wf
+
+    scene, cam_s, kw = stage_scenes(T, mk.STAGE_BYTES)[case]
+    kw = dict(kw)
+    w, h = kw.pop("width", 1280) // 8, kw.pop("height", 720) // 8
+    cfg = T.RenderConfig(width=w, height=h, **kw)
+    got = T.render(scene, cam_s, cfg, frame_seed=15)
+    want = T.render(scene, cam_s, dataclasses.replace(cfg, backend="wavefront",
+                                                      regenerate="off"), frame_seed=15)
+    assert torch.equal(got, want)
+    sc, cam = T.as_scene(scene).to(dev), T.derive_camera(cam_s, w, h).to(dev)
+    stage = mk.stage_bytes_of(sc)
+    assert (stage > 0) == (case != "above_cap")
+    assert stage == (mk.STAGE_BYTES if case == "at_cap" else stage)
+    rk = dict(width=w, height=h, t_min=cfg.t_min, frame_seed=15, **kw)
+    before = sum(v for k, v in mk.LAUNCHES.items() if "+staged" in k)
+    img, rays = mk.render_cuda(sc, cam, return_ray_count=True, **rk)
+    assert sum(v for k, v in mk.LAUNCHES.items() if "+staged" in k) == before + (stage > 0)
+    assert torch.equal(img, got)
+    _, w_rays = wf.render_wavefront(sc, cam, regenerate=False, return_ray_count=True, **rk)
+    assert torch.equal(rays, w_rays)
+    monkeypatch.setattr(mk, "STAGE_BYTES", 0)
+    g_img, g_rays = mk.render_cuda(sc, cam, return_ray_count=True, **rk)
+    assert torch.equal(img, g_img) and torch.equal(rays, g_rays)
+
+
+def test_staged_route_is_refused_where_it_does_not_apply(dev):
+    """grt_render refuses a stage of other bytes than the scene's, one above
+    the cap, and one for a scene without a BVH (no fallback: a launch
+    error raises)."""
+    sc, cam = _sphere_bvh_scene(dev, 32, 18)
+    packed = mk.pack_scene(sc, False, False, None)
+    plan = mk._AdaptivePlan(None, False, mk.TILE_ROWS, 1, 0, 0.0)
+    kw = dict(width=32, height=18, sample_index=0, frame_seed=0, y_offset=0, row_stride=1,
+              max_depth=4, t_min=1e-3, t_max=3.4e35, russian_roulette_depth=0,
+              sky_intensity=1.0, clamp=0.0, spp=1)
+    out = torch.empty((18, 32, 3), device=dev)
+    cursor = torch.zeros(1, dtype=torch.int32, device=dev)
+    for stage in (packed.stage_bytes + 16, mk.STAGE_BYTES + 16):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            mk._launch(packed, cam, dev, 0, out, None, plan, cursor, stage=stage, **kw)
+    brute = mk.pack_scene(T.as_scene(T.one_weekend_scene(0, device=dev)), False, False, None)
+    assert brute.stage_bytes == 0
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        mk._launch(brute, cam, dev, 0, out, None, plan, cursor, stage=16 * 197, **kw)
+    mk._launch(packed, cam, dev, 0, out, None, plan, cursor, stage=packed.stage_bytes, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+
+
+def test_render_occupancy_keeps_the_blocks_an_sm(dev):
+    """The staged instances hold at least as many blocks an SM with a full
+    stage as the global ones without: the half ring makes room for it."""
+    for nee in (False, True):
+        for count in (False, True):
+            glob = mk.render_occupancy(nee, count, False, 0)
+            assert glob >= 1
+            assert mk.render_occupancy(nee, count, True, mk.STAGE_BYTES) >= glob
 
 
 # --- progressive and adaptive rendering, ray counters (K1f) ------------------
