@@ -238,8 +238,10 @@ card in phases, one JSON line each:
                   scaling; each run's launches are counted on every rank and
                   gated on the route's key.  A rank that fails fails the phase
  32. threefry     render(rng='threefry', backend='torch') on the card,
-                  One-Weekend 320x180, depth 8, 256 spp: the same key twice
-                  bit-equal, another key another frame; its per-sample frames
+                  One-Weekend 320x180, depth 8, 256 spp, timed: jax.random's
+                  bits drawn on the card equal to the CPU's for one key; the
+                  same key twice bit-equal, another key another frame; its
+                  per-sample frames
                   (their mean in order is the frame, bit for bit) against the
                   hash stream's (render_cuda, a sample each): per pixel and
                   channel |mean difference| <= 4 standard errors for >= 99%,
@@ -268,6 +270,12 @@ card in phases, one JSON line each:
                   against the global walk (STAGE_BYTES 0) and
                   render_wavefront without regeneration, on the route
                   pack_scene decides ("+staged" in the launch key)
+ 35. global_walks the kernels' other global BVH walks (the node and face
+                  records in device memory): a 2,500-sphere BVH (above the
+                  stage's cap) 640x360 at 4 spp against its plain version,
+                  and config 4's mesh through the adaptive kernel (budget
+                  16), the normal AOV (against its plain version) and the
+                  wavefront bounce (bit-equal to render_cuda), each timed
 
 Every phase that launches the megakernel gates its launch count on its own
 route key (megakernel:brute, :sphere_bvh, :mesh_bvh, suffixed +nee,
@@ -313,9 +321,19 @@ ray counts and six state planes in PATH's stem + "_adaptive.npz", the
 AOV planes in PATH's stem + "_aov.npz", the two wavefront frames
 (regeneration off and on) in PATH's stem + "_wavefront.npz", and the
 frames of the routes timed alone (configs 3 and 4, the Cornell box, the
-night scene, the progressive step) in PATH's stem + "_routes.npz".  "The kernel
+night scene, the progressive step) in PATH's stem + "_routes.npz", and
+phase 35's global walks, timed the same way, in PATH's stem +
+"_global.npz".  It also times phase 10's config 4 frame through render()
+with the scene on the host and on the card, and pack_scene alone (20
+synchronised calls each, host milliseconds).  "The kernel
 alone" is the device time of render_cuda calls queued behind a spin
 kernel, so the host's packing per call does not show.
+
+    python3 chip_smoke.py --config4-render
+
+runs phases 1 and 2, then only --main-path-only's config 4 timings
+(render() with the scene on the host and on the card, pack_scene alone)
+over 50 calls each, and prints one JSON line.
 
     python3 chip_smoke.py --route-variants
 
@@ -334,6 +352,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -1043,6 +1062,83 @@ def time_routes(T, mk, repeats: int, arrays: dict | None = None) -> dict:
     return out
 
 
+def global_walk_frames(T) -> dict:
+    """The kernels' other global BVH walks (config 4 is time_routes'): a
+    sphere BVH above the stage's cap (2,500 spheres), and config 4's mesh
+    through the adaptive kernel, render_aov_kernel's normal AOV and the
+    wavefront bounce (regeneration off): {name: (scene, camera settings,
+    width, height, keywords, engine)}, engine "cuda" (render_cuda) or
+    "wavefront" (render_wavefront)."""
+    ow, mc = T.CameraSettings.default(), T.CameraSettings.make(**MESH_CAMERA)
+    ico6 = mesh_scene(T, 6)
+    return {
+        "sphere_bvh_2500": (T.make_scene(sphere_cloud(T, 2500, "cpu", seed=40), sphere_bvh=True),
+                            ow, 640, 360, dict(spp=4, max_depth=8, frame_seed=5), "cuda"),
+        "adaptive_mesh": (ico6, mc, 640, 480, dict(spp=16, max_depth=8, frame_seed=6,
+                                                   adaptive_tol=0.05, adaptive_min_spp=4),
+                          "cuda"),
+        "aov_mesh": (ico6, mc, 640, 480, dict(spp=4, max_depth=1, frame_seed=7, mode="normal"),
+                     "cuda"),
+        "wavefront_mesh": (ico6, mc, 640, 480, dict(spp=1, max_depth=8, frame_seed=4),
+                           "wavefront"),
+    }
+
+
+def global_walk_calls(T, mk) -> dict:
+    """{name: (scene, camera, keywords, call)} of global_walk_frames on the
+    card, each call one frame through its engine."""
+    from gpu_ray_tracing_tpu_torch.ops.cuda import wavefront as wf
+    out = {}
+    for name, (scene, cam_s, w, h, kw, engine) in global_walk_frames(T).items():
+        sc, cam, kw = route_inputs(T, (scene, cam_s, w, h, kw))
+        if engine == "cuda":
+            call = functools.partial(mk.render_cuda, sc, cam, **kw)
+        else:
+            call = functools.partial(wf.render_wavefront, sc, cam, regenerate=False, **kw)
+        out[name] = (sc, cam, kw, call)
+    return out
+
+
+def time_global_walks(T, mk, repeats: int, arrays: dict | None = None) -> dict:
+    """Each global_walk_frames frame timed as kernel_ms times a route (the
+    wavefront frame with its host enqueue and reads): {name: ms}; with
+    `arrays` it stores each frame there, for a byte comparison between
+    checkouts."""
+    out = {}
+    for name, (_, _, _, call) in global_walk_calls(T, mk).items():
+        out[name] = alone_ms(call, repeats)
+        if arrays is not None:
+            arrays[name] = call().cpu().numpy()
+    return out
+
+
+def time_config4_render(T, mk, repeats: int) -> dict:
+    """Phase 10's config 4 frame through render(), with the scene on the
+    host (render() moves it to the card each call, as phase 10 calls it)
+    and with the scene already on the card, and pack_scene alone on the
+    card's scene: {name: {median_ms, ms}}, host milliseconds a call, each
+    call synchronised.  It calls only entry points that earlier checkouts
+    share, so that one copy of this script times a parent and a change."""
+    scene, cam = mesh_scene(T, 6), T.CameraSettings.make(**MESH_CAMERA)
+    cfg = T.RenderConfig(width=640, height=480, spp=1, max_depth=8, backend="cuda")
+    on_card = T.as_scene(scene).to(torch.device("cuda", 0))
+
+    def wall(fn) -> dict:
+        fn()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return dict(median_ms=float(np.median(ms)), ms=ms)
+
+    return {"render_host_scene": wall(lambda: T.render(scene, cam, cfg, frame_seed=4)),
+            "render_card_scene": wall(lambda: T.render(on_card, cam, cfg, frame_seed=4)),
+            "pack_scene": wall(lambda: mk.pack_scene(on_card, False, False, None))}
+
+
 # Copies of megakernel.cu for --route-variants, each differing from it as
 # its name says, by (text, replacement) pairs that must each match once:
 # the split of the BVH routes' time (the Cornell box, configs 3 and 4) and
@@ -1058,8 +1154,25 @@ def time_routes(T, mk, repeats: int, arrays: dict | None = None) -> dict:
 # cannot hit and after v where v cannot, "staged_ring16" gives the staged
 # route the global route's 16-row ring (more shared memory a block), and
 # "staged_min_blocks_6" / "_7" ask the compiler for registers enough for 6
-# or 7 blocks an SM (__launch_bounds__).
+# or 7 blocks an SM (__launch_bounds__).  The global walk's split (config
+# 4): "tri_scan_next_leaf" also tests, in each entered mesh leaf, the faces
+# of the rows that follow it (as many, its result thrown away: the time of
+# the face tests), and "grid_wanted" launches render_kernel on a block a
+# 128 pixels instead of the resident blocks (exact: the persistent grid's
+# fill and tail).
 ROUTE_VARIANTS = {
+    "tri_scan_next_leaf": [(
+        "      tri_scan(g.faces, start, start + count, t_min, o, d, tb, tri, bu, bv);\n"
+        "      return false;\n    });\n",
+        "      tri_scan(g.faces, start, start + count, t_min, o, d, tb, tri, bu, bv);\n"
+        "      {\n        float tb2 = t_max, bu2 = 0.0f, bv2 = 0.0f;\n        int tri2 = -1;\n"
+        "        const int j1 = min(start + 2 * count, g.n_tris);\n"
+        "        tri_scan(g.faces, start + count, j1, t_min, o, d, tb2, tri2, bu2, bv2);\n"
+        "        if (tri2 == 0x13572468) tb = 0.0f;\n      }\n"
+        "      return false;\n    });\n")],
+    "grid_wanted": [(
+        "  const int grid = (int)std::max(1LL, std::min(wanted, (long long)std::max(per_sm, 1) * sms));",
+        "  const int grid = (int)std::max(1LL, wanted);")],
     "shadow_query_none": [(
         "  if (!(window > t_min)) return false;\n  const SphereRay sr = sphere_ray(o, w);",
         "  if (window == window) return false;\n  const SphereRay sr = sphere_ray(o, w);")],
@@ -1077,14 +1190,14 @@ ROUTE_VARIANTS = {
         "      return false;\n    });\n",
         "      sphere_scan(sc, n, start, start + count, t_min, o, d, sr, tb, best);\n"
         "      return false;\n    });\n    int sink = 0;\n"
-        "    walk_bvh(g.sphere_bvh, o, inv, t_min, tb, [&](int start, int count) {\n"
+        "    walk_nodes(g.sphere_bvh.node, o, inv, t_min, tb, [&](int start, int count) {\n"
         "      sink ^= start * 31 + count;\n      return false;\n    });\n"
         "    if (sink == 0x13572468) tb = 0.0f;\n"), (
-        "      tri_scan(g.mesh, start, start + count, t_min, o, d, tb, tri, bu, bv);\n"
+        "      tri_scan(g.faces, start, start + count, t_min, o, d, tb, tri, bu, bv);\n"
         "      return false;\n    });\n",
-        "      tri_scan(g.mesh, start, start + count, t_min, o, d, tb, tri, bu, bv);\n"
+        "      tri_scan(g.faces, start, start + count, t_min, o, d, tb, tri, bu, bv);\n"
         "      return false;\n    });\n    int sink = 0;\n"
-        "    walk_bvh(g.mesh_bvh, o, inv, t_min, tb, [&](int start, int count) {\n"
+        "    walk_nodes(g.mesh_bvh.node, o, inv, t_min, tb, [&](int start, int count) {\n"
         "      sink ^= start * 31 + count;\n      return false;\n    });\n"
         "    if (sink == 0x13572468) tb = 0.0f;\n")],
     "staged_walk_nodes_again": [(
@@ -1092,13 +1205,13 @@ ROUTE_VARIANTS = {
         "      return false;\n    });\n",
         "      staged_range(st.sph, start, start + count, t_min, o, d, sr, tb, best);\n"
         "      return false;\n    });\n    int sink = 0;\n"
-        "    walk_staged(st.snode, o, inv, t_min, tb, [&](int start, int count) {\n"
+        "    walk_nodes<true>(st.snode, o, inv, t_min, tb, [&](int start, int count) {\n"
         "      sink ^= start * 31 + count;\n      return false;\n    });\n"
         "    if (sink == 0x13572468) tb = 0.0f;\n"), (
         "          bv = v;\n        }\n      }\n      return false;\n    });\n",
         "          bv = v;\n        }\n      }\n      return false;\n    });\n"
         "    int sink = 0;\n"
-        "    walk_staged(st.mnode, o, inv, t_min, tb, [&](int start, int count) {\n"
+        "    walk_nodes<true>(st.mnode, o, inv, t_min, tb, [&](int start, int count) {\n"
         "      sink ^= start * 31 + count;\n      return false;\n    });\n"
         "    if (sink == 0x13572468) tb = 0.0f;\n")],
     "staged_tri_exit_after_u": [(
@@ -2698,8 +2811,10 @@ def phase_sharded(T, mk, dev, smi: str, main_img: torch.Tensor) -> dict:
 
 def phase_threefry(T, mk, dev, smi: str) -> dict:
     """32. render(rng='threefry', backend='torch') on the card: One-Weekend
-    320x180, depth 8, 256 spp.  The same key twice bit-equal, another key
-    another frame; per-sample frames (render_reference, one sample each)
+    320x180, depth 8, 256 spp, timed.  jax.random's bits drawn on the card
+    equal the CPU's for one key (uniform over 2^21 values and over the
+    frame's shapes from a split and fold_in chain); the same key twice
+    bit-equal, another key another frame; per-sample frames (render_reference, one sample each)
     whose mean in order is the frame bit for bit, against the hash stream's
     per-sample frames (render_cuda, one sample each): per pixel and channel
     |mean difference| <= 4 standard errors for >= 99%, and the frame means
@@ -2714,6 +2829,13 @@ def phase_threefry(T, mk, dev, smi: str) -> dict:
     a = T.render(scene, cam, cfg, key=21)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
+    from gpu_ray_tracing_tpu_torch.ops import rng as trng
+    key = trng.fold_in(trng.prng_key(21), 3)
+    k_ray, k_trace = trng.split(key)
+    bits = ((key, (2, 1 << 20)), (trng.split(k_ray)[0], (2, h, w)),
+            (trng.fold_in(trng.fold_in(k_trace, 1000), 7), (h * w,)))
+    bits_equal = all(torch.equal(trng.uniform(k, shape, dev).cpu().view(torch.int32),
+                                 trng.uniform(k, shape).view(torch.int32)) for k, shape in bits)
     same = bool(torch.equal(a, T.render(scene, cam, cfg, key=21)))
     other = not bool(torch.equal(a, T.render(scene, cam, cfg, key=22)))
     kw = dict(width=w, height=h, spp=1, max_depth=depth, t_min=cfg.t_min)
@@ -2741,16 +2863,63 @@ def phase_threefry(T, mk, dev, smi: str) -> dict:
     se_frame = float(torch.sqrt(ft.var() / spp + fh.var() / spp))
     frame_diff = float(ft.mean() - fh.mean())
     row = dict(phase="threefry", size=[w, h], spp=spp, max_depth=depth,
-               render_seconds=render_s, same_key_bit_equal=same, other_key_differs=other,
+               render_seconds=render_s, card_bits_equal_cpu=bits_equal,
+               same_key_bit_equal=same, other_key_differs=other,
                per_sample_mean_is_the_frame=mean_is_frame,
                share_within_4_se=within, frame_mean_diff=frame_diff,
                frame_mean_se=se_frame, mean=float(a.mean()), card=smi)
     emit(row)
+    gate("threefry", bits_equal, "the card's threefry bits differ from the CPU's")
     gate("threefry", same and other, f"determinism: same key {same}, other key differs {other}")
     gate("threefry", mean_is_frame, "the per-sample frames' mean is not the frame")
     gate("threefry", within >= 0.99, f"{within:.4f} of pixel channels within 4 SE")
     gate("threefry", abs(frame_diff) <= 4 * se_frame,
          f"frame means differ by {frame_diff}, 4 SE = {4 * se_frame}")
+    return row
+
+
+def phase_global_walks(T, mk, smi: str) -> dict:
+    """35. The kernels' other global BVH walks (global_walk_frames), each
+    timed as time_global_walks times it: the sphere BVH above the stage's
+    cap held to its plain version at the sphere BVH's 2% / 2e-3 and the
+    AOV frame at 1% / 2e-4, the wavefront frame bit-equal to render_cuda's
+    on the same inputs, the adaptive frame finite with its spp map within
+    [min_spp, budget]; each launch counted under its engine's key."""
+    calls = global_walk_calls(T, mk)
+    mk.LAUNCHES.clear()
+    frames = {name: c[3]() for name, c in calls.items()}
+    launches = dict(mk.LAUNCHES)
+    rows = {}
+    for name, (sc, cam, kw, _) in calls.items():
+        rows[name] = dict(size=[kw["width"], kw["height"]], spp=kw["spp"],
+                          max_depth=kw["max_depth"], stage_bytes=mk.stage_bytes_of(sc))
+        gate("global_walks", rows[name]["stage_bytes"] == 0, f"{name} is staged")
+    for name, flip, mean_tol in (("sphere_bvh_2500", 0.02, 2e-3), ("aov_mesh", 0.01, 2e-4)):
+        sc, cam, kw, _ = calls[name]
+        plain_ms, plain = cuda_ms(lambda: mk.render_reference(sc, cam, **kw), 1)
+        m = T.images_match(frames[name], plain, flip, mean_tol)
+        rows[name].update(plain_ms=plain_ms, flip=m.flip_frac, mean_abs=m.mean_abs,
+                          max_abs=m.max_abs)
+        gate("global_walks", m.ok, f"{name} vs its plain version: {m}")
+    sc, cam, kw, _ = calls["wavefront_mesh"]
+    wf_equal = bool(torch.equal(frames["wavefront_mesh"], mk.render_cuda(sc, cam, **kw)))
+    rows["wavefront_mesh"]["equals_render_cuda"] = wf_equal
+    gate("global_walks", wf_equal, "the wavefront mesh frame differs from render_cuda's")
+    sc, cam, kw, _ = calls["adaptive_mesh"]
+    img, smap = mk.render_cuda(sc, cam, return_spp_map=True, **kw)
+    lo, hi = float(smap.min()), float(smap.max())
+    rows["adaptive_mesh"].update(spp_min=lo, spp_max=hi, spp_mean=float(smap.mean()))
+    gate("global_walks", bool(torch.isfinite(img).all()) and torch.equal(img, frames[
+        "adaptive_mesh"]) and kw["adaptive_min_spp"] <= lo <= hi <= kw["spp"],
+         f"adaptive mesh frame: spp map {lo}-{hi}")
+    for key in ("megakernel:sphere_bvh", "megakernel:mesh_bvh+adaptive", "megakernel:mesh_bvh",
+                "wavefront:mesh_bvh"):
+        gate("global_walks", launches.get(key, 0) > 0, f"no {key} launch: {launches}")
+    ms = time_global_walks(T, mk, 5)
+    for name in rows:
+        rows[name]["ms"] = ms[name]
+    row = dict(phase="global_walks", frames=rows, launches=launches, repeats=5, card=smi)
+    emit(row)
     return row
 
 
@@ -2771,6 +2940,9 @@ def main() -> int:
     ap.add_argument("--route-variants", action="store_true",
                     help="build, time the BVH routes against copies of megakernel.cu "
                          "(ROUTE_VARIANTS), count their walks, print one JSON line")
+    ap.add_argument("--config4-render", action="store_true",
+                    help="build, time config 4 through render() and pack_scene alone "
+                         "(time_config4_render, 50 calls each), print one JSON line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
@@ -2817,6 +2989,10 @@ def main() -> int:
     if args.route_variants:
         emit({"phase": "route_variants", **route_variants(T, mk, build, 10, smi)})
         return 0
+    if args.config4_render:
+        emit({"phase": "config4_render", "repo": REPO, **time_config4_render(T, mk, 50),
+              "repeats": 50, "card": smi})
+        return 0
     if args.main_path_only:
         ms, img, launches = time_main_path(T, mk, 20)
         arrays = {} if args.save_frame else None
@@ -2824,6 +3000,7 @@ def main() -> int:
         aov_arrays = {} if args.save_frame else None
         wave_arrays = {} if args.save_frame else None
         route_arrays = {} if args.save_frame else None
+        global_arrays = {} if args.save_frame else None
         emit({"phase": "main_path_only", "repo": REPO, "ms_per_frame": ms, "repeats": 20,
               "denoised_ms": den["ms"], "denoised_repeats": 3,
               "denoised_launches": den["launches"],
@@ -2831,6 +3008,9 @@ def main() -> int:
               "inverse_step": time_inverse_step(T, dev, 5), "inverse_repeats": 5,
               **time_main_kernel(T, mk, 10), "kernel_repeats": 10,
               "routes_kernel_ms": time_routes(T, mk, 10, route_arrays),
+              "global_walks_ms": time_global_walks(T, mk, 5, global_arrays),
+              "global_walks_repeats": 5,
+              "config4_render": time_config4_render(T, mk, 20), "config4_render_repeats": 20,
               "adaptive_kernel": time_adaptive(T, mk, 5, arrays), "adaptive_repeats": 5,
               "wavefront": time_wavefront(T, img, 5, wave_arrays), "wavefront_repeats": 5,
               "mean": float(img.mean()), "launches": launches, "card": smi})
@@ -2840,6 +3020,7 @@ def main() -> int:
             np.savez(os.path.splitext(args.save_frame)[0] + "_aov.npz", **aov_arrays)
             np.savez(os.path.splitext(args.save_frame)[0] + "_wavefront.npz", **wave_arrays)
             np.savez(os.path.splitext(args.save_frame)[0] + "_routes.npz", **route_arrays)
+            np.savez(os.path.splitext(args.save_frame)[0] + "_global.npz", **global_arrays)
         return 0
 
     # 3. hash probe
@@ -3744,8 +3925,10 @@ def main() -> int:
     phase_threefry(T, mk, dev, smi)
     # 33. the wavefront bounce kernel's staged sphere scan
     wf_stage = phase_wf_stage(T, mk, wf, dev, smi)
-    # 34. render_kernel's staged BVH route on its edge cases
+    # 34. render_kernel's staged BVH route on its edge cases; 35. the other
+    # global BVH walks
     bvh_stage_row = phase_bvh_stage(T, mk, wf, dev, smi)
+    phase_global_walks(T, mk, smi)
 
     ad_alone = time_adaptive(T, mk, 5)
 

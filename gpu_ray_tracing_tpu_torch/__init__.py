@@ -11,7 +11,7 @@ the default), the wavefront engine's sm_90a kernels (backend='wavefront',
 one launch per bounce over compacted rays, with ray regeneration) or their
 plain PyTorch versions (backend='torch', 'wavefront_torch'); the
 reference shader's own WGSL stream (rng='wgsl') and the threefry mode
-(rng='threefry', keyed torch.Generator streams) through 'torch'.  Rows and
+(rng='threefry', jax.random's stream bit for bit) through 'torch'.  Rows and
 samples shard over ranks and cards with `parallel.mesh.make_mesh` (a
 torch.distributed DeviceMesh, distinct from the top-level `make_mesh`,
 which builds triangle geometry) and `parallel.sharding.render_sharded` /

@@ -13,14 +13,15 @@ with its BVH, sphere and triangle lights) on the counter-based hash stream,
 with config.nee/mis and config.sampler, through the config's backend.
 config.rng='wgsl' renders the reference's own stream instead (sample s
 seeded 1 + s + frame_seed, update() at wgsl:353; parity=True keeps its
-sampler quirks), and config.rng='threefry' explicit torch.Generator
-streams from an int `key=` (ops/rng.py; sample s of a frame under
-fold_key(key, SAMPLE, s), frame f of a progressive run or an animation
-under fold_key(key, FRAME, f), as the JAX package folds its key): both
+sampler quirks), and config.rng='threefry' jax.random's stream bit for
+bit from `key=` (ops/rng.py: an int k is jax.random.PRNGKey(k), or pass
+the key's two u32 words as jax.random.key_data gives them; sample s of a
+frame under fold_in(key, s), frame f of a progressive run or an
+animation under fold_in(key, f), as the JAX package folds its key): both
 through backend='torch' only, as the JAX package sends them to 'jax',
 since the kernels draw the hash stream.  A `key` given to the hash or
-wgsl stream becomes the frame seed key & 0xFFFFFFFF (the last word of
-jax.random.key(seed) for a 32-bit seed), unless frame_seed is given.
+wgsl stream becomes the frame seed: its low word (key & 0xFFFFFFFF for
+an int, the last of two words), unless frame_seed is given.
 The backends:
 
   backend='cuda'   the default: the hand-written megakernel (render_cuda),
@@ -102,16 +103,17 @@ def _seed(frame_seed) -> int:
     return 0 if frame_seed is None else int(frame_seed) & 0xFFFFFFFF
 
 
-def _resolve_rng(config: RenderConfig, key, frame_seed) -> tuple[int | None, int]:
+def _resolve_rng(config: RenderConfig, key, frame_seed) -> tuple[rng_ops.Key | None, int]:
     """(key, frame seed) for config.rng (the JAX package's _resolve_rng,
-    api.py:276-291): threefry needs a key and draws no frame seed; the hash
-    and wgsl streams take frame_seed, else the key's low word, else 0."""
+    api.py:276-291): threefry needs a key (ops/rng.as_key: an int or two
+    u32 words) and draws no frame seed; the hash and wgsl streams take
+    frame_seed, else the key's low word, else 0."""
     if config.rng == "threefry":
         if key is None:
             raise ValueError("config.rng='threefry' requires key=")
-        return int(key), 0
+        return rng_ops.as_key(key), 0
     if frame_seed is None and key is not None:
-        return None, int(key) & 0xFFFFFFFF
+        return None, rng_ops.as_key(key)[1]
     return None, _seed(frame_seed)
 
 
@@ -123,7 +125,7 @@ def _camera(camera: Camera | CameraSettings, config: RenderConfig) -> Camera:
 
 def _render(scene, camera: Camera, config: RenderConfig, *, frame_seed: int,
             sample_index: int = 0, spp: int, adaptive: bool = False,
-            key: int | None = None, **extra):
+            key: rng_ops.Key | None = None, **extra):
     """One call of the config's backend over samples sample_index ..
     sample_index + spp - 1 (`key` for rng='threefry').  `adaptive` engages
     config.adaptive_tol: the one-shot renders set it, the fold-based
@@ -174,7 +176,8 @@ def render(scene, camera: Camera | CameraSettings, config: RenderConfig, *,
            key=None, frame_seed=None) -> torch.Tensor:
     """Render one frame at config.spp samples per pixel (a per-tile budget
     when config.adaptive_tol > 0); returns linear-RGB f32 of shape
-    (height, width, 3).  `key` (an int) draws rng='threefry'; `frame_seed`
+    (height, width, 3).  `key` (an int or two u32 words) draws
+    rng='threefry'; `frame_seed`
     (u32, default 0) seeds the hash and wgsl streams.  Differentiable on
     every backend: on 'cuda' and 'wavefront' through KernelFrame (module
     docstring), the camera derived outside it so that gradients reach the
@@ -247,7 +250,7 @@ def render_progressive(scene, camera: Camera | CameraSettings, config: RenderCon
     """Run progressive accumulation for num_frames (default: to the spp
     target): the reference's steady-state frame loop with a static camera,
     the accumulated count acting as the sample index (hash, wgsl), or
-    frame f drawing from fold_key(key, FRAME, f) (threefry)."""
+    frame f drawing from fold_in(key, f) (threefry)."""
     camera = _camera(camera, config)
     key, seed = _resolve_rng(config, key, frame_seed)
     state = init_accum(config.height, config.width)
@@ -257,16 +260,17 @@ def render_progressive(scene, camera: Camera | CameraSettings, config: RenderCon
     return state
 
 
-def _frame_key(key: int | None, f: int) -> int | None:
-    """Frame f's key (the JAX package's fold_in(key, f)), None without a key."""
-    return None if key is None else rng_ops.fold_key(key, rng_ops.FRAME, f)
+def _frame_key(key, f: int) -> rng_ops.Key | None:
+    """Frame f's key (the JAX package's fold_in(key, f), api.py:512, :551),
+    None without a key."""
+    return None if key is None else rng_ops.fold_in(rng_ops.as_key(key), f)
 
 
 def render_animation(scene, settings_track: CameraSettings, config: RenderConfig, *,
                      key=None, frame_seeds=None) -> torch.Tensor:
     """Render a camera fly-through: settings_track is a CameraSettings with a
     leading frame axis (stack_camera_track builds one), each frame a full
-    config.spp render, frame f with key fold_key(key, FRAME, f) when a key
+    config.spp render, frame f with key fold_in(key, f) when a key
     is given, and with frame_seeds[f] when those are.  Returns (frames,
     height, width, 3)."""
     num_frames = settings_track.look_from.shape[0]

@@ -69,7 +69,7 @@ def _add_common(ap: argparse.ArgumentParser) -> None:
                     help="auto: from --device (module docstring)")
     ap.add_argument("--rng", default="hash", choices=["hash", "wgsl", "threefry"],
                     help="wgsl is the reference shader's own stream and threefry "
-                         "explicit torch.Generator streams keyed by --seed, both "
+                         "jax.random's stream under PRNGKey(--seed), both "
                          "through the plain integrator")
     ap.add_argument("--sampler", default="independent",
                     choices=["independent", "stratified", "sobol"],

@@ -44,9 +44,9 @@ _c_double = ctypes.c_double
 # share (after grt_render's camera).
 _SCENE_ARGS = [
     _c_ptr, _c_int,  # sphere planes, n
-    _c_ptr, _c_ptr, _c_int,  # sphere BVH planes, nodes
-    _c_ptr, _c_int, _c_int,  # mesh table, triangles, smooth
-    _c_ptr, _c_ptr, _c_int,  # mesh BVH planes, nodes
+    _c_ptr, _c_int,  # sphere BVH node records, nodes
+    _c_ptr, _c_ptr, _c_int, _c_int,  # mesh table, face records, triangles, smooth
+    _c_ptr, _c_int,  # mesh BVH node records, nodes
     _c_ptr, _c_int, _c_ptr, _c_int,  # light planes, L, tri-light planes, T
     _c_int, _c_int,  # nee, mis
     _c_int, _c_int, _c_int, _c_int,  # sampler kind, kx, ky, nbits

@@ -202,15 +202,20 @@ __device__ __forceinline__ float fdot3(float ax, float ay, float az, float bx,
   return fmaf(az, bz, fmaf(ay, by, ax * bx));
 }
 
-// The threaded BVH planes of ops/cuda/megakernel.py::bvh_planes: (8, M) f32
-// bounds and (4, M) i32 links.
-enum BvhRow { BMINX = 0, BMINY, BMINZ, BMAXX, BMAXY, BMAXZ };
-enum BvhLink { LMISS = 0, LSTART, LCOUNT };
+// A threaded BVH as the kernels read it (ops/cuda/megakernel.py::bvh_nodes):
+// two float4 records a node, one 32-byte sector, (min x, min y, min z, max
+// x) and (max y, max z, miss link, start << kLeafCountBits | count) with the
+// links' int bits: the BVH's bounds and links bit for bit.  An inner
+// node's start is -1, which keeps the last word negative; a leaf holds at
+// most 2^kLeafCountBits - 1 primitives from a start below 2^(31 -
+// kLeafCountBits), which bvh_nodes checks before any launch.  bvh_nodes
+// reads kLeafCountBits from this line (megakernel.py: LEAF_COUNT_BITS).
+constexpr int kLeafCountBits = 8;
+constexpr int kLeafCountMask = (1 << kLeafCountBits) - 1;
 
 struct Bvh {
-  const float* f;  // (8, m)
-  const int* i;    // (4, m)
-  int m;           // node count; 0 when absent
+  const float4* node;  // (m, 2) records
+  int m;               // node count; 0 when absent
 };
 
 // Slots of a (F, 32) mesh table row (megakernel.py::mesh_table).
@@ -226,27 +231,32 @@ constexpr int kTriSlots = 32;
 // it is a leaf; otherwise the cursor follows the miss link, and -1 ends the
 // walk.  `tb` is read at every node, so the window shrinks as leaves find
 // hits; a leaf that returns true ends the walk (the any-hit query).  The
-// entry test clamps tn to t_min first (megakernel.py:316-317).
-template <class Leaf>
-__device__ __forceinline__ void walk_bvh(const Bvh& b, Vec3 o, Vec3 inv, float t_min,
-                                         const float& tb, Leaf leaf) {
+// entry test clamps tn to t_min first (megakernel.py:316-317).  A node is
+// its two records, read at once: from device memory through the read-only
+// cache (two LDG.128 of one sector), or from render_kernel's shared-memory
+// stage (kShared, two LDS.128).
+template <bool kShared = false, class Leaf>
+__device__ __forceinline__ void walk_nodes(const float4* nodes, Vec3 o, Vec3 inv, float t_min,
+                                           const float& tb, Leaf leaf) {
   int node = 0;
   while (node >= 0) {
-    const float t0x = (__ldg(b.f + BMINX * b.m + node) - o.x) * inv.x;
-    const float t0y = (__ldg(b.f + BMINY * b.m + node) - o.y) * inv.y;
-    const float t0z = (__ldg(b.f + BMINZ * b.m + node) - o.z) * inv.z;
-    const float t1x = (__ldg(b.f + BMAXX * b.m + node) - o.x) * inv.x;
-    const float t1y = (__ldg(b.f + BMAXY * b.m + node) - o.y) * inv.y;
-    const float t1z = (__ldg(b.f + BMAXZ * b.m + node) - o.z) * inv.z;
+    const float4 a = kShared ? nodes[2 * node] : __ldg(nodes + 2 * node);
+    const float4 b = kShared ? nodes[2 * node + 1] : __ldg(nodes + 2 * node + 1);
+    const float t0x = (a.x - o.x) * inv.x;
+    const float t0y = (a.y - o.y) * inv.y;
+    const float t0z = (a.z - o.z) * inv.z;
+    const float t1x = (a.w - o.x) * inv.x;
+    const float t1y = (b.x - o.y) * inv.y;
+    const float t1z = (b.y - o.z) * inv.z;
     const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
     const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
     const float tn_eff = fmaxf(tn, t_min);
     const bool enter = (tf >= tn_eff) & (tn_eff < tb);
-    const int start = __ldg(b.i + LSTART * b.m + node);
-    if (enter & (start >= 0)) {
-      if (leaf(start, __ldg(b.i + LCOUNT * b.m + node))) return;
+    const int link = __float_as_int(b.w);
+    if (enter & (link >= 0)) {
+      if (leaf(link >> kLeafCountBits, link & kLeafCountMask)) return;
     }
-    node = (enter & (start < 0)) ? node + 1 : __ldg(b.i + LMISS * b.m + node);
+    node = (enter & (link < 0)) ? node + 1 : __float_as_int(b.z);
   }
 }
 
@@ -432,9 +442,9 @@ __device__ __forceinline__ int* wf_stage_index(int n) {
 // t_min < t < tb.  The cross and inner products round as fused
 // multiply-adds, as the reference renders them (ops/rounding.py::cross,
 // dot3).  A winner keeps its barycentrics for the smooth normal.
-// Its arithmetic on a face's first three float4 of the row (v0, e1, e2),
-// wherever they were read from (tri_test: the table; staged_tri: the
-// BVH stage).
+// Its arithmetic on a face's three records (v0, e1, e2: slots 0-11 of
+// its table row), wherever they were read from (tri_test: the face
+// records in device memory; staged_tri: the BVH stage).
 __device__ __forceinline__ bool tri_rows(float4 r0, float4 r1, float4 r2, float t_min, Vec3 o,
                                          Vec3 d, float tb, float& t_out, float& u_out,
                                          float& v_out) {
@@ -459,22 +469,39 @@ __device__ __forceinline__ bool tri_rows(float4 r0, float4 r1, float4 r2, float 
          (t < tb);
 }
 
-__device__ __forceinline__ bool tri_test(const float* __restrict__ tbl, int j, float t_min,
+// Face j of the (n_tris, 3) face records (megakernel.py::face_records): a
+// leaf's faces are consecutive records, 48 bytes a face.
+__device__ __forceinline__ bool tri_test(const float4* __restrict__ faces, int j, float t_min,
                                          Vec3 o, Vec3 d, float tb, float& t_out,
                                          float& u_out, float& v_out) {
-  const float4* row = reinterpret_cast<const float4*>(tbl + (size_t)j * kTriSlots);
-  return tri_rows(__ldg(row), __ldg(row + 1), __ldg(row + 2), t_min, o, d, tb, t_out, u_out,
-                  v_out);
+  const float4* f = faces + 3 * j;
+  return tri_rows(__ldg(f), __ldg(f + 1), __ldg(f + 2), t_min, o, d, tb, t_out, u_out, v_out);
 }
 
-__device__ __forceinline__ void tri_scan(const float* __restrict__ tbl, int j0, int j1,
+// The closest-hit scan of faces [j0, j1): their records are loaded two
+// faces at a time, then tested in order, so that a leaf's faces cost half
+// the round trips to L2 (config 4's face tests took 0.32 of 0.84 ms one
+// load after another; four at a time spilled; PERF.md, K1d).  The tests,
+// windows and winner are tri_test's, one face after another.
+__device__ __forceinline__ void tri_scan(const float4* __restrict__ faces, int j0, int j1,
                                          float t_min, Vec3 o, Vec3 d, float& tb, int& best,
                                          float& bu, float& bv) {
-  for (int j = j0; j < j1; ++j) {
+  for (int j = j0; j < j1; j += 2) {
+    const float4* f = faces + 3 * j;
+    const bool two = j + 1 < j1;
+    const float4 a0 = __ldg(f), a1 = __ldg(f + 1), a2 = __ldg(f + 2);
+    const float4 b0 = two ? __ldg(f + 3) : a0, b1 = two ? __ldg(f + 4) : a1,
+                 b2 = two ? __ldg(f + 5) : a2;
     float t, u, v;
-    if (tri_test(tbl, j, t_min, o, d, tb, t, u, v)) {
+    if (tri_rows(a0, a1, a2, t_min, o, d, tb, t, u, v)) {
       tb = t;
       best = j;
+      bu = u;
+      bv = v;
+    }
+    if (two && tri_rows(b0, b1, b2, t_min, o, d, tb, t, u, v)) {
+      tb = t;
+      best = j + 1;
       bu = u;
       bv = v;
     }
@@ -485,7 +512,8 @@ struct Geometry {
   const float* scene;  // (16, n) sphere planes
   int n;
   Bvh sphere_bvh;      // over the reordered spheres, or m = 0: brute scan
-  const float* mesh;   // (n_tris, 32) table, or null
+  const float* mesh;   // (n_tris, 32) table (the winner's shading), or null
+  const float4* faces; // (n_tris, 3) face records (the tests), or null
   int n_tris;
   bool smooth;
   Bvh mesh_bvh;
@@ -499,26 +527,22 @@ enum Stage { kGlobal = 0, kSphereStage = 1, kBvhStage = 2 };
 // render_kernel's BVH stage: a block copies a small BVH scene (its spheres,
 // BVH nodes and faces) into its dynamic shared memory once a launch, and
 // every walk of the launch reads it there: a node is two LDS.128 instead
-// of eight scalar loads from eight planes, a sphere one instead of five,
-// a face three.  The layout, in float4 records from the stage's base:
+// of two LDG.128, a sphere one instead of five scalar loads, a face three
+// LDS.128.  The layout, in float4 records from the stage's base:
 //   spheres       [0, n)              (cx, cy, cz, |c|^2 - r^2), in scene
 //                                     (on a sphere BVH: leaf) order
 //   sphere nodes  [n, n + 2 ms)       two records a node (below)
 //   faces         [.., + 3 F)         slots 0-11 of the mesh table row
 //                                     (v0, e1, e2 and 3 unread slots)
 //   mesh nodes    [.., + 2 mm)
-// A node is (min x, min y, min z, max x), (max y, max z, miss link, start
-// << 16 | count) with the links' int bits: the bounds and links of
-// bvh_planes bit for bit (a stage holds at most kBvhStageBytes / 16 <
-// 2^15 records, so start and count fit 16 bits; an inner node's -1 start
-// keeps the word negative).  |c|^2 - r^2 is sphere_root's, formed with
+// A node is its two device-memory records (Bvh) and a face its three
+// (face_records), copied as they are.  |c|^2 - r^2 is sphere_root's, formed with
 // the same fdot3; an inactive sphere (ACTIVE not > 0, which sphere_root
 // tests) gets a NaN there instead, so its discriminant is NaN, fails
 // `disc >= 0` and the sphere never wins, as in sphere_root.
 // ops/cuda/megakernel.py::bvh_stage_bytes decides the route from the same
 // counts; grt_render refuses a stage of other bytes.
 constexpr int kBvhStageBytes = 16384;
-static_assert(kBvhStageBytes / 16 < (1 << 15), "start and count fit 16 bits");
 
 __host__ __device__ constexpr size_t bvh_stage_bytes(int n, int ms, int n_tris, int mm) {
   return 16 * ((size_t)n + 2 * (size_t)ms + 3 * (size_t)n_tris + 2 * (size_t)mm);
@@ -546,19 +570,9 @@ __device__ __forceinline__ BvhStage bvh_stage(const Geometry& g) {
   return s;
 }
 
-// Copy a BVH's nodes into the stage: the threads of the block stride over
-// them.
-__device__ __forceinline__ void stage_nodes(const Bvh& b, float4* dst) {
-  for (int k = threadIdx.x; k < b.m; k += blockDim.x) {
-    const int start = __ldg(b.i + LSTART * b.m + k);
-    const int count = __ldg(b.i + LCOUNT * b.m + k);
-    dst[2 * k] = make_float4(__ldg(b.f + BMINX * b.m + k), __ldg(b.f + BMINY * b.m + k),
-                             __ldg(b.f + BMINZ * b.m + k), __ldg(b.f + BMAXX * b.m + k));
-    dst[2 * k + 1] = make_float4(
-        __ldg(b.f + BMAXY * b.m + k), __ldg(b.f + BMAXZ * b.m + k),
-        __int_as_float(__ldg(b.i + LMISS * b.m + k)),
-        __int_as_float((int)(((unsigned int)start << 16) | ((unsigned int)count & 0xffffu))));
-  }
+// Copy n records into the stage: the threads of the block stride over them.
+__device__ __forceinline__ void stage_records(const float4* src, int n, float4* dst) {
+  for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = __ldg(src + k);
 }
 
 // Stage the scene of a block (a 1-D block: the threads stride over the
@@ -577,38 +591,11 @@ __device__ __forceinline__ void stage_bvh(const Geometry& g) {
     base[j] = make_float4(cx, cy, cz,
                           act ? fdot3(cx, cy, cz, cx, cy, cz) - rj * rj : __int_as_float(0x7fffffff));
   }
-  stage_nodes(g.sphere_bvh, base + n);
+  stage_records(g.sphere_bvh.node, 2 * g.sphere_bvh.m, base + n);
   float4* const tri = base + n + 2 * g.sphere_bvh.m;
-  for (int k = threadIdx.x; k < 3 * g.n_tris; k += blockDim.x)
-    tri[k] = __ldg(reinterpret_cast<const float4*>(g.mesh + (size_t)(k / 3) * kTriSlots) + k % 3);
-  stage_nodes(g.mesh_bvh, tri + 3 * g.n_tris);
+  stage_records(g.faces, 3 * g.n_tris, tri);
+  stage_records(g.mesh_bvh.node, 2 * g.mesh_bvh.m, tri + 3 * g.n_tris);
   __syncthreads();
-}
-
-// walk_bvh over staged nodes: the same slab arithmetic, tests, order and
-// links, the node's two records read at once.
-template <class Leaf>
-__device__ __forceinline__ void walk_staged(const float4* nodes, Vec3 o, Vec3 inv, float t_min,
-                                            const float& tb, Leaf leaf) {
-  int node = 0;
-  while (node >= 0) {
-    const float4 a = nodes[2 * node], b = nodes[2 * node + 1];
-    const float t0x = (a.x - o.x) * inv.x;
-    const float t0y = (a.y - o.y) * inv.y;
-    const float t0z = (a.z - o.z) * inv.z;
-    const float t1x = (a.w - o.x) * inv.x;
-    const float t1y = (b.x - o.y) * inv.y;
-    const float t1z = (b.y - o.z) * inv.z;
-    const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-    const float tn_eff = fmaxf(tn, t_min);
-    const bool enter = (tf >= tn_eff) & (tn_eff < tb);
-    const int link = __float_as_int(b.w);
-    if (enter & (link >= 0)) {
-      if (leaf(link >> 16, link & 0xffff)) return;
-    }
-    node = (enter & (link < 0)) ? node + 1 : __float_as_int(b.z);
-  }
 }
 
 // sphere_scan over staged spheres [j0, j1), each sphere c = (cx, cy, cz,
@@ -697,14 +684,14 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
     staged_scan(wf_stage() + 1, wf_stage_index(n), wf_stage_count(), t_min, o, d, sr, tb,
                 best);
   } else if (kStage == kBvhStage && g.sphere_bvh.m > 0) {
-    walk_staged(st.snode, o, inv, t_min, tb, [&](int start, int count) {
+    walk_nodes<true>(st.snode, o, inv, t_min, tb, [&](int start, int count) {
       staged_range(st.sph, start, start + count, t_min, o, d, sr, tb, best);
       return false;
     });
   } else if (kStage == kBvhStage) {
     staged_range(st.sph, 0, n, t_min, o, d, sr, tb, best);
   } else if (g.sphere_bvh.m > 0) {
-    walk_bvh(g.sphere_bvh, o, inv, t_min, tb, [&](int start, int count) {
+    walk_nodes(g.sphere_bvh.node, o, inv, t_min, tb, [&](int start, int count) {
       sphere_scan(sc, n, start, start + count, t_min, o, d, sr, tb, best);
       return false;
     });
@@ -714,7 +701,7 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
   int tri = -1;
   float bu = 0.0f, bv = 0.0f;
   if (kStage == kBvhStage && g.n_tris > 0) {
-    walk_staged(st.mnode, o, inv, t_min, tb, [&](int start, int count) {
+    walk_nodes<true>(st.mnode, o, inv, t_min, tb, [&](int start, int count) {
       for (int j = start; j < start + count; ++j) {
         float t, u, v;
         if (staged_tri(st.tri, j, t_min, o, d, tb, t, u, v)) {
@@ -727,8 +714,8 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
       return false;
     });
   } else if (g.n_tris > 0) {
-    walk_bvh(g.mesh_bvh, o, inv, t_min, tb, [&](int start, int count) {
-      tri_scan(g.mesh, start, start + count, t_min, o, d, tb, tri, bu, bv);
+    walk_nodes(g.mesh_bvh.node, o, inv, t_min, tb, [&](int start, int count) {
+      tri_scan(g.faces, start, start + count, t_min, o, d, tb, tri, bu, bv);
       return false;
     });
   }
@@ -803,7 +790,7 @@ __device__ bool occluded(const Geometry& g, float t_min, Vec3 o, Vec3 w, float w
     const BvhStage st = bvh_stage(g);
     const Vec3 inv = safe_inverse(w);
     if (g.sphere_bvh.m > 0) {
-      walk_staged(st.snode, o, inv, t_min, window, [&](int start, int count) {
+      walk_nodes<true>(st.snode, o, inv, t_min, window, [&](int start, int count) {
         blocked = staged_range_any(st.sph, start, start + count, t_min, o, w, sr, window);
         return blocked;
       });
@@ -811,7 +798,7 @@ __device__ bool occluded(const Geometry& g, float t_min, Vec3 o, Vec3 w, float w
       blocked = staged_range_any(st.sph, 0, n, t_min, o, w, sr, window);
     }
     if (!blocked && g.n_tris > 0) {
-      walk_staged(st.mnode, o, inv, t_min, window, [&](int start, int count) {
+      walk_nodes<true>(st.mnode, o, inv, t_min, window, [&](int start, int count) {
         for (int j = start; j < start + count; ++j) {
           float t, u, v;
           if (staged_tri(st.tri, j, t_min, o, w, window, t, u, v)) {
@@ -835,7 +822,7 @@ __device__ bool occluded(const Geometry& g, float t_min, Vec3 o, Vec3 w, float w
   if (kStage == kSphereStage) {
     blocked = staged_any_hit(wf_stage() + 1, wf_stage_count(), t_min, o, w, sr, window);
   } else if (g.sphere_bvh.m > 0) {
-    walk_bvh(g.sphere_bvh, o, inv, t_min, window, [&](int start, int count) {
+    walk_nodes(g.sphere_bvh.node, o, inv, t_min, window, [&](int start, int count) {
       blocked = spheres(start, start + count);
       return blocked;
     });
@@ -843,10 +830,10 @@ __device__ bool occluded(const Geometry& g, float t_min, Vec3 o, Vec3 w, float w
     blocked = spheres(0, n);
   }
   if (!blocked && g.n_tris > 0) {
-    walk_bvh(g.mesh_bvh, o, inv, t_min, window, [&](int start, int count) {
+    walk_nodes(g.mesh_bvh.node, o, inv, t_min, window, [&](int start, int count) {
       for (int j = start; j < start + count; ++j) {
         float t, u, v;
-        if (tri_test(g.mesh, j, t_min, o, w, window, t, u, v)) {
+        if (tri_test(g.faces, j, t_min, o, w, window, t, u, v)) {
           blocked = true;
           return true;
         }
@@ -1491,7 +1478,7 @@ __global__ void __launch_bounds__(kStageThreads) render_aov_kernel(const Params 
 // kBvhStageBytes is copied by every block into its dynamic shared memory
 // once, before the regeneration loop (no barrier inside it: a warp's
 // lanes leave the loop at their own time), and every closest hit and
-// shadow query walks the stage (walk_staged, staged_range, staged_tri):
+// shadow query walks the stage (walk_nodes<true>, staged_range, staged_tri):
 // the same tree, visiting order, windows, strict `<` and arithmetic as the
 // global walk, so the same winners, ties included, bit for bit, with the
 // roots of missed spheres skipped (staged_range).  Its ring is half the
@@ -2264,21 +2251,21 @@ __global__ void sampler_probe_kernel(const unsigned int* __restrict__ pids,
 }
 
 // The scene, light and sampler arguments every render entry point shares.
-Params scene_params(const float* cam, const float* scene, int n, const float* sbvh_f,
-                    const int* sbvh_i, int sbvh_m, const float* mesh, int n_tris,
-                    int smooth, const float* mbvh_f, const int* mbvh_i, int mbvh_m,
-                    const float* lights, int n_lights, const float* tri_lights,
+Params scene_params(const float* cam, const float* scene, int n, const float* sbvh,
+                    int sbvh_m, const float* mesh, const float* faces, int n_tris,
+                    int smooth, const float* mbvh, int mbvh_m, const float* lights, int n_lights, const float* tri_lights,
                     int n_tri_lights, int nee, int mis, int sampler, int kx, int ky,
                     int nbits) {
   Params p = {};
   p.cam = cam;
   p.geo.scene = scene;
   p.geo.n = n;
-  p.geo.sphere_bvh = {sbvh_f, sbvh_i, sbvh_m};
+  p.geo.sphere_bvh = {reinterpret_cast<const float4*>(sbvh), sbvh_m};
   p.geo.mesh = mesh;
+  p.geo.faces = reinterpret_cast<const float4*>(faces);
   p.geo.n_tris = n_tris;
   p.geo.smooth = smooth != 0;
-  p.geo.mesh_bvh = {mbvh_f, mbvh_i, mbvh_m};
+  p.geo.mesh_bvh = {reinterpret_cast<const float4*>(mbvh), mbvh_m};
   p.lights = {lights, nee ? n_lights : 0, tri_lights, nee ? n_tri_lights : 0};
   p.mis = nee != 0 && mis != 0;
   p.sampler = {sampler, kx, ky, nbits};
@@ -2291,8 +2278,10 @@ Params scene_params(const float* cam, const float* scene, int n, const float* sb
 // on the given stream, does not synchronise, and returns cudaGetLastError()
 // as an int (0 = launched).
 
-// The geometry: (16, n) sphere planes; a sphere BVH (sbvh_m = 0: brute
-// scan); a (n_tris, 32) mesh table with its BVH (n_tris = 0: no mesh).
+// The geometry: (16, n) sphere planes; a sphere BVH, (sbvh_m, 2) float4
+// node records (sbvh_m = 0: brute scan); a (n_tris, 32) mesh table, its
+// (n_tris, 3) float4 face records and its BVH's (mbvh_m, 2) node records
+// (n_tris = 0: no mesh).
 // The lights: (8, n_lights) and (16, n_tri_lights) planes, read when nee.
 // The sampler: kind 0 independent, 1 stratified (kx, ky), 2 Sobol (nbits).
 // The outputs: `out` (height, width, 3), or (3, height, width, 3) in mode
@@ -2305,10 +2294,9 @@ Params scene_params(const float* cam, const float* scene, int n, const float* sb
 // (bvh_stage_bytes of the scene's counts, at most kBvhStageBytes; 0: the
 // global walk); any other stage is refused.
 extern "C" int grt_render(const float* cam, const float* scene, int n,
-                          const float* sbvh_f, const int* sbvh_i, int sbvh_m,
-                          const float* mesh, int n_tris, int smooth,
-                          const float* mbvh_f, const int* mbvh_i, int mbvh_m,
-                          const float* lights, int n_lights, const float* tri_lights,
+                          const float* sbvh, int sbvh_m, const float* mesh,
+                          const float* faces, int n_tris, int smooth,
+                          const float* mbvh, int mbvh_m, const float* lights, int n_lights, const float* tri_lights,
                           int n_tri_lights, int nee, int mis, int sampler, int kx, int ky,
                           int nbits, int width, int height, unsigned int sample_index,
                           unsigned int frame_seed, unsigned int y_offset,
@@ -2317,8 +2305,8 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
                           float clamp, int spp, float* out, float* rays, float* state,
                           int tile_rows, int min_spp, int chunk, float tol, int* cursor,
                           int bvh_stage, void* stream) {
-  Params p = scene_params(cam, scene, n, sbvh_f, sbvh_i, sbvh_m, mesh, n_tris, smooth,
-                          mbvh_f, mbvh_i, mbvh_m, lights, n_lights, tri_lights,
+  Params p = scene_params(cam, scene, n, sbvh, sbvh_m, mesh, faces, n_tris, smooth,
+                          mbvh, mbvh_m, lights, n_lights, tri_lights,
                           n_tri_lights, nee, mis, sampler, kx, ky, nbits);
   p.width = width;
   p.height = height;
@@ -2406,9 +2394,9 @@ extern "C" int grt_render_occupancy(int nee, int count, int staged, int smem, in
 // the brute route (no sphere BVH) of a scene of at most kStageSpheres
 // spheres; asked for on another scene the launch is refused.
 extern "C" int grt_wavefront_bounce(
-    const float* scene, int n, const float* sbvh_f, const int* sbvh_i, int sbvh_m,
-    const float* mesh, int n_tris, int smooth, const float* mbvh_f, const int* mbvh_i,
-    int mbvh_m, const float* lights, int n_lights, const float* tri_lights,
+    const float* scene, int n, const float* sbvh, int sbvh_m, const float* mesh,
+    const float* faces, int n_tris, int smooth, const float* mbvh, int mbvh_m,
+    const float* lights, int n_lights, const float* tri_lights,
     int n_tri_lights, int nee, int mis, int sampler, int kx, int ky, int nbits,
     unsigned int frame_seed, int max_depth, float t_min, float t_max, int rr_depth,
     float sky_intensity, float clamp, float* f0, float* f1, int* i0, int* i1, int stride,
@@ -2416,8 +2404,8 @@ extern "C" int grt_wavefront_bounce(
     unsigned int sample_base, int n_pixels, float* out, float* rays_out, int staged,
     void* stream) {
   if (staged && (sbvh_m > 0 || n > kStageSpheres)) return static_cast<int>(cudaErrorInvalidValue);
-  Params p = scene_params(nullptr, scene, n, sbvh_f, sbvh_i, sbvh_m, mesh, n_tris, smooth,
-                          mbvh_f, mbvh_i, mbvh_m, lights, n_lights, tri_lights,
+  Params p = scene_params(nullptr, scene, n, sbvh, sbvh_m, mesh, faces, n_tris, smooth,
+                          mbvh, mbvh_m, lights, n_lights, tri_lights,
                           n_tri_lights, nee, mis, sampler, kx, ky, nbits);
   p.frame_seed = frame_seed;
   p.max_depth = max_depth;

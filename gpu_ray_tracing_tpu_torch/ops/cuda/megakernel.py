@@ -22,9 +22,11 @@ does.
 `render_cuda` takes CUDA tensors only and never falls back: no device, a
 failed build or a failed launch raises.  The only torch operations around
 its launch pack the (16, N) scene, (1, 24) camera, (F, 32) mesh table,
-BVH, (8, L) light and (16, T) triangle-light plane layouts, as
-render_pallas's XLA code does, and allocate the outputs and the adaptive
-state planes.
+(8, L) light and (16, T) triangle-light plane layouts, as render_pallas's
+XLA code does, the BVHs' (M, 8) node records (`bvh_nodes`: one 32-byte
+sector a node) and the mesh's (F, 12) face records (`face_records`: a
+leaf's faces in consecutive 48 bytes), which every walk of the kernels
+reads, and allocate the outputs and the adaptive state planes.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import re
 
 import numpy as np
 import torch
@@ -167,18 +170,51 @@ def tri_lights_planes(tri_lights: TriLights) -> torch.Tensor:
                       tl.emission.T]).to(torch.float32).contiguous()
 
 
-def bvh_planes(bvh: BVH) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pack a threaded BVH into ((8, M) f32 bounds, (4, M) i32 links): rows
-    bmin x/y/z, bmax x/y/z, 0, 0 and miss link, leaf start, leaf count, 0."""
-    m, dev = bvh.num_nodes, bvh.device
-    f = torch.zeros((8, m), dtype=torch.float32, device=dev)
-    f[0:3] = bvh.bbox_min.T
-    f[3:6] = bvh.bbox_max.T
-    i = torch.zeros((4, m), dtype=torch.int32, device=dev)
-    i[0] = bvh.miss_link
-    i[1] = bvh.leaf_start
-    i[2] = bvh.leaf_count
-    return f, i
+def _cu_constant(name: str) -> int:
+    """The value of `constexpr int name = ...;` in megakernel.cu, so that
+    the host's packing and the kernels share one definition."""
+    with open(build.TARGETS["megakernel"].source) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);", f.read()).group(1))
+
+
+# A leaf's count takes the low LEAF_COUNT_BITS of its node's last word, its
+# start the bits above: megakernel.cu's kLeafCountBits.
+LEAF_COUNT_BITS = _cu_constant("kLeafCountBits")
+
+
+def bvh_nodes(bvh: BVH, n_prims: int) -> torch.Tensor:
+    """Pack a threaded BVH over `n_prims` primitives into the kernels' (M,
+    8) f32 node records, two float4 a node (megakernel.cu: Bvh): bmin
+    x/y/z, bmax x, then bmax y/z, the miss link and the leaf's start <<
+    LEAF_COUNT_BITS | count (-1 for an inner node) as int bits.  A BVH
+    whose leaves may hold 2^LEAF_COUNT_BITS primitives or more (its
+    leaf_size, the builders' cap on a leaf's count) or whose leaves may
+    start at 2^(31 - LEAF_COUNT_BITS) or above (more primitives than that)
+    does not fit: refused here, from the host's counts, before any launch
+    and without waiting for the card."""
+    if bvh.leaf_size >> LEAF_COUNT_BITS or n_prims > 1 << (31 - LEAF_COUNT_BITS):
+        raise ValueError(
+            f"the CUDA kernels' BVH nodes hold a leaf of at most "
+            f"{(1 << LEAF_COUNT_BITS) - 1} primitives out of at most "
+            f"2^{31 - LEAF_COUNT_BITS}: this BVH has leaves of up to {bvh.leaf_size} "
+            f"over {n_prims}")
+    start, count = bvh.leaf_start, bvh.leaf_count
+    leaf = start >= 0
+    link = torch.where(leaf, (start << LEAF_COUNT_BITS) | count, -1).to(torch.int32)
+    rec = torch.empty((bvh.num_nodes, 8), dtype=torch.float32, device=bvh.device)
+    rec[:, 0:3] = bvh.bbox_min
+    rec[:, 3:6] = bvh.bbox_max
+    rec[:, 6] = bvh.miss_link.to(torch.int32).view(torch.float32)
+    rec[:, 7] = link.view(torch.float32)
+    return rec
+
+
+def face_records(table: torch.Tensor) -> torch.Tensor:
+    """The (F, 12) f32 face records the kernels test, three float4 a face:
+    slots 0-11 of each mesh table row (v0, e1, e2 and the first corner
+    normal, which the test does not read), so that a leaf's faces lie in
+    consecutive 48-byte records."""
+    return table[:, :12].contiguous()
 
 
 def camera_vector(camera: Camera) -> torch.Tensor:
@@ -291,11 +327,36 @@ def _trace_block(num_pixels: int, sc: Scene) -> int:
     """Pixels per chunk of the plain version, so that its (P, N) sphere
     planes (and (P, F) triangle planes for a mesh without a BVH) stay
     within a budget."""
+    return max(1, min(num_pixels, _block_share(sc)))
+
+
+def _block_share(sc: Scene) -> int:
+    """The budget's pixels a chunk for scene `sc`: the budget of its
+    device over its primitives (spheres, and faces without a BVH)."""
     budget = _CUDA_BLOCK if sc.device.type == "cuda" else _CPU_BLOCK
     width = sc.spheres.count
     if sc.mesh is not None and sc.bvh is None:
         width += sc.mesh.num_triangles
-    return max(1, min(num_pixels, budget // width))
+    return max(1, budget // max(width, 1))
+
+
+def _trace_block_size(num_pixels: int, sc: Scene) -> int:
+    """The threefry stream's pixel blocks, the JAX package's
+    _trace_block_size (api.py:61-73): the whole frame when it fits the
+    budget's share, else the largest divisor of the frame's pixels within
+    it, so that every block has one shape (its draws follow the shape)."""
+    per = _block_share(sc)
+    if per >= num_pixels:
+        return num_pixels
+    best, d = 1, 1
+    while d * d <= num_pixels:
+        if num_pixels % d == 0:
+            if d <= per:
+                best = max(best, d)
+            if num_pixels // d <= per:
+                best = max(best, num_pixels // d)
+        d += 1
+    return best
 
 
 _THIRD = torch.tensor(1.0 / 3.0, dtype=torch.float32)
@@ -420,7 +481,7 @@ def render_reference(
     light_pick: str = "sample",
     rng: str = "hash",
     parity: bool = False,
-    key: int | None = None,
+    key=None,
 ):
     """The plain PyTorch version of render_cuda: the mean of spp hash-stream
     samples as a (height, width, 3) f32 image, on the scene's device, with
@@ -437,13 +498,17 @@ def render_reference(
     y_offset (a row band of the frame draws the frame's rows), but no
     sampler, adaptive option, ray count or row_stride.
 
-    rng='threefry' draws explicit torch.Generator streams from the int
-    `key` (ops/rng.py): sample s from fold_key(key, SAMPLE, sample_index +
-    s), split into its ray generation (generate_rays_threefry over the
-    whole frame) and its tracing, one key a pixel block.  It is
-    deterministic for a key and a device.  It takes none of the options
-    the wgsl stream refuses, nor a y_offset: its draws follow the shape of
-    the frame, not the pixel's place in it."""
+    rng='threefry' draws jax.random's stream from `key` (a key pair or an
+    int, ops/rng.as_key), its draws bit for bit on the CPU and the card
+    alike, as the JAX package's _render_spp_jax does: sample s under
+    fold_in(key, sample_index + s) (render() passes sample_index 0), split
+    into its ray generation (generate_rays_threefry over the whole frame)
+    and its tracing key, which traces the frame whole or, in
+    _trace_block_size's equal pixel blocks, block b under fold_in(tracing
+    key, b).  The blocks follow the budget of the scene's device, so a
+    frame that the CPU's budget splits is not the card's frame.  It takes none of
+    the options the wgsl stream refuses, nor a y_offset: its draws follow
+    the shape of the frame, not the pixel's place in it."""
     _check_args(width, height, spp, max_depth, mode, nee, mis, sampler_spec)
     if rng not in ("hash", "wgsl", "threefry"):
         raise ValueError(f"rng must be 'hash', 'wgsl' or 'threefry', got {rng!r}")
@@ -466,7 +531,7 @@ def render_reference(
                           adaptive_chunk)
     camera = camera.to(dev)
     p = width * height
-    block = _trace_block(p, sc)
+    block = _trace_block_size(p, sc) if rng == "threefry" else _trace_block(p, sc)
     pid = hash_pixel_ids(width, height, y_offset=y_offset, total_width=width,
                          row_stride=row_stride, device=dev).reshape(p)
     kw = dict(width=width, max_depth=max_depth, t_min=t_min, t_max=t_max, mode=mode,
@@ -490,11 +555,11 @@ def render_reference(
             bounce_seeds = integrators.make_bounce_seeds(seed + 1, max_depth).to(dev)
             streams = lambda b: dict(bounce_seeds=bounce_seeds, parity=parity)
         elif rng == "threefry":
-            k_sample = rng_ops.fold_key(key, rng_ops.SAMPLE, s_u32)
-            o, d = generate_rays_threefry(camera, width, height,
-                                          rng_ops.fold_key(k_sample, rng_ops.RAYGEN))
-            k_trace = rng_ops.fold_key(k_sample, rng_ops.TRACE)
-            streams = lambda b: dict(generator_key=rng_ops.fold_key(k_trace, rng_ops.BLOCK, b))
+            k_ray, k_trace = rng_ops.split(rng_ops.fold_in(rng_ops.as_key(key), s_u32))
+            o, d = generate_rays_threefry(camera, width, height, k_ray)
+            # One block traces under k_trace itself (api.py:123-137).
+            streams = lambda b: dict(generator_key=k_trace if block == p
+                                     else rng_ops.fold_in(k_trace, b))
         if rng != "hash":
             o, d = o.reshape(p, 3), d.reshape(p, 3)
         for b, start in enumerate(range(0, n, block)):
@@ -579,28 +644,28 @@ def pack_scene(sc: Scene, nee: bool, mis: bool, sampler_spec: tuple | None) -> P
                          "build the scene with make_scene(use_bvh=True)")
     n_sl, n_tl = sc.nee_light_counts(nee)
     planes = scene_planes(sc.spheres).contiguous()
-    sbvh = bvh_planes(sc.sphere_bvh) if sc.sphere_bvh is not None else (None, None)
+    sbvh = (bvh_nodes(sc.sphere_bvh, sc.spheres.count) if sc.sphere_bvh is not None
+            else None)
     if sc.mesh is not None:
         table = mesh_table(sc.mesh, sc.global_tri_light_ids() if nee else None)
-        mbvh = bvh_planes(sc.bvh)
+        faces, mbvh = face_records(table), bvh_nodes(sc.bvh, sc.mesh.num_triangles)
         n_tris, smooth = sc.mesh.num_triangles, int(sc.mesh.smooth)
     else:
-        table, mbvh, n_tris, smooth = None, (None, None), 0, 0
+        table, faces, mbvh, n_tris, smooth = None, None, None, 0, 0
     lplanes = lights_planes(sc.lights).contiguous() if n_sl else None
     tplanes = tri_lights_planes(sc.tri_lights) if n_tl else None
     kind, kx, ky, nbits = _sampler_args(sampler_spec)
     ptr = lambda t: None if t is None else t.data_ptr()
-    nodes = lambda planes: 0 if planes[0] is None else planes[0].shape[1]
+    nodes = lambda rec: 0 if rec is None else rec.shape[0]
     args = (
-        planes.data_ptr(), sc.spheres.count,
-        ptr(sbvh[0]), ptr(sbvh[1]), nodes(sbvh),
-        ptr(table), n_tris, smooth, ptr(mbvh[0]), ptr(mbvh[1]), nodes(mbvh),
+        planes.data_ptr(), sc.spheres.count, ptr(sbvh), nodes(sbvh),
+        ptr(table), ptr(faces), n_tris, smooth, ptr(mbvh), nodes(mbvh),
         ptr(lplanes), n_sl, ptr(tplanes), n_tl, int(nee), int(mis and nee),
         kind, kx, ky, nbits,
     )
     route = "mesh_bvh" if n_tris else "sphere_bvh" if nodes(sbvh) else "brute"
     route += ("+nee" if nee else "") + ("" if kind == 0 else "+" + sampler_spec[0])
-    return PackedScene(args, (planes, *sbvh, table, *mbvh, lplanes, tplanes), route,
+    return PackedScene(args, (planes, sbvh, table, faces, mbvh, lplanes, tplanes), route,
                        stage_bytes_of(sc))
 
 

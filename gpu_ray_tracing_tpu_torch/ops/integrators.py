@@ -11,7 +11,7 @@ full trip count with a `live` mask, as in the JAX package; dead rays add
 nothing.  Three streams draw the randomness: the counter stream
 (`pixel_seeds`), the WGSL parity stream (`bounce_seeds`, frame-uniform
 draws with the reference's depth-exhaustion sky leak under parity=True)
-and the threefry mode's keyed generators (`generator_key`, ops/rng.py).
+and the threefry mode's jax.random stream (`generator_key`, ops/rng.py).
 
 Arithmetic follows the JAX package's 'jax' engine.  Where XLA:CPU
 contracts a*b+c into one fused multiply-add, the plain version does too
@@ -280,12 +280,12 @@ class PathState:
     pixel_seeds: torch.Tensor | None
     pixel_ids: torch.Tensor | None = None
     bounce_seeds: torch.Tensor | None = None
-    generator_key: int | None = None
+    generator_key: tuple[int, int] | None = None
 
 
 def initial_path_state(origins, dirs, pixel_seeds, pixel_ids=None, *,
                        count_rays: bool = False, bounce_seeds=None,
-                       generator_key: int | None = None) -> PathState:
+                       generator_key: tuple[int, int] | None = None) -> PathState:
     """The state of fresh primary rays: unit throughput, no radiance, live."""
     batch_shape, dev = dirs.shape[:-1], dirs.device
     return PathState(
@@ -353,8 +353,8 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
     On the WGSL stream (`st.bounce_seeds`) every draw of bounce i is one
     frame-uniform value shared by the whole batch, as the reference's
     ray_color draws it (wgsl:268); on the threefry stream
-    (`st.generator_key`) each group of draws of bounce i comes from its own
-    generator (ops/rng.fold_key).  Dead rays pass through unchanged."""
+    (`st.generator_key`) bounce i draws from JAX's keys and shapes
+    (ops/rng.fold_in, split, uniform).  Dead rays pass through unchanged."""
     sc, dev = ctx.sc, st.d.device
     t_min, t_max, max_depth = ctx.t_min, ctx.t_max, ctx.max_depth
     nee, mis, total, n_sl, n_tl = ctx.nee, ctx.mis, ctx.total, ctx.n_sl, ctx.n_tl
@@ -374,11 +374,12 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
                          "batch; they take no per-ray bounce index")
     wgsl_seed = st.bounce_seeds[i] if wgsl else None
 
-    def keyed(purpose: int, n: int, salt: int | None = None):
-        """n keyed U[0,1) planes of the batch for bounce i: fold_key(key,
-        purpose, i), or fold_key(fold_key(key, purpose, salt), purpose, i)."""
-        k = key if salt is None else rng_ops.fold_key(key, purpose, salt)
-        return rng_ops.key_uniform(rng_ops.fold_key(k, purpose, i), (n, *batch_shape), dev)
+    def keyed(salt: int, n: int | None = None):
+        """The threefry draws of bounce i under fold_in(key, salt) (JAX's
+        roulette and NEE keys, ops/integrators.py:437-440, :792-793): an
+        (n, *batch) stack, or one batch plane when n is None."""
+        k = rng_ops.fold_in(rng_ops.fold_in(key, salt), i)
+        return rng_ops.uniform(k, batch_shape if n is None else (n, *batch_shape), dev)
 
     def frame_uniform(x):
         """A draw of the WGSL stream, the same for every ray of the batch."""
@@ -426,9 +427,11 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
         unit_vec = frame_uniform(rng_ops.random_unit_vector(wgsl_seed))
         u_reflect = frame_uniform(rng_ops.wgsl_random_float(wgsl_seed))
     elif key is not None:
-        u = keyed(rng_ops.SCATTER, 3)
+        # JAX's scatter draws (ops/integrators.py:287-291).
+        k_uv, k_refl = rng_ops.split(rng_ops.fold_in(key, i))
+        u = rng_ops.uniform(k_uv, (2, *batch_shape), dev)
         unit_vec = rng_ops.unit_vector_from_uniforms(u[0], u[1])
-        u_reflect = u[2]
+        u_reflect = rng_ops.uniform(k_refl, batch_shape, dev)
     else:
         base = 16 + 3 * i
         # The first-bounce scatter pair (salt 6): strata of the sphere.  2 pi
@@ -504,10 +507,11 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
             """Draw k of the NEE group at salt offset salt_off: the pixel
             stream's salt 2000 + 37i + salt_off + k, on the WGSL stream
             uniform_hash(hash(bounce seed + 4241 + salt_off), k), on the
-            threefry stream plane k of the group's three keyed planes."""
+            threefry stream plane k of the group's keyed planes (three for
+            the picked light at offset 0, two for light g's pair)."""
             if key is not None:
                 if salt_off not in nee_groups:
-                    nee_groups[salt_off] = keyed(rng_ops.NEE, 3, salt=salt_off)
+                    nee_groups[salt_off] = keyed(2000 + salt_off, 3 if salt_off == 0 else 2)
                 return nee_groups[salt_off][k]
             if wgsl:
                 group = rng_ops.wgsl_hash((wgsl_seed + 4241 + salt_off) & rng_ops._MASK)
@@ -612,7 +616,7 @@ def path_bounce(ctx: PathContext, st: PathState, i, s) -> PathState:
             if wgsl:
                 u_rr = frame_uniform(rng_ops.wgsl_random_float((wgsl_seed + 977) & rng_ops._MASK))
             elif key is not None:
-                u_rr = keyed(rng_ops.ROULETTE, 1)[0]
+                u_rr = keyed(1000)
             else:
                 u_rr = rng_ops.uniform_hash(pixel_seeds, 1000 + i)
             p = torch.clamp(torch.amax(throughput, dim=-1), 0.05, 1.0)
@@ -643,7 +647,7 @@ def trace_path(
     *,
     pixel_seeds: torch.Tensor | None = None,
     bounce_seeds: torch.Tensor | None = None,
-    generator_key: int | None = None,
+    generator_key=None,
     parity: bool = False,
     russian_roulette_depth: int = 0,
     sky_intensity: float = 1.0,
@@ -681,10 +685,11 @@ def trace_path(
     generate_rays_hash's), `bounce_seeds` (the WGSL stream:
     make_bounce_seeds' (max_depth,) scalar seeds, one a bounce for the whole
     frame, as ray_color draws them; NEE draws hash(seed + 4241 + 7g + 1),
-    Russian roulette seed + 977) or `generator_key` (the threefry mode, an
-    int key: bounce i's scatter draws from fold_key(key, SCATTER, i), its
-    NEE group at salt offset o from fold_key(fold_key(key, NEE, o), NEE,
-    i), its roulette from fold_key(key, ROULETTE, i); ops/rng.py).  `parity=True` keeps the reference's sky
+    Russian roulette seed + 977) or `generator_key` (the threefry mode, a
+    key pair or an int, ops/rng.as_key; jax.random's draws bit for bit:
+    bounce i's scatter from split(fold_in(key, i)), its NEE group at salt
+    offset o from fold_in(fold_in(key, 2000 + o), i), its roulette from
+    fold_in(fold_in(key, 1000), i)).  `parity=True` keeps the reference's sky
     leak: a ray still live after max_depth bounces gains throughput * sky
     (wgsl:293-296) instead of ending black.
 
@@ -708,6 +713,8 @@ def trace_path(
     if ctx.pick_per_sample and pixel_seeds is None:
         raise ValueError("the WGSL and threefry streams pick their light per lane "
                          "(light_pick='lane')")
+    if generator_key is not None:
+        generator_key = rng_ops.as_key(generator_key)
     st = initial_path_state(origins, dirs, pixel_seeds, pixel_ids, count_rays=count_rays,
                             bounce_seeds=bounce_seeds, generator_key=generator_key)
     # Every ray runs the full trip count with its `live` mask.

@@ -40,22 +40,26 @@ def hash_pixel_ids(
 
 
 def generate_rays_threefry(camera: Camera, width: int, height: int,
-                           key: int) -> tuple[torch.Tensor, torch.Tensor]:
+                           key) -> tuple[torch.Tensor, torch.Tensor]:
     """The threefry mode's primary rays (the JAX package's
-    generate_rays_threefry): jitter in [-0.5, 0.5) and a uniform-disk lens
-    point (radius sqrt(u), angle 2 pi u'), drawn from the int `key`
-    (ops/rng.key_uniform) for the whole (height, width) frame on the
-    camera's device.  Returns (origins, dirs), each (height, width, 3) f32."""
+    generate_rays_threefry, bit for bit): `kj, kd = split(key)`, jitter
+    uniform(kj, (2, height, width)) - 0.5 and a uniform-disk lens point
+    (radius sqrt(u), angle 2 pi u') from uniform(kd, (2, height, width))
+    (ops/rng.py: jax.random's stream), on the camera's device.  `key` is a
+    key pair or an int (ops/rng.as_key).  Returns (origins, dirs), each
+    (height, width, 3) f32."""
     dev = camera.device
-    u = rng_ops.key_uniform(key, (4, height, width), dev)
+    kj, kd = rng_ops.split(rng_ops.as_key(key))
+    jit = rng_ops.uniform(kj, (2, height, width), dev) - 0.5
+    u = rng_ops.uniform(kd, (2, height, width), dev)
     x = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
     y = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
-    fx = (x + 0.5 + (u[0] - 0.5))[..., None]
-    fy = (y + 0.5 + (u[1] - 0.5))[..., None]
+    fx = (x + 0.5 + jit[0])[..., None]
+    fy = (y + 0.5 + jit[1])[..., None]
     centers = fma(camera.pixel_delta_v, fy,
                   fma(camera.pixel_delta_u, fx, camera.viewport_upper_left))
-    radius = sqrt(u[2])
-    cos_a, sin_a = cos_sin(u[3] * _TWO_PI)
+    radius = sqrt(u[0])
+    cos_a, sin_a = cos_sin(u[1] * _TWO_PI)
     px, py = radius * cos_a, radius * sin_a
     lens = fma(py[..., None], camera.defocus_disk_v,
                fma(px[..., None], camera.defocus_disk_u, camera.center))

@@ -15,21 +15,17 @@ megakernel (ops/cuda/megakernel.cu) computes the identical hashes in native
 Returned hashes are int64 tensors holding u32 values; inputs may be any
 integer tensor (int32 bit patterns included) or a Python int.
 
-rng='threefry' cannot be jax.random's stream bit for bit: its counterpart
-here is a tree of int keys.  `fold_key(key, purpose, index)` mixes a key,
-a purpose tag and an index into a new 64-bit key (splitmix64 rounds), and
-`key_uniform` draws U[0, 1) f32 from a torch.Generator seeded by one key,
-one generator a draw.  The purposes keep jax.random's separation: the
-sample (fold_in(key, s)), ray generation against tracing (split), a pixel
-block (the JAX package's per-block fold), bounce i's scatter, the NEE
-draws (2000 + salt) and Russian roulette (1000), and the frame of a
-progressive run or an animation.  A stream is deterministic for a key and
-a device; the CPU's generator (mt19937) and the card's (Philox) differ, so
-the same key draws other numbers on each.  It matches jax.random in
-distribution only.
+rng='threefry' is jax.random's default stream bit for bit: threefry2x32
+under JAX's partitionable counters (`threefry2x32`, `prng_key`, `split`,
+`fold_in`, `uniform`).  A key is JAX's two u32 words; `split` and
+`fold_in` hash them on the host, and `uniform` hashes its counters in the
+same int64 arithmetic on whatever device it is given, so the CPU and the
+card draw the same bits for one key.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -297,29 +293,70 @@ def unit_vector_from_uniforms(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tenso
     return torch.stack([r * cos_a, r * sin_a, z], dim=-1)
 
 
-# The purposes of fold_key: one tag for each place jax.random splits or
-# folds a key in the JAX package (api.py:244, :333, :512, :551;
-# integrators.py:286-291, :436-440, :791-794).
-SAMPLE, RAYGEN, TRACE, BLOCK, SCATTER, NEE, ROULETTE, FRAME = range(1, 9)
-_MASK64 = (1 << 64) - 1
+# rng='threefry': jax.random's default generator, threefry2x32 with
+# jax_threefry_partitionable (JAX's default), bit for bit.  A key is JAX's
+# two u32 words (k0, k1); keys are scalars, so split and fold_in hash them
+# as Python ints on the host, and only uniform's counter hash runs on
+# tensors, in the int64-masked arithmetic above.
+_KS_PARITY = 0x1BD11BDA
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
+def threefry2x32(k0: int, k1: int, x0, x1):
+    """Threefry-2x32 of the counter (x0, x1) under the key (k0, k1): 20
+    rounds in 5 groups of 4, a key injection after each group
+    (jax._src.prng._threefry2x32_lowering).  x0, x1 are Python ints or
+    int64 tensors of u32 values; returns the two output words alike.
+    x0 only ever meets additions and an xor that is masked, so it is
+    masked once, at the end (it stays below 2**38); x1 is masked a round,
+    as the rotation needs its 32 bits."""
+    ks = (k0 & _MASK, k1 & _MASK, (k0 ^ k1 ^ _KS_PARITY) & _MASK)
+    x0 = x0 + ks[0]
+    x1 = (x1 + ks[1]) & _MASK
+    for g in range(5):
+        for r in _ROTATIONS[g % 2]:
+            x0 = x0 + x1
+            x1 = (((x1 << r) | (x1 >> (32 - r))) ^ x0) & _MASK
+        x0 = x0 + ks[(g + 1) % 3]
+        x1 = (x1 + (ks[(g + 2) % 3] + g + 1)) & _MASK
+    return x0 & _MASK, x1
 
 
-def fold_key(key: int, purpose: int, index: int = 0) -> int:
-    """The key of draw `index` for `purpose` under `key`: a 64-bit int."""
-    return _splitmix64(_splitmix64(_splitmix64(int(key) & _MASK64) ^ purpose)
-                       ^ (int(index) & _MASK64))
+Key = tuple[int, int]
 
 
-def key_uniform(key: int, shape, device=None) -> torch.Tensor:
-    """U[0, 1) f32 of `shape` from a fresh torch.Generator on `device`
-    seeded by `key`."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(key) & _MASK64)
-    return torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+def prng_key(seed: int) -> Key:
+    """jax.random.PRNGKey(seed) with 32-bit ints: (0, seed mod 2**32)."""
+    return 0, int(seed) & _MASK
+
+
+def as_key(key) -> Key:
+    """A key given as an int (read as prng_key(key)) or as two u32 words
+    (jax.random.key_data's pair: a tuple, list, array or tensor of 2)."""
+    if isinstance(key, int) or getattr(key, "ndim", None) == 0:
+        return prng_key(int(key))
+    words = [int(w) & _MASK for w in (key.tolist() if hasattr(key, "tolist") else key)]
+    if len(words) != 2:
+        raise ValueError(f"a key is an int or two u32 words, got {key!r}")
+    return words[0], words[1]
+
+
+def split(key: Key) -> tuple[Key, Key]:
+    """jax.random.split(key): the keys of the counters (0, 0) and (0, 1)."""
+    k0, k1 = key
+    return threefry2x32(k0, k1, 0, 0), threefry2x32(k0, k1, 0, 1)
+
+
+def fold_in(key: Key, data: int) -> Key:
+    """jax.random.fold_in(key, data): the key of the counter (0, data)."""
+    return threefry2x32(key[0], key[1], 0, int(data) & _MASK)
+
+
+def uniform(key: Key, shape, device=None) -> torch.Tensor:
+    """jax.random.uniform(key, shape) in f32: flat index i draws the bits
+    x0 ^ x1 of the counter (i >> 32, i mod 2**32), and their top 23 bits
+    are the mantissa of a float in [1, 2), less 1."""
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    x0, x1 = threefry2x32(key[0], key[1], i >> 32, i & _MASK)
+    bits = ((x0 ^ x1) >> 9) | 0x3F800000
+    return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(tuple(shape))

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from gpu_ray_tracing_tpu_torch.models.scene import as_scene
+from gpu_ray_tracing_tpu_torch.ops import rng as rng_ops
 from gpu_ray_tracing_tpu_torch.ops.accumulate import AccumState
 from gpu_ray_tracing_tpu_torch.ops.cuda.megakernel import dataclass_tensors
 
@@ -28,7 +29,8 @@ _FORMAT_VERSION = 1
 def render_fingerprint(scene, config, *, frame_seed=None, key=None) -> str:
     """Stable hash of everything that determines a render's sample stream:
     the sample-relevant config fields, every array of the scene, the frame
-    seed and the threefry key (an int).  Scheduler-only choices (backend, adaptive knobs) are left
+    seed and the threefry key's two u32 words (ops/rng.as_key), hashed as
+    the JAX package hashes them.  Scheduler-only choices (backend, adaptive knobs) are left
     out, so a checkpoint written by one backend resumes on the other.  The
     spp budget enters only through the stratified sampler, whose grid it
     sets; the other samplers address samples by absolute index, so a
@@ -48,7 +50,7 @@ def render_fingerprint(scene, config, *, frame_seed=None, key=None) -> str:
     if frame_seed is not None:
         h.update(b"seed" + np.asarray(int(frame_seed) & 0xFFFFFFFF, np.uint32).tobytes())
     if key is not None:
-        h.update(b"key" + np.asarray(int(key) & ((1 << 64) - 1), np.uint64).tobytes())
+        h.update(b"key" + np.asarray(rng_ops.as_key(key), np.uint32).tobytes())
     for leaf in dataclass_tensors(as_scene(scene)):
         a = leaf.detach().cpu().numpy()
         h.update(f"{a.shape}{a.dtype}".encode())

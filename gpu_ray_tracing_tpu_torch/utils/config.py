@@ -11,8 +11,8 @@ for the wavefront engine's plain version, which run on the device the scene
 lies on.  NEE/MIS and the stratified and Sobol samplers run on all four;
 adaptive sampling is a megakernel mode and ray regeneration a wavefront
 mode, as in the JAX package.  The WGSL parity stream (rng='wgsl') and
-the threefry mode (rng='threefry', explicit torch.Generator streams from
-an int key: ops/rng.py) run through 'torch' only: the kernels draw the
+the threefry mode (rng='threefry', jax.random's stream from an int key or
+a key's two u32 words: ops/rng.py) run through 'torch' only: the kernels draw the
 hash stream, as the JAX package's do.
 """
 

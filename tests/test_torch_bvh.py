@@ -131,14 +131,24 @@ def test_validate_bvh_rejects_broken_trees():
 
 
 def test_bvh_planes_match_jax():
+    """The kernels' node records (tmk.bvh_nodes: bmin, bmax x / bmax y, z,
+    miss link, start << LEAF_COUNT_BITS | count) hold what JAX's
+    bvh_planes packs, bit for bit."""
     from gpu_ray_tracing_tpu.ops.pallas import megakernel as jmk
 
     _, jb = jbvh.build_mesh_bvh(jmesh.icosphere(2))
-    jf, ji = jmk.bvh_planes(jb)
-    tf, ti = tmk.bvh_planes(T.from_reference(jb))
-    assert tf.dtype == torch.float32 and ti.dtype == torch.int32
-    assert np.array_equal(np.asarray(jf), tf.numpy())
-    assert np.array_equal(np.asarray(ji), ti.numpy())
+    jf, ji = (np.asarray(a) for a in jmk.bvh_planes(jb))
+    rec = tmk.bvh_nodes(T.from_reference(jb), 320).numpy()
+    words = rec.view(np.int32)
+    assert rec.dtype == np.float32 and rec.shape == (jf.shape[1], 8)
+    assert np.array_equal(rec[:, 0:6].T.view(np.int32), jf[0:6].view(np.int32))
+    assert not jf[6:].any() and not ji[3].any()
+    assert np.array_equal(words[:, 6], ji[0])
+    link, bits = words[:, 7], tmk.LEAF_COUNT_BITS
+    leaf = ji[1] >= 0
+    assert np.array_equal(link >= 0, leaf)
+    assert np.array_equal(link[leaf] >> bits, ji[1][leaf])
+    assert np.array_equal(link[leaf] & ((1 << bits) - 1), ji[2][leaf])
 
 
 # --- the walk -----------------------------------------------------------------

@@ -1105,3 +1105,31 @@ def test_threefry_on_the_card_is_deterministic_for_a_key(dev):
     assert a.device.type == "cuda" and bool(torch.isfinite(a).all())
     assert torch.equal(a, T.render(scene, cam, cfg, key=5))
     assert not torch.equal(a, T.render(scene, cam, cfg, key=6))
+
+
+def test_threefry_draws_equal_bits_on_the_card_and_the_cpu(dev):
+    """One key draws the same bits on both devices: uniform over a 2^20
+    stack, and over the shapes of a 320x180 frame's draws from keys of a
+    split and fold_in chain."""
+    from gpu_ray_tracing_tpu_torch.ops import rng as trng
+
+    key = trng.fold_in(trng.prng_key(21), 3)
+    k_ray, k_trace = trng.split(key)
+    for k, shape in ((key, (2, 1 << 19)), (k_ray, (2, 180, 320)),
+                     (trng.fold_in(trng.fold_in(k_trace, 2000 + 8), 0), (2, 57600))):
+        cpu = trng.uniform(k, shape)
+        card = trng.uniform(k, shape, dev)
+        assert card.device.type == "cuda"
+        assert torch.equal(card.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+def test_a_bvh_the_node_records_cannot_hold_is_refused_before_the_launch(dev):
+    """A mesh BVH with leaves of up to 512 faces does not fit the node
+    records' start << 8 | count: render_cuda raises and launches nothing."""
+    ground = T.make_spheres([((0, -1000.0, 0), 1000.0, T.LAMBERTIAN, (0.5, 0.5, 0.5), 0.0)])
+    scene = T.make_scene(ground, T.icosphere(3), bvh_leaf_size=512).to(dev)
+    cam = T.derive_camera(T.CameraSettings.default(), 32, 24).to(dev)
+    mk.LAUNCHES.clear()
+    with pytest.raises(ValueError, match="BVH nodes hold a leaf of at most 255"):
+        mk.render_cuda(scene, cam, width=32, height=24, max_depth=2, t_min=1e-3)
+    assert not mk.LAUNCHES

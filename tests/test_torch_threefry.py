@@ -1,13 +1,16 @@
 """The port's threefry mode (rng='threefry') on the CPU.
 
-The port draws it from explicit torch.Generator streams keyed by an int
-(ops/rng.fold_key, key_uniform), which cannot equal jax.random's bits.  So
-it is held to the JAX package in distribution: its ray generation to JAX's
-generate_rays_threefry by moments over 10^5 draws, its frames to the hash
-stream's mean within Monte Carlo error (per pixel, 4 standard errors from
-the per-sample variances, for >= 99% of the pixels, and the frame means),
-its samples to independence; and for a given key it is deterministic.  The
-refusals are JAX's: no key, spp_per_step > 1, sharding, a kernel backend.
+The port draws jax.random's own stream (ops/rng.py: threefry2x32 under
+JAX's partitionable counters, keys as JAX's two u32 words), so it is held
+to the JAX package bit for bit: PRNGKey, split, fold_in and uniform on the
+same keys, generate_rays_threefry, and frames against JAX's jitted pieces
+(ray generation, then _trace_chunked: one block, two equal blocks, and
+three lit scenes through NEE, MIS and Russian roulette) at the goldens'
+decision-flip thresholds.  It is also held to JAX in
+distribution (ray generation by moments over 10^5 draws, frames to the
+hash stream's mean within Monte Carlo error, samples to independence),
+and for a given key it is deterministic.  The refusals are JAX's: no key,
+spp_per_step > 1, sharding, a kernel backend.
 """
 
 from __future__ import annotations
@@ -103,18 +106,158 @@ def test_generate_rays_threefry_has_jaxs_distribution():
 
 
 def test_threefry_is_deterministic_for_a_key():
-    """The same key renders the same bits; another key another frame; the
-    low word of the key plays no part of a frame seed here."""
+    """The same key renders the same bits; another key another frame; an
+    int key is jax.random.PRNGKey(k), which keeps the seed's low 32 bits,
+    so key 11 + 2^32 and the words (0, 11) render key 11's frame."""
     scene = T.base_scene()
     a = T.render(scene, T_CAMERA, _cfg(), key=11)
     assert torch.equal(a, T.render(scene, T_CAMERA, _cfg(), key=11))
     b = T.render(scene, T_CAMERA, _cfg(), key=12)
     assert not torch.equal(a, b)
-    assert not torch.equal(a, T.render(scene, T_CAMERA, _cfg(), key=11 + (1 << 32)))
+    assert torch.equal(a, T.render(scene, T_CAMERA, _cfg(), key=11 + (1 << 32)))
+    assert torch.equal(a, T.render(scene, T_CAMERA, _cfg(), key=np.array([0, 11], np.uint32)))
+    assert not torch.equal(a, T.render(scene, T_CAMERA, _cfg(), key=(1, 11)))
     rays = tr.generate_rays_threefry(T.derive_camera(T_CAMERA, W, H), W, H, key=5)
     assert all(torch.equal(x, y) for x, y in
                zip(rays, tr.generate_rays_threefry(T.derive_camera(T_CAMERA, W, H), W, H,
                                                    key=5)))
+
+
+def _words(jkey) -> tuple[int, int]:
+    import jax
+
+    return tuple(int(w) for w in np.asarray(jax.random.key_data(jkey)))
+
+
+@pytest.mark.parametrize("seed", [0, 42, 11 + (1 << 32), -3])
+def test_prng_key_equals_jax(seed):
+    """PRNGKey(k) with 32-bit ints is (0, k mod 2^32), a seed above 2^32
+    and a negative one included."""
+    import jax
+    assert trng.prng_key(seed) == _words(jax.random.PRNGKey(seed))
+    assert trng.as_key(seed) == trng.as_key(_words(jax.random.PRNGKey(seed)))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5), (2, 6144)])
+def test_split_fold_in_uniform_equal_jax(shape):
+    """split, fold_in and uniform bit for bit on the same keys: a chain of
+    both, then uniform over `shape` from each key of it."""
+    import jax
+    import jax.numpy as jnp
+
+    jk, tk = jax.random.PRNGKey(42), trng.prng_key(42)
+    ja, jb = jax.random.split(jk)
+    ta, tb = trng.split(tk)
+    assert (_words(ja), _words(jb)) == (ta, tb)
+    for d in (0, 7, 2000 + 22, (1 << 32) - 1):
+        assert _words(jax.random.fold_in(jb, d)) == trng.fold_in(tb, d)
+    for j, t in ((jk, tk), (jb, tb), (jax.random.fold_in(ja, 1000), trng.fold_in(ta, 1000))):
+        want = np.asarray(jax.random.uniform(j, shape, jnp.float32))
+        got = trng.uniform(t, shape).numpy()
+        assert got.shape == shape and got.dtype == np.float32
+        assert np.array_equal(want.view(np.uint32), got.view(np.uint32))
+
+
+@pytest.mark.parametrize("defocus", [3.0, 0.0])
+def test_generate_rays_threefry_equals_jax(defocus):
+    """The port's generate_rays_threefry against JAX's, jitted with the
+    camera an argument (as render passes it), bit for bit: the lens and the
+    pinhole."""
+    import jax
+    import gpu_ray_tracing_tpu as J
+    import jax.numpy as jnp
+    from gpu_ray_tracing_tpu.ops import rays as jr
+
+    w, h = 64, 48
+    lens = dict(LENS, defocus_angle=defocus)
+    jc = J.derive_camera(J.CameraSettings(**{k: jnp.asarray(v, jnp.float32)
+                                             for k, v in lens.items()}), w, h)
+    for seed in (3, 11 + (1 << 32)):
+        jo, jd = jax.jit(lambda c, k: jr.generate_rays_threefry(c, w, h, k))(
+            jc, jax.random.PRNGKey(seed))
+        to, td = tr.generate_rays_threefry(T.from_reference(jc), w, h, seed)
+        assert np.array_equal(np.asarray(jo), to.numpy())
+        assert np.array_equal(np.asarray(jd), td.numpy())
+
+
+def _jax_threefry_frame(jscene, jcam, cfg, seed: int) -> np.ndarray:
+    """JAX's threefry render from its jitted pieces (_render_spp_jax's
+    folds, api.py:244, :333): sample s under fold_in(key, s), split into
+    generate_rays_threefry and _trace_chunked, summed in order."""
+    import jax
+    import gpu_ray_tracing_tpu as J
+    import jax.numpy as jnp
+    from gpu_ray_tracing_tpu import api as japi
+    from gpu_ray_tracing_tpu.ops import rays as jr
+
+    jcfg = J.RenderConfig(width=cfg.width, height=cfg.height, spp=cfg.spp,
+                          max_depth=cfg.max_depth, rng="threefry", nee=cfg.nee, mis=cfg.mis,
+                          russian_roulette_depth=cfg.russian_roulette_depth,
+                          sky_intensity=cfg.sky_intensity)
+    raygen = jax.jit(lambda c, k: jr.generate_rays_threefry(c, cfg.width, cfg.height, k))
+    trace = jax.jit(lambda o, d, sc, k: japi._trace_chunked(o, d, sc, jcfg, key=k))
+    key = jax.random.PRNGKey(seed)
+    acc = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
+    for s in range(cfg.spp):
+        k_ray, k_trace = jax.random.split(jax.random.fold_in(key, s))
+        o, d = raygen(jcam, k_ray)
+        acc = acc + trace(o, d, jscene, k_trace)
+    return np.asarray(acc / jnp.float32(cfg.spp))
+
+
+# The lit cases draw every NEE and roulette key of the stream: one sphere
+# light and the Cornell box's two triangle lights loop over their lights
+# (two draws a light at salt offset 7g + 1); the 81 ordinals of an emissive
+# icosphere pick one light (three draws at offset 0).
+LIT = dict(nee=True, mis=True, russian_roulette_depth=1, sky_intensity=0.0)
+
+
+@pytest.mark.parametrize("case", ["one_block", "two_blocks", "sphere_light", "tri_lights",
+                                  "picked_light"])
+def test_render_threefry_equals_jax_pieces(case):
+    """render(rng='threefry', backend='torch') against JAX's threefry
+    render from its jitted pieces at the goldens' thresholds (flip <= 0.5%,
+    mean |diff| < 1e-4): base_scene at 48x36 through the lens (one block);
+    the 487 spheres of One-Weekend's full grid at 128x96, which the CPU
+    budget traces as two equal blocks of 6,144 pixels, each under
+    fold_in(key, b); and three lit scenes through NEE, MIS and Russian
+    roulette from the first bounce."""
+    import jax
+    import gpu_ray_tracing_tpu as J
+    import jax.numpy as jnp
+    from gpu_ray_tracing_tpu import api as japi
+    from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as tmk
+    from benchmarks import parity_check as pc
+
+    kw, settings = {}, None
+    if case == "one_block":
+        jscene, w, h, settings = J.base_scene(), W, H, LENS
+    elif case == "two_blocks":
+        jscene = J.one_weekend_scene(jax.random.key(0), grid_min=-11, grid_max=11)
+        w, h = 128, 96
+    elif case == "tri_lights":
+        jscene, w, h, kw = J.cornell_box_scene(), 48, 48, LIT
+    else:
+        jscene = pc._nee_scene() if case == "sphere_light" else pc._many_lights_scene()
+        w, h, settings, kw = W, H, LENS, LIT
+    cfg = _cfg(width=w, height=h, spp=2, **kw)
+    if case == "tri_lights":
+        js, ts = J.cornell_camera(), T.cornell_camera()
+    elif settings is None:
+        js, ts = J.CameraSettings.default(), T.CameraSettings.default()
+    else:
+        js = J.CameraSettings(**{k: jnp.asarray(v, jnp.float32) for k, v in settings.items()})
+        ts = T_CAMERA
+    tscene = T.from_reference(jscene)
+    blocks = w * h // tmk._trace_block_size(w * h, T.as_scene(tscene))
+    assert blocks == w * h // japi._trace_block_size(w * h, japi._scene_width(jscene))
+    assert blocks == (2 if case == "two_blocks" else 1)
+    want = _jax_threefry_frame(jscene, J.derive_camera(js, w, h), cfg, 9)
+    got = T.render(tscene, ts, cfg, key=9)
+    if kw:
+        assert float(got.mean()) > 0
+    m = T.images_match(got, want, 0.005, 1e-4)
+    assert m.ok, m
 
 
 def _per_sample(scene, rng: str, n: int, **kw) -> np.ndarray:
@@ -134,8 +277,8 @@ def samples():
 
 
 def test_threefry_frame_is_the_mean_of_its_samples(samples):
-    """render(spp=n, key=k) sums sample s = fold_key(k, SAMPLE, s) for s < n
-    in order: the per-sample frames reproduce it bit for bit."""
+    """render(spp=n, key=k) sums sample s, drawn under fold_in(k, s), for
+    s < n in order: the per-sample frames reproduce it bit for bit."""
     got = T.render(T.base_scene(), T_CAMERA, _cfg(spp=SPP), key=7)
     acc = torch.zeros(H * W, 3)
     for s in samples[0]:
@@ -159,28 +302,51 @@ def test_threefry_mean_matches_the_hash_stream(samples):
     assert abs(m_tf.mean() - m_hs.mean()) <= 4 * se_frame
 
 
+def _independence(x: np.ndarray) -> tuple[float, float, float, float]:
+    """For (n, H, W, 3) samples: |mean per-pixel lag-1 correlation + 1/n|
+    and its 3-standard-error bound, |mean correlation of neighbouring
+    pixels| and its bound (test_threefry_samples_are_independent)."""
+    n = x.shape[0]
+    lum = x.sum(-1)
+    x = lum - lum.mean(0)
+    a = x[:, x.std(0) > 0]
+    r = (a[:-1] * a[1:]).sum(0) / (a * a).sum(0)
+    u, v = x[:, :, :-1], x[:, :, 1:]
+    live = (u.std(0) > 0) & (v.std(0) > 0)
+    c = (u * v).sum(0)[live] / np.sqrt((u * u).sum(0)[live] * (v * v).sum(0)[live])
+    return (abs(r.mean() + 1 / n), 3 / np.sqrt(n * r.size),
+            abs(c.mean()), 3 / np.sqrt((n - 1) * c.size))
+
+
 def test_threefry_samples_are_independent(samples):
-    """The sample-to-sample correlation of a pixel (lag 1 over the 256
-    samples, pooled over pixels and channels, each pixel's mean removed)
-    is within 3 / sqrt(n) of its value for independent samples, -1/256 (the
-    mean removed from each pixel's own samples), for n pairs; the
-    correlation of neighbouring pixels within a sample within 3 / sqrt(n)
-    of 0."""
-    x = samples[0] - samples[0].mean(0)
-    live = x.std(0) > 0
-    a, b = x[:-1][:, live], x[1:][:, live]
-    n = a.size
-    r = float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
-    assert abs(r + 1 / SPP) < 3 / np.sqrt(n), r
-    a, b = x[:, :, :-1], x[:, :, 1:]
-    r_px = float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
-    assert abs(r_px) < 3 / np.sqrt(a.size), r_px
+    """Per pixel, the lag-1 correlation of its 256 samples (the sum of its
+    channels, its mean removed) has mean -1/n and standard error 1/sqrt(n)
+    for independent samples: their mean over the P live pixels is within 3
+    standard errors, 3 / sqrt(n P), of -1/n.  Per neighbouring pair of
+    pixels, the correlation of their samples has mean 0 and standard error
+    1/sqrt(n - 1): their mean over the pairs is within 3 / sqrt((n - 1)
+    pairs) of 0.  Pixels weigh equally: pooled over pixels and channels,
+    the few bright pixels of a frame and its three correlated channels
+    would carry the correlation, whose spread 1/sqrt(pooled count) then
+    understates several times."""
+    lag, lag_bound, pair, pair_bound = _independence(samples[0])
+    assert lag < lag_bound, (lag, lag_bound)
+    assert pair < pair_bound, (pair, pair_bound)
+
+
+def test_the_independence_test_catches_a_reused_sample_key(samples):
+    """The same samples with every odd sample a copy of the one before it
+    (sample 2k + 1 drawn under sample 2k's key) fail the lag-1 bound
+    many times over."""
+    reused = samples[0][[2 * (s // 2) for s in range(SPP)]]
+    lag, lag_bound, _, _ = _independence(reused)
+    assert lag > 50 * lag_bound, (lag, lag_bound)
 
 
 def test_progressive_and_animation_fold_the_key():
     """progressive_step(key=k) from zero is render(spp=1, key=k);
-    render_progressive draws frame f from fold_key(key, FRAME, f), and
-    render_animation renders frame f with that key."""
+    render_progressive draws frame f from fold_in(key, f), and
+    render_animation renders frame f with that key (api.py:512, :551)."""
     scene, cfg = T.base_scene(), _cfg(spp=3, width=16, height=12)
     st = T.progressive_step(T.init_accum(12, 16), scene, T_CAMERA, cfg, key=4)
     one = T.render(scene, T_CAMERA, T.RenderConfig(**{**cfg.__dict__, "spp": 1}), key=4)
@@ -189,12 +355,12 @@ def test_progressive_and_animation_fold_the_key():
     want = T.init_accum(12, 16)
     for f in range(3):
         want = T.progressive_step(want, scene, T_CAMERA, cfg,
-                                  key=trng.fold_key(4, trng.FRAME, f))
+                                  key=trng.fold_in(trng.prng_key(4), f))
     assert int(prog.count) == 3 and torch.equal(prog.rgb, want.rgb)
     track = T.stack_camera_track([T_CAMERA, T.orbit_yaw(T_CAMERA, 0.1)])
     frames = T.render_animation(scene, track, cfg, key=4)
     assert torch.equal(frames[1], T.render(scene, T.orbit_yaw(T_CAMERA, 0.1), cfg,
-                                           key=trng.fold_key(4, trng.FRAME, 1)))
+                                           key=trng.fold_in(trng.prng_key(4), 1)))
 
 
 def test_threefry_refusals():
@@ -246,6 +412,7 @@ def test_render_fingerprint_takes_the_key():
     assert fp == render_fingerprint(T.base_scene(), cfg, key=5)
     assert fp != render_fingerprint(T.base_scene(), cfg, key=6)
     assert fp != render_fingerprint(T.base_scene(), cfg)
+    assert fp == render_fingerprint(T.base_scene(), cfg, key=(0, 5))
 
 
 def test_cli_rng_threefry_writes_the_keyed_frame(tmp_path, capsys):
