@@ -84,6 +84,7 @@ from gpu_ray_tracing_tpu_torch.ops.cuda.wavefront import (
     render_wavefront_reference,
 )
 from gpu_ray_tracing_tpu_torch.utils.config import RenderConfig
+from gpu_ray_tracing_tpu_torch.utils.profiling import span
 
 
 def _cuda_device(backend: str, hint: str | None = None) -> torch.device:
@@ -119,7 +120,8 @@ def _resolve_rng(config: RenderConfig, key, frame_seed) -> tuple[rng_ops.Key | N
 
 def _camera(camera: Camera | CameraSettings, config: RenderConfig) -> Camera:
     if isinstance(camera, CameraSettings):
-        return derive_camera(camera, config.width, config.height)
+        with span("camera"):
+            return derive_camera(camera, config.width, config.height)
     return camera
 
 
@@ -182,16 +184,17 @@ def render(scene, camera: Camera | CameraSettings, config: RenderConfig, *,
     every backend: on 'cuda' and 'wavefront' through KernelFrame (module
     docstring), the camera derived outside it so that gradients reach the
     CameraSettings."""
-    camera = _camera(camera, config)
-    key, seed = _resolve_rng(config, key, frame_seed)
+    with span("render"):
+        camera = _camera(camera, config)
+        key, seed = _resolve_rng(config, key, frame_seed)
 
-    def run(sc, cam):
-        return _render(sc, cam, config, frame_seed=seed, spp=config.spp, adaptive=True,
-                       key=key)
+        def run(sc, cam):
+            return _render(sc, cam, config, frame_seed=seed, spp=config.spp, adaptive=True,
+                           key=key)
 
-    if config.backend in ("cuda", "wavefront") and needs_grad(as_scene(scene), camera):
-        return kernel_frame(run, scene, camera, config, seed)
-    return run(scene, camera)
+        if config.backend in ("cuda", "wavefront") and needs_grad(as_scene(scene), camera):
+            return kernel_frame(run, scene, camera, config, seed)
+        return run(scene, camera)
 
 
 def _refuse_grad(entry: str, scene, camera, config: RenderConfig) -> None:

@@ -3,6 +3,7 @@ gpu_ray_tracing_tpu/cli.py): offline renders, animations, progressive
 sessions and a live terminal viewer.
 
   python -m gpu_ray_tracing_tpu_torch render      --scene one-weekend --out img.png
+  python -m gpu_ray_tracing_tpu_torch render      --bench-frames 10 --trace traces/
   python -m gpu_ray_tracing_tpu_torch animate     --frames 24 --out-dir frames/
   python -m gpu_ray_tracing_tpu_torch progressive --steps 64 --checkpoint c.npz
   python -m gpu_ray_tracing_tpu_torch view        --scene base --spp 64
@@ -17,15 +18,20 @@ wavefront engine for --regenerate, the adaptive kernel for
 ('torch', or 'wavefront_torch' for --regenerate).  --seed is the frame
 seed of the hash and wgsl streams and the key of the threefry stream,
 which a progressive session offsets by the step (from the resumed count)
-so that no step draws another's samples.  `progressive` resumes from its
-checkpoint file when present.  The one-weekend scenes are the port's
-one_weekend_scene(--scene-seed): drawn from numpy with the JAX package's
-seed mix (its key(seed) scene, sphere for sphere), and not padded.
+so that no step draws another's samples.  `render --trace DIR` records
+the timed frames with torch.profiler into DIR/trace.json, the program's
+`grt.` spans with them, and prints each span's calls, host time and the
+CUDA runtime's synchronisations and launches inside it, a frame.
+`progressive` resumes from its checkpoint file when present.  The
+one-weekend scenes are the port's one_weekend_scene(--scene-seed): drawn
+from numpy with the JAX package's seed mix (its key(seed) scene, sphere
+for sphere), and not padded.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -229,11 +235,15 @@ def _sync(dev: torch.device) -> None:
 def cmd_render(args, cfg) -> int:
     import gpu_ray_tracing_tpu_torch as rt
     from gpu_ray_tracing_tpu_torch.utils.image import write_image
-    from gpu_ray_tracing_tpu_torch.utils.profiling import time_frames
+    from gpu_ray_tracing_tpu_torch.utils.profiling import device_trace, span_table, time_frames
 
     if args.denoise and args.integrator != "path":
         print("error: --denoise filters the path integrator's beauty "
               "pass; drop --integrator or --denoise", file=sys.stderr)
+        return 2
+    if args.trace and not args.bench_frames:
+        print("error: --trace records the timed frames; give --bench-frames N",
+              file=sys.stderr)
         return 2
     dev, scene, cam = _setup(args)
     # Derived once: from settings on the card, render() would derive it a
@@ -250,12 +260,22 @@ def cmd_render(args, cfg) -> int:
     out_path = write_image(args.out, frame_fn(0), args.gamma)
     # Times what was written: with --denoise the beauty pass, the guides
     # and the filter.
-    stats = time_frames(
-        frame_fn, width=cfg.width, height=cfg.height, spp=cfg.spp,
-        frames=args.bench_frames, warmup=0, device=dev,
-    ) if args.bench_frames else None
+    stats = None
+    if args.bench_frames:
+        with (device_trace(args.trace, device=dev) if args.trace
+              else contextlib.nullcontext()) as prof:
+            stats = time_frames(frame_fn, width=cfg.width, height=cfg.height, spp=cfg.spp,
+                                frames=args.bench_frames, warmup=0, device=dev)
     print(f"wrote {out_path} ({cfg.width}x{cfg.height}, {cfg.spp} spp, "
           f"backend={cfg.backend}, device={dev.type})" + (f" {stats}" if stats else ""))
+    if args.trace:
+        # The host's time and runtime calls by span, a frame, on standard
+        # error; the timeline itself is in <dir>/trace.json.
+        frames = stats.frames * len(stats.window_seconds)
+        for name, r in span_table(prof.events(), frames).items():
+            print(f"span {name}: {r['calls']:.2f} calls, {r['total_ms']:.3f} ms, self "
+                  f"{r['self_ms']:.3f} ms, {r['syncs']:.2f} syncs, {r['launches']:.2f} "
+                  "launches a frame", file=sys.stderr)
     return 0
 
 
@@ -505,9 +525,10 @@ def cmd_view(args, cfg) -> int:
 
 
 def cmd_bench() -> int:
-    print("error: the port's benchmark suite is not written yet (ROADMAP.md, "
-          "Queue 1, the row that waits for the benchmark: the port's benchmark "
-          "script). Time a frame with `render --bench-frames N`", file=sys.stderr)
+    print("error: the port's benchmark is `python3 rtbench/run.py --workload <name> "
+          "--seed <n> --seconds <s> --trace <0|1>` from the repository's root "
+          "(rtbench/README.md); time a frame here with `render --bench-frames N`",
+          file=sys.stderr)
     return 2
 
 
@@ -521,6 +542,9 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="render.png")
     p.add_argument("--bench-frames", type=int, default=0,
                    help="also time this many frames and print throughput")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="record the timed frames with torch.profiler into DIR/trace.json "
+                        "and print the host's time by span on standard error")
     p.add_argument("--denoise", type=_nonneg_int, default=0, metavar="ITERS",
                    help="AOV-guided a-trous denoise of the beauty pass with "
                         "this many passes (0 = off; try 3-5 at low --spp)")
@@ -564,7 +588,7 @@ def main(argv=None) -> int:
     p.add_argument("--inject-keys", default=None, help=argparse.SUPPRESS)
     p.set_defaults(fn=cmd_view)
 
-    p = sub.add_parser("bench", help="the benchmark suite (not ported yet: exits 2)")
+    p = sub.add_parser("bench", help="names the benchmark's command (rtbench/run.py): exits 2")
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)

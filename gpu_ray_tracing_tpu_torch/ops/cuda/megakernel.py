@@ -60,6 +60,7 @@ from gpu_ray_tracing_tpu_torch.ops.rays import (
     hash_pixel_ids,
 )
 from gpu_ray_tracing_tpu_torch.ops.rounding import fma
+from gpu_ray_tracing_tpu_torch.utils.profiling import span
 
 #: Kernel launches per wrapper and route ("megakernel:brute",
 #: "megakernel:sphere_bvh", "megakernel:mesh_bvh", "hash_probe",
@@ -639,34 +640,35 @@ class PackedScene:
 def pack_scene(sc: Scene, nee: bool, mis: bool, sampler_spec: tuple | None) -> PackedScene:
     """Pack a Scene on a CUDA device into the kernels' plane layouts, as
     render_pallas's XLA code does around its launch."""
-    if sc.mesh is not None and sc.bvh is None:
-        raise ValueError("the CUDA kernels render a mesh through its BVH; "
-                         "build the scene with make_scene(use_bvh=True)")
-    n_sl, n_tl = sc.nee_light_counts(nee)
-    planes = scene_planes(sc.spheres).contiguous()
-    sbvh = (bvh_nodes(sc.sphere_bvh, sc.spheres.count) if sc.sphere_bvh is not None
-            else None)
-    if sc.mesh is not None:
-        table = mesh_table(sc.mesh, sc.global_tri_light_ids() if nee else None)
-        faces, mbvh = face_records(table), bvh_nodes(sc.bvh, sc.mesh.num_triangles)
-        n_tris, smooth = sc.mesh.num_triangles, int(sc.mesh.smooth)
-    else:
-        table, faces, mbvh, n_tris, smooth = None, None, None, 0, 0
-    lplanes = lights_planes(sc.lights).contiguous() if n_sl else None
-    tplanes = tri_lights_planes(sc.tri_lights) if n_tl else None
-    kind, kx, ky, nbits = _sampler_args(sampler_spec)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    nodes = lambda rec: 0 if rec is None else rec.shape[0]
-    args = (
-        planes.data_ptr(), sc.spheres.count, ptr(sbvh), nodes(sbvh),
-        ptr(table), ptr(faces), n_tris, smooth, ptr(mbvh), nodes(mbvh),
-        ptr(lplanes), n_sl, ptr(tplanes), n_tl, int(nee), int(mis and nee),
-        kind, kx, ky, nbits,
-    )
-    route = "mesh_bvh" if n_tris else "sphere_bvh" if nodes(sbvh) else "brute"
-    route += ("+nee" if nee else "") + ("" if kind == 0 else "+" + sampler_spec[0])
-    return PackedScene(args, (planes, sbvh, table, faces, mbvh, lplanes, tplanes), route,
-                       stage_bytes_of(sc))
+    with span("pack_scene"):
+        if sc.mesh is not None and sc.bvh is None:
+            raise ValueError("the CUDA kernels render a mesh through its BVH; "
+                             "build the scene with make_scene(use_bvh=True)")
+        n_sl, n_tl = sc.nee_light_counts(nee)
+        planes = scene_planes(sc.spheres).contiguous()
+        sbvh = (bvh_nodes(sc.sphere_bvh, sc.spheres.count) if sc.sphere_bvh is not None
+                else None)
+        if sc.mesh is not None:
+            table = mesh_table(sc.mesh, sc.global_tri_light_ids() if nee else None)
+            faces, mbvh = face_records(table), bvh_nodes(sc.bvh, sc.mesh.num_triangles)
+            n_tris, smooth = sc.mesh.num_triangles, int(sc.mesh.smooth)
+        else:
+            table, faces, mbvh, n_tris, smooth = None, None, None, 0, 0
+        lplanes = lights_planes(sc.lights).contiguous() if n_sl else None
+        tplanes = tri_lights_planes(sc.tri_lights) if n_tl else None
+        kind, kx, ky, nbits = _sampler_args(sampler_spec)
+        ptr = lambda t: None if t is None else t.data_ptr()
+        nodes = lambda rec: 0 if rec is None else rec.shape[0]
+        args = (
+            planes.data_ptr(), sc.spheres.count, ptr(sbvh), nodes(sbvh),
+            ptr(table), ptr(faces), n_tris, smooth, ptr(mbvh), nodes(mbvh),
+            ptr(lplanes), n_sl, ptr(tplanes), n_tl, int(nee), int(mis and nee),
+            kind, kx, ky, nbits,
+        )
+        route = "mesh_bvh" if n_tris else "sphere_bvh" if nodes(sbvh) else "brute"
+        route += ("+nee" if nee else "") + ("" if kind == 0 else "+" + sampler_spec[0])
+        return PackedScene(args, (planes, sbvh, table, faces, mbvh, lplanes, tplanes), route,
+                           stage_bytes_of(sc))
 
 
 def _require_cuda(*tensors: torch.Tensor) -> torch.device:
@@ -763,23 +765,24 @@ def _launch(packed: PackedScene, camera: Camera, dev: torch.device, mode: int, o
             spp: int, stage: int = 0) -> None:
     """One grt_render launch on dev's current stream, walking a BVH stage
     of `stage` bytes (0: none); raises if refused."""
-    lib = build.load()
-    cam = camera_vector(camera).contiguous()
-    ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.grt_render(
-            cam.data_ptr(), *packed.args,
-            width, height,
-            int(sample_index) & 0xFFFFFFFF, int(frame_seed) & 0xFFFFFFFF,
-            int(y_offset) & 0xFFFFFFFF, int(row_stride) & 0xFFFFFFFF,
-            max_depth, float(t_min), float(t_max), mode,
-            int(russian_roulette_depth), float(sky_intensity), float(clamp),
-            spp, ptr(out), ptr(rays), ptr(plan.state),
-            plan.tile_rows, plan.min_spp, plan.chunk, plan.tol, ptr(cursor), int(stage),
-            stream,
-        )
-    build.check(rc, "megakernel")
+    with span("launch"):
+        lib = build.load()
+        cam = camera_vector(camera).contiguous()
+        ptr = lambda t: None if t is None else t.data_ptr()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.grt_render(
+                cam.data_ptr(), *packed.args,
+                width, height,
+                int(sample_index) & 0xFFFFFFFF, int(frame_seed) & 0xFFFFFFFF,
+                int(y_offset) & 0xFFFFFFFF, int(row_stride) & 0xFFFFFFFF,
+                max_depth, float(t_min), float(t_max), mode,
+                int(russian_roulette_depth), float(sky_intensity), float(clamp),
+                spp, ptr(out), ptr(rays), ptr(plan.state),
+                plan.tile_rows, plan.min_spp, plan.chunk, plan.tol, ptr(cursor), int(stage),
+                stream,
+            )
+        build.check(rc, "megakernel")
 
 
 def render_guides(

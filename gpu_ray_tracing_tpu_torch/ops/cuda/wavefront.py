@@ -94,6 +94,7 @@ from gpu_ray_tracing_tpu_torch.ops import rng as rng_ops
 from gpu_ray_tracing_tpu_torch.ops.cuda import build
 from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as mk
 from gpu_ray_tracing_tpu_torch.ops.rays import generate_rays_for_ids
+from gpu_ray_tracing_tpu_torch.utils.profiling import span
 
 #: The launch counts shared with the megakernel.  A bounce launch adds one to
 #: "wavefront:<route>[+nee][+<sampler>][+regen][+rays]", a ray-generation
@@ -448,14 +449,16 @@ class _Run:
     def read_flag(self, flag) -> bool:
         """Wait for a done flag's copy: one read of the device."""
         host, event = flag
-        if event is not None:
-            event.synchronize()
+        with span("wavefront.read"):
+            if event is not None:
+                event.synchronize()
         self.host_syncs += 1
         return bool(host[0])
 
     def counts(self, regen: bool, max_depth: int) -> dict:
         """The device's counters, read once."""
-        values = torch.cat([self.stats, self.iter_live]).tolist()
+        with span("wavefront.read"):
+            values = torch.cat([self.stats, self.iter_live]).tolist()
         self.host_syncs += 1
         stats, per_iteration = values[:STAT_WORDS], values[STAT_WORDS:]
         return dict(bounce_launches=stats[STAT_BOUNCE], raygen_launches=stats[STAT_RAYGEN],
@@ -873,12 +876,13 @@ def _run_samples(eng: Engine, *, frame, spp, sample_index, sort, compact_thresho
         rays = torch.zeros(k * p, dtype=torch.float32, device=dev) if eng.count_rays else None
         wavefront_fill(eng, arr, k * p, frame, s0, run)
         for b in range(eng.max_depth):
-            sched = Schedule(compact_threshold, last=b + 1 >= eng.max_depth)
-            _bounce_step(eng, arr, run, bounce=b, sample_base=s0, n_pixels=p, out=out,
-                         rays_out=rays)
-            if not sched.last:
-                wavefront_partition(eng, arr, sched, run)
-            wavefront_advance(eng, arr, sched, run, b)
+            with span("wavefront.iteration"):
+                sched = Schedule(compact_threshold, last=b + 1 >= eng.max_depth)
+                _bounce_step(eng, arr, run, bounce=b, sample_base=s0, n_pixels=p, out=out,
+                             rays_out=rays)
+                if not sched.last:
+                    wavefront_partition(eng, arr, sched, run)
+                wavefront_advance(eng, arr, sched, run, b)
         # Samples fold in sample order, as the megakernel's spp loop adds them.
         for j in range(k):
             acc += out[j * p:(j + 1) * p]
@@ -913,10 +917,11 @@ def _run_regen(eng: Engine, *, frame, spp, sample_index, sort, compact_threshold
     while True:
         run.reserve(run.iterations + POLL_EVERY)
         for _ in range(POLL_EVERY):
-            _bounce_step(eng, arr, run, sample_base=s0, n_pixels=p, out=buf)
-            wavefront_partition(eng, arr, sched, run)
-            wavefront_refill(eng, arr, sched, frame, s0, run)
-            wavefront_advance(eng, arr, sched, run, run.iterations)
+            with span("wavefront.iteration"):
+                _bounce_step(eng, arr, run, sample_base=s0, n_pixels=p, out=buf)
+                wavefront_partition(eng, arr, sched, run)
+                wavefront_refill(eng, arr, sched, frame, s0, run)
+                wavefront_advance(eng, arr, sched, run, run.iterations)
             run.iterations += 1
         flag = run.done_flag(arr)
         if pending is not None and run.read_flag(pending):
@@ -1024,7 +1029,9 @@ def render_wavefront(scene_or_spheres, camera: Camera, *, width: int, height: in
     sample_index, frame_seed, max_depth, t_min, t_max,
     russian_roulette_depth, sky_intensity, nee, mis, spp, sampler_spec,
     clamp, return_ray_count, and the scheduling ones above."""
-    return _render(scene_or_spheres, camera, plain=False, width=width, height=height, **kw)
+    with span("wavefront"):
+        return _render(scene_or_spheres, camera, plain=False, width=width, height=height,
+                       **kw)
 
 
 def render_wavefront_reference(scene_or_spheres, camera: Camera, *, width: int, height: int,
@@ -1032,4 +1039,6 @@ def render_wavefront_reference(scene_or_spheres, camera: Camera, *, width: int, 
     """The plain PyTorch version of render_wavefront: the same schedule
     around the kernels' plain versions, on the device the scene lies on.
     Its image equals render_reference(light_pick='sample') bit for bit."""
-    return _render(scene_or_spheres, camera, plain=True, width=width, height=height, **kw)
+    with span("wavefront"):
+        return _render(scene_or_spheres, camera, plain=True, width=width, height=height,
+                       **kw)

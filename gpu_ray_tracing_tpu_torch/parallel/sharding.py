@@ -36,6 +36,7 @@ from gpu_ray_tracing_tpu_torch.models.scene import as_scene
 from gpu_ray_tracing_tpu_torch.ops.accumulate import AccumState, fold_sample
 from gpu_ray_tracing_tpu_torch.parallel.mesh import ROW_AXIS, SPP_AXIS
 from gpu_ray_tracing_tpu_torch.utils.config import RenderConfig
+from gpu_ray_tracing_tpu_torch.utils.profiling import span
 
 
 def _check(config: RenderConfig, mesh: DeviceMesh, row_partition: str = "contiguous",
@@ -209,29 +210,31 @@ def render_sharded(
     strided rows and may allocate samples differently (every pixel still
     gets >= adaptive_min_spp samples of the same stream).
     """
-    camera = api._camera(camera, config)
-    n_rows, n_spp = _check(config, mesh, row_partition, allow_adaptive=True)
-    local_h, spp_local = config.height // n_rows, config.spp // n_spp
-    xi, si = mesh.get_local_rank(ROW_AXIS), mesh.get_local_rank(SPP_AXIS)
-    y0, stride = _partition_params(row_partition, xi, local_h, n_rows)
-    dev = _rank_device(mesh)
-    sc, camera = as_scene(spheres).to(dev), camera.to(dev)
-    seed = api._seed(frame_seed)
-    if config.adaptive_tol > 0.0:
-        band = _local_sample(sc, camera, config, sample_index=0, spp=config.spp,
-                             frame_seed=seed, y0=y0, local_h=local_h, row_stride=stride,
-                             adaptive=True)
-    else:
-        band = _local_sample(sc, camera, config, sample_index=si * spp_local,
-                             spp=spp_local, frame_seed=seed, y0=y0, local_h=local_h,
-                             row_stride=stride)
-    if n_spp > 1:
-        total = band * float(spp_local)
-        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=mesh.get_group(SPP_AXIS))
-        band = total / _f32(config.spp).to(dev)
-    img = _gather_rows(band, mesh)
-    if row_partition == "interleaved":
-        img = deinterleave_rows(img, n_rows)
+    with span("sharded.band"):
+        camera = api._camera(camera, config)
+        n_rows, n_spp = _check(config, mesh, row_partition, allow_adaptive=True)
+        local_h, spp_local = config.height // n_rows, config.spp // n_spp
+        xi, si = mesh.get_local_rank(ROW_AXIS), mesh.get_local_rank(SPP_AXIS)
+        y0, stride = _partition_params(row_partition, xi, local_h, n_rows)
+        dev = _rank_device(mesh)
+        sc, camera = as_scene(spheres).to(dev), camera.to(dev)
+        seed = api._seed(frame_seed)
+        if config.adaptive_tol > 0.0:
+            band = _local_sample(sc, camera, config, sample_index=0, spp=config.spp,
+                                 frame_seed=seed, y0=y0, local_h=local_h, row_stride=stride,
+                                 adaptive=True)
+        else:
+            band = _local_sample(sc, camera, config, sample_index=si * spp_local,
+                                 spp=spp_local, frame_seed=seed, y0=y0, local_h=local_h,
+                                 row_stride=stride)
+    with span("sharded.gather"):
+        if n_spp > 1:
+            total = band * float(spp_local)
+            dist.all_reduce(total, op=dist.ReduceOp.SUM, group=mesh.get_group(SPP_AXIS))
+            band = total / _f32(config.spp).to(dev)
+        img = _gather_rows(band, mesh)
+        if row_partition == "interleaved":
+            img = deinterleave_rows(img, n_rows)
     return img
 
 

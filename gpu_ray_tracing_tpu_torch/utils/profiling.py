@@ -1,11 +1,14 @@
-"""Frame timing and device traces (port of gpu_ray_tracing_tpu/utils/profiling.py).
+"""Frame timing, device traces and the program's spans (port of
+gpu_ray_tracing_tpu/utils/profiling.py).
 
 `time_frames` times a render callable over windows of frames with a
 checksum read once a window, which proves the frames ran; on the card the
 windows are CUDA events on the current stream, on the CPU the host clock.
 `FrameStats` carries the record and its derived rates, `check_plausible`
 refuses a ray rate above what the H100's HBM could write, and
-`device_trace` is a torch.profiler context.
+`device_trace` is a torch.profiler context.  `span` is the only way the
+program marks a part of its host work on torch.profiler's timeline, and
+`span_table` sums a trace's spans and the CUDA calls they enclose.
 """
 
 from __future__ import annotations
@@ -18,6 +21,16 @@ import time
 from typing import Callable
 
 import torch
+
+#: Prefix of every span the program records (`span`).
+SPAN_PREFIX = "grt."
+#: Prefixes of the CUDA calls, as the profiler names them, that make the
+#: host wait for the card, and that launch a kernel: the runtime's
+#: `cudaLaunchKernel[ExC]` and the driver's `cuLaunchKernel[Ex]` (NCCL's
+#: collectives); a name may carry a version suffix (`_v11060`).
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
+_NO_SPAN = contextlib.nullcontext()
 
 # No honest ray rate exceeds the card's HBM bandwidth at 12 bytes (one f32
 # RGB) written a ray: NVIDIA H100 SXM, 3.35 TB/s -> ~279 Grays/s.
@@ -172,3 +185,57 @@ def device_trace(log_dir: str, device="cuda"):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def span(name: str):
+    """A span named SPAN_PREFIX + `name` on torch.profiler's timeline while a
+    profiler records on this thread, else one shared no-op context: with
+    the profiler off a span costs one check and allocates nothing.
+
+    The span is recorded as a host operation, not as a user annotation
+    (torch.profiler.record_function), so the profiler does not mirror it
+    onto the card's timeline, where a reader of device activity would take
+    it for a kernel: the device's busy time and kernel sums read the same
+    with spans and without."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
+
+
+def span_table(events, frames: int) -> dict:
+    """Each span name of a trace (torch.profiler's `events()`) with its
+    calls, total ms and self ms (less the spans directly inside it), and
+    the synchronising (SYNC_CALLS) and launching (LAUNCH_CALLS) CUDA calls
+    it is the innermost span of, all divided by `frames`; calls under no
+    span count under "outside".  Spans nest by their host times, as the
+    profiler's timeline draws them."""
+    spans, calls = [], []
+    for e in events:
+        s, t = e.time_range.start, e.time_range.end
+        if e.name.startswith(SPAN_PREFIX):
+            spans.append((s, t, e.name))
+        elif e.name.startswith(SYNC_CALLS):
+            calls.append((s, t, "syncs"))
+        elif e.name.startswith(LAUNCH_CALLS):
+            calls.append((s, t, "launches"))
+    row = lambda: dict(calls=0.0, total_ms=0.0, self_ms=0.0, syncs=0.0, launches=0.0)
+    table = {"outside": row()}
+    # A sweep in start order, the enclosing item first: the open spans form
+    # a stack whose top is the innermost span around the next item.
+    stack = []
+    for s, t, name in sorted(spans + calls, key=lambda x: (x[0], -x[1])):
+        while stack and stack[-1][1] < t:
+            stack.pop()
+        parent = stack[-1][2] if stack else "outside"
+        if name in ("syncs", "launches"):
+            table[parent][name] += 1.0 / frames
+            continue
+        r = table.setdefault(name, row())
+        ms = (t - s) * 1e-3 / frames
+        r["calls"] += 1.0 / frames
+        r["total_ms"] += ms
+        r["self_ms"] += ms
+        if stack:
+            table[parent]["self_ms"] -= ms
+        stack.append((s, t, name))
+    return table

@@ -8,6 +8,7 @@ gpu_ray_tracing_tpu_torch --help` in a subprocess.
 """
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -92,6 +93,23 @@ def test_cli_bench_frames_prints_frame_stats(tmp_path, capsys):
                "--depth", "2", "--bench-frames", "2", "--out", out])
     line = capsys.readouterr().out
     assert rc == 0 and '"frames": 2' in line and '"device": "cpu"' in line
+
+
+def test_cli_trace_writes_the_spans_of_the_timed_frames(tmp_path, capsys):
+    """--trace DIR records the timed frames into DIR/trace.json, with the
+    program's spans in it, and prints the host's time by span; without
+    --bench-frames there is nothing to trace and it exits 2."""
+    out, trace = os.path.join(tmp_path, "t.png"), os.path.join(tmp_path, "trace")
+    rc = main(["render", "--scene", "base", "--width", "16", "--height", "12", "--spp", "1",
+               "--depth", "2", "--bench-frames", "1", "--trace", trace, "--out", out])
+    assert rc == 0
+    with open(os.path.join(trace, "trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "grt.render" in names
+    err = capsys.readouterr().err
+    assert "span grt.render: 1.00 calls" in err and "span outside:" in err
+    assert main(["render", "--scene", "base", "--trace", trace, "--out", out]) == 2
+    assert "give --bench-frames N" in capsys.readouterr().err
 
 
 def test_cli_progressive_preview_every(tmp_path):
@@ -214,7 +232,7 @@ def test_cli_refuses_threefry_and_bench(capsys):
     assert not os.path.exists("never.png")
     assert cli.main(["bench"]) == 2
     err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "the row that waits for the benchmark" in err
+    assert "python3 rtbench/run.py --workload" in err
 
 
 def test_cli_without_a_card_raises_and_renders_nothing(tmp_path, monkeypatch):

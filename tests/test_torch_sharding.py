@@ -196,6 +196,19 @@ def case_refusals():
     return out
 
 
+def case_spans(mesh_shape, cfg, seed):
+    """render_sharded under torch.profiler on every rank: the program's
+    spans, (name, start, end) in start order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mesh = _mesh(mesh_shape)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sharding.render_sharded(_scene("base"), T_CAMERA, T.RenderConfig(**cfg), mesh,
+                                frame_seed=seed)
+    return sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.name.startswith("grt.")), key=lambda s: s[1])
+
+
 def case_mesh():
     """make_mesh on the world of 4: each rank's coordinates on a 2x2 and a
     4x1 mesh, the default shape, and the refusals by message."""
@@ -329,6 +342,8 @@ CASES = [
     ("adaptive", "case_render", dict(mesh_shape=(4, 1), scene="base",
                                      cfg=dict(ADAPTIVE, spp=8, adaptive_tol=0.05,
                                               adaptive_min_spp=2), seed=3)),
+    ("spans", "case_spans", dict(mesh_shape=(2, 2), cfg=_cfg(spp=2, backend="wavefront_torch"),
+                                 seed=4)),
     ("adaptive_interleaved", "case_render", dict(mesh_shape=(4, 1), scene="base",
                                                  cfg=dict(ADAPTIVE, spp=8, adaptive_tol=0.05,
                                                           adaptive_min_spp=2), seed=3,
@@ -643,3 +658,17 @@ def test_adaptive_sharded_rejections(ranks):
     out = ranks.result("refusals")[0]
     assert "ROWS only" in out["adaptive_spp_axis"]
     assert "does not compose" in out["adaptive_progressive"]
+
+
+def test_sharded_render_records_its_band_and_its_gather(ranks):
+    """On every rank: grt.sharded.band encloses the camera's derivation and
+    the band's render, then grt.sharded.gather (the spp all_reduce and the
+    rows' all_gather) follows it."""
+    for spans in ranks.result("spans"):
+        names = [s[0] for s in spans]
+        assert names[0] == "grt.sharded.band" and names.count("grt.sharded.gather") == 1
+        band = spans[0]
+        gather = spans[names.index("grt.sharded.gather")]
+        inside = [s for s in spans if band[1] <= s[1] and s[2] <= band[2]][1:]
+        assert [s[0] for s in inside][:2] == ["grt.camera", "grt.wavefront"]
+        assert band[2] <= gather[1] and len(inside) == len(spans) - 2
