@@ -21,7 +21,8 @@ which a progressive session offsets by the step (from the resumed count)
 so that no step draws another's samples.  `render --trace DIR` records
 the timed frames with torch.profiler into DIR/trace.json, the program's
 `grt.` spans with them, and prints each span's calls, host time and the
-CUDA runtime's synchronisations and launches inside it, a frame.
+CUDA runtime's synchronisations and launches inside it, a frame, and which
+camera derivation (host or autograd) the command ran, how often.
 `progressive` resumes from its checkpoint file when present.  The
 one-weekend scenes are the port's one_weekend_scene(--scene-seed): drawn
 from numpy with the JAX package's seed mix (its key(seed) scene, sphere
@@ -31,6 +32,7 @@ for sphere), and not padded.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import os
 import sys
@@ -234,6 +236,7 @@ def _sync(dev: torch.device) -> None:
 
 def cmd_render(args, cfg) -> int:
     import gpu_ray_tracing_tpu_torch as rt
+    from gpu_ray_tracing_tpu_torch.models.camera import CAMERA_DERIVATIONS
     from gpu_ray_tracing_tpu_torch.utils.image import write_image
     from gpu_ray_tracing_tpu_torch.utils.profiling import device_trace, span_table, time_frames
 
@@ -246,9 +249,11 @@ def cmd_render(args, cfg) -> int:
               file=sys.stderr)
         return 2
     dev, scene, cam = _setup(args)
-    # Derived once: from settings on the card, render() would derive it a
-    # frame, copying Python scalars to the card, and each such copy waits
-    # for the previous frame, so the card idles while the host enqueues.
+    derived = collections.Counter(CAMERA_DERIVATIONS)
+    # Derived once: the settings do not change between frames, and a
+    # derivation from settings on the card reads them (one synchronisation),
+    # which would wait for the previous frame, so the card would idle while
+    # the host enqueues the next.
     cam = rt.derive_camera(cam, cfg.width, cfg.height)
     if args.denoise:
         def frame_fn(i):
@@ -276,6 +281,10 @@ def cmd_render(args, cfg) -> int:
             print(f"span {name}: {r['calls']:.2f} calls, {r['total_ms']:.3f} ms, self "
                   f"{r['self_ms']:.3f} ms, {r['syncs']:.2f} syncs, {r['launches']:.2f} "
                   "launches a frame", file=sys.stderr)
+        # Which camera derivation the command ran, and how often.
+        derived = CAMERA_DERIVATIONS - derived
+        print(f"camera derivations: {derived['host']} host, {derived['autograd']} autograd, "
+              f"for the written frame and {frames} timed frames", file=sys.stderr)
     return 0
 
 

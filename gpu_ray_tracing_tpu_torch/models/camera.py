@@ -10,6 +10,7 @@ which animation tracks are built.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import ctypes.util
 import dataclasses
@@ -128,18 +129,16 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     return sqrt(dot3(v, v))
 
 
-def validate_camera(settings: CameraSettings) -> None:
-    """Reject degenerate poses that would normalize a zero vector and
-    render NaNs: look_from == look_at, or vup parallel to the view axis."""
-    s = settings
-    gaze = (s.look_from.detach().cpu().double()
-            - s.look_at.detach().cpu().double()).numpy()
+def _check_pose(look_from: np.ndarray, look_at: np.ndarray, vup: np.ndarray) -> None:
+    gaze = look_from.astype(np.float64) - look_at.astype(np.float64)
     if float(np.dot(gaze, gaze)) == 0.0:
         raise ValueError(
             "degenerate camera: look_from == look_at (the view basis "
             "would normalize a zero vector and render NaNs)"
         )
-    cr = np.cross(s.vup.detach().cpu().double().numpy(), gaze)
+    vx, vy, vz = vup.astype(np.float64)
+    gx, gy, gz = gaze
+    cr = np.array([vy * gz - vz * gy, vz * gx - vx * gz, vx * gy - vy * gx])
     if float(np.dot(cr, cr)) == 0.0:
         raise ValueError(
             "degenerate camera: vup is parallel to the view axis "
@@ -147,8 +146,39 @@ def validate_camera(settings: CameraSettings) -> None:
         )
 
 
+def validate_camera(settings: CameraSettings) -> None:
+    """Reject degenerate poses that would normalize a zero vector and
+    render NaNs: look_from == look_at, or vup parallel to the view axis."""
+    s = settings
+    _check_pose(*(t.detach().cpu().double().numpy() for t in (s.look_from, s.look_at, s.vup)))
+
+
+# Derivations by path: "host" (no settings tensor needs a gradient) and
+# "autograd".
+CAMERA_DERIVATIONS: collections.Counter = collections.Counter()
+
+_SETTINGS = tuple(f.name for f in dataclasses.fields(CameraSettings))
+
+
 def derive_camera(settings: CameraSettings, width: int, height: int) -> Camera:
-    """CameraSettings -> Camera (camera.rs:293-350), float32 throughout."""
+    """CameraSettings -> Camera (camera.rs:293-350), float32 throughout.
+
+    Settings that need no gradient (grad mode off, or no tensor requiring
+    grad) are read to the host at once and derived there in NumPy, and the
+    camera is copied back in one transfer: for settings on the card, one
+    synchronisation and one kernel (the read's concatenation).  Otherwise
+    the derivation runs as PyTorch operations, which autograd records.
+    Both round every step alike and give the same bits.  Nothing is kept
+    between calls: every call derives its camera."""
+    s = settings
+    if torch.is_grad_enabled() and any(getattr(s, f).requires_grad for f in _SETTINGS):
+        CAMERA_DERIVATIONS["autograd"] += 1
+        return _derive_autograd(s, width, height)
+    CAMERA_DERIVATIONS["host"] += 1
+    return _derive_host(s, width, height)
+
+
+def _derive_autograd(settings: CameraSettings, width: int, height: int) -> Camera:
     s = settings
     validate_camera(s)
     f32 = torch.float32
@@ -191,6 +221,85 @@ def derive_camera(settings: CameraSettings, width: int, height: int) -> Camera:
         defocus_disk_v=v * defocus_radius,
         defocus_angle=s.defocus_angle.to(f32),
     )
+
+
+# The host derivation's arithmetic: each operation of _derive_autograd in
+# NumPy f32, with ops/rounding's fused multiply-adds as an f64 product and
+# sum rounded once to f32.  Constants are f32, so no step widens.
+_F32 = np.float32
+_TWO = _F32(2.0)
+_DEG = _F32(math.pi / 180.0)
+
+
+def _fma_host(a, b, c):
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(_F32)
+
+
+def _dot3_host(a, b):
+    t = a[..., 0] * b[..., 0]
+    t = _fma_host(a[..., 1], b[..., 1], t)
+    return _fma_host(a[..., 2], b[..., 2], t)
+
+
+def _norm_host(v):
+    return np.sqrt(np.asarray(_dot3_host(v, v), np.float64)).astype(_F32)
+
+
+def _cross_host(a, b):
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return np.stack([_fma_host(ay, bz, -(az * by)), _fma_host(az, bx, -(ax * bz)),
+                     _fma_host(ax, by, -(ay * bx))], axis=-1)
+
+
+def _tan_host(x):
+    tanf = _libm_tanf()
+    return np.array([tanf(float(t)) for t in np.ravel(x)], _F32).reshape(np.shape(x))
+
+
+def _derive_host(settings: CameraSettings, width: int, height: int) -> Camera:
+    s = settings
+    fields = [getattr(s, f) for f in _SETTINGS]
+    # One read of every setting (one synchronisation for settings on the card).
+    flat = torch.cat([t.reshape(-1) for t in fields]).to(torch.float32).cpu().numpy()
+    ends = np.cumsum([0] + [t.numel() for t in fields])
+    look_from, look_at, vup, fov, defocus_angle, focus = (
+        flat[a:b].reshape(t.shape) for a, b, t in zip(ends[:-1], ends[1:], fields))
+    _check_pose(look_from, look_at, vup)
+
+    aspect_ratio = _F32(width) / _F32(height)
+    viewport_height = _TWO * _tan_host(fov * _DEG / _TWO) * focus
+    viewport_width = viewport_height * aspect_ratio
+
+    gaze = look_from - look_at
+    w = gaze / _norm_host(gaze)
+    uu = _cross_host(vup, w)
+    u = uu / _norm_host(uu)
+    v = _cross_host(w, u)
+
+    viewport_u = viewport_width * u
+    viewport_v = -viewport_height * v  # image y grows downward
+    defocus_radius = focus * _tan_host((defocus_angle / _TWO) * _DEG)
+    derived = dict(
+        center=look_from,
+        viewport_upper_left=look_from - focus * w - viewport_u / _TWO - viewport_v / _TWO,
+        pixel_delta_u=viewport_u / _F32(width),
+        pixel_delta_v=viewport_v / _F32(height),
+        defocus_disk_u=u * defocus_radius,
+        defocus_disk_v=v * defocus_radius,
+        defocus_angle=defocus_angle,
+    )
+    # One copy to the settings' device, from pinned memory and without a
+    # synchronisation; the Camera's tensors are views of it.
+    device = s.look_from.device
+    sizes = [np.size(a) for a in derived.values()]
+    buf = torch.empty(sum(sizes), dtype=torch.float32, pin_memory=device.type == "cuda")
+    np.concatenate([np.ravel(a) for a in derived.values()], out=buf.numpy())
+    if device.type != "cpu":
+        buf = buf.to(device, non_blocking=True)
+    return Camera(**{k: t.view(np.shape(a))
+                     for (k, a), t in zip(derived.items(), torch.split(buf, sizes))})
 
 
 # ---------------------------------------------------------------------------

@@ -108,6 +108,8 @@ def test_cli_trace_writes_the_spans_of_the_timed_frames(tmp_path, capsys):
     assert "grt.render" in names
     err = capsys.readouterr().err
     assert "span grt.render: 1.00 calls" in err and "span outside:" in err
+    # The camera is derived once, on the host path, before the frames.
+    assert "camera derivations: 1 host, 0 autograd, for the written frame and 3 timed" in err
     assert main(["render", "--scene", "base", "--trace", trace, "--out", out]) == 2
     assert "give --bench-frames N" in capsys.readouterr().err
 

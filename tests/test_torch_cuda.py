@@ -21,7 +21,9 @@ import torch
 
 import gpu_ray_tracing_tpu_torch as T
 from chip_smoke import active_only, sphere_cloud, stage_scenes, with_ties
+from gpu_ray_tracing_tpu_torch.models import camera as camcore
 from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as mk
+from test_torch_camera import SIZES, assert_cameras_equal, camera_poses
 
 # The suite runs in several worker processes at once: one torch thread
 # each keeps them from oversubscribing the CPU.
@@ -1046,15 +1048,39 @@ def test_cli_render_png_equals_the_api_frame(dev, tmp_path, flags, launches):
     assert np.array_equal(np.asarray(Image.open(out)), to_uint8(tonemap(img)))
 
 
-@pytest.mark.parametrize("size", [(96, 54), (1280, 720), (48, 27), (1283, 717)])
+@pytest.mark.parametrize("size", SIZES)
 def test_derive_camera_on_the_card_equals_the_cpu(dev, size):
     """A camera derived from settings on the card is the one derived on the
-    CPU, bit for bit: the CLI builds its settings on --device."""
-    settings = T.CameraSettings.default()
-    on_card = T.derive_camera(settings.to(dev), *size)
-    on_cpu = T.derive_camera(settings, *size)
-    for f in dataclasses.fields(T.Camera):
-        assert torch.equal(getattr(on_card, f.name).cpu(), getattr(on_cpu, f.name)), f.name
+    CPU, bit for bit, on 256 poses: the host path from the card's settings
+    (its camera on the card), the autograd path on the card, and the CPU's
+    derivation.  The CLI and the benchmark build their settings on the card."""
+    for pose in camera_poses():
+        settings = T.CameraSettings.make(**pose)
+        on_card = settings.to(dev)
+        host = camcore._derive_host(on_card, *size)
+        assert host.device.type == "cuda"
+        assert_cameras_equal(host, camcore._derive_autograd(on_card, *size))
+        assert_cameras_equal(host, T.derive_camera(settings, *size))
+
+
+def test_derive_camera_from_the_card_syncs_once(dev):
+    """From settings on the card, a derivation makes one synchronisation
+    (the settings' read) and at most two launches, under the grt.camera span
+    that render() opens."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpu_ray_tracing_tpu_torch.utils import profiling
+    settings = T.CameraSettings.default(device=dev)
+    cfg = T.RenderConfig(width=1280, height=720)
+    T.api._camera(settings, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            cam = T.api._camera(settings, cfg)
+        torch.cuda.synchronize()
+    row = profiling.span_table(prof.events(), frames=4)["grt.camera"]
+    assert row["calls"] == 1.0 and row["syncs"] == 1.0 and row["launches"] <= 2.0, row
+    assert_cameras_equal(cam, T.derive_camera(T.CameraSettings.default(), 1280, 720))
 
 
 # --- the sharded path and the threefry stream on the card ---------------------
