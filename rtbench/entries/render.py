@@ -30,7 +30,8 @@ def program_scene(data, device):
     mesh = None
     if data.mesh:
         mesh = merge_meshes(*(make_mesh(g.vertices, g.faces, albedo=g.albedo, mat_kind=g.kind,
-                                        mat_param=g.param) for g in data.mesh))
+                                        mat_param=g.param, smooth=g.smooth)
+                              for g in data.mesh))
     return make_scene(spheres, mesh).to(device)
 
 

@@ -2,19 +2,21 @@
 
 A frozen copy of the program's plain integrator, cut to the routes the
 benchmark's cells take (hash stream, independent sampler, path integrator,
-brute-force sphere and triangle tests, NEE with MIS toward at most four
-triangle lights, Russian roulette), in plain PyTorch.  It imports nothing
-of the program.  It rounds as the program's CUDA kernels do: the fused
-multiply-adds they write are fused here (formed in f64, rounded once), the
-sums they leave unfused are unfused, and square roots, sines and cosines
-are taken in f64 and rounded to f32, so a frame agrees with the kernels'
-statistically (a few pixels flip where a ray grazes an edge), not bit for
-bit.
+sphere and triangle tests, flat or smooth shading, NEE with MIS toward at
+most four triangle lights, Russian roulette), in plain PyTorch.  It imports
+nothing of the program.  It rounds as the program's CUDA kernels do: the
+fused multiply-adds they write are fused here (formed in f64, rounded
+once), the sums they leave unfused are unfused, and square roots, sines
+and cosines are taken in f64 and rounded to f32, so a frame agrees with the
+kernels' statistically (a few pixels flip where a ray grazes an edge), not
+bit for bit.
 
 Every pixel is independent, so `render_pixels` traces any set of global
 pixel ids, each under its own frame seed: one call covers sampled pixels
-of many frames.  The geometry is scanned brute force (every sphere, every
-face), which gives the closest hit any correct BVH walk gives.
+of many frames.  Every sphere is tested; of the faces, each ray tests those
+that cull.py cannot rule out, a superset of those a brute-force scan would
+accept, so the closest hit is the scan's, bit for bit: the least t, the
+smallest face index among equal ones.  Any correct BVH walk finds it.
 
 `precision=torch.bfloat16` is the control: the scene, the camera and the
 path state (ray origins and directions, throughput, radiance) are rounded
@@ -30,6 +32,8 @@ import math
 
 import numpy as np
 import torch
+
+from rtbench.reference import cull
 
 F32 = torch.float32
 MASK = 0xFFFFFFFF
@@ -132,20 +136,46 @@ class Scene:
     l_normal: torch.Tensor
     l_area: torch.Tensor
     l_emission: torch.Tensor
+    n0: torch.Tensor | None = None  # corner normals (F, 3) of a smooth scene
+    n1: torch.Tensor | None = None
+    n2: torch.Tensor | None = None
+    clusters: cull.Clusters | None = None
 
     @property
     def n_faces(self) -> int:
         return self.v0.shape[0]
 
 
+def _corner_normals(vertices: np.ndarray, faces: np.ndarray, smooth: bool) -> np.ndarray:
+    """(3, F, 3) f32 normals at each face's corners, as the program's
+    make_mesh forms them: the raw face cross products summed per vertex in
+    f64 and normalised; for a flat group, the face normal at every corner."""
+    v0, v1, v2 = vertices[faces[:, 0]], vertices[faces[:, 1]], vertices[faces[:, 2]]
+    cr = np.cross(v1 - v0, v2 - v0)
+    if not smooth:
+        n = cr / np.maximum(np.linalg.norm(cr, axis=-1, keepdims=True), 1e-20)
+        return np.stack([n, n, n])
+    vn = np.zeros_like(vertices, np.float64)
+    for c in range(3):
+        np.add.at(vn, faces[:, c], cr)
+    vn = vn / np.maximum(np.linalg.norm(vn, axis=-1, keepdims=True), 1e-20)
+    vn = vn.astype(np.float32)
+    return np.stack([vn[faces[:, c]] for c in range(3)])
+
+
 def build_scene(data, device, precision=F32) -> Scene:
     """The reference's scene from the benchmark's SceneData: edges and unit
-    normals of every face, and the emissive faces as triangle lights."""
-    verts, faces, alb, kind, par = [], [], [], [], []
+    normals of every face, corner normals where a group is smooth (then for
+    every face, as the program merges them), the emissive faces as
+    triangle lights, and the faces' clusters for culling."""
+    verts, faces, alb, kind, par, corners = [], [], [], [], [], []
+    smooth = any(g.smooth for g in data.mesh)
     base = 0
     for g in data.mesh:
         verts.append(np.asarray(g.vertices, np.float32))
         faces.append(np.asarray(g.faces, np.int64) + base)
+        if smooth:
+            corners.append(_corner_normals(verts[-1], faces[-1] - base, g.smooth))
         base += len(g.vertices)
         n = len(g.faces)
         alb.append(np.broadcast_to(np.asarray(g.albedo, np.float32), (n, 3)))
@@ -175,14 +205,17 @@ def build_scene(data, device, precision=F32) -> Scene:
         x = torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
         return x.to(precision).to(F32) if dtype == F32 else x
 
+    n0, n1, n2 = (t(x) for x in np.concatenate(corners, 1)) if smooth else (None,) * 3
+    v0, e1, e2 = t(v0), t(e1), t(e2)
     return Scene(
         centers=t(data.centers), radii=t(data.radii), s_albedo=t(data.albedo),
         s_kind=t(data.kind, torch.int64), s_param=t(data.param),
-        v0=t(v0), e1=t(e1), e2=t(e2), normals=t(normals), f_albedo=t(alb),
+        v0=v0, e1=e1, e2=e2, normals=t(normals), f_albedo=t(alb),
         f_kind=t(kind, torch.int64), f_param=t(par), light_faces=[int(i) for i in lights],
         l_normal=t((cr64[lights] / area2[lights][:, None]).astype(np.float32)),
         l_area=t((0.5 * area2[lights]).astype(np.float32)),
         l_emission=t(alb[lights] * par[lights][:, None]),
+        n0=n0, n1=n1, n2=n2, clusters=cull.build(v0, e1, e2),
     )
 
 
@@ -258,10 +291,9 @@ def _sphere_roots(o, d, sc: Scene, t_min, t_max):
     return torch.where(near_ok, near, far), (disc >= 0.0) & (near_ok | far_ok) & (r > 0.0)
 
 
-def _tri_t(o, d, sc: Scene, t_min, t_max):
-    """(P, F) Moller-Trumbore distances and hits."""
-    o, d = o[:, None, :], d[:, None, :]
-    v0, e1, e2 = sc.v0[None], sc.e1[None], sc.e2[None]
+def _tri_t(o, d, v0, e1, e2, t_min, t_max):
+    """Moller-Trumbore of rays (o, d) and faces (v0, e1, e2) broadcast
+    together (..., 3): (t, u, v, hit)."""
     pvec = cross(d, e2)
     det = dot3(e1, pvec)
     par = torch.abs(det) < 1e-12
@@ -271,19 +303,48 @@ def _tri_t(o, d, sc: Scene, t_min, t_max):
     qvec = cross(tvec, e1)
     v = dot3(d, qvec) * inv
     t = dot3(e2, qvec) * inv
-    return t, ~par & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min) & (t < t_max)
+    return t, u, v, ~par & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min) & (t < t_max)
+
+
+NONE = (1 << 63) - 1
+FACE_BITS = 31
+
+
+def _closest_face(o, d, sc: Scene, t_min, t_max):
+    """(t, face, u, v) of each ray: the least t that _tri_t accepts over the
+    faces (inf where none) and the smallest index of a face that has it (-1
+    where none); in a smooth scene, that face's barycentrics.  Each accepted
+    pair's key is t's bits, then the face's index: t > t_min > 0, so the
+    keys order as (t, face) does, and their least is torch.min's choice."""
+    if not t_min > 0.0:
+        raise ValueError("the faces' keys need t_min > 0")
+    best = torch.full((o.shape[0],), NONE, dtype=torch.int64, device=o.device)
+    for r, f in cull.candidates(sc.clusters, o, d, t_min, t_max):
+        t, _, _, ok = _tri_t(o[r], d[r], sc.v0[f], sc.e1[f], sc.e2[f], t_min, t_max)
+        ok = torch.nonzero(ok).squeeze(1)
+        key = (t[ok].view(torch.int32).to(torch.int64) << FACE_BITS) | f[ok]
+        best.scatter_reduce_(0, r[ok], key, "amin")
+    found = best < NONE
+    face = torch.where(found, best & ((1 << FACE_BITS) - 1), -1)
+    t = torch.where(found, (best >> FACE_BITS).to(torch.int32).view(torch.float32), torch.inf)
+    u = v = None
+    if sc.n0 is not None:
+        fi = face.clamp(min=0)
+        _, u, v, _ = _tri_t(o, d, sc.v0[fi], sc.e1[fi], sc.e2[fi], t_min, t_max)
+    return t, face, u, v
 
 
 def closest_hit(o, d, sc: Scene, t_min, t_max):
     """(t, hit, point, normal, front, albedo, kind, param, face) of each ray;
-    face is the winning face's index, -1 where a sphere won or nothing hit."""
+    face is the winning face's index, -1 where a sphere won or nothing hit.
+    A smooth scene's face shades with its corner normals blended at the
+    hit's barycentrics and renormalised, unfused, as the kernels do."""
     root, valid = _sphere_roots(o, d, sc, t_min, t_max)
     ts, si = torch.min(torch.where(valid, root, torch.inf), dim=-1)
     hit_s = torch.isfinite(ts)
     face = torch.full_like(si, -1)
     if sc.n_faces:
-        tt, tv = _tri_t(o, d, sc, t_min, t_max)
-        tf, fi = torch.min(torch.where(tv, tt, torch.inf), dim=-1)
+        tf, fi, bu, bv = _closest_face(o, d, sc, t_min, t_max)
         hit_f = torch.isfinite(tf)
         wins = hit_f & (~hit_s | (tf < ts))
         face = torch.where(wins, fi, face)
@@ -297,7 +358,14 @@ def closest_hit(o, d, sc: Scene, t_min, t_max):
     outward_s = (point - sc.centers[si]) / torch.where(r != 0.0, r, 1.0)[:, None]
     fidx = face.clamp(min=0)
     if sc.n_faces:
-        outward = torch.where(wins[:, None], sc.normals[fidx], outward_s)
+        if sc.n0 is not None:
+            w0 = 1.0 - bu - bv
+            blend = (w0[:, None] * sc.n0[fidx] + bu[:, None] * sc.n1[fidx]
+                     + bv[:, None] * sc.n2[fidx])
+            face_n = _normalize(blend)
+        else:
+            face_n = sc.normals[fidx]
+        outward = torch.where(wins[:, None], face_n, outward_s)
         albedo = torch.where(wins[:, None], sc.f_albedo[fidx], sc.s_albedo[si])
         kind = torch.where(wins, sc.f_kind[fidx], sc.s_kind[si])
         param = torch.where(wins, sc.f_param[fidx], sc.s_param[si])
@@ -312,8 +380,11 @@ def nearest_t(o, d, sc: Scene, t_min, t_max):
     root, valid = _sphere_roots(o, d, sc, t_min, t_max)
     t = torch.amin(torch.where(valid, root, t_max), dim=-1)
     if sc.n_faces:
-        tt, tv = _tri_t(o, d, sc, t_min, t_max)
-        t = torch.minimum(t, torch.amin(torch.where(tv, tt, t_max), dim=-1))
+        tf = torch.full_like(t, t_max)
+        for r, f in cull.candidates(sc.clusters, o, d, t_min, t_max):
+            tt, _, _, ok = _tri_t(o[r], d[r], sc.v0[f], sc.e1[f], sc.e2[f], t_min, t_max)
+            tf.scatter_reduce_(0, r[ok], tt[ok], "amin")
+        t = torch.minimum(t, tf)
     return t
 
 
@@ -437,6 +508,7 @@ def trace(o, d, seeds, sc: Scene, opt: Options, precision=F32, record=None):
         if opt.nee:
             nee_ok = live & hit & (kind == LAMBERTIAN)
             last = i == opt.max_depth - 1
+            shadow = []
             for j in range(n_tl):
                 salt = 2000 + 37 * i + 7 * j + 1
                 u1n, u2n = uniform(seeds, salt), uniform(seeds, salt + 1)
@@ -453,11 +525,18 @@ def trace(o, d, seeds, sc: Scene, opt: Options, precision=F32, record=None):
                 cos_l = torch.abs(dot3(sc.l_normal[j], omega))
                 valid = nee_ok & (cos_i > 0.0) & (cos_l > 1e-7) & (d2 > 1e-12)
                 wgt = cos_i * cos_l * sc.l_area[j] / (torch.tensor(math.pi, dtype=F32) * d2s)
-                window = dist * (1.0 - 1e-3)
+                shadow.append((valid, wgt, dist * (1.0 - 1e-3), omega,
+                               torch.nonzero(valid).squeeze(1)))
+            # Every light's shadow rays in one query: each ray's answer is its own.
+            sizes = [idx.numel() for *_, idx in shadow]
+            if sum(sizes):
+                tn_all = nearest_t(torch.cat([pnt[idx] for *_, idx in shadow]),
+                                   torch.cat([omega[idx] for *_, omega, idx in shadow]), sc,
+                                   opt.t_min, opt.t_max).split(sizes)
+            for j, (valid, wgt, window, omega, idx) in enumerate(shadow):
                 vis = torch.zeros_like(valid)
-                idx = torch.nonzero(valid).squeeze(1)
                 if idx.numel():
-                    tn = nearest_t(pnt[idx], omega[idx], sc, opt.t_min, opt.t_max)
+                    tn = tn_all[j]
                     vis[idx] = tn >= window[idx]
                     if record is not None:
                         record("shadow", pnt[idx], omega[idx], torch.minimum(tn, window[idx]))

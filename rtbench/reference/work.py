@@ -1,8 +1,8 @@
 """The work a traced ray needs: the roofline's operations, counted once a
 configuration by the reference's own walk over a BVH the reference builds.
 
-The BVH is a binary tree over every primitive (sphere and face) by the
-surface-area heuristic, leaves of at most 4.  A query (a closest hit, or a
+The BVH is bvh.py's binary tree over every primitive (sphere and face) by
+the surface-area heuristic, leaves of at most 4.  A query (a closest hit, or a
 shadow ray up to its occluder or its light) needs the boxes and primitives
 of every node whose box the ray enters before the query's answer: a walk
 that visits nodes front to back tests the root's box, both children of
@@ -12,34 +12,26 @@ That is counted, not the most a walk could do: what these inputs need.
 Costs (f32 operations): 23 a box (slab test), 17 a sphere test and 6 more
 for its roots where the discriminant is not negative, 45 a face
 (Moller-Trumbore).  `python -m rtbench.reference.work <config>` prints the
-count for a configuration file.
+count for a configuration file.  Rays are counted in blocks, so that the
+(rays, nodes) planes stay within BLOCK_BYTES whatever the scene's size.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import sys
 
 import numpy as np
 import torch
 
-from rtbench.reference import tracer
+from rtbench.reference import bvh, tracer
 
 BOX_FLOPS = 23
 SPHERE_FLOPS = 17
 ROOT_FLOPS = 6
 FACE_FLOPS = 45
 LEAF_SIZE = 4
-
-
-@dataclasses.dataclass
-class Tree:
-    lo: np.ndarray  # (M, 3) node boxes
-    hi: np.ndarray
-    left: np.ndarray  # (M,) child ids, -1 at a leaf
-    right: np.ndarray
-    prims: list  # per node: the primitive ids of a leaf, [] inside
+BLOCK_BYTES = 1 << 30  # a block of rays: (rays, nodes, 3) f64 planes, a few alive
 
 
 def primitive_boxes(sc: tracer.Scene) -> tuple[np.ndarray, np.ndarray, int]:
@@ -53,55 +45,13 @@ def primitive_boxes(sc: tracer.Scene) -> tuple[np.ndarray, np.ndarray, int]:
     return lo, hi, len(c)
 
 
-def _area(lo, hi):
-    e = np.maximum(hi - lo, 0.0)
-    return 2.0 * (e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] + e[..., 2] * e[..., 0])
-
-
-def build(lo: np.ndarray, hi: np.ndarray) -> Tree:
-    """SAH over primitive centroids, a full sweep of each axis."""
-    nodes_lo, nodes_hi, left, right, prims = [], [], [], [], []
-    cent = 0.5 * (lo + hi)
-
-    def node(ids: np.ndarray) -> int:
-        k = len(nodes_lo)
-        nodes_lo.append(lo[ids].min(0))
-        nodes_hi.append(hi[ids].max(0))
-        left.append(-1)
-        right.append(-1)
-        prims.append([])
-        if len(ids) <= LEAF_SIZE:
-            prims[k] = [int(i) for i in ids]
-            return k
-        best = (np.inf, None)
-        for ax in range(3):
-            order = ids[np.argsort(cent[ids, ax], kind="stable")]
-            l_lo = np.minimum.accumulate(lo[order], 0)
-            l_hi = np.maximum.accumulate(hi[order], 0)
-            r_lo = np.minimum.accumulate(lo[order][::-1], 0)[::-1]
-            r_hi = np.maximum.accumulate(hi[order][::-1], 0)[::-1]
-            n = np.arange(1, len(order))
-            cost = (_area(l_lo[:-1], l_hi[:-1]) * n
-                    + _area(r_lo[1:], r_hi[1:]) * (len(order) - n))
-            j = int(np.argmin(cost))
-            if cost[j] < best[0]:
-                best = (cost[j], (order[:j + 1], order[j + 1:]))
-        a, b = best[1]
-        left[k], right[k] = node(a), node(b)
-        return k
-
-    node(np.arange(len(lo)))
-    return Tree(np.asarray(nodes_lo), np.asarray(nodes_hi), np.asarray(left),
-                np.asarray(right), prims)
-
-
 class Counter:
     """Sums the operations of the queries `tracer.trace` records."""
 
     def __init__(self, sc: tracer.Scene, t_min: float):
         self.sc, self.t_min = sc, t_min
         lo, hi, self.n_spheres = primitive_boxes(sc)
-        self.tree = build(lo, hi)
+        self.tree = bvh.build(lo, hi, LEAF_SIZE)
         dev = sc.centers.device
         self.lo = torch.as_tensor(self.tree.lo, dtype=torch.float64, device=dev)
         self.hi = torch.as_tensor(self.tree.hi, dtype=torch.float64, device=dev)
@@ -123,8 +73,13 @@ class Counter:
         self.ops = 0.0
 
     def __call__(self, kind: str, o, d, t_end) -> None:
-        if o.shape[0] == 0:
-            return
+        block = max(1, BLOCK_BYTES // (8 * 3 * 8 * len(self.tree.prims)))
+        for s in range(0, o.shape[0], block):
+            self.ops += self._ops(o[s:s + block], d[s:s + block], t_end[s:s + block])
+        self.queries[kind] += o.shape[0]
+
+    def _ops(self, o, d, t_end) -> float:
+        """The operations of one block of queries."""
         o64, d64, t64 = o.double(), d.double(), t_end.double()
         inv = 1.0 / torch.where(d64 == 0.0, 1e-30, d64)
         t0 = (self.lo[None] - o64[:, None]) * inv[:, None]
@@ -142,8 +97,7 @@ class Counter:
         disc = h * h - a * ((oc * oc).sum(-1) - r * r)
         tested = (visited @ self.member.double()) > 0  # (P, N)
         ops = ops + ROOT_FLOPS * ((disc >= 0.0) & tested).sum(-1)
-        self.ops += float(ops.sum())
-        self.queries[kind] += o.shape[0]
+        return float(ops.sum())
 
     @property
     def per_ray(self) -> float:

@@ -22,13 +22,15 @@ EMISSIVE = 3
 
 @dataclasses.dataclass(frozen=True)
 class MeshGroup:
-    """Triangles that share one material: (V, 3) vertices, (F, 3) indices."""
+    """Triangles that share one material: (V, 3) vertices, (F, 3) indices;
+    `smooth` shades them with normals averaged at the vertices."""
 
     vertices: np.ndarray
     faces: np.ndarray
     albedo: tuple
     kind: int
     param: float
+    smooth: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
