@@ -341,7 +341,10 @@ def count_traced_rays(scene, camera: Camera | CameraSettings, config: RenderConf
     plain version's on 'torch' and 'wavefront_torch'.  Returns `rays_traced` (a host f64 sum: a frame total can pass
     f32's exact-integer range), `primary_rays` (width * height * spp), the
     frame's width, height and spp, and with return_map=True the (H, W)
-    per-pixel count plane as `map`."""
+    per-pixel count plane as `map`.  On the kernel backends also
+    `bvh_nodes` and `face_tests`, host f64 sums of the BVH nodes the
+    kernel's closest-hit and shadow walks visited and the faces they
+    tested."""
     if config.rng != "hash":
         raise ValueError(
             "count_traced_rays requires rng='hash' (the counter stream is "
@@ -354,8 +357,13 @@ def count_traced_rays(scene, camera: Camera | CameraSettings, config: RenderConf
         config, regenerate="off",
         backend={"wavefront": "cuda", "wavefront_torch": "torch"}.get(config.backend,
                                                                       config.backend))
+    walks = None
+    if config.backend == "cuda":
+        walks = torch.zeros((2, config.height, config.width), dtype=torch.int32,
+                            device=_cuda_device(config.backend))
     ray_map = _render(scene, _camera(camera, config), config, frame_seed=_seed(frame_seed),
-                      spp=config.spp, adaptive=True, return_ray_count=True)[-1]
+                      spp=config.spp, adaptive=True, return_ray_count=True,
+                      **({} if walks is None else {"walk_counts": walks}))[-1]
     result = {
         "rays_traced": float(np.sum(ray_map.cpu().numpy(), dtype=np.float64)),
         "primary_rays": config.width * config.height * config.spp,
@@ -363,6 +371,10 @@ def count_traced_rays(scene, camera: Camera | CameraSettings, config: RenderConf
         "height": config.height,
         "spp": config.spp,
     }
+    if walks is not None:
+        w = walks.cpu().numpy().view(np.uint32)
+        result["bvh_nodes"] = float(np.sum(w[0], dtype=np.float64))
+        result["face_tests"] = float(np.sum(w[1], dtype=np.float64))
     if return_map:
         result["map"] = ray_map
     return result

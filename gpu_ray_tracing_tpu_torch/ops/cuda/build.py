@@ -59,7 +59,7 @@ _MEGAKERNEL_SIGNATURES = {
          _c_int, _c_int, _c_uint, _c_uint, _c_uint,
          _c_uint, _c_int, _c_float, _c_float, _c_int, _c_int, _c_float,
          _c_float, _c_int,  # ... clamp, spp
-         _c_ptr, _c_ptr, _c_ptr,  # out, rays, adaptive state
+         _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # out, rays, walks, adaptive state
          _c_int, _c_int, _c_int, _c_float,  # tile rows, min spp, chunk, tol
          _c_ptr, _c_int, _c_ptr],  # pixel-group cursor, BVH stage bytes, stream
     ),

@@ -225,6 +225,22 @@ enum TriSlot {
 };
 constexpr int kTriSlots = 32;
 
+// What one path's BVH walks did, counted by the counting instances
+// (kCount): the nodes visited (every node whose slab test ran, so a walk
+// that misses the root box counts one) and the faces tested, closest-hit
+// and shadow queries alike.  A Tally<false> counts nothing: its counts
+// compile away, and the timed instances walk as they did without it.
+template <bool kOn>
+struct Tally {
+  unsigned int nodes = 0u, faces = 0u;
+  __device__ __forceinline__ void node() {
+    if (kOn) ++nodes;
+  }
+  __device__ __forceinline__ void face(int k) {
+    if (kOn) faces += (unsigned int)k;
+  }
+};
+
 // Stackless walk of a threaded BVH (`_traverse_bvh`, megakernel.py:273),
 // one cursor per thread: a node whose slab interval overlaps the thread's
 // window (t_min, tb) descends to node + 1, or runs `leaf(start, count)` if
@@ -234,12 +250,13 @@ constexpr int kTriSlots = 32;
 // entry test clamps tn to t_min first (megakernel.py:316-317).  A node is
 // its two records, read at once: from device memory through the read-only
 // cache (two LDG.128 of one sector), or from render_kernel's shared-memory
-// stage (kShared, two LDS.128).
-template <bool kShared = false, class Leaf>
+// stage (kShared, two LDS.128).  `tally` counts each node visited.
+template <bool kShared = false, class Leaf, class W>
 __device__ __forceinline__ void walk_nodes(const float4* nodes, Vec3 o, Vec3 inv, float t_min,
-                                           const float& tb, Leaf leaf) {
+                                           const float& tb, W& tally, Leaf leaf) {
   int node = 0;
   while (node >= 0) {
+    tally.node();
     const float4 a = kShared ? nodes[2 * node] : __ldg(nodes + 2 * node);
     const float4 b = kShared ? nodes[2 * node + 1] : __ldg(nodes + 2 * node + 1);
     const float t0x = (a.x - o.x) * inv.x;
@@ -670,9 +687,11 @@ __device__ __forceinline__ SphereRay sphere_ray(Vec3 o, Vec3 d) {
 
 // kStage: kSphereStage scans wavefront_bounce_kernel's stage (wf_stage),
 // kBvhStage walks render_kernel's (bvh_stage), not the scene planes and
-// mesh table; the winner's material is still read from those.
-template <int kStage = kGlobal>
-__device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, Vec3 d) {
+// mesh table; the winner's material is still read from those.  `tally`
+// counts the walks' nodes and the faces of every leaf entered.
+template <int kStage = kGlobal, class W>
+__device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, Vec3 d,
+                           W& tally) {
   const SphereRay sr = sphere_ray(o, d);
   float tb = t_max;
   int best = -1;
@@ -684,14 +703,14 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
     staged_scan(wf_stage() + 1, wf_stage_index(n), wf_stage_count(), t_min, o, d, sr, tb,
                 best);
   } else if (kStage == kBvhStage && g.sphere_bvh.m > 0) {
-    walk_nodes<true>(st.snode, o, inv, t_min, tb, [&](int start, int count) {
+    walk_nodes<true>(st.snode, o, inv, t_min, tb, tally, [&](int start, int count) {
       staged_range(st.sph, start, start + count, t_min, o, d, sr, tb, best);
       return false;
     });
   } else if (kStage == kBvhStage) {
     staged_range(st.sph, 0, n, t_min, o, d, sr, tb, best);
   } else if (g.sphere_bvh.m > 0) {
-    walk_nodes(g.sphere_bvh.node, o, inv, t_min, tb, [&](int start, int count) {
+    walk_nodes(g.sphere_bvh.node, o, inv, t_min, tb, tally, [&](int start, int count) {
       sphere_scan(sc, n, start, start + count, t_min, o, d, sr, tb, best);
       return false;
     });
@@ -701,7 +720,8 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
   int tri = -1;
   float bu = 0.0f, bv = 0.0f;
   if (kStage == kBvhStage && g.n_tris > 0) {
-    walk_nodes<true>(st.mnode, o, inv, t_min, tb, [&](int start, int count) {
+    walk_nodes<true>(st.mnode, o, inv, t_min, tb, tally, [&](int start, int count) {
+      tally.face(count);
       for (int j = start; j < start + count; ++j) {
         float t, u, v;
         if (staged_tri(st.tri, j, t_min, o, d, tb, t, u, v)) {
@@ -714,7 +734,8 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
       return false;
     });
   } else if (g.n_tris > 0) {
-    walk_nodes(g.mesh_bvh.node, o, inv, t_min, tb, [&](int start, int count) {
+    walk_nodes(g.mesh_bvh.node, o, inv, t_min, tb, tally, [&](int start, int count) {
+      tally.face(count);
       tri_scan(g.faces, start, start + count, t_min, o, d, tb, tri, bu, bv);
       return false;
     });
@@ -778,9 +799,10 @@ __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, 
 // sphere or face lies at t_min < t < window along o + t w.  It ends at the
 // first blocker.  "No hit below the window" is the plain version's "nearest
 // t >= window" (ops/integrators.py::nearest_t_scene).
-// kStage as in closest_hit.
-template <int kStage = kGlobal>
-__device__ bool occluded(const Geometry& g, float t_min, Vec3 o, Vec3 w, float window) {
+// kStage and `tally` as in closest_hit; a face counts once tested.
+template <int kStage = kGlobal, class W>
+__device__ bool occluded(const Geometry& g, float t_min, Vec3 o, Vec3 w, float window,
+                         W& tally) {
   if (!(window > t_min)) return false;
   const SphereRay sr = sphere_ray(o, w);
   const float* sc = g.scene;
@@ -790,7 +812,7 @@ __device__ bool occluded(const Geometry& g, float t_min, Vec3 o, Vec3 w, float w
     const BvhStage st = bvh_stage(g);
     const Vec3 inv = safe_inverse(w);
     if (g.sphere_bvh.m > 0) {
-      walk_nodes<true>(st.snode, o, inv, t_min, window, [&](int start, int count) {
+      walk_nodes<true>(st.snode, o, inv, t_min, window, tally, [&](int start, int count) {
         blocked = staged_range_any(st.sph, start, start + count, t_min, o, w, sr, window);
         return blocked;
       });
@@ -798,9 +820,10 @@ __device__ bool occluded(const Geometry& g, float t_min, Vec3 o, Vec3 w, float w
       blocked = staged_range_any(st.sph, 0, n, t_min, o, w, sr, window);
     }
     if (!blocked && g.n_tris > 0) {
-      walk_nodes<true>(st.mnode, o, inv, t_min, window, [&](int start, int count) {
+      walk_nodes<true>(st.mnode, o, inv, t_min, window, tally, [&](int start, int count) {
         for (int j = start; j < start + count; ++j) {
           float t, u, v;
+          tally.face(1);
           if (staged_tri(st.tri, j, t_min, o, w, window, t, u, v)) {
             blocked = true;
             return true;
@@ -822,7 +845,7 @@ __device__ bool occluded(const Geometry& g, float t_min, Vec3 o, Vec3 w, float w
   if (kStage == kSphereStage) {
     blocked = staged_any_hit(wf_stage() + 1, wf_stage_count(), t_min, o, w, sr, window);
   } else if (g.sphere_bvh.m > 0) {
-    walk_nodes(g.sphere_bvh.node, o, inv, t_min, window, [&](int start, int count) {
+    walk_nodes(g.sphere_bvh.node, o, inv, t_min, window, tally, [&](int start, int count) {
       blocked = spheres(start, start + count);
       return blocked;
     });
@@ -830,9 +853,10 @@ __device__ bool occluded(const Geometry& g, float t_min, Vec3 o, Vec3 w, float w
     blocked = spheres(0, n);
   }
   if (!blocked && g.n_tris > 0) {
-    walk_nodes(g.mesh_bvh.node, o, inv, t_min, window, [&](int start, int count) {
+    walk_nodes(g.mesh_bvh.node, o, inv, t_min, window, tally, [&](int start, int count) {
       for (int j = start; j < start + count; ++j) {
         float t, u, v;
+        tally.face(1);
         if (tri_test(g.faces, j, t_min, o, w, window, t, u, v)) {
           blocked = true;
           return true;
@@ -1028,7 +1052,20 @@ struct Params {
   float* out;  // (height, width, 3), (3, height, width, 3) in GUIDES, or null
   float* rays;  // (height, width) rays-traced plane, or null
   int* cursor;  // render_kernel's next pixel group, zero at launch
+  // (2, height, width) BVH nodes visited and faces tested, which the
+  // counting instances add each sample's Tally to; or null.
+  unsigned int* walks;
 };
+
+// Adds a finished sample's Tally to pixel `pix` of the walk planes, in
+// the counting instances when the launch passed them.
+template <bool kCount>
+__device__ __forceinline__ void add_walks(const Params& p, size_t pix, const Tally<kCount>& w) {
+  if (kCount && p.walks != nullptr) {
+    atomicAdd(p.walks + pix, w.nodes);
+    atomicAdd(p.walks + (size_t)p.width * p.height + pix, w.faces);
+  }
+}
 
 // The adaptive spp loop (K1f): its tile, stopping test and state planes.
 struct Adaptive {
@@ -1138,19 +1175,20 @@ struct PathState {
 // instance keeps the register budget of the path it replaces.  kCount adds
 // the rays this bounce traced to `rays` (megakernel.py:951, :1071, :1374,
 // :1416): one for the closest-hit walk and one per NEE shadow ray whose
-// light sample is valid, counted before its visibility test.  kStage
-// names the stage closest_hit and occluded read (kGlobal: none).
-template <bool kNee, bool kCount, int kStage = kGlobal>
+// light sample is valid, counted before its visibility test; `walk`
+// counts those rays' BVH walks (Tally).  kStage names the stage
+// closest_hit and occluded read (kGlobal: none).
+template <bool kNee, bool kCount, int kStage = kGlobal, class W>
 __device__ __forceinline__ bool path_bounce(const Params& p, PathState& st,
                                             unsigned int seed, unsigned int base0,
                                             unsigned int s_abs, unsigned int pick_seed,
-                                            int i, unsigned int& rays) {
+                                            int i, unsigned int& rays, W& walk) {
   const Sampler& sm = p.sampler;
   const LightSet& ls = p.lights;
   const int n_lights = ls.L + ls.T;
   const Vec3 o = st.o, d = st.d;
   if (kCount) ++rays;
-  const Hit h = closest_hit<kStage>(p.geo, p.t_min, p.t_max, o, d);
+  const Hit h = closest_hit<kStage>(p.geo, p.t_min, p.t_max, o, d, walk);
   if (!h.hit) {
     const Vec3 sk = sky(d);
     st.r = st.r + st.tr * sk.x * p.sky_intensity;
@@ -1205,7 +1243,7 @@ __device__ __forceinline__ bool path_bounce(const Params& p, PathState& st,
                                  : tri_light_sample(ls, gl - ls.L, h.p, h.n, u1n, u2n);
       if (!ln.ok) continue;
       if (kCount) ++rays;
-      if (occluded<kStage>(p.geo, p.t_min, h.p, ln.w, ln.reach * 0.999f)) continue;
+      if (occluded<kStage>(p.geo, p.t_min, h.p, ln.w, ln.reach * 0.999f, walk)) continue;
       float wgt = ln.wgt * (picked >= 0 ? (float)n_lights : 1.0f);
       if (p.mis && !last) wgt = wgt / fmaf(wgt, wgt, 1.0f);
       st.r = st.r + st.tr * h.ar * ln.le.x * wgt;
@@ -1256,18 +1294,18 @@ __device__ __forceinline__ void clamp_sample(const Params& p, float& r, float& g
 
 // One sample of pixel (x, global row y) in a bounce-free AOV mode
 // (megakernel.py:1550-1576): ray generation and one closest hit; `rays`
-// counts the one ray.
+// counts the one ray, `walk` its BVH walk.
 template <bool kCount>
 __device__ __forceinline__ Vec3 aov_sample(const Params& p, const Cam& cm, int x,
                                            unsigned int y, unsigned int pid,
                                            unsigned int base0, unsigned int s_abs,
-                                           unsigned int& rays) {
+                                           unsigned int& rays, Tally<kCount>& walk) {
   const unsigned int seed = hash_pixel_seeds(pid, s_abs, p.frame_seed);
   Vec3 o, d;
   generate_ray(p.sampler, cm, x, y, seed, base0, s_abs, o, d);
   float r, g, b;
   if (kCount) ++rays;
-  const Hit h = closest_hit(p.geo, p.t_min, p.t_max, o, d);
+  const Hit h = closest_hit(p.geo, p.t_min, p.t_max, o, d, walk);
   const Vec3 sk = sky(d);
   if (p.mode == DEPTH) {
     r = g = b = h.hit ? h.t * sqrtf(d.x * d.x + d.y * d.y + d.z * d.z) : 0.0f;
@@ -1367,6 +1405,7 @@ __global__ void __launch_bounds__(kStageThreads) render_aov_kernel(const Params 
   int staged = 0;
   if (kBrute && one_chunk) staged = stage_spheres(sc, n, 0, n, s_sph, s_idx, s_warp);
   unsigned int rays = 0u;
+  Tally<kCount> walk;
   float al_r = 0.0f, al_g = 0.0f, al_b = 0.0f;  // albedo (or ALBEDO's) sums
   float nm_r = 0.0f, nm_g = 0.0f, nm_b = 0.0f;  // normal sums
   float dep = 0.0f;                             // depth sum
@@ -1393,7 +1432,7 @@ __global__ void __launch_bounds__(kStageThreads) render_aov_kernel(const Params 
       h = brute_hit(sc, n, p.t_max, o, d, tb, best);
     } else {
       if (!in_frame) continue;
-      const Hit g = closest_hit(p.geo, p.t_min, p.t_max, o, d);
+      const Hit g = closest_hit(p.geo, p.t_min, p.t_max, o, d, walk);
       h = {g.hit, g.t, g.n, g.ar, g.ag, g.ab};
     }
     const Vec3 sk = sky(d);
@@ -1431,6 +1470,7 @@ __global__ void __launch_bounds__(kStageThreads) render_aov_kernel(const Params 
     out[0] = out[1] = out[2] = dep / inv;
   }
   if (kCount) p.rays[pix] = (float)rays;
+  add_walks(p, pix, walk);
 }
 
 // The path integrator's fixed spp loop, with per-warp path regeneration.
@@ -1518,8 +1558,9 @@ __global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(const Params p
   int my_group = 0;
   // The lane's path: its item, seeds, bounce and state.
   bool active = false;
-  int item = 0, i = 0;
+  int item = 0, i = 0, item_pix = 0;
   unsigned int seed = 0u, base0 = 0u, s_abs = 0u, rays = 0u;
+  Tally<kCount> walk;
   PathState st;
   // Pixel `lane` of the group being folded: its running sums.
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
@@ -1567,6 +1608,10 @@ __global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(const Params p
         item = k;
         i = 0;
         rays = 0u;
+        if (kCount) {
+          item_pix = pix;
+          walk = Tally<kCount>();
+        }
         active = true;
       }
     }
@@ -1574,9 +1619,10 @@ __global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(const Params p
     // One bounce of every path; a path that ends hands its sample to its slot.
     if (active) {
       const bool live = path_bounce<kNee, kCount, kStaged ? kBvhStage : kGlobal>(
-          p, st, seed, base0, s_abs, s_abs ^ frame_hash, i, rays);
+          p, st, seed, base0, s_abs, s_abs ^ frame_hash, i, rays, walk);
       if (!live || ++i >= p.max_depth) {
         clamp_sample(p, st.r, st.g, st.b);
+        add_walks(p, item_pix, walk);
         ring[item & (kRingSlots - 1)] = make_uint4(
             __float_as_uint(st.r), __float_as_uint(st.g), __float_as_uint(st.b), rays + 1u);
         active = false;
@@ -1740,6 +1786,7 @@ __device__ __forceinline__ void adaptive_samples(const Params& p, const Adaptive
   bool exhausted = false, have = false, active = false;
   int sub = 0, i = 0, x = 0;
   unsigned int y = 0u, pid = 0u, base0 = 0u, seed = 0u, s_abs = 0u, rays = 0u;
+  Tally<kCount> walk;
   size_t pix = 0;
   PathState st;
   while (true) {
@@ -1769,8 +1816,9 @@ __device__ __forceinline__ void adaptive_samples(const Params& p, const Adaptive
     if (have && !active) {
       s_abs = p.sample_index + (unsigned int)(k + sub);
       rays = 0u;
+      if (kCount) walk = Tally<kCount>();
       if (p.mode != PATH) {
-        c = aov_sample<kCount>(p, cm, x, y, pid, base0, s_abs, rays);
+        c = aov_sample<kCount>(p, cm, x, y, pid, base0, s_abs, rays, walk);
         done = true;
       } else {
         seed = hash_pixel_seeds(pid, s_abs, p.frame_seed);
@@ -1785,7 +1833,8 @@ __device__ __forceinline__ void adaptive_samples(const Params& p, const Adaptive
     }
     if (active) {
       const bool live =
-          path_bounce<kNee, kCount>(p, st, seed, base0, s_abs, s_abs ^ frame_hash, i, rays);
+          path_bounce<kNee, kCount>(p, st, seed, base0, s_abs, s_abs ^ frame_hash, i, rays,
+                                    walk);
       if (!live || ++i >= p.max_depth) {
         clamp_sample(p, st.r, st.g, st.b);
         c = {st.r, st.g, st.b};
@@ -1807,6 +1856,7 @@ __device__ __forceinline__ void adaptive_samples(const Params& p, const Adaptive
       __stcg(s_g + pix, __ldcg(s_g + pix) + c.y);
       __stcg(s_b + pix, __ldcg(s_b + pix) + c.z);
       if (kCount) __stcg(p.rays + pix, __ldcg(p.rays + pix) + (float)rays);
+      add_walks(p, pix, walk);
       if (++sub == nb) have = false;
     }
     __syncwarp();
@@ -2031,8 +2081,9 @@ __device__ __forceinline__ bool wavefront_bounce_slot(const Params& p, const Wav
   const unsigned int base0 = hash_pixel_seeds(pid, 0u, p.frame_seed);
   const unsigned int pick_seed = s_abs ^ wgsl_hash(p.frame_seed);
   unsigned int rays = 0u;
+  Tally<false> walk;  // the engine counts rays, not walks
   const bool live = path_bounce<kNee, kCount, kStaged ? kSphereStage : kGlobal>(
-      p, st, seed, base0, s_abs, pick_seed, i, rays);
+      p, st, seed, base0, s_abs, pick_seed, i, rays, walk);
   float n_rays = 0.0f;
   if (kCount) n_rays = f[WRAYS * ps] + (float)rays;
   if (kRegen) ib[WBNC * ps + t] = i + 1;
@@ -2286,7 +2337,9 @@ Params scene_params(const float* cam, const float* scene, int n, const float* sb
 // The sampler: kind 0 independent, 1 stratified (kx, ky), 2 Sobol (nbits).
 // The outputs: `out` (height, width, 3), or (3, height, width, 3) in mode
 // GUIDES (albedo, normal, depth), and, when not null, `rays` (height,
-// width), the rays traced per pixel.  With `state` (6, height,
+// width), the rays traced per pixel, and with `rays` `walks` (2, height,
+// width) u32, to which the counting launch adds each pixel's BVH nodes
+// visited and faces tested (zero them first).  With `state` (6, height,
 // width) the adaptive loop runs (spp is its budget) and updates the state;
 // `out` is then optional (the one-shot mean).  The path integrator's fixed
 // loop needs `cursor`, one int in device memory set to 0, and walks a BVH
@@ -2302,7 +2355,8 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
                           unsigned int frame_seed, unsigned int y_offset,
                           unsigned int row_stride, int max_depth, float t_min,
                           float t_max, int mode, int rr_depth, float sky_intensity,
-                          float clamp, int spp, float* out, float* rays, float* state,
+                          float clamp, int spp, float* out, float* rays,
+                          unsigned int* walks, float* state,
                           int tile_rows, int min_spp, int chunk, float tol, int* cursor,
                           int bvh_stage, void* stream) {
   Params p = scene_params(cam, scene, n, sbvh, sbvh_m, mesh, faces, n_tris, smooth,
@@ -2325,8 +2379,11 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
   p.out = out;
   p.rays = rays;
   p.cursor = cursor;
+  p.walks = walks;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool count = rays != nullptr;
+  if (walks != nullptr && !count)
+    return static_cast<int>(cudaErrorInvalidValue);  // only the counting instances add walks
   if (bvh_stage != 0 &&
       (state != nullptr || mode != PATH || (sbvh_m == 0 && n_tris == 0) ||
        bvh_stage > kBvhStageBytes ||

@@ -717,6 +717,7 @@ def render_cuda(
     return_ray_count: bool = False,
     adaptive_state: tuple | None = None,
     adaptive_chunk: int = 0,
+    walk_counts: torch.Tensor | None = None,
 ):
     """Render spp samples in one launch of the CUDA megakernel; returns the
     (height, width, 3) f32 mean on the scene's CUDA device.  Same signature
@@ -731,10 +732,22 @@ def render_cuda(
     `return_ray_count` append the (height, width) samples-taken and
     rays-traced planes; `adaptive_state` (six (height, width) planes: rgb
     sums, count, Welford mean and M2) resumes the adaptive loop for at most
-    `adaptive_chunk` more samples per tile and returns the updated six."""
+    `adaptive_chunk` more samples per tile and returns the updated six.
+    `walk_counts`, with return_ray_count, is a (2, height, width) int32
+    tensor on the device to which the counting launch adds each pixel's BVH
+    nodes visited and faces tested (as u32; its closest-hit and shadow
+    walks, global or staged)."""
     _check_args(width, height, spp, max_depth, mode, nee, mis, sampler_spec)
     sc = as_scene(scene_or_spheres)
     dev = _require_cuda(*dataclass_tensors(sc), *dataclass_tensors(camera))
+    if walk_counts is not None and not (
+            return_ray_count and walk_counts.dtype == torch.int32
+            and walk_counts.is_contiguous() and walk_counts.device == dev
+            and tuple(walk_counts.shape) == (2, height, width)):
+        raise ValueError(
+            f"walk_counts must be a contiguous (2, {height}, {width}) int32 tensor on {dev}, "
+            "passed with return_ray_count=True (only the counting launch counts walks)"
+        )
     plan = _adaptive_plan(width, height, spp, mode, dev, adaptive_tol, adaptive_min_spp,
                           return_spp_map, return_ray_count, adaptive_state,
                           adaptive_chunk)
@@ -747,8 +760,8 @@ def render_cuda(
     path_loop = plan.state is None and mode == "path"
     cursor = torch.zeros(1, dtype=torch.int32, device=dev) if path_loop else None
     stage = packed.stage_bytes if path_loop else 0
-    _launch(packed, camera, dev, MODES[mode], out, rays, plan, cursor, width=width,
-            height=height, sample_index=sample_index, frame_seed=frame_seed,
+    _launch(packed, camera, dev, MODES[mode], out, rays, plan, cursor, walks=walk_counts,
+            width=width, height=height, sample_index=sample_index, frame_seed=frame_seed,
             y_offset=y_offset, row_stride=row_stride, max_depth=max_depth, t_min=t_min,
             t_max=t_max, russian_roulette_depth=russian_roulette_depth,
             sky_intensity=sky_intensity, clamp=clamp, spp=spp, stage=stage)
@@ -759,7 +772,8 @@ def render_cuda(
 
 
 def _launch(packed: PackedScene, camera: Camera, dev: torch.device, mode: int, out, rays,
-            plan: _AdaptivePlan, cursor, *, width: int, height: int, sample_index: int,
+            plan: _AdaptivePlan, cursor, *, walks=None, width: int, height: int,
+            sample_index: int,
             frame_seed: int, y_offset: int, row_stride: int, max_depth: int, t_min: float,
             t_max: float, russian_roulette_depth: int, sky_intensity: float, clamp: float,
             spp: int, stage: int = 0) -> None:
@@ -778,7 +792,7 @@ def _launch(packed: PackedScene, camera: Camera, dev: torch.device, mode: int, o
                 int(y_offset) & 0xFFFFFFFF, int(row_stride) & 0xFFFFFFFF,
                 max_depth, float(t_min), float(t_max), mode,
                 int(russian_roulette_depth), float(sky_intensity), float(clamp),
-                spp, ptr(out), ptr(rays), ptr(plan.state),
+                spp, ptr(out), ptr(rays), ptr(walks), ptr(plan.state),
                 plan.tile_rows, plan.min_spp, plan.chunk, plan.tol, ptr(cursor), int(stage),
                 stream,
             )

@@ -41,13 +41,13 @@ def _pose(look_from, look_at, vup, fov, defocus, focus) -> dict:
 
 
 def camera_poses(n: int = 256, seed: int = 21) -> list[dict]:
-    """`n` poses as CameraSettings.make's keywords: the benchmark's three
+    """`n` poses as CameraSettings.make's keywords: the benchmark's four
     cameras, the defaults, the Cornell view, then poses drawn from `seed`
     (fov 10-120 degrees, defocus 0-10, focus 0.1-100 log-uniform; every
     third vup within about 1e-3 rad of the view axis, still valid)."""
     configs = pathlib.Path(__file__).resolve().parents[1] / "rtbench" / "configs"
     poses = []
-    for name in ("one_weekend_720p", "cornell_box_600", "one_weekend_1080p"):
+    for name in ("one_weekend_720p", "cornell_box_600", "one_weekend_1080p", "mesh_bvh_480p"):
         cam = json.loads((configs / f"{name}.json").read_text())["params"]["camera"]
         poses.append(_pose(cam["look_from"], cam["look_at"], cam["vup"], cam["fov"],
                            cam["defocus"], cam["focus"]))
