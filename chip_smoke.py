@@ -35,7 +35,10 @@ card in phases, one JSON line each:
                   320x180, 4 spp, depth 50: the walk vs the plain version's
                   scan of the same spheres, flip <= 2% and mean < 2e-3, and
                   vs the brute kernel on the same spheres (timed beside it),
-                  flip <= 1% and mean < 2e-4
+                  flip <= 1% and mean < 2e-4; and 1,025 random diffuse
+                  spheres, one over the sphere stage, on the brute route's
+                  global scan vs their plain version, flip <= 1% and mean
+                  < 2e-4
   8. mesh_vs_plain  a smooth icosphere(4) (5,120 faces) on a ground sphere,
                   320x240, 2 spp, depth 8: flip <= 1% and mean < 2e-4
   9. config3      BASELINE config 3 through render(): the 487-sphere scene,
@@ -280,13 +283,15 @@ card in phases, one JSON line each:
 Every phase that launches the megakernel gates its launch count on its own
 route key (megakernel:brute, :sphere_bvh, :mesh_bvh, suffixed +nee,
 +sobol/+stratified, +staged, +adaptive and +rays when the launch ran
-them: phases 7, 9 (config 3), 11 (81 lights) and 12 take the staged
-route); the
+them: the path loop on a brute scene of at most 1,024 spheres takes the
+sphere stage, and phases 7, 9 (config 3), 11 (81 lights) and 12 the BVH
+stage); the
 wavefront bounce kernel counts under wavefront:<route>[+regen][+rays], its
 ray generation under wavefront_raygen, the partition under
 wavefront_partition, the loop's step under wavefront_advance, the probes
 under fma_peak and bf16_probe.  Then the kernels line (the megakernel once
-per path: brute, sphere_bvh, mesh_bvh, mesh_bvh+nee, brute+nee, brute+sobol,
+per path: brute+staged, sphere_bvh, mesh_bvh, mesh_bvh+nee, brute+nee+staged,
+brute+sobol+staged,
 brute+aov_normal, brute+guides, brute+adaptive, mesh_bvh+nee+adaptive (with
 the kernel alone and its cluster size), the hash and sampler probes, wavefront:brute, wavefront:brute+regen,
 wavefront_partition (with its kernels' split at both shapes, the pool's
@@ -346,6 +351,15 @@ plain version, and prints one JSON line.  Copied into
 another checkout and run there, it times that checkout's package: run two
 checkouts in turns (A, B, B, A) within one machine to compare two builds of
 the kernel, and compare their saved frames bit for bit.
+
+    python3 chip_smoke.py --sphere-stage PARENT
+
+runs phases 1 and 2, builds PARENT's megakernel.cu (another checkout's)
+beside the checkout's, and prints one JSON line: the sphere-stage
+instances' registers, stack and spills and their blocks an SM beside the
+parent's render_kernel instances, and the SASS digests the two builds do
+not share; it fails unless only the sphere-stage instances differ from
+the parent's and they hold at least the parent's blocks an SM.
 """
 
 from __future__ import annotations
@@ -454,28 +468,43 @@ def ptxas_instances(report: str) -> list[str]:
     return out
 
 
-def sass_digests(build, infos: dict) -> dict:
-    """A digest of each kernel instance's SASS (`cuobjdump -sass` of the
-    built libraries; addresses dropped and the anonymous namespace's
-    per-file tag taken out of the names), so that the builds of two
-    checkouts compare function by function."""
+def kernel_symbol(name: str) -> str:
+    """A mangled kernel name without the anonymous namespace's per-file tag
+    (and its length), so that two builds of the source (from two paths)
+    name it alike."""
+    return re.sub(r"\d*_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "", name)
+
+
+def library_sass(build, library: str) -> dict:
+    """A digest of each kernel instance's SASS in `library` (`cuobjdump
+    -sass`; addresses dropped, names, also those its calls name, by
+    kernel_symbol)."""
     import hashlib
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", library], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    out, name, body = {}, None, []
+    for ln in text.splitlines() + ["\tFunction : end"]:
+        head = re.match(r"\s+Function : (\S+)", ln)
+        if head:
+            if name:
+                out[name] = hashlib.sha1("\n".join(body).encode()).hexdigest()[:16]
+            name = kernel_symbol(head.group(1))
+            body = []
+        elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", ln):
+            body.append(kernel_symbol(
+                re.sub(r"\s*/\*[0-9a-f]{4}\*/\s*", "", ln).split(";")[0].strip()))
+    return out
+
+
+def sass_digests(build, infos: dict) -> dict:
+    """A digest of each kernel instance's SASS (library_sass of every built
+    library), so that the builds of two checkouts compare function by
+    function."""
     out = {}
     for info in infos.values():
-        text = subprocess.run([tool, "-sass", info.library], check=True, capture_output=True,
-                              text=True, timeout=300).stdout
-        name, body = None, []
-        for ln in text.splitlines() + ["\tFunction : end"]:
-            head = re.match(r"\s+Function : (\S+)", ln)
-            if head:
-                if name:
-                    out[name] = hashlib.sha1("\n".join(body).encode()).hexdigest()[:16]
-                name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "", head.group(1))
-                body = []
-            elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", ln):
-                body.append(re.sub(r"\s*/\*[0-9a-f]{4}\*/\s*", "", ln).split(";")[0].strip())
+        out.update(library_sass(build, info.library))
     return out
 
 
@@ -1239,11 +1268,11 @@ ROUTE_VARIANTS = {
         ("static_assert(kRegenWarps * (kRingRows - kStagedRingRows)", "static_assert(true ||"
          " kRegenWarps * (kRingRows - kStagedRingRows)")],
     "staged_min_blocks_6": [(
-        "__global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(",
-        "__global__ void __launch_bounds__(kRegenWarps * 32, kStaged ? 6 : 1) render_kernel(")],
+        "kStage == kSphereStage && !kNee && !kCount ? 6 : 0)",
+        "kStage == kBvhStage ? 6 : kStage == kSphereStage && !kNee && !kCount ? 6 : 0)")],
     "staged_min_blocks_7": [(
-        "__global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(",
-        "__global__ void __launch_bounds__(kRegenWarps * 32, kStaged ? 7 : 1) render_kernel(")],
+        "kStage == kSphereStage && !kNee && !kCount ? 6 : 0)",
+        "kStage == kBvhStage ? 7 : kStage == kSphereStage && !kNee && !kCount ? 6 : 0)")],
 }
 # The frames --route-variants times: the BVH routes of route_frames.
 VARIANT_ROUTES = ("cornell_nee_mis", "config3", "config4")
@@ -1307,6 +1336,62 @@ def route_variants(T, mk, build, repeats: int, smi: str) -> dict:
                 ptxas={k: [ln for ln in ptxas_instances(v[1]) if "render_kernel" in ln]
                        for k, v in built.items()},
                 repeats=repeats, card=smi)
+
+
+def ptxas_numbers(line: str) -> dict:
+    """Registers, stack bytes and spill bytes of one ptxas_instances line."""
+    num = lambda pat: int(re.search(pat, line).group(1)) if re.search(pat, line) else None
+    return dict(registers=num(r"Used (\d+) registers"), stack=num(r"(\d+) bytes stack frame"),
+                spill_stores=num(r"(\d+) bytes spill stores"),
+                spill_loads=num(r"(\d+) bytes spill loads"))
+
+
+def sphere_stage_check(mk, build, parent: str, smi: str) -> dict:
+    """--sphere-stage PARENT: render_kernel's sphere stage against PARENT's
+    build (another checkout's megakernel.cu, compiled beside the
+    checkout's library): the registers, stack and spills of the checkout's
+    sphere-stage instances (render_kernel<nee, count, 1>) beside the
+    parent's render_kernel instances, their blocks an SM at One-Weekend's
+    stage (and a full one) beside the parent's global scan, and the SASS
+    digests: which of the parent's no instance of the checkout has, and
+    which instances of the checkout have none of the parent's.  Digests
+    are compared by body, so the parent's names need not be the
+    checkout's."""
+    out_dir = os.path.join(build.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "megakernel_parent.cu")
+    with open(path, "w") as f:
+        f.write(open(os.path.join(parent, KERNEL_SOURCE)).read())
+    parent_lib, parent_report = build.compile_copy("megakernel", path, path[:-3] + ".so")
+    base = build.build_info("megakernel")
+
+    def rows(report, keep):
+        return {kernel_symbol(ln.split(":")[0]): ptxas_numbers(ln)
+                for ln in ptxas_instances(report) if "render_kernel" in ln and keep(ln)}
+
+    sass = library_sass(build, base.library)
+    parent_sass = library_sass(build, path[:-3] + ".so")
+    ow, full = mk.sphere_stage_bytes(197), mk.sphere_stage_bytes(mk.STAGE_SPHERES)
+    base_lib, blocks = build.load(), {}
+    for nee in (False, True):
+        for count in (False, True):
+            build._libs["megakernel"] = parent_lib
+            try:
+                parent_global = mk.render_occupancy(nee, count, "global", 0)
+            finally:
+                build._libs["megakernel"] = base_lib
+            blocks[f"<{int(nee)},{int(count)}>"] = dict(
+                parent_global=parent_global, spheres=mk.render_occupancy(nee, count, "spheres", ow),
+                spheres_full=mk.render_occupancy(nee, count, "spheres", full))
+    return dict(stage_bytes=ow, blocks_per_sm=blocks,
+                ptxas_stage_instances=rows(base.ptxas_report, lambda ln: "ELi1EEEv" in ln),
+                ptxas_parent=rows(parent_report, lambda ln: True),
+                sass_instances=len(sass),
+                sass_parent_missing=sorted(k for k, v in parent_sass.items()
+                                           if v not in set(sass.values())),
+                sass_new=sorted(k for k, v in sass.items()
+                                if v not in set(parent_sass.values())),
+                card=smi)
 
 
 def regen_schedule(T, mk, wf, cases) -> list[dict]:
@@ -2175,16 +2260,16 @@ def phase_inverse(T, mk, dev, smi: str) -> None:
     gate("inverse_path", inv["albedo_err_last"] < inv["albedo_err_first"],
          f"the albedo error did not fall: {inv['albedo_err_first']} -> "
          f"{inv['albedo_err_last']}")
-    gate("inverse_path", inv["launches"] == {"megakernel:brute": 20},
-         f"expected 20 brute megakernel launches, counted {inv['launches']}")
+    gate("inverse_path", inv["launches"] == {"megakernel:brute+staged": 20},
+         f"expected 20 staged brute megakernel launches, counted {inv['launches']}")
     mg = main_frame_grad(T, mk, dev)
     emit({"phase": "inverse_path", "main_frame_gradient": mg, "card": smi})
     gate("inverse_path", mg["finite"] and mg["nonzero"] > 0,
          f"main-frame gradient finite {mg['finite']}, nonzero entries {mg['nonzero']}")
     gate("inverse_path", all(c["rel_err"] < 1e-3 for c in mg["fd"]),
          f"main-frame gradient vs finite differences: {mg['fd']}")
-    gate("inverse_path", mg["launches"] == {"megakernel:brute": 1},
-         f"expected 1 brute megakernel launch, counted {mg['launches']}")
+    gate("inverse_path", mg["launches"] == {"megakernel:brute+staged": 1},
+         f"expected 1 staged brute megakernel launch, counted {mg['launches']}")
 
 
 def phase_denoise(T, mk, dev, smi: str) -> dict:
@@ -2279,14 +2364,15 @@ def phase_denoise(T, mk, dev, smi: str) -> dict:
              f"{mode} pass differs from the guides launch's plane: {g}")
     gate("denoise_path", launch["ok"], f"guides launch vs plain: {g_match}")
     gate("denoise_path", g_key == ["megakernel:brute+guides"], f"guides launched {g_key}")
-    gate("denoise_path", den["launches"] == {"megakernel:brute": 1,
+    gate("denoise_path", den["launches"] == {"megakernel:brute+staged": 1,
                                               "megakernel:brute+guides": 1},
          f"expected a beauty and a guides launch a frame, counted {den['launches']}")
     gate("denoise_path", mse_out < mse_beauty,
          f"denoised MSE {mse_out} not below the 16-spp beauty's {mse_beauty}")
     gate("denoise_path", den_bwd["finite"] and den_bwd["nonzero"] > 0,
          f"render_denoised backward: {den_bwd}")
-    gate("denoise_path", den_bwd["launches"] == {"megakernel:brute": 4},
+    gate("denoise_path", den_bwd["launches"] == {"megakernel:brute+staged": 1,
+                                                  "megakernel:brute": 3},
          f"expected the beauty and three single-mode passes with grad, counted "
          f"{den_bwd['launches']}")
     return dict(launch, launches=den["launches"].get("megakernel:brute+guides", 0),
@@ -2408,7 +2494,7 @@ def phase_cli(T, mk, dev, smi: str, main_ms: float) -> dict:
                                  render_s=sum(render_s), write_image_s=sum(encode_s),
                                  outside_render_s=wall_in - sum(render_s),
                                  setup_s=wall_in - sum(render_s) - sum(encode_s))
-        gate("cli_path", rc == 0 and launches == {"megakernel:brute": 1},
+        gate("cli_path", rc == 0 and launches == {"megakernel:brute+staged": 1},
              f"in-process render: rc {rc}, {launches}")
         gate("cli_path", len(render_s) == 1 and len(encode_s) == 1,
              f"in-process render: {len(render_s)} render() and {len(encode_s)} "
@@ -2438,7 +2524,7 @@ def phase_cli(T, mk, dev, smi: str, main_ms: float) -> dict:
             card_settings_with_sum=frames(sc_dev, st_dev, True),
             card_camera_once_with_sum=frames(sc_dev, cam_dev, True))
         mk.LAUNCHES.clear()
-        gate("cli_path", rc == 0 and launches == {"megakernel:brute": 1 + 3 * 20},
+        gate("cli_path", rc == 0 and launches == {"megakernel:brute+staged": 1 + 3 * 20},
              f"--bench-frames 20: rc {rc}, expected 61 brute launches, counted {launches}")
         gate("cli_path", stats.get("device") == torch.cuda.get_device_name(0),
              f"--bench-frames timed on {stats.get('device')}")
@@ -2447,10 +2533,11 @@ def phase_cli(T, mk, dev, smi: str, main_ms: float) -> dict:
         engines = {}
         for name, flags, want in (
                 ("denoise", ["--denoise", "4"],
-                 lambda c: c == {"megakernel:brute": 1, "megakernel:brute+guides": 1}),
+                 lambda c: c == {"megakernel:brute+staged": 1, "megakernel:brute+guides": 1}),
                 ("regenerate", ["--regenerate", "on"],
                  lambda c: c.get("wavefront:brute+regen", 0) > 0
-                 and c.get("wavefront_raygen", 0) > 0 and "megakernel:brute" not in c),
+                 and c.get("wavefront_raygen", 0) > 0
+                 and not any(k.startswith("megakernel:") for k in c)),
                 ("adaptive", ["--adaptive-tol", "0.03"],
                  lambda c: c == {"megakernel:brute+adaptive": 1})):
             t0 = time.perf_counter()
@@ -2481,8 +2568,9 @@ def phase_cli(T, mk, dev, smi: str, main_ms: float) -> dict:
         gate("cli_path", [rc_a, rc_b, rc_c] == [0, 0, 0] and resume_equal,
              "progressive 2 + 2 steps through the checkpoint differ from 4 steps")
         gate("cli_path", preview_written, "--preview-every wrote no preview")
-        gate("cli_path", [la, lb, lc] == [{"megakernel:brute": 2}, {"megakernel:brute": 2},
-                                          {"megakernel:brute": 4}],
+        gate("cli_path", [la, lb, lc] == [{"megakernel:brute+staged": 2},
+                                          {"megakernel:brute+staged": 2},
+                                          {"megakernel:brute+staged": 4}],
              f"progressive launches {[la, lb, lc]}")
 
         # 5. animate and view.
@@ -2495,9 +2583,11 @@ def phase_cli(T, mk, dev, smi: str, main_ms: float) -> dict:
         row["animate"] = dict(rc=rc_an, files=n_frames, launches=l_an)
         row["view"] = dict(rc=rc_v, half_blocks=text_v.count("▀"), launches=l_v,
                            status=[ln for ln in text_v.splitlines() if "spp/step" in ln][-1:])
-        gate("cli_path", rc_an == 0 and n_frames == 2 and l_an == {"megakernel:brute": 2},
+        gate("cli_path", rc_an == 0 and n_frames == 2
+             and l_an == {"megakernel:brute+staged": 2},
              f"animate: rc {rc_an}, {n_frames} files, {l_an}")
-        gate("cli_path", rc_v == 0 and text_v.count("▀") >= 80 and l_v == {"megakernel:brute": 2},
+        gate("cli_path", rc_v == 0 and text_v.count("▀") >= 80
+             and l_v == {"megakernel:brute+staged": 2},
              f"view: rc {rc_v}, {text_v.count('▀')} cells, {l_v}")
 
     # 6. The WGSL stream on the card: its seeds bit for bit with the CPU's
@@ -2755,7 +2845,8 @@ def phase_sharded(T, mk, dev, smi: str, main_img: torch.Tensor) -> dict:
     outs, secs = run_ranks(1, "nccl", [frame("nccl_1x1", (1, 1), cuda_main)])
     row["world1_nccl_seconds"] = secs
     if "nccl_1x1" in outs:
-        check("nccl_1x1", outs["nccl_1x1"], main_img, key="megakernel:brute", per_rank=3)
+        check("nccl_1x1", outs["nccl_1x1"], main_img, key="megakernel:brute+staged",
+              per_rank=3)
         gate("sharded", outs["nccl_1x1"][0]["backend"] == "nccl",
              f"the 1x1 mesh ran over {outs['nccl_1x1'][0]['backend']}")
     # World 2: rows, both partitions and engines, config 5's interleaved
@@ -2768,7 +2859,7 @@ def phase_sharded(T, mk, dev, smi: str, main_img: torch.Tensor) -> dict:
               dict(name="adaptive_2x1", kind="adaptive", mesh=(2, 1), cfg=ad, repeats=1)]
     outs2, secs = run_ranks(2, backend(2), jobs2)
     row[f"world2_{backend(2)}_seconds"] = secs
-    for eng, want, key in (("cuda", main_img, "megakernel:brute"),
+    for eng, want, key in (("cuda", main_img, "megakernel:brute+staged"),
                            ("wavefront", wave_img, "wavefront:brute")):
         for part in ("contiguous", "interleaved"):
             name = f"{eng}_2x1_{part}"
@@ -2776,7 +2867,7 @@ def phase_sharded(T, mk, dev, smi: str, main_img: torch.Tensor) -> dict:
                 check(name, outs2[name], want, key=key, per_rank=3)
     if "config5_2x1_interleaved" in outs2:
         o = outs2["config5_2x1_interleaved"]
-        rec = check("config5_2x1_interleaved", o, c5_state.rgb, key="megakernel:brute",
+        rec = check("config5_2x1_interleaved", o, c5_state.rgb, key="megakernel:brute+staged",
                     per_rank=CONFIG5_STEPS)
         gate("sharded", rec["count"] == [CONFIG5_STEPS] * 2 and
              rec["band"] == [[540, 1920, 3]] * 2, f"config 5 state: {rec}")
@@ -2800,10 +2891,10 @@ def phase_sharded(T, mk, dev, smi: str, main_img: torch.Tensor) -> dict:
     row[f"world4_{backend(4)}_seconds"] = secs
     if "cuda_2x2" in outs4:
         check("cuda_2x2", outs4["cuda_2x2"], main_img, exact=False, tol=(1e-5, 1e-6),
-              key="megakernel:brute", per_rank=3)
+              key="megakernel:brute+staged", per_rank=3)
     if "config5_2x2" in outs4:
         rec = check("config5_2x2", outs4["config5_2x2"], c5_spp8, exact=False, tol=(0.0, 2e-5),
-                    key="megakernel:brute", per_rank=4)
+                    key="megakernel:brute+staged", per_rank=4)
         gate("sharded", rec["count"] == [8] * 4, f"config 5 2x2 count {rec['count']}")
     emit(row)
     return row
@@ -2940,6 +3031,9 @@ def main() -> int:
     ap.add_argument("--route-variants", action="store_true",
                     help="build, time the BVH routes against copies of megakernel.cu "
                          "(ROUTE_VARIANTS), count their walks, print one JSON line")
+    ap.add_argument("--sphere-stage", metavar="PARENT",
+                    help="build, compare render_kernel's sphere stage with the checkout "
+                         "at PARENT (sphere_stage_check), print one JSON line")
     ap.add_argument("--config4-render", action="store_true",
                     help="build, time config 4 through render() and pack_scene alone "
                          "(time_config4_render, 50 calls each), print one JSON line")
@@ -2989,6 +3083,20 @@ def main() -> int:
     if args.route_variants:
         emit({"phase": "route_variants", **route_variants(T, mk, build, 10, smi)})
         return 0
+    if args.sphere_stage:
+        row = sphere_stage_check(mk, build, args.sphere_stage, smi)
+        emit({"phase": "sphere_stage", **row})
+        gate("sphere_stage", not row["sass_parent_missing"],
+             f"the parent's SASS that no instance has: {row['sass_parent_missing']}")
+        gate("sphere_stage", all("render_kernel" in k and "ELi1EEEv" in k
+                                 for k in row["sass_new"]),
+             f"instances other than the sphere stage's that differ: {row['sass_new']}")
+        gate("sphere_stage", all(b["spheres"] >= b["parent_global"]
+                                 for b in row["blocks_per_sm"].values()),
+             f"fewer blocks an SM than the parent's: {row['blocks_per_sm']}")
+        for f in failures:
+            print(f"chip_smoke: FAILED {f}", file=sys.stderr)
+        return 1 if failures else 0
     if args.config4_render:
         emit({"phase": "config4_render", "repo": REPO, **time_config4_render(T, mk, 50),
               "repeats": 50, "card": smi})
@@ -3164,8 +3272,8 @@ def main() -> int:
           "card": smi})
     gate("main_path", shape_ok and finite and 0.0 < mean < 1.0,
          f"shape {tuple(img.shape)}, finite {finite}, mean {mean}")
-    gate("main_path", launches == {"megakernel:brute": 7},
-         f"expected 7 brute-scan megakernel launches, counted {launches}")
+    gate("main_path", launches == {"megakernel:brute+staged": 7},
+         f"expected 7 staged brute-scan megakernel launches, counted {launches}")
     gate("main_path", m6.ok, f"vs plain: {m6}")
 
     # 7. the sphere BVH against the plain scan of the same spheres
@@ -3181,7 +3289,18 @@ def main() -> int:
     brute = against_plain(T, mk, lambda: mk.render_cuda(brute_dev, cam7, **kw7),
                           final_dev, cam7, kw7, 0.01, 2e-4,
                           plain=(walk["plain_img"], walk["plain_ms"], walk["root_share"]))
-    m7, m7b = walk["match"], brute["match"]
+    # Above the stage's STAGE_SPHERES the brute route scans the spheres from
+    # device memory (render_kernel's global scan): 1,025 diffuse spheres of
+    # distinct albedos, held to their own plain version at the brute arm's
+    # contract.  (sphere_cloud's random metal and glass make 50 bounces
+    # chaotic: 1.9-4.2% of pixels flip against the plain version, on the
+    # sphere stage of 1,024 of them alike.)
+    cloud = sphere_cloud(T, mk.STAGE_SPHERES + 1, "cpu", seed=7)
+    cloud = dataclasses.replace(cloud, mat_kind=torch.full_like(cloud.mat_kind, T.LAMBERTIAN))
+    cloud = T.make_scene(cloud, sphere_bvh=False).to(dev)
+    wide = against_plain(T, mk, lambda: mk.render_cuda(cloud, cam7, **kw7), cloud, cam7, kw7,
+                         0.01, 2e-4)
+    m7, m7b, m7g = walk["match"], brute["match"], wide["match"]
     # The walk adds no flips over the scan: held to the brute kernel on the
     # same spheres at the standard contract.
     m7w = T.images_match(walk["img"], brute["img"], 0.01, 2e-4)
@@ -3192,14 +3311,21 @@ def main() -> int:
           "plain_ms": walk["plain_ms"], "brute_vs_plain_flip_frac": m7b.flip_frac,
           "brute_vs_plain_mean_abs": m7b.mean_abs, "walk_vs_brute_flip_frac": m7w.flip_frac,
           "walk_vs_brute_mean_abs": m7w.mean_abs, "walk_vs_brute_max_abs": m7w.max_abs,
-          "launches": {"walk": walk["launches"], "brute": brute["launches"]},
-          "card": smi, "ok": m7.ok and m7w.ok})
+          "global_scan_spheres": cloud.spheres.count, "global_scan_kernel_ms": wide["ms"],
+          "global_scan_plain_ms": wide["plain_ms"], "global_scan_vs_plain_flip_frac":
+          m7g.flip_frac, "global_scan_vs_plain_mean_abs": m7g.mean_abs,
+          "launches": {"walk": walk["launches"], "brute": brute["launches"],
+                       "global_scan": wide["launches"]},
+          "card": smi, "ok": m7.ok and m7w.ok and m7g.ok})
     gate("sphere_bvh", m7.ok, f"walk vs plain: {m7}")
     gate("sphere_bvh", m7w.ok, f"walk vs brute kernel: {m7w}")
     gate("sphere_bvh", walk["launches"] == {"megakernel:sphere_bvh+staged": 6},
          f"expected 6 staged sphere-BVH launches, counted {walk['launches']}")
-    gate("sphere_bvh", brute["launches"] == {"megakernel:brute": 6},
-         f"expected 6 brute-scan launches, counted {brute['launches']}")
+    gate("sphere_bvh", brute["launches"] == {"megakernel:brute+staged": 6},
+         f"expected 6 staged brute-scan launches, counted {brute['launches']}")
+    gate("sphere_bvh", m7g.ok, f"global scan of {cloud.spheres.count} spheres vs plain: {m7g}")
+    gate("sphere_bvh", wide["launches"] == {"megakernel:brute": 6},
+         f"expected 6 global brute-scan launches, counted {wide['launches']}")
 
     # 8. the mesh kernel against the plain version
     ico4 = mesh_scene(T, 4).to(dev)
@@ -3264,13 +3390,13 @@ def main() -> int:
     # 11. the NEE kernel against its plain version, each case on its own key
     nee_runs = {}
     for case, route, scene, cam_kw, cfg in (
-        ("nee", "brute+nee", lit["nee"], BASE_CAMERA,
+        ("nee", "brute+nee+staged", lit["nee"], BASE_CAMERA,
          T.RenderConfig(width=320, height=240, spp=4, max_depth=8, sky_intensity=0.0,
                         nee=True, mis=True, russian_roulette_depth=3)),
         ("many_lights", "mesh_bvh+nee+staged", lit["many_lights"], BASE_CAMERA,
          T.RenderConfig(width=320, height=240, spp=4, max_depth=4, sky_intensity=0.0,
                         nee=True, mis=True)),
-        ("night", "brute+nee", lit["night"], NIGHT_CAMERA,
+        ("night", "brute+nee+staged", lit["night"], NIGHT_CAMERA,
          T.RenderConfig(width=320, height=180, spp=4, max_depth=30, nee=True, mis=True)),
     ):
         sc = scene.to(dev)
@@ -3299,10 +3425,11 @@ def main() -> int:
         ("lit_path", "mesh_bvh+nee+staged", T.cornell_box_scene(), T.cornell_camera(),
          T.RenderConfig(width=1280, height=720, spp=16, max_depth=30, sky_intensity=0.0,
                         nee=True, mis=True, backend="cuda"), 0, 0.015, 1e-3),
-        ("sampler_path", "brute+sobol", T.one_weekend_scene(0), T.CameraSettings.default(),
+        ("sampler_path", "brute+sobol+staged", T.one_weekend_scene(0),
+         T.CameraSettings.default(),
          T.RenderConfig(width=1280, height=720, spp=16, max_depth=30, sampler="sobol",
                         backend="cuda"), 7, 0.01, 2e-4),
-        ("sampler_path", "brute+stratified", T.one_weekend_scene(0),
+        ("sampler_path", "brute+stratified+staged", T.one_weekend_scene(0),
          T.CameraSettings.default(),
          T.RenderConfig(width=320, height=180, spp=16, max_depth=30, sampler="stratified",
                         backend="cuda"), 7, 0.01, 2e-4),
@@ -3501,8 +3628,8 @@ def main() -> int:
           "max_abs_vs_render_spp16": prog_err, "reset_count": int(reset.count),
           "two_steps_of_8_max_abs": two_err, "launches": prog_launches, "card": smi})
     gate("progressive_path", prog_err <= 1e-5, f"16 steps vs render(spp=16): {prog_err}")
-    gate("progressive_path", prog_launches == {"megakernel:brute": 16},
-         f"expected 16 brute launches, counted {prog_launches}")
+    gate("progressive_path", prog_launches == {"megakernel:brute+staged": 16},
+         f"expected 16 staged brute launches, counted {prog_launches}")
     gate("progressive_path", int(state.count) == 16 and int(reset.count) == 1,
          f"count {int(state.count)}, after reset {int(reset.count)}")
     gate("progressive_path", two_err <= 2e-5, f"2 steps of 8 vs 16 of 1: {two_err}")
@@ -3938,13 +4065,13 @@ def main() -> int:
     kernel = dict(route="cuda", source=KERNEL_SOURCE, replaces=REPLACES)
     main_bound = bound(T, mk, main_dev, main_rays, 3 * 4 * 1280 * 720, main_share)
     rows = [
-        dict(kernel, name="megakernel:brute", path="brute",
-             launches=launches.get("megakernel:brute", 0),
+        dict(kernel, name="megakernel:brute+staged", path="brute+staged",
+             launches=launches.get("megakernel:brute+staged", 0),
              max_abs_err=m6.max_abs, ms=frame_ms, plain_ms=plain_ms, **main_bound,
              kernel_ms=main_kernel["kernel_ms"]),
     ]
     for p in (paths["config3"], paths["config4"], paths["mesh_bvh+nee+staged"],
-              nee_runs["night"], paths["brute+sobol"]):
+              nee_runs["night"], paths["brute+sobol+staged"]):
         sc, cam, kw = p["inputs"]
         b = bound(T, mk, sc, rays_of(sc, cam, kw), 3 * 4 * kw["width"] * kw["height"],
                   p["root_share"], p.get("walks"))
@@ -3958,7 +4085,7 @@ def main() -> int:
             stage = mk.stage_bytes_of(T.as_scene(sc))
             row.update(walk="staged" if stage else "global", stage_bytes=stage,
                        blocks_per_sm=mk.render_occupancy(kw.get("nee", False), False,
-                                                         bool(stage), stage),
+                                                         "bvh" if stage else "global", stage),
                        bvh_stage_cases=bvh_stage_row)
         rows.append(row)
     # render_aov_kernel: BASELINE config 1, one primary ray a pixel.
@@ -4086,7 +4213,8 @@ def main() -> int:
     # The main path's bound at the FP32 rate K3 measured on the traversal
     # mix, beside the nominal one (the nominal stays `bound_ms`).
     for row in rows:
-        if row["name"] in ("megakernel:brute", "wavefront:brute", "wavefront:brute+regen"):
+        if row["name"] in ("megakernel:brute+staged", "wavefront:brute",
+                           "wavefront:brute+regen"):
             row["bound_ms_at_measured_slab_rate"] = (
                 main_rays * ray_flops(T.as_scene(main_dev), main_share)
                 / (best["slab"]["tflops"] * 1e12) * 1e3)

@@ -61,9 +61,9 @@ _MEGAKERNEL_SIGNATURES = {
          _c_float, _c_int,  # ... clamp, spp
          _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # out, rays, walks, adaptive state
          _c_int, _c_int, _c_int, _c_float,  # tile rows, min spp, chunk, tol
-         _c_ptr, _c_int, _c_ptr],  # pixel-group cursor, BVH stage bytes, stream
+         _c_ptr, _c_int, _c_ptr],  # pixel-group cursor, stage bytes, stream
     ),
-    # nee, count, staged, stage bytes, blocks an SM (out)
+    # nee, count, stage (0 global, 1 spheres, 2 BVH), stage bytes, blocks an SM (out)
     "grt_render_occupancy": (_c_int, [_c_int, _c_int, _c_int, _c_int, _c_ptr]),
     "grt_wavefront_bounce": (
         _c_int,

@@ -21,9 +21,10 @@
 // run of samples (render_adaptive_kernel below).
 //
 // What bounds it on this card: arithmetic on small scenes, scattered loads
-// on large ones.  The brute scan tests every sphere (~25 flops each, N = 197
-// for the One-Weekend scene); the scene is a few KB that every thread of a
-// warp reads at the same address, so loads are broadcasts out of L1.  A BVH
+// on large ones.  The brute scan tests every sphere (17 flops each, and 6
+// more for the roots where the ray may hit it; N = 197 for the One-Weekend
+// scene); the scene is a few KB that every thread of a warp reads at the
+// same address, so loads are broadcasts out of shared memory or L1.  A BVH
 // walk is one cursor per thread (the TPU walked one per tile and descended
 // when any lane overlapped): threads of a warp visit different nodes, so
 // node and triangle loads scatter through L1/L2 (a 81,920-face mesh table
@@ -33,16 +34,16 @@
 // loop of one thread per pixel a thread whose path ended idles until its
 // warp's deepest path ends, which render_kernel avoids by regenerating
 // paths per warp.  It stages its finished samples in shared memory and,
-// on a small BVH scene, the scene itself (the staged route: nodes, faces
-// and spheres copied once a launch, the roots of missed spheres skipped;
-// the global walk otherwise).  It is built with -fmad=false and without fast
-// math, so the compiler contracts nothing on its own.  Fused multiply-adds
-// appear only where written (fmaf), where the
-// reference's own rounding (XLA:CPU contracts a*b+c, and the goldens carry
-// that) decides grazing hits, self-intersections and shadow rays: the ray
-// generation, the sphere quadratic, Moller-Trumbore, hit points and the
-// NEE sample directions, as the plain version (ops/integrators.py) writes
-// them.
+// on a brute-scan scene of at most 1,024 spheres or a small BVH scene, the
+// scene itself (the staged routes: spheres, nodes and faces copied once a
+// launch, the roots of missed spheres skipped; the global walk otherwise).
+// It is built with -fmad=false and without fast math, so the compiler
+// contracts nothing on its own.  Fused multiply-adds appear only where
+// written (fmaf), where the reference's own rounding (XLA:CPU contracts
+// a*b+c, and the goldens carry that) decides grazing hits,
+// self-intersections and shadow rays: the ray generation, the sphere
+// quadratic, Moller-Trumbore, hit points and the NEE sample directions, as
+// the plain version (ops/integrators.py) writes them.
 //
 // Counter-based RNG: every draw is a pure function of (global pixel id,
 // sample index, frame seed, salt), bit-exact with ops/rng.py.
@@ -340,9 +341,10 @@ __device__ __forceinline__ void sphere_scan(const float* __restrict__ sc, int n,
 // sphere_root returns false, and the lanes that take it run sphere_root's
 // operations in its order.  So the staged scans find sphere_scan's and
 // sphere_root's hits, windows and winners bit for bit.
-// A block is kStageThreads threads in full 32-lane warps (grt_render
-// launches (32, kStageThreads / 32), grt_wavefront_bounce kStageThreads):
-// the staging's ballots and prefix sums count on it.
+// A block is kThreads threads in full 32-lane warps (grt_render launches
+// render_aov_kernel as (32, kStageThreads / 32), grt_wavefront_bounce
+// kStageThreads, render_kernel kRegenWarps * 32): the staging's ballots and
+// prefix sums count on it.
 constexpr int kStageThreads = 256;
 constexpr int kStageWarps = kStageThreads / 32;
 static_assert(kStageThreads % 32 == 0 && kStageThreads <= 1024, "whole warps, one block");
@@ -351,14 +353,18 @@ constexpr int kStageSpheres = 1024;  // 16 KB of spheres and 4 KB of indices a b
 // Stage the active spheres of [j0, j1) in scene order: s_sph[k] = (cx,
 // cy, cz, |c|^2 - r^2) and s_idx[k] = the scene index.  Returns the count.
 // Every thread of the block calls it (it meets __syncthreads), and the
-// staged table is visible to all when it returns.
+// staged table is visible to all when it returns.  s_warp holds a count
+// for each of the block's kThreads / 32 warps.
+template <int kThreads = kStageThreads>
 __device__ __forceinline__ int stage_spheres(const float* __restrict__ sc, int n, int j0,
                                              int j1, float4* s_sph, int* s_idx,
                                              int* s_warp) {
+  static_assert(kThreads % 32 == 0 && kThreads <= 1024, "whole warps, one block");
+  constexpr int kWarps = kThreads / 32;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   int count = 0;
-  for (int base = j0; base < j1; base += kStageThreads) {
+  for (int base = j0; base < j1; base += kThreads) {
     const int j = base + tid;
     const bool act = j < j1 && __ldg(sc + ACTIVE * n + j) > 0.0f;
     const unsigned int vote = __ballot_sync(0xffffffffu, act);
@@ -366,7 +372,7 @@ __device__ __forceinline__ int stage_spheres(const float* __restrict__ sc, int n
     __syncthreads();
     int below = 0, total = 0;
 #pragma unroll
-    for (int w = 0; w < kStageWarps; ++w) {
+    for (int w = 0; w < kWarps; ++w) {
       const int c = s_warp[w];
       below += w < warp ? c : 0;
       total += c;
@@ -436,9 +442,10 @@ __device__ __forceinline__ bool staged_any_hit(const float4* s_sph, int count, f
   return false;
 }
 
-// wavefront_bounce_kernel's stage, in the block's dynamic shared memory
-// (wf_stage_bytes(n) of it for a scene of n spheres): the staged count in
-// the first 16 bytes, then up to n float4 spheres and n scene indices.
+// The sphere stage of wavefront_bounce_kernel and of render_kernel's brute
+// route, in the block's dynamic shared memory (wf_stage_bytes(n) of it for
+// a scene of n spheres): the staged count in the first 16 bytes, then up to
+// n float4 spheres and n scene indices.
 constexpr size_t wf_stage_bytes(int n) { return 16 + 20 * (size_t)n; }
 
 __device__ __forceinline__ float4* wf_stage() {
@@ -536,9 +543,9 @@ struct Geometry {
   Bvh mesh_bvh;
 };
 
-// Where closest_hit and occluded read the geometry: the global arrays,
-// wavefront_bounce_kernel's sphere stage (wf_stage, the brute route), or
-// render_kernel's BVH stage (bvh_stage below).
+// Where closest_hit and occluded read the geometry: the global arrays, the
+// sphere stage of the brute route (wf_stage: wavefront_bounce_kernel's and
+// render_kernel's), or render_kernel's BVH stage (bvh_stage below).
 enum Stage { kGlobal = 0, kSphereStage = 1, kBvhStage = 2 };
 
 // render_kernel's BVH stage: a block copies a small BVH scene (its spheres,
@@ -685,9 +692,9 @@ __device__ __forceinline__ SphereRay sphere_ray(Vec3 o, Vec3 d) {
   return sr;
 }
 
-// kStage: kSphereStage scans wavefront_bounce_kernel's stage (wf_stage),
-// kBvhStage walks render_kernel's (bvh_stage), not the scene planes and
-// mesh table; the winner's material is still read from those.  `tally`
+// kStage: kSphereStage scans the block's sphere stage (wf_stage),
+// kBvhStage walks render_kernel's BVH stage (bvh_stage), not the scene
+// planes and mesh table; the winner's material is still read from those.  `tally`
 // counts the walks' nodes and the faces of every leaf entered.
 template <int kStage = kGlobal, class W>
 __device__ Hit closest_hit(const Geometry& g, float t_min, float t_max, Vec3 o, Vec3 d,
@@ -1508,37 +1515,69 @@ __global__ void __launch_bounds__(kStageThreads) render_aov_kernel(const Params 
 // the frame is the same bit for bit whichever warp drew which group.
 //
 // What bounds it on this card: the closest-hit arithmetic of every traced
-// ray (23 flops a sphere test; the main path's 39.5 M rays over 197
-// spheres are 2.67 ms at the nominal 67 TFLOP/s and 6.5 ms at the 27.5
-// TFLOP/s the slab-mix probe measures).  Divergence between lanes that
+// ray, 17 flops a sphere test and 6 more for the roots where the
+// discriminant is not negative (0.634% of the main path's tests): its
+// 39.5 M rays over 197 spheres are 1.98 ms at the nominal 67 TFLOP/s.
+// What a test issues is the cost above that: from device memory, five
+// scalar loads, |c|^2 - r^2 and both roots for every (ray, sphere); from
+// the sphere stage, one broadcast LDS.128 and the quadratic, the roots only
+// where the discriminant is not negative.  Divergence between lanes that
 // start a path and lanes deep in one is the remaining loss.
 //
-// kStaged, the staged BVH route (render_kernel's K1b and K1c): a scene
-// with a sphere BVH or a mesh whose stage (bvh_stage_bytes) is at most
-// kBvhStageBytes is copied by every block into its dynamic shared memory
-// once, before the regeneration loop (no barrier inside it: a warp's
-// lanes leave the loop at their own time), and every closest hit and
-// shadow query walks the stage (walk_nodes<true>, staged_range, staged_tri):
-// the same tree, visiting order, windows, strict `<` and arithmetic as the
-// global walk, so the same winners, ties included, bit for bit, with the
-// roots of missed spheres skipped (staged_range).  Its ring is half the
-// global route's, so that ring and stage together take no more shared
-// memory than the global ring alone: the blocks an SM are not fewer
-// (launch_render).  ops/cuda/megakernel.py::pack_scene decides the route
-// from the scene.
+// kStage names where every closest hit and shadow query of the loop reads
+// the scene (path_bounce<..., kStage>).  ops/cuda/megakernel.py::pack_scene
+// decides it from the scene, and grt_render refuses a stage that does not
+// match the scene.  Every thread of a block stages the scene into its
+// dynamic shared memory once, before the regeneration loop, and meets one
+// barrier there; there is none inside the loop, since a warp's lanes leave
+// it at their own time.
+//   kGlobal: the scene planes, mesh table and BVH records in device
+//     memory (sphere_scan; the global walk, K1d).
+//   kSphereStage, the brute route (no sphere BVH, no mesh) of at most
+//     kStageSpheres spheres (K1a): the active spheres in scene order
+//     (stage_spheres, wf_stage_bytes(n) bytes), scanned with the roots of
+//     missed spheres skipped (staged_scan, staged_any_hit, as
+//     wavefront_bounce_kernel scans them): sphere_scan's windows, winners
+//     and ties bit for bit.
+//   kBvhStage, the staged BVH route (K1b and K1c): a scene with a sphere
+//     BVH or a mesh whose stage (bvh_stage_bytes) is at most
+//     kBvhStageBytes (stage_bvh), walked with walk_nodes<true>,
+//     staged_range and staged_tri: the same tree, visiting order, windows,
+//     strict `<` and arithmetic as the global walk, so the same winners,
+//     ties included, bit for bit, with the roots of missed spheres skipped
+//     (staged_range).  Its ring is half the global route's, so that ring
+//     and stage together take no more shared memory than the global ring
+//     alone: the blocks an SM are not fewer (launch_render).
+// The sphere stage keeps the global route's ring: registers, not shared
+// memory, bound its blocks an SM.  Its plain instance (no NEE, no counters)
+// asks ptxas for the global instance's 6 blocks an SM, which caps it at 80
+// registers and spills 4 bytes; without the floor it took 86 registers and
+// held 5 blocks, and the One-Weekend frame's kernel ran 9.0 ms against 8.7
+// (PERF.md, K1a).  Every other instance asks for none (0), which leaves
+// its code as it was.
 constexpr int kRegenWarps = 4;   // warps a block
 constexpr int kRingRows = 16;    // rows of 32 items a warp holds (a power of 2)
-constexpr int kStagedRingRows = 8;  // ... on the staged route
+constexpr int kStagedRingRows = 8;  // ... on the staged BVH route
 static_assert(kRegenWarps * (kRingRows - kStagedRingRows) * 32 * 16 >= kBvhStageBytes,
               "the staged route's ring and stage fit the global ring's shared memory");
 
-template <bool kNee, bool kCount, bool kStaged>
-__global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(const Params p) {
-  constexpr int kRows = kStaged ? kStagedRingRows : kRingRows;
+template <bool kNee, bool kCount, int kStage>
+__global__ void __launch_bounds__(kRegenWarps * 32,
+                                  kStage == kSphereStage && !kNee && !kCount ? 6 : 0)
+    render_kernel(const Params p) {
+  constexpr int kRows = kStage == kBvhStage ? kStagedRingRows : kRingRows;
   constexpr int kRingSlots = kRows * 32;
   // Slot of an item: r, g, b as bits, then the rays it traced + 1 (0: open).
   __shared__ uint4 ring_all[kRegenWarps][kRingSlots];
-  if (kStaged) stage_bvh(p.geo);
+  if (kStage == kBvhStage) stage_bvh(p.geo);
+  if constexpr (kStage == kSphereStage) {
+    __shared__ int s_warp[kRegenWarps];
+    const int staged = stage_spheres<kRegenWarps * 32>(p.geo.scene, p.geo.n, 0, p.geo.n,
+                                                       wf_stage() + 1, wf_stage_index(p.geo.n),
+                                                       s_warp);
+    if (threadIdx.x == 0) wf_stage_count() = staged;
+    __syncthreads();
+  }
   constexpr unsigned int kFull = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   uint4* const ring = ring_all[threadIdx.x >> 5];
@@ -1618,8 +1657,8 @@ __global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(const Params p
     next = limit;
     // One bounce of every path; a path that ends hands its sample to its slot.
     if (active) {
-      const bool live = path_bounce<kNee, kCount, kStaged ? kBvhStage : kGlobal>(
-          p, st, seed, base0, s_abs, s_abs ^ frame_hash, i, rays, walk);
+      const bool live = path_bounce<kNee, kCount, kStage>(p, st, seed, base0, s_abs,
+                                                          s_abs ^ frame_hash, i, rays, walk);
       if (!live || ++i >= p.max_depth) {
         clamp_sample(p, st.r, st.g, st.b);
         add_walks(p, item_pix, walk);
@@ -1671,14 +1710,17 @@ __global__ void __launch_bounds__(kRegenWarps * 32) render_kernel(const Params p
   }
 }
 
-// The blocks of render_kernel<kNee, kCount, kStaged> an SM holds at once
+// The blocks of render_kernel<kNee, kCount, kStage> an SM holds at once
 // with `smem` bytes of dynamic shared memory, the ring in the largest
-// shared memory carve-out.
-template <bool kNee, bool kCount, bool kStaged>
+// shared memory carve-out.  A sphere stage of many spheres takes the
+// block's shared memory above the default 48 KB, which the launch asks for.
+template <bool kNee, bool kCount, int kStage>
 cudaError_t render_occupancy(size_t smem, int* per_sm) {
-  const auto kernel = render_kernel<kNee, kCount, kStaged>;
+  const auto kernel = render_kernel<kNee, kCount, kStage>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                        cudaSharedmemCarveoutMaxShared);
+  if (kStage == kSphereStage && e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kRegenWarps * 32, smem);
   return e;
@@ -1686,12 +1728,12 @@ cudaError_t render_occupancy(size_t smem, int* per_sm) {
 
 // Launch render_kernel on a persistent grid: as many blocks as fit on the
 // card at once (fewer for a small frame), with `smem` bytes of stage.
-template <bool kNee, bool kCount, bool kStaged>
+template <bool kNee, bool kCount, int kStage>
 cudaError_t launch_render(const Params& p, size_t smem, cudaStream_t s) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = render_occupancy<kNee, kCount, kStaged>(smem, &per_sm);
+  if (e == cudaSuccess) e = render_occupancy<kNee, kCount, kStage>(smem, &per_sm);
   if (e != cudaSuccess) return e;
   const long long n_pix = (long long)p.width * p.height;
   // A path takes at least one bounce, and a warp's item indices (less than
@@ -1701,8 +1743,26 @@ cudaError_t launch_render(const Params& p, size_t smem, cudaStream_t s) {
     return cudaErrorInvalidValue;
   const long long wanted = ((n_pix + 31) / 32 + kRegenWarps - 1) / kRegenWarps;
   const int grid = (int)std::max(1LL, std::min(wanted, (long long)std::max(per_sm, 1) * sms));
-  render_kernel<kNee, kCount, kStaged><<<grid, kRegenWarps * 32, smem, s>>>(p);
+  render_kernel<kNee, kCount, kStage><<<grid, kRegenWarps * 32, smem, s>>>(p);
   return cudaGetLastError();
+}
+
+// launch_render and render_occupancy with the instance's (nee, count) taken
+// at run time.
+template <int kStage>
+cudaError_t launch_stage(const Params& p, bool nee, bool count, size_t smem, cudaStream_t s) {
+  if (nee) return count ? launch_render<true, true, kStage>(p, smem, s)
+                        : launch_render<true, false, kStage>(p, smem, s);
+  return count ? launch_render<false, true, kStage>(p, smem, s)
+               : launch_render<false, false, kStage>(p, smem, s);
+}
+
+template <int kStage>
+cudaError_t stage_occupancy(bool nee, bool count, size_t smem, int* per_sm) {
+  if (nee) return count ? render_occupancy<true, true, kStage>(smem, per_sm)
+                        : render_occupancy<true, false, kStage>(smem, per_sm);
+  return count ? render_occupancy<false, true, kStage>(smem, per_sm)
+               : render_occupancy<false, false, kStage>(smem, per_sm);
 }
 
 // The adaptive spp loop (K1f): `_adaptive_tools` and its two loops,
@@ -2342,10 +2402,12 @@ Params scene_params(const float* cam, const float* scene, int n, const float* sb
 // visited and faces tested (zero them first).  With `state` (6, height,
 // width) the adaptive loop runs (spp is its budget) and updates the state;
 // `out` is then optional (the one-shot mean).  The path integrator's fixed
-// loop needs `cursor`, one int in device memory set to 0, and walks a BVH
-// scene from its shared-memory stage when `bvh_stage` is the stage's bytes
-// (bvh_stage_bytes of the scene's counts, at most kBvhStageBytes; 0: the
-// global walk); any other stage is refused.
+// loop needs `cursor`, one int in device memory set to 0, and reads the
+// scene from a shared-memory stage when `stage` is the stage's bytes (0:
+// the global arrays): on the brute route (no sphere BVH, no mesh) of at
+// most kStageSpheres spheres the sphere stage, wf_stage_bytes(n); on a
+// scene with a sphere BVH or a mesh the BVH stage, bvh_stage_bytes of the
+// scene's counts, at most kBvhStageBytes.  Any other stage is refused.
 extern "C" int grt_render(const float* cam, const float* scene, int n,
                           const float* sbvh, int sbvh_m, const float* mesh,
                           const float* faces, int n_tris, int smooth,
@@ -2358,7 +2420,7 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
                           float clamp, int spp, float* out, float* rays,
                           unsigned int* walks, float* state,
                           int tile_rows, int min_spp, int chunk, float tol, int* cursor,
-                          int bvh_stage, void* stream) {
+                          int stage, void* stream) {
   Params p = scene_params(cam, scene, n, sbvh, sbvh_m, mesh, faces, n_tris, smooth,
                           mbvh, mbvh_m, lights, n_lights, tri_lights,
                           n_tri_lights, nee, mis, sampler, kx, ky, nbits);
@@ -2384,11 +2446,13 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
   const bool count = rays != nullptr;
   if (walks != nullptr && !count)
     return static_cast<int>(cudaErrorInvalidValue);  // only the counting instances add walks
-  if (bvh_stage != 0 &&
-      (state != nullptr || mode != PATH || (sbvh_m == 0 && n_tris == 0) ||
-       bvh_stage > kBvhStageBytes ||
-       (size_t)bvh_stage != bvh_stage_bytes(n, sbvh_m, n_tris, mbvh_m)))
-    return static_cast<int>(cudaErrorInvalidValue);  // the path loop on a small BVH scene only
+  const bool brute = sbvh_m == 0 && n_tris == 0;
+  if (stage != 0 &&
+      (state != nullptr || mode != PATH ||
+       (brute ? n > kStageSpheres || (size_t)stage != wf_stage_bytes(n)
+              : stage > kBvhStageBytes ||
+                    (size_t)stage != bvh_stage_bytes(n, sbvh_m, n_tris, mbvh_m))))
+    return static_cast<int>(cudaErrorInvalidValue);  // the path loop on a small scene only
   if (state != nullptr) {
     if (mode == GUIDES) return static_cast<int>(cudaErrorInvalidValue);  // one plane a loop
     const Adaptive a = {state, tile_rows, min_spp, chunk, tol};
@@ -2400,7 +2464,7 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
   if (mode != PATH) {
     const dim3 block(32, kStageThreads / 32);
     const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-    if (p.geo.sphere_bvh.m == 0 && p.geo.n_tris == 0) {
+    if (brute) {
       if (count) render_aov_kernel<true, true><<<grid, block, 0, s>>>(p);
       else render_aov_kernel<false, true><<<grid, block, 0, s>>>(p);
     } else {
@@ -2409,33 +2473,22 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
     }
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t smem = (size_t)bvh_stage;
-  if (bvh_stage != 0) {
-    if (nee) return static_cast<int>(count ? launch_render<true, true, true>(p, smem, s)
-                                           : launch_render<true, false, true>(p, smem, s));
-    return static_cast<int>(count ? launch_render<false, true, true>(p, smem, s)
-                                  : launch_render<false, false, true>(p, smem, s));
-  }
-  if (nee) return static_cast<int>(count ? launch_render<true, true, false>(p, 0, s)
-                                         : launch_render<true, false, false>(p, 0, s));
-  return static_cast<int>(count ? launch_render<false, true, false>(p, 0, s)
-                                : launch_render<false, false, false>(p, 0, s));
+  const size_t smem = (size_t)stage;
+  if (stage == 0) return static_cast<int>(launch_stage<kGlobal>(p, nee, count, 0, s));
+  if (brute) return static_cast<int>(launch_stage<kSphereStage>(p, nee, count, smem, s));
+  return static_cast<int>(launch_stage<kBvhStage>(p, nee, count, smem, s));
 }
 
-// The blocks an SM of render_kernel<nee, count, staged> holds with `smem`
-// bytes of stage, into *per_sm (for measurement); returns the CUDA error.
-extern "C" int grt_render_occupancy(int nee, int count, int staged, int smem, int* per_sm) {
+// The blocks an SM of render_kernel<nee, count, stage> holds with `smem`
+// bytes of stage, into *per_sm (for measurement); `stage` is 0 (kGlobal),
+// 1 (kSphereStage) or 2 (kBvhStage).  Returns the CUDA error.
+extern "C" int grt_render_occupancy(int nee, int count, int stage, int smem, int* per_sm) {
   const size_t b = (size_t)smem;
-  if (staged) {
-    if (nee) return static_cast<int>(count ? render_occupancy<true, true, true>(b, per_sm)
-                                           : render_occupancy<true, false, true>(b, per_sm));
-    return static_cast<int>(count ? render_occupancy<false, true, true>(b, per_sm)
-                                  : render_occupancy<false, false, true>(b, per_sm));
-  }
-  if (nee) return static_cast<int>(count ? render_occupancy<true, true, false>(b, per_sm)
-                                         : render_occupancy<true, false, false>(b, per_sm));
-  return static_cast<int>(count ? render_occupancy<false, true, false>(b, per_sm)
-                                : render_occupancy<false, false, false>(b, per_sm));
+  cudaError_t e = cudaErrorInvalidValue;
+  if (stage == kGlobal) e = stage_occupancy<kGlobal>(nee, count, b, per_sm);
+  if (stage == kSphereStage) e = stage_occupancy<kSphereStage>(nee, count, b, per_sm);
+  if (stage == kBvhStage) e = stage_occupancy<kBvhStage>(nee, count, b, per_sm);
+  return static_cast<int>(e);
 }
 
 // One wavefront bounce over the ray array in (f0, i0) ((16, stride) f32 and

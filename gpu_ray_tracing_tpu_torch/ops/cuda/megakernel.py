@@ -68,10 +68,11 @@ from gpu_ray_tracing_tpu_torch.utils.profiling import span
 #: geometry the launch was given (a mesh, else a sphere BVH, else the brute
 #: scan), suffixed "+nee" when the launch ran next-event estimation,
 #: "+stratified" or "+sobol" when it ran that sampler, "+staged" when the
-#: path loop walked the scene from its shared-memory stage
-#: (PackedScene.stage_bytes), "+adaptive" when it ran the adaptive loop,
-#: "+guides" for render_guides' launch and "+rays" when it counted rays
-#: (e.g. "megakernel:mesh_bvh+nee+staged", "megakernel:brute+adaptive",
+#: path loop read the scene from a shared-memory stage (launch_route: the
+#: brute route's spheres, or a small BVH scene), "+adaptive" when it ran
+#: the adaptive loop, "+guides" for render_guides' launch and "+rays" when
+#: it counted rays (e.g. "megakernel:brute+staged",
+#: "megakernel:mesh_bvh+nee+staged", "megakernel:brute+adaptive",
 #: "megakernel:brute+guides"), so a run can show which paths it used.
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -181,6 +182,11 @@ def _cu_constant(name: str) -> int:
 # A leaf's count takes the low LEAF_COUNT_BITS of its node's last word, its
 # start the bits above: megakernel.cu's kLeafCountBits.
 LEAF_COUNT_BITS = _cu_constant("kLeafCountBits")
+
+# Spheres a block stages (megakernel.cu's kStageSpheres): render_kernel's
+# path loop and the wavefront bounce scan a brute-route scene of at most
+# this many spheres from shared memory, a larger one from device memory.
+STAGE_SPHERES = _cu_constant("kStageSpheres")
 
 
 def bvh_nodes(bvh: BVH, n_prims: int) -> torch.Tensor:
@@ -611,14 +617,41 @@ def bvh_stage_bytes(n_spheres: int, sphere_nodes: int, n_tris: int, mesh_nodes: 
 def stage_bytes_of(sc: Scene) -> int:
     """The BVH stage render_kernel walks for scene `sc`: its bytes when the
     scene has a sphere BVH or a mesh (behind its BVH) and they are at most
-    STAGE_BYTES, else 0 (the global walk; the brute route always takes
-    it).  Decided from the scene alone, before a launch."""
+    STAGE_BYTES, else 0 (the global walk; a brute-route scene takes the
+    sphere stage, sphere_stage_bytes_of).  Decided from the scene alone,
+    before a launch."""
     ms = sc.sphere_bvh.num_nodes if sc.sphere_bvh is not None else 0
     f, mm = (sc.mesh.num_triangles, sc.bvh.num_nodes) if sc.mesh is not None else (0, 0)
     if not ms and not f:
         return 0
     b = bvh_stage_bytes(sc.spheres.count, ms, f, mm)
     return b if b <= STAGE_BYTES else 0
+
+
+def sphere_stage_bytes(n_spheres: int) -> int:
+    """Bytes of the sphere stage for a scene of n spheres
+    (megakernel.cu::wf_stage_bytes): 16 for the staged count, then 16 a
+    sphere and 4 for its scene index."""
+    return 16 + 20 * n_spheres
+
+
+def sphere_stage_fits(sc: Scene) -> bool:
+    """Whether a brute scan of scene `sc`'s spheres (it has no sphere BVH)
+    reads them from a block's shared-memory stage: at most STAGE_SPHERES
+    spheres, inactive ones counted.  render_kernel's path loop
+    (sphere_stage_bytes_of) and the wavefront bounce (Engine.sphere_scan)
+    decide by it, from the scene alone."""
+    ms = sc.sphere_bvh.num_nodes if sc.sphere_bvh is not None else 0
+    return not ms and sc.spheres.count <= STAGE_SPHERES
+
+
+def sphere_stage_bytes_of(sc: Scene) -> int:
+    """The sphere stage render_kernel's path loop scans for scene `sc`: its
+    bytes on the brute route (no sphere BVH and no mesh) where the stage
+    fits (sphere_stage_fits), else 0.  Decided before a launch."""
+    if sc.mesh is not None or not sphere_stage_fits(sc):
+        return 0
+    return sphere_stage_bytes(sc.spheres.count)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -628,8 +661,9 @@ class PackedScene:
     (pointers into `tensors`, which this object keeps alive), `route`,
     the launch-count key of the geometry and options ("brute",
     "sphere_bvh" or "mesh_bvh", suffixed "+nee" and "+<sampler>"), and
-    `stage_bytes`, the BVH stage of render_kernel's path loop
-    (stage_bytes_of; 0: the global walk)."""
+    `stage_bytes`, the stage of render_kernel's path loop: the BVH stage
+    (stage_bytes_of) or the brute route's sphere stage
+    (sphere_stage_bytes_of); 0: the global arrays."""
 
     args: tuple
     tensors: tuple
@@ -668,7 +702,18 @@ def pack_scene(sc: Scene, nee: bool, mis: bool, sampler_spec: tuple | None) -> P
         route = "mesh_bvh" if n_tris else "sphere_bvh" if nodes(sbvh) else "brute"
         route += ("+nee" if nee else "") + ("" if kind == 0 else "+" + sampler_spec[0])
         return PackedScene(args, (planes, sbvh, table, faces, mbvh, lplanes, tplanes), route,
-                           stage_bytes_of(sc))
+                           stage_bytes_of(sc) or sphere_stage_bytes_of(sc))
+
+
+def launch_route(packed: PackedScene, mode: str, adaptive: bool, rays: bool) -> tuple[int, str]:
+    """What render_cuda launches for a packed scene: the stage it passes
+    (PackedScene.stage_bytes in the fixed path loop, else 0) and the
+    LAUNCHES key it records ("megakernel:" + route, "+staged" when the loop
+    reads a stage, "+adaptive", "+rays")."""
+    stage = packed.stage_bytes if mode == "path" and not adaptive else 0
+    key = ("megakernel:" + packed.route + ("+staged" if stage else "")
+           + ("+adaptive" if adaptive else "") + ("+rays" if rays else ""))
+    return stage, key
 
 
 def _require_cuda(*tensors: torch.Tensor) -> torch.device:
@@ -724,8 +769,10 @@ def render_cuda(
     and stream as render_reference (whose default light_pick='sample' is
     the kernel's > 4-light pick).  A scene with a sphere BVH walks it; a
     mesh must have its BVH (make_scene builds one).  The fixed path loop
-    walks a BVH scene of at most STAGE_BYTES of stage (stage_bytes_of) from
-    shared memory, with the same bits ("+staged" in LAUNCHES).
+    reads a brute-route scene of at most STAGE_SPHERES spheres
+    (sphere_stage_bytes_of) and a BVH scene of at most STAGE_BYTES of stage
+    (stage_bytes_of) from shared memory, with the same bits ("+staged" in
+    LAUNCHES).
 
     The options of render_pallas: `adaptive_tol > 0` makes spp a per-tile
     budget (the adaptive kernel, a cluster of blocks per tile); `return_spp_map` and
@@ -759,15 +806,13 @@ def render_cuda(
     # The path kernel's pixel-group cursor, zero at launch.
     path_loop = plan.state is None and mode == "path"
     cursor = torch.zeros(1, dtype=torch.int32, device=dev) if path_loop else None
-    stage = packed.stage_bytes if path_loop else 0
+    stage, key = launch_route(packed, mode, plan.state is not None, rays is not None)
     _launch(packed, camera, dev, MODES[mode], out, rays, plan, cursor, walks=walk_counts,
             width=width, height=height, sample_index=sample_index, frame_seed=frame_seed,
             y_offset=y_offset, row_stride=row_stride, max_depth=max_depth, t_min=t_min,
             t_max=t_max, russian_roulette_depth=russian_roulette_depth,
             sky_intensity=sky_intensity, clamp=clamp, spp=spp, stage=stage)
-    route = (packed.route + ("+staged" if stage else "")
-             + ("+adaptive" if plan.state is not None else ""))
-    LAUNCHES["megakernel:" + route + ("+rays" if rays is not None else "")] += 1
+    LAUNCHES[key] += 1
     return _outputs(out, plan, spp, return_spp_map, rays)
 
 
@@ -777,8 +822,9 @@ def _launch(packed: PackedScene, camera: Camera, dev: torch.device, mode: int, o
             frame_seed: int, y_offset: int, row_stride: int, max_depth: int, t_min: float,
             t_max: float, russian_roulette_depth: int, sky_intensity: float, clamp: float,
             spp: int, stage: int = 0) -> None:
-    """One grt_render launch on dev's current stream, walking a BVH stage
-    of `stage` bytes (0: none); raises if refused."""
+    """One grt_render launch on dev's current stream, reading the scene
+    from a stage of `stage` bytes (PackedScene.stage_bytes; 0: none);
+    raises if refused."""
     with span("launch"):
         lib = build.load()
         cam = camera_vector(camera).contiguous()
@@ -905,12 +951,16 @@ def adaptive_cluster(blocks: int | None = None) -> int:
     return build.load().grt_adaptive_cluster(-1 if blocks is None else int(blocks))
 
 
-def render_occupancy(nee: bool, count: bool, staged: bool, stage_bytes: int = 0) -> int:
-    """The blocks of render_kernel<nee, count, staged> one SM of the current
-    card holds at once with `stage_bytes` of BVH stage (the launcher's own
-    occupancy query; for measurement)."""
+#: render_kernel's stages (megakernel.cu's Stage), by name.
+STAGES = {"global": 0, "spheres": 1, "bvh": 2}
+
+
+def render_occupancy(nee: bool, count: bool, stage: str, stage_bytes: int = 0) -> int:
+    """The blocks of render_kernel<nee, count, STAGES[stage]> one SM of the
+    current card holds at once with `stage_bytes` of stage (the launcher's
+    own occupancy query; for measurement)."""
     per_sm = ctypes.c_int(0)
-    build.check(build.load().grt_render_occupancy(int(nee), int(count), int(staged),
+    build.check(build.load().grt_render_occupancy(int(nee), int(count), STAGES[stage],
                                                   int(stage_bytes), ctypes.byref(per_sm)),
                 "render_occupancy")
     return per_sm.value

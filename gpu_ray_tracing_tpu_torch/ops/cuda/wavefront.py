@@ -134,7 +134,7 @@ SORTS = ("octant", "octant-flat", "spatial", "live")
 #: Spheres the bounce kernel's block stages in shared memory
 #: (megakernel.cu::kStageSpheres): a brute-route scene of at most this many
 #: spheres is scanned from the stage, a larger one from device memory.
-STAGE_SPHERES = 1024
+STAGE_SPHERES = mk.STAGE_SPHERES
 # Slots of one tile of the partition (wavefront.cu::kTile).
 _TILE = 2048
 
@@ -285,7 +285,7 @@ class Engine:
         larger brute scan from device memory)."""
         if self.scene.sphere_bvh is not None:
             return "sphere_bvh"
-        return "staged" if self.scene.spheres.count <= STAGE_SPHERES else "global"
+        return "staged" if mk.sphere_stage_fits(self.scene) else "global"
 
 
 def new_state(n: int, regen: bool, device, *, per_ray_sample: bool = False

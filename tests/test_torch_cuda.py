@@ -14,14 +14,16 @@ whatever the launch covers.
 
 import dataclasses
 import os
+import re
 
 import numpy as np
 import pytest
 import torch
 
 import gpu_ray_tracing_tpu_torch as T
-from chip_smoke import active_only, sphere_cloud, stage_scenes, with_ties
+from chip_smoke import active_only, ptxas_instances, sphere_cloud, stage_scenes, with_ties
 from gpu_ray_tracing_tpu_torch.models import camera as camcore
+from gpu_ray_tracing_tpu_torch.ops.cuda import build
 from gpu_ray_tracing_tpu_torch.ops.cuda import megakernel as mk
 from test_torch_camera import SIZES, assert_cameras_equal, camera_poses
 
@@ -52,10 +54,10 @@ def _assert_match(a, b, flip_frac=0.01, mean_tol=2e-4):
 def test_render_cuda_matches_render_reference(dev):
     scene, cam = _one_weekend(dev, 160, 90)
     kw = dict(width=160, height=90, spp=2, max_depth=12, t_min=1e-3, frame_seed=3)
-    before = mk.LAUNCHES["megakernel:brute"]
+    before = mk.LAUNCHES["megakernel:brute+staged"]
     got = mk.render_cuda(scene, cam, **kw)
     torch.cuda.synchronize()
-    assert mk.LAUNCHES["megakernel:brute"] == before + 1
+    assert mk.LAUNCHES["megakernel:brute+staged"] == before + 1
     assert got.shape == (90, 160, 3) and bool(torch.isfinite(got).all())
     _assert_match(got, mk.render_reference(scene, cam, **kw))
 
@@ -201,13 +203,14 @@ def _many_lights_scene():
 
 
 @pytest.mark.parametrize("scene,route,mis", [
-    ("nee", "brute+nee", False), ("nee", "brute+nee", True),
+    ("nee", "brute+nee+staged", False), ("nee", "brute+nee+staged", True),
     ("many", "mesh_bvh+nee+staged", False), ("many", "mesh_bvh+nee+staged", True),
 ])
 def test_nee_kernel_matches_render_reference(dev, scene, route, mis):
     """The kernel's NEE against its plain version (light_pick='sample', the
     kernel's > 4-light pick) at the standard 1% / 2e-4, on its +nee key
-    (the 80-face mesh walked from the BVH stage)."""
+    (the spheres scanned from the sphere stage, the 80-face mesh walked
+    from the BVH stage)."""
     sc = (_nee_scene() if scene == "nee" else _many_lights_scene()).to(dev)
     cam = T.derive_camera(BASE_CAMERA, 96, 72).to(dev)
     kw = dict(width=96, height=72, spp=2, max_depth=6, t_min=1e-3, frame_seed=9,
@@ -329,7 +332,7 @@ def test_staged_route_is_refused_where_it_does_not_apply(dev):
         with pytest.raises(RuntimeError, match="failed to launch"):
             mk._launch(packed, cam, dev, 0, out, None, plan, cursor, stage=stage, **kw)
     brute = mk.pack_scene(T.as_scene(T.one_weekend_scene(0, device=dev)), False, False, None)
-    assert brute.stage_bytes == 0
+    assert brute.stage_bytes == mk.sphere_stage_bytes(197)
     with pytest.raises(RuntimeError, match="failed to launch"):
         mk._launch(brute, cam, dev, 0, out, None, plan, cursor, stage=16 * 197, **kw)
     mk._launch(packed, cam, dev, 0, out, None, plan, cursor, stage=packed.stage_bytes, **kw)
@@ -338,13 +341,44 @@ def test_staged_route_is_refused_where_it_does_not_apply(dev):
 
 
 def test_render_occupancy_keeps_the_blocks_an_sm(dev):
-    """The staged instances hold at least as many blocks an SM with a full
-    stage as the global ones without: the half ring makes room for it."""
+    """The staged BVH instances hold at least as many blocks an SM with a
+    full stage as the global ones without: the half ring makes room for
+    it.  So do the sphere-stage instances with One-Weekend's stage, and
+    with a full one of STAGE_SPHERES they still fit a block."""
+    ow = mk.sphere_stage_bytes(197)
     for nee in (False, True):
         for count in (False, True):
-            glob = mk.render_occupancy(nee, count, False, 0)
+            glob = mk.render_occupancy(nee, count, "global", 0)
             assert glob >= 1
-            assert mk.render_occupancy(nee, count, True, mk.STAGE_BYTES) >= glob
+            assert mk.render_occupancy(nee, count, "bvh", mk.STAGE_BYTES) >= glob
+            assert mk.render_occupancy(nee, count, "spheres", ow) >= glob
+            full = mk.sphere_stage_bytes(mk.STAGE_SPHERES)
+            assert mk.render_occupancy(nee, count, "spheres", full) >= 1
+
+
+# Spill bytes (stores, loads alike) of render_kernel<nee, count, kSphereStage>
+# as ptxas builds it for sm_90a: the plain instance spills 4 under its floor
+# of 6 blocks an SM (__launch_bounds__), the NEE + counters one 12, as its
+# global twin does; the others none.
+SPHERE_STAGE_SPILLS = {(0, 0): 4, (0, 1): 0, (1, 0): 0, (1, 1): 12}
+
+
+def test_sphere_stage_spills_no_more_than_it_does(dev, tmp_path):
+    """The compiler's report (-Xptxas -v, of a build made here: a library
+    built earlier has none) of the sphere-stage instances: each spills at
+    most SPHERE_STAGE_SPILLS bytes, so an edit to the path loop that grows
+    a spill under the plain instance's floor shows."""
+    source = build.TARGETS["megakernel"].source
+    _, report = build.compile_copy("megakernel", source, str(tmp_path / "megakernel.so"))
+    got = {}
+    for ln in ptxas_instances(report):
+        m = re.search(r"render_kernelILb([01])ELb([01])ELi1EEEv", ln)
+        if m:
+            got[int(m[1]), int(m[2])] = tuple(
+                int(re.search(rf"(\d+) bytes spill {kind}", ln)[1]) for kind in ("stores", "loads"))
+    assert sorted(got) == sorted(SPHERE_STAGE_SPILLS), got
+    for key, spill in got.items():
+        assert max(spill) <= SPHERE_STAGE_SPILLS[key], (key, spill)
 
 
 # --- progressive and adaptive rendering, ray counters (K1f) ------------------
@@ -535,7 +569,7 @@ def test_progressive_matches_one_shot(dev, w, h, spp, depth, seed):
     st = T.init_accum(cfg.height, cfg.width)
     for _ in range(spp):
         st = T.progressive_step(st, scene, cam, cfg, frame_seed=seed)
-    assert dict(mk.LAUNCHES) == {"megakernel:brute": spp} and int(st.count) == spp
+    assert dict(mk.LAUNCHES) == {"megakernel:brute+staged": spp} and int(st.count) == spp
     assert st.rgb.device.type == "cuda" and st.count.device.type == "cpu"
     torch.testing.assert_close(st.rgb, T.render(scene, cam, cfg, frame_seed=seed),
                                atol=1e-5, rtol=0)
@@ -677,6 +711,73 @@ def test_staged_bounce_equals_render_cuda_bit_for_bit(dev, case):
     regen = wf.render_wavefront(scene, cam, regenerate=True, **kw)
     assert torch.equal(regen, want)
     assert torch.equal(wf.render_wavefront(twin, cam, regenerate=True, **kw), want)
+
+
+def _path_loop(sc, cam, dev, stage: int, **kw):
+    """render_kernel's fixed path loop on `stage` bytes of stage, the
+    launcher's own argument (0: the global arrays): (image, ray counts)."""
+    w, h = kw["width"], kw["height"]
+    packed = mk.pack_scene(sc, kw.get("nee", False), kw.get("mis", False), None)
+    plan = mk._AdaptivePlan(None, False, mk.TILE_ROWS, 1, 0, 0.0)
+    out = torch.empty((h, w, 3), device=dev)
+    rays = torch.zeros((h, w), device=dev)
+    cursor = torch.zeros(1, dtype=torch.int32, device=dev)
+    mk._launch(packed, cam, dev, mk.MODES["path"], out, rays, plan, cursor, width=w, height=h,
+               sample_index=0, frame_seed=kw["frame_seed"], y_offset=0, row_stride=1,
+               max_depth=kw["max_depth"], t_min=kw["t_min"], t_max=3.4e35,
+               russian_roulette_depth=kw.get("russian_roulette_depth", 0),
+               sky_intensity=kw.get("sky_intensity", 1.0), clamp=0.0, spp=kw["spp"],
+               stage=stage)
+    return out, rays
+
+
+@pytest.mark.parametrize("case", ["one_weekend", "inactive", "ties", "n0", "n1", "n255", "n256",
+                                  "n1024", "ragged_97x71", "nee"])
+def test_sphere_stage_equals_global_scan_bit_for_bit(dev, case):
+    """render_kernel's sphere stage (a block stages the brute route's
+    active spheres once a launch and scans them with the roots of missed
+    spheres skipped) against the same launch on the global arrays (stage
+    0), image and ray counts bit for bit, on 96x72-class frames: One-Weekend
+    and its ragged 97x71 frame, every third sphere inactive (also equal to
+    the scene of its active spheres), its ten largest spheres duplicated
+    (ties the first index wins; equal to One-Weekend's frame), sphere clouds
+    of 0, 1, 255, 256 and 1,024 spheres, and a brute scene with NEE and MIS.
+    render_cuda takes the stage ("+staged" in its launch key), and its
+    frame equals render_wavefront's without regeneration."""
+    from gpu_ray_tracing_tpu_torch.ops.cuda import wavefront as wf
+
+    ow = T.as_scene(T.one_weekend_scene(0)).spheres.to(dev)
+    spheres, twin, cam_s, w, h = ow, None, T.CameraSettings.default(), 96, 72
+    kw = dict(spp=2, max_depth=12, t_min=1e-3, frame_seed=13)
+    if case == "inactive":
+        spheres = dataclasses.replace(ow, radii=ow.radii.clone())
+        spheres.radii[1::3] = 0.0
+        twin = active_only(T, spheres)
+    elif case == "ties":
+        spheres, twin = with_ties(T, ow), ow
+    elif case == "nee":
+        spheres, cam_s = _nee_scene().to(dev), BASE_CAMERA
+        kw.update(nee=True, mis=True, sky_intensity=0.0, russian_roulette_depth=3)
+    elif case == "ragged_97x71":
+        w, h = 97, 71
+    elif case != "one_weekend":
+        spheres = sphere_cloud(T, int(case[1:]), dev, seed=int(case[1:]))
+    sc = T.as_scene(spheres)
+    cam = T.derive_camera(cam_s, w, h).to(dev)
+    kw.update(width=w, height=h)
+    stage = mk.pack_scene(sc, False, False, None).stage_bytes
+    assert stage == mk.sphere_stage_bytes(sc.spheres.count) > 0
+    got, rays = _path_loop(sc, cam, dev, stage, **kw)
+    want, want_rays = _path_loop(sc, cam, dev, 0, **kw)
+    assert torch.equal(got, want) and torch.equal(rays, want_rays)
+    key = "megakernel:brute" + ("+nee" if case == "nee" else "") + "+staged+rays"
+    before = mk.LAUNCHES[key]
+    img, img_rays = mk.render_cuda(sc, cam, return_ray_count=True, **kw)
+    assert mk.LAUNCHES[key] == before + 1
+    assert torch.equal(img, got) and torch.equal(img_rays, rays)
+    assert torch.equal(wf.render_wavefront(sc, cam, regenerate=False, **kw), got)
+    if twin is not None:
+        assert torch.equal(mk.render_cuda(T.as_scene(twin), cam, **kw), got)
 
 
 def _partition_array(wf, dev, cap, n, regen, sort, live_p, seed):
@@ -1004,7 +1105,7 @@ def test_render_denoised_launches_the_guides_once(dev):
     cfg = T.RenderConfig(width=64, height=48, spp=2, max_depth=6, backend="cuda")
     mk.LAUNCHES.clear()
     out, beauty, aovs = T.render_denoised(scene, settings, cfg, frame_seed=4, return_aovs=True)
-    assert dict(mk.LAUNCHES) == {"megakernel:brute": 1, "megakernel:brute+guides": 1}
+    assert dict(mk.LAUNCHES) == {"megakernel:brute+staged": 1, "megakernel:brute+guides": 1}
     for mode in mk.GUIDES:
         want = T.render(scene, settings, dataclasses.replace(cfg, integrator=mode), frame_seed=4)
         assert torch.equal(aovs[mode], want), mode
@@ -1012,14 +1113,14 @@ def test_render_denoised_launches_the_guides_once(dev):
     mk.LAUNCHES.clear()
     T.render_denoised(dataclasses.replace(scene, albedo=albedo), settings, cfg,
                       frame_seed=4).mean().backward()
-    assert dict(mk.LAUNCHES) == {"megakernel:brute": 4}
+    assert dict(mk.LAUNCHES) == {"megakernel:brute+staged": 1, "megakernel:brute": 3}
     assert bool(torch.isfinite(albedo.grad).all()) and bool((albedo.grad != 0).any())
 
 
 @pytest.mark.parametrize("flags,launches", [
-    ([], {"megakernel:brute": 1}),
+    ([], {"megakernel:brute+staged": 1}),
     (["--rng", "wgsl"], {}),
-    (["--denoise", "2"], {"megakernel:brute": 1, "megakernel:brute+guides": 1}),
+    (["--denoise", "2"], {"megakernel:brute+staged": 1, "megakernel:brute+guides": 1}),
 ])
 def test_cli_render_png_equals_the_api_frame(dev, tmp_path, flags, launches):
     """`render` through cli.main on the card (its default --device cuda

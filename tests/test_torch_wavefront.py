@@ -50,10 +50,13 @@ def _sphere_bvh_scene():
     return T.make_scene(T.one_weekend_scene(0), sphere_bvh=True)
 
 
-def _mesh_scene(subdivisions=2):
+def _mesh_scene(subdivisions=2, albedo=(0.8, 0.4, 0.2), scale=0.7):
+    """A smooth icosphere of `scale` resting on a ground sphere (at
+    subdivisions=6, albedo (0.75, 0.6, 0.45), scale 0.8: BASELINE config 4's
+    81,920 faces)."""
     ground = T.make_spheres([((0, -1000.0, 0), 1000.0, T.LAMBERTIAN, (0.5, 0.5, 0.5), 0.0)])
-    ico = T.icosphere(subdivisions, albedo=(0.8, 0.4, 0.2), smooth=True)
-    return T.make_scene(ground, T.transform_mesh(ico, 0.7, (0.0, 0.7, 0.0)))
+    ico = T.icosphere(subdivisions, albedo=albedo, smooth=True)
+    return T.make_scene(ground, T.transform_mesh(ico, scale, (0.0, scale, 0.0)))
 
 
 def _one_light_scene():
@@ -518,6 +521,71 @@ def test_sphere_scan_is_decided_from_the_scene(case, want):
     if case != "none":  # the plain scan's reduction needs a sphere
         T.render_wavefront_reference(scene, cam, width=8, height=6, max_depth=2, t_min=1e-3)
         assert twf.LAST_RUN["sphere_scan"] == "plain"
+
+
+def _every_third_inactive(n: int):
+    sp = _spheres(n)
+    radii = sp.radii.clone()
+    radii[::3] = 0.0
+    return dataclasses.replace(sp, radii=radii)
+
+
+def _route_scene(case: str):
+    """The scenes of the route decision of render_kernel's path loop."""
+    return {"none": lambda: _spheres(0), "one": lambda: _spheres(1),
+            "one_weekend": lambda: T.one_weekend_scene(0),
+            "bvh_threshold": lambda: _spheres(256),
+            "stage_full": lambda: T.make_scene(_spheres(1024), sphere_bvh=False),
+            "stage_over": lambda: T.make_scene(_spheres(1025), sphere_bvh=False),
+            "every_third_inactive": lambda: _every_third_inactive(197),
+            "sphere_bvh": _sphere_bvh_scene, "small_mesh": lambda: _mesh_scene(1),
+            "config4_mesh": lambda: _mesh_scene(6, (0.75, 0.6, 0.45), 0.8)}[case]()
+
+
+# (scene, mode, adaptive) -> (route, stage kind) of render_kernel's launch.
+_ROUTES = [
+    ("none", "path", False, "brute", "spheres"),
+    ("one", "path", False, "brute", "spheres"),
+    ("one_weekend", "path", False, "brute", "spheres"),
+    ("bvh_threshold", "path", False, "brute", "spheres"),
+    ("stage_full", "path", False, "brute", "spheres"),
+    ("stage_over", "path", False, "brute", None),
+    ("every_third_inactive", "path", False, "brute", "spheres"),
+    ("sphere_bvh", "path", False, "sphere_bvh", "bvh"),
+    ("small_mesh", "path", False, "mesh_bvh", "bvh"),
+    ("config4_mesh", "path", False, "mesh_bvh", None),
+    ("one_weekend", "path", True, "brute", None),
+    ("one_weekend", "normal", False, "brute", None),
+    ("one_weekend", "albedo", False, "brute", None),
+]
+
+
+@pytest.mark.parametrize("case,mode,adaptive,route,stage", _ROUTES,
+                         ids=[f"{c}-{m}{'-adaptive' if a else ''}" for c, m, a, _, _ in _ROUTES])
+def test_megakernel_stage_is_decided_from_the_scene(case, mode, adaptive, route, stage):
+    """Where render_kernel's path loop reads the scene follows from the
+    scene alone, as the bounce kernel's scan does: the brute route (no
+    sphere BVH, no mesh) of at most STAGE_SPHERES spheres, inactive ones
+    counted, from the sphere stage (16 + 20 n bytes), a small BVH scene
+    from the BVH stage, anything else from device memory; the adaptive
+    loop and the AOV modes take no stage.  The launch key render_cuda
+    records ends in "+staged" exactly when the loop reads a stage."""
+    sc = T.as_scene(_route_scene(case))
+    n = sc.spheres.count
+    assert tmk.sphere_stage_bytes(n) == 16 + 20 * n
+    scene_stage = {"spheres": tmk.sphere_stage_bytes(n), "bvh": tmk.stage_bytes_of(sc)}
+    brute_staged = route == "brute" and n <= tmk.STAGE_SPHERES
+    assert tmk.sphere_stage_bytes_of(sc) == (scene_stage["spheres"] if brute_staged else 0)
+    packed = tmk.pack_scene(sc, False, False, None)
+    assert packed.route == route
+    assert packed.stage_bytes == (scene_stage["spheres"] if brute_staged
+                                  else scene_stage["bvh"])
+    want = {**scene_stage, None: 0}
+    got_stage, key = tmk.launch_route(packed, mode, adaptive, False)
+    assert got_stage == want[stage] and (got_stage > 0) == (stage is not None)
+    assert key == ("megakernel:" + route + ("+staged" if stage else "")
+                   + ("+adaptive" if adaptive else ""))
+    assert tmk.launch_route(packed, mode, adaptive, True)[1] == key + "+rays"
 
 
 def test_engine_against_jax_render_wavefront():
