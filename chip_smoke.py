@@ -989,7 +989,7 @@ def stage_scenes(T, stage_bytes: int) -> dict:
 
 def bvh_stage_case(T, mk, wf, dev, name: str, scene, cam_s, cfg_kw: dict) -> dict:
     """Phase 34, one case: render_cuda twice with ray counts (identical),
-    on the route pack_scene decides (staged when stage_bytes_of > 0), bit
+    on the route pack_scene decides (staged when Route.bvh_stage > 0), bit
     for bit against the same frame on the global walk (STAGE_BYTES 0) and
     through the wavefront engine without regeneration (whose bounce walks
     the global arrays), ray counts included."""
@@ -998,7 +998,7 @@ def bvh_stage_case(T, mk, wf, dev, name: str, scene, cam_s, cfg_kw: dict) -> dic
     sc = T.as_scene(scene).to(dev)
     cam = T.derive_camera(cam_s, w, h).to(dev)
     kw = dict(width=w, height=h, t_min=1e-3, frame_seed=34, **kw)
-    stage = mk.stage_bytes_of(sc)
+    stage = mk.route_of(sc).bvh_stage
     mk.LAUNCHES.clear()
     img, rays = mk.render_cuda(sc, cam, return_ray_count=True, **kw)
     again, rays_again = mk.render_cuda(sc, cam, return_ray_count=True, **kw)
@@ -1200,8 +1200,8 @@ ROUTE_VARIANTS = {
         "        if (tri2 == 0x13572468) tb = 0.0f;\n      }\n"
         "      return false;\n    });\n")],
     "grid_wanted": [(
-        "  const int grid = (int)std::max(1LL, std::min(wanted, (long long)std::max(per_sm, 1) * sms));",
-        "  const int grid = (int)std::max(1LL, wanted);")],
+        "      <<<grid_of(wanted, f.resident()), kRegenWarps * 32, smem, s>>>(p);",
+        "      <<<grid_of(wanted, wanted), kRegenWarps * 32, smem, s>>>(p);")],
     "shadow_query_none": [(
         "  if (!(window > t_min)) return false;\n  const SphereRay sr = sphere_ray(o, w);",
         "  if (window == window) return false;\n  const SphereRay sr = sphere_ray(o, w);")],
@@ -2983,7 +2983,7 @@ def phase_global_walks(T, mk, smi: str) -> dict:
     rows = {}
     for name, (sc, cam, kw, _) in calls.items():
         rows[name] = dict(size=[kw["width"], kw["height"]], spp=kw["spp"],
-                          max_depth=kw["max_depth"], stage_bytes=mk.stage_bytes_of(sc))
+                          max_depth=kw["max_depth"], stage_bytes=mk.route_of(sc).bvh_stage)
         gate("global_walks", rows[name]["stage_bytes"] == 0, f"{name} is staged")
     for name, flip, mean_tol in (("sphere_bvh_2500", 0.02, 2e-3), ("aov_mesh", 0.01, 2e-4)):
         sc, cam, kw, _ = calls[name]
@@ -3069,8 +3069,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     infos = build.build_all()
-    info = infos["megakernel"]
-    emit({"phase": "build", "nvcc": info.nvcc_version,
+    emit({"phase": "build", "nvcc": build.build_info("megakernel").nvcc_version,
           "compiled": {k: v.compiled for k, v in infos.items()},
           "nvcc_seconds": {k: v.seconds for k, v in infos.items()},
           "load_seconds": time.perf_counter() - t0, "flags": " ".join(build.NVCC_FLAGS),
@@ -4082,7 +4081,7 @@ def main() -> int:
         if T.as_scene(sc).sphere_bvh is not None or T.as_scene(sc).mesh is not None:
             # The BVH routes: the walk render_kernel took, its stage, the
             # blocks an SM with it, and (phase 34) the staged edge cases.
-            stage = mk.stage_bytes_of(T.as_scene(sc))
+            stage = mk.route_of(T.as_scene(sc)).bvh_stage
             row.update(walk="staged" if stage else "global", stage_bytes=stage,
                        blocks_per_sm=mk.render_occupancy(kw.get("nee", False), False,
                                                          "bvh" if stage else "global", stage),

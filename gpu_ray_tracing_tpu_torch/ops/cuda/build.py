@@ -137,30 +137,35 @@ class _Target:
     headers: tuple = ()
 
 
-_SHARED_HEADER = os.path.join(_HERE, "wavefront.cuh")
+# The headers the sources include: what the wavefront kernels share, and
+# the launch helper every launcher sizes its grid with.
+_WAVEFRONT_HEADER = os.path.join(_HERE, "wavefront.cuh")
+_LAUNCH_HEADER = os.path.join(_HERE, "launch.cuh")
 
 TARGETS = {
     "megakernel": _Target(os.path.join(_HERE, "megakernel.cu"),
                           os.path.join(BUILD_DIR, "libgrt_megakernel.so"),
-                          _MEGAKERNEL_SIGNATURES, (_SHARED_HEADER,)),
+                          _MEGAKERNEL_SIGNATURES, (_WAVEFRONT_HEADER, _LAUNCH_HEADER)),
     "wavefront": _Target(os.path.join(_HERE, "wavefront.cu"),
                          os.path.join(BUILD_DIR, "libgrt_wavefront.so"),
-                         _WAVEFRONT_SIGNATURES, (_SHARED_HEADER,)),
+                         _WAVEFRONT_SIGNATURES, (_WAVEFRONT_HEADER, _LAUNCH_HEADER)),
     "probes": _Target(os.path.join(_HERE, "probes.cu"),
-                      os.path.join(BUILD_DIR, "libgrt_probes.so"), _PROBES_SIGNATURES),
+                      os.path.join(BUILD_DIR, "libgrt_probes.so"), _PROBES_SIGNATURES,
+                      (_LAUNCH_HEADER,)),
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class BuildInfo:
     """What a load did: the library, whether it was compiled in this
-    process, the seconds that took, and the compiler's own report."""
+    process, the seconds that took, and the compiler's own report;
+    build_info adds the compiler's version."""
 
     library: str
     compiled: bool
     seconds: float
-    nvcc_version: str
     ptxas_report: str
+    nvcc_version: str = ""
 
 
 _lock = threading.Lock()
@@ -233,14 +238,14 @@ def _build(name: str, path: str) -> tuple[bool, float, str]:
             fcntl.flock(lock_file, fcntl.LOCK_UN)
 
 
-def _bind(name: str, path: str, built: tuple[bool, float, str]) -> ctypes.CDLL:
+def _bind(name: str, built: tuple[bool, float, str]) -> ctypes.CDLL:
     target = TARGETS[name]
     lib = ctypes.CDLL(target.library)
     for fn_name, (restype, argtypes) in target.signatures.items():
         fn = getattr(lib, fn_name)
         fn.restype = restype
         fn.argtypes = argtypes
-    _infos[name] = BuildInfo(target.library, built[0], built[1], _nvcc_version(path), built[2])
+    _infos[name] = BuildInfo(target.library, *built)
     _libs[name] = lib
     return lib
 
@@ -251,8 +256,7 @@ def load(name: str = "megakernel") -> ctypes.CDLL:
     with _lock:
         if name in _libs:
             return _libs[name]
-        path = nvcc()
-        return _bind(name, path, _build(name, path))
+        return _bind(name, _build(name, nvcc()))
 
 
 def build_all() -> dict[str, BuildInfo]:
@@ -265,7 +269,7 @@ def build_all() -> dict[str, BuildInfo]:
             with concurrent.futures.ThreadPoolExecutor(len(missing)) as pool:
                 built = list(pool.map(lambda name: _build(name, path), missing))
             for name, b in zip(missing, built):
-                _bind(name, path, b)
+                _bind(name, b)
         return dict(_infos)
 
 
@@ -287,9 +291,10 @@ def compile_copy(name: str, source: str, library: str) -> tuple[ctypes.CDLL, str
 
 
 def build_info(name: str = "megakernel") -> BuildInfo:
-    """Build details of a loaded library (loads it first)."""
+    """Build details of a loaded library (loads it first), with the
+    version nvcc reports."""
     load(name)
-    return _infos[name]
+    return dataclasses.replace(_infos[name], nvcc_version=_nvcc_version(nvcc()))
 
 
 def check(rc: int, what: str, name: str = "megakernel") -> None:

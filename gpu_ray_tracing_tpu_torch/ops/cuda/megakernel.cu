@@ -53,6 +53,7 @@
 
 #include <algorithm>
 
+#include "launch.cuh"
 #include "wavefront.cuh"
 
 namespace {
@@ -1710,59 +1711,47 @@ __global__ void __launch_bounds__(kRegenWarps * 32,
   }
 }
 
-// The blocks of render_kernel<kNee, kCount, kStage> an SM holds at once
-// with `smem` bytes of dynamic shared memory, the ring in the largest
-// shared memory carve-out.  A sphere stage of many spheres takes the
-// block's shared memory above the default 48 KB, which the launch asks for.
+// What sizes render_kernel<kNee, kCount, kStage>'s grid with `smem` bytes
+// of stage, the ring in the largest shared memory carve-out.  A sphere
+// stage of many spheres takes the block's shared memory above the default
+// 48 KB, which fit() asks for.
 template <bool kNee, bool kCount, int kStage>
-cudaError_t render_occupancy(size_t smem, int* per_sm) {
-  const auto kernel = render_kernel<kNee, kCount, kStage>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                       cudaSharedmemCarveoutMaxShared);
-  if (kStage == kSphereStage && e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kRegenWarps * 32, smem);
-  return e;
+cudaError_t render_fit(size_t smem, Fit* f) {
+  return fit(render_kernel<kNee, kCount, kStage>, kRegenWarps * 32, smem, f, kMaxSharedCarveout);
 }
 
 // Launch render_kernel on a persistent grid: as many blocks as fit on the
 // card at once (fewer for a small frame), with `smem` bytes of stage.
 template <bool kNee, bool kCount, int kStage>
 cudaError_t launch_render(const Params& p, size_t smem, cudaStream_t s) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = render_occupancy<kNee, kCount, kStage>(smem, &per_sm);
-  if (e != cudaSuccess) return e;
   const long long n_pix = (long long)p.width * p.height;
   // A path takes at least one bounce, and a warp's item indices (less than
   // 66 groups past its rebase) fit an int.
   if (p.cursor == nullptr || p.max_depth < 1 || n_pix > 0x7fffffffLL ||
       (long long)(64 + kRingRows) * 32 * p.spp > 0x7fffffffLL)
     return cudaErrorInvalidValue;
+  Fit f;
+  const cudaError_t e = render_fit<kNee, kCount, kStage>(smem, &f);
+  if (e != cudaSuccess) return e;
   const long long wanted = ((n_pix + 31) / 32 + kRegenWarps - 1) / kRegenWarps;
-  const int grid = (int)std::max(1LL, std::min(wanted, (long long)std::max(per_sm, 1) * sms));
-  render_kernel<kNee, kCount, kStage><<<grid, kRegenWarps * 32, smem, s>>>(p);
+  render_kernel<kNee, kCount, kStage>
+      <<<grid_of(wanted, f.resident()), kRegenWarps * 32, smem, s>>>(p);
   return cudaGetLastError();
 }
 
-// launch_render and render_occupancy with the instance's (nee, count) taken
-// at run time.
-template <int kStage>
-cudaError_t launch_stage(const Params& p, bool nee, bool count, size_t smem, cudaStream_t s) {
-  if (nee) return count ? launch_render<true, true, kStage>(p, smem, s)
-                        : launch_render<true, false, kStage>(p, smem, s);
-  return count ? launch_render<false, true, kStage>(p, smem, s)
-               : launch_render<false, false, kStage>(p, smem, s);
-}
-
-template <int kStage>
-cudaError_t stage_occupancy(bool nee, bool count, size_t smem, int* per_sm) {
-  if (nee) return count ? render_occupancy<true, true, kStage>(smem, per_sm)
-                        : render_occupancy<true, false, kStage>(smem, per_sm);
-  return count ? render_occupancy<false, true, kStage>(smem, per_sm)
-               : render_occupancy<false, false, kStage>(smem, per_sm);
+// f(nee, count, stage) for the render_kernel instance of these run-time
+// values, each as a std::integral_constant (`stage`: kGlobal, kSphereStage
+// or kBvhStage; another is refused).
+template <typename F>
+cudaError_t with_render_instance(bool nee, bool count, int stage, F&& f) {
+  const auto at = [&](auto k_stage) {
+    return with_flags([&](auto k_nee, auto k_count) { return f(k_nee, k_count, k_stage); }, nee,
+                      count);
+  };
+  if (stage == kGlobal) return at(std::integral_constant<int, kGlobal>{});
+  if (stage == kSphereStage) return at(std::integral_constant<int, kSphereStage>{});
+  if (stage == kBvhStage) return at(std::integral_constant<int, kBvhStage>{});
+  return cudaErrorInvalidValue;
 }
 
 // The adaptive spp loop (K1f): `_adaptive_tools` and its two loops,
@@ -2029,21 +2018,16 @@ int g_adaptive_cluster_used = 0;
 template <bool kNee, bool kCount>
 cudaError_t launch_adaptive(const Params& p, const Adaptive& a, cudaStream_t s) {
   const auto kernel = render_adaptive_kernel<kNee, kCount>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kAdaptiveThreads, 0);
+  Fit f;
+  cudaError_t e = fit(kernel, kAdaptiveThreads, 0, &f, kNonPortableCluster);
   if (e != cudaSuccess) return e;
   const int gx = (p.width + 127) / 128;
   const int gy = (p.height + a.tile_rows - 1) / a.tile_rows;
-  const long long resident = (long long)sms * per_sm;
   int blocks = g_adaptive_cluster;
   if (blocks == 0) {
     blocks = 1;
-    while (blocks < kMaxAdaptiveCluster && (long long)gx * gy * blocks < resident) blocks *= 2;
+    while (blocks < kMaxAdaptiveCluster && (long long)gx * gy * blocks < f.resident())
+      blocks *= 2;
   }
   if (blocks < 1 || blocks > kMaxAdaptiveCluster) return cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
@@ -2058,10 +2042,10 @@ cudaError_t launch_adaptive(const Params& p, const Adaptive& a, cudaStream_t s) 
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  Fit placed;
+  e = fit(kernel, kAdaptiveThreads, 0, &placed, kNonPortableCluster, &cfg);
   if (e != cudaSuccess) return e;
-  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  if (placed.clusters < 1) return cudaErrorLaunchOutOfResources;
   e = cudaLaunchKernelEx(&cfg, kernel, p, a);
   if (e != cudaSuccess) return e;
   g_adaptive_cluster_used = blocks;
@@ -2309,20 +2293,6 @@ __global__ void __launch_bounds__(256) wavefront_raygen_kernel(const Params p, c
   }
 }
 
-// The launch grid of a wavefront kernel over `slots`: one thread a slot, at
-// most as many blocks of 256 threads and `smem` bytes of dynamic shared
-// memory as the card holds at once (the kernels walk the rest).
-template <typename K>
-int wavefront_grid(K kernel, int slots, size_t smem = 0) {
-  int dev = 0, sms = 1, per_sm = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 256, smem);
-  const int need = (slots + 255) / 256;
-  const int fill = sms * (per_sm > 0 ? per_sm : 1);
-  return need < fill ? (need > 0 ? need : 1) : fill;
-}
-
 // The hashes the kernel draws, for a bit-exactness probe against ops/rng.py.
 __global__ void hash_probe_kernel(const unsigned int* __restrict__ v, int n,
                                   const unsigned int* __restrict__ salts, int n_salts,
@@ -2456,38 +2426,39 @@ extern "C" int grt_render(const float* cam, const float* scene, int n,
   if (state != nullptr) {
     if (mode == GUIDES) return static_cast<int>(cudaErrorInvalidValue);  // one plane a loop
     const Adaptive a = {state, tile_rows, min_spp, chunk, tol};
-    if (nee) return static_cast<int>(count ? launch_adaptive<true, true>(p, a, s)
-                                           : launch_adaptive<true, false>(p, a, s));
-    return static_cast<int>(count ? launch_adaptive<false, true>(p, a, s)
-                                  : launch_adaptive<false, false>(p, a, s));
+    return static_cast<int>(with_flags([&](auto k_nee, auto k_count) {
+      return launch_adaptive<decltype(k_nee)::value, decltype(k_count)::value>(p, a, s);
+    }, nee != 0, count));
   }
   if (mode != PATH) {
     const dim3 block(32, kStageThreads / 32);
     const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-    if (brute) {
-      if (count) render_aov_kernel<true, true><<<grid, block, 0, s>>>(p);
-      else render_aov_kernel<false, true><<<grid, block, 0, s>>>(p);
-    } else {
-      if (count) render_aov_kernel<true, false><<<grid, block, 0, s>>>(p);
-      else render_aov_kernel<false, false><<<grid, block, 0, s>>>(p);
-    }
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(with_flags([&](auto k_count, auto k_brute) {
+      render_aov_kernel<decltype(k_count)::value, decltype(k_brute)::value>
+          <<<grid, block, 0, s>>>(p);
+      return cudaGetLastError();
+    }, count, brute));
   }
-  const size_t smem = (size_t)stage;
-  if (stage == 0) return static_cast<int>(launch_stage<kGlobal>(p, nee, count, 0, s));
-  if (brute) return static_cast<int>(launch_stage<kSphereStage>(p, nee, count, smem, s));
-  return static_cast<int>(launch_stage<kBvhStage>(p, nee, count, smem, s));
+  const int kind = stage == 0 ? kGlobal : brute ? kSphereStage : kBvhStage;
+  return static_cast<int>(
+      with_render_instance(nee != 0, count, kind, [&](auto k_nee, auto k_count, auto k_stage) {
+        return launch_render<decltype(k_nee)::value, decltype(k_count)::value,
+                             decltype(k_stage)::value>(p, (size_t)stage, s);
+      }));
 }
 
 // The blocks an SM of render_kernel<nee, count, stage> holds with `smem`
-// bytes of stage, into *per_sm (for measurement); `stage` is 0 (kGlobal),
-// 1 (kSphereStage) or 2 (kBvhStage).  Returns the CUDA error.
+// bytes of stage, into *per_sm: the figure its launch sizes the grid by
+// (for measurement); `stage` is 0 (kGlobal), 1 (kSphereStage) or 2
+// (kBvhStage).  Returns the CUDA error.
 extern "C" int grt_render_occupancy(int nee, int count, int stage, int smem, int* per_sm) {
-  const size_t b = (size_t)smem;
-  cudaError_t e = cudaErrorInvalidValue;
-  if (stage == kGlobal) e = stage_occupancy<kGlobal>(nee, count, b, per_sm);
-  if (stage == kSphereStage) e = stage_occupancy<kSphereStage>(nee, count, b, per_sm);
-  if (stage == kBvhStage) e = stage_occupancy<kBvhStage>(nee, count, b, per_sm);
+  Fit f;
+  const auto query = [&](auto k_nee, auto k_count, auto k_stage) {
+    return render_fit<decltype(k_nee)::value, decltype(k_count)::value, decltype(k_stage)::value>(
+        (size_t)smem, &f);
+  };
+  const cudaError_t e = with_render_instance(nee != 0, count != 0, stage, query);
+  if (e == cudaSuccess) *per_sm = f.per_sm;
   return static_cast<int>(e);
 }
 
@@ -2532,31 +2503,17 @@ extern "C" int grt_wavefront_bounce(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool count = rays_out != nullptr;
   const size_t smem = staged ? wf_stage_bytes(n) : 0;
-#define GRT_WF_LAUNCH(NEE, COUNT, REGEN)                                                  \
-  {                                                                                       \
-    if (staged) {                                                                         \
-      const auto kernel = wavefront_bounce_kernel<NEE, COUNT, REGEN, true>;               \
-      kernel<<<wavefront_grid(kernel, slots, smem), kStageThreads, smem, s>>>(p, w);      \
-    } else {                                                                              \
-      const auto kernel = wavefront_bounce_kernel<NEE, COUNT, REGEN, false>;              \
-      kernel<<<wavefront_grid(kernel, slots), kStageThreads, 0, s>>>(p, w);               \
-    }                                                                                     \
-  }
-  if (nee) {
-    if (count) {
-      if (regen) GRT_WF_LAUNCH(true, true, true) else GRT_WF_LAUNCH(true, true, false)
-    } else {
-      if (regen) GRT_WF_LAUNCH(true, false, true) else GRT_WF_LAUNCH(true, false, false)
-    }
-  } else {
-    if (count) {
-      if (regen) GRT_WF_LAUNCH(false, true, true) else GRT_WF_LAUNCH(false, true, false)
-    } else {
-      if (regen) GRT_WF_LAUNCH(false, false, true) else GRT_WF_LAUNCH(false, false, false)
-    }
-  }
-#undef GRT_WF_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(with_flags([&](auto k_nee, auto k_count, auto k_regen, auto k_staged) {
+    const auto kernel =
+        wavefront_bounce_kernel<decltype(k_nee)::value, decltype(k_count)::value,
+                                decltype(k_regen)::value, decltype(k_staged)::value>;
+    Fit f;
+    const cudaError_t e = fit(kernel, kStageThreads, smem, &f);
+    if (e != cudaSuccess) return e;
+    const long long need = (slots + kStageThreads - 1) / kStageThreads;
+    kernel<<<grid_of(need, f.resident()), kStageThreads, smem, s>>>(p, w);
+    return cudaGetLastError();
+  }, nee != 0, count, regen != 0, staged != 0));
 }
 
 // Primary rays into the ray array (see wavefront_raygen_kernel): `mode` 0
@@ -2589,9 +2546,11 @@ extern "C" int grt_wavefront_raygen(const float* cam, int sampler, int kx, int k
                      bounds};
   const int slots = mode == kFillRefill ? stride : count;
   if (slots <= 0) return 0;
-  wavefront_raygen_kernel<<<wavefront_grid(wavefront_raygen_kernel, slots), 256, 0,
-                            static_cast<cudaStream_t>(stream)>>>(p, w, total_width,
-                                                                 regen != 0, fl);
+  Fit f;
+  const cudaError_t e = fit(wavefront_raygen_kernel, 256, 0, &f);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  wavefront_raygen_kernel<<<grid_of((slots + 255) / 256, f.resident()), 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(p, w, total_width, regen != 0, fl);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -65,15 +65,16 @@ from gpu_ray_tracing_tpu_torch.utils.profiling import span
 #: Kernel launches per wrapper and route ("megakernel:brute",
 #: "megakernel:sphere_bvh", "megakernel:mesh_bvh", "hash_probe",
 #: "sampler_probe"): each wrapper adds one where it launches, keyed by the
-#: geometry the launch was given (a mesh, else a sphere BVH, else the brute
-#: scan), suffixed "+nee" when the launch ran next-event estimation,
-#: "+stratified" or "+sobol" when it ran that sampler, "+staged" when the
-#: path loop read the scene from a shared-memory stage (launch_route: the
-#: brute route's spheres, or a small BVH scene), "+adaptive" when it ran
-#: the adaptive loop, "+guides" for render_guides' launch and "+rays" when
-#: it counted rays (e.g. "megakernel:brute+staged",
-#: "megakernel:mesh_bvh+nee+staged", "megakernel:brute+adaptive",
-#: "megakernel:brute+guides"), so a run can show which paths it used.
+#: geometry the launch was given (Route.launch_key: a mesh, else a sphere
+#: BVH, else the brute scan), suffixed "+nee" when the launch ran
+#: next-event estimation, "+stratified" or "+sobol" when it ran that
+#: sampler, "+staged" when the path loop read the scene from a
+#: shared-memory stage (Route.path_stage: the brute route's spheres, or a
+#: small BVH scene), "+adaptive" when it ran the adaptive loop, "+guides"
+#: for render_guides' launch and "+rays" when it counted rays (e.g.
+#: "megakernel:brute+staged", "megakernel:mesh_bvh+nee+staged",
+#: "megakernel:brute+adaptive", "megakernel:brute+guides"), so a run can
+#: show which paths it used.
 LAUNCHES: collections.Counter = collections.Counter()
 
 # Rows of the (16, N) scene planes (the Pallas layout, megakernel.py:84).
@@ -102,11 +103,6 @@ _TRI_SLOTS = 32
 TILE_ROWS = 32
 AOV_TILE_ROWS = 64
 TILE_COLS = 128
-
-# render_kernel's staged BVH route (megakernel.cu, kBvhStageBytes): a scene
-# with a sphere BVH or a mesh whose stage takes at most STAGE_BYTES of a
-# block's shared memory is walked from there.
-STAGE_BYTES = 16384
 
 # Pixels x spheres elements per chunk of the plain version's (P, N) planes.
 _CPU_BLOCK = 1 << 22
@@ -187,6 +183,11 @@ LEAF_COUNT_BITS = _cu_constant("kLeafCountBits")
 # path loop and the wavefront bounce scan a brute-route scene of at most
 # this many spheres from shared memory, a larger one from device memory.
 STAGE_SPHERES = _cu_constant("kStageSpheres")
+
+# render_kernel's staged BVH route (megakernel.cu's kBvhStageBytes): a
+# scene with a sphere BVH or a mesh whose stage takes at most STAGE_BYTES
+# of a block's shared memory is walked from there.
+STAGE_BYTES = _cu_constant("kBvhStageBytes")
 
 
 def bvh_nodes(bvh: BVH, n_prims: int) -> torch.Tensor:
@@ -614,20 +615,6 @@ def bvh_stage_bytes(n_spheres: int, sphere_nodes: int, n_tris: int, mesh_nodes: 
     return 16 * (n_spheres + 2 * sphere_nodes + 3 * n_tris + 2 * mesh_nodes)
 
 
-def stage_bytes_of(sc: Scene) -> int:
-    """The BVH stage render_kernel walks for scene `sc`: its bytes when the
-    scene has a sphere BVH or a mesh (behind its BVH) and they are at most
-    STAGE_BYTES, else 0 (the global walk; a brute-route scene takes the
-    sphere stage, sphere_stage_bytes_of).  Decided from the scene alone,
-    before a launch."""
-    ms = sc.sphere_bvh.num_nodes if sc.sphere_bvh is not None else 0
-    f, mm = (sc.mesh.num_triangles, sc.bvh.num_nodes) if sc.mesh is not None else (0, 0)
-    if not ms and not f:
-        return 0
-    b = bvh_stage_bytes(sc.spheres.count, ms, f, mm)
-    return b if b <= STAGE_BYTES else 0
-
-
 def sphere_stage_bytes(n_spheres: int) -> int:
     """Bytes of the sphere stage for a scene of n spheres
     (megakernel.cu::wf_stage_bytes): 16 for the staged count, then 16 a
@@ -635,40 +622,71 @@ def sphere_stage_bytes(n_spheres: int) -> int:
     return 16 + 20 * n_spheres
 
 
-def sphere_stage_fits(sc: Scene) -> bool:
-    """Whether a brute scan of scene `sc`'s spheres (it has no sphere BVH)
-    reads them from a block's shared-memory stage: at most STAGE_SPHERES
-    spheres, inactive ones counted.  render_kernel's path loop
-    (sphere_stage_bytes_of) and the wavefront bounce (Engine.sphere_scan)
-    decide by it, from the scene alone."""
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """How the kernels read a scene, decided from the scene alone before
+    any launch (route_of).  `geometry` is what render_kernel walks:
+    "mesh_bvh" (a mesh behind its BVH), else "sphere_bvh", else "brute"
+    (the scan of every sphere).  `sphere_scan` is how a scan of the
+    spheres reads them: "sphere_bvh" (the walk), "staged" (no sphere BVH
+    and at most STAGE_SPHERES spheres, inactive ones counted: from a
+    block's stage of `sphere_stage` bytes) or "global" (device memory).
+    `bvh_stage` is the bytes of render_kernel's BVH stage for a scene with
+    a sphere BVH or a mesh whose stage takes at most STAGE_BYTES, else 0."""
+
+    geometry: str
+    sphere_scan: str
+    sphere_stage: int
+    bvh_stage: int
+
+    def path_stage(self, mode: str, adaptive: bool) -> int:
+        """The stage render_kernel's launch reads, in bytes (0: the global
+        arrays): only the fixed path loop reads one, the BVH stage where it
+        fits, else on the brute route the sphere stage where that fits."""
+        if mode != "path" or adaptive:
+            return 0
+        return self.bvh_stage or (self.sphere_stage if self.geometry == "brute" else 0)
+
+    @property
+    def bounce_staged(self) -> bool:
+        """Whether the wavefront bounce scans the spheres from its stage:
+        wherever they fit it, a mesh beside them or not."""
+        return self.sphere_scan == "staged"
+
+    def launch_key(self, engine: str, nee: bool, sampler_spec: tuple | None,
+                   **flags: bool) -> str:
+        """The LAUNCHES key of a launch on this route: "<engine>:<geometry>",
+        then "+nee", "+<sampler>" and "+<flag>" for each flag set, in order
+        (e.g. "megakernel:brute+nee+sobol+staged+rays")."""
+        names = [self.geometry, "nee" if nee else None, sampler_spec and sampler_spec[0],
+                 *(name for name, on in flags.items() if on)]
+        return f"{engine}:" + "+".join(name for name in names if name)
+
+
+def route_of(sc: Scene) -> Route:
+    """The Route of scene `sc`, from its counts and the stage caps
+    STAGE_SPHERES and STAGE_BYTES as they are at the call."""
     ms = sc.sphere_bvh.num_nodes if sc.sphere_bvh is not None else 0
-    return not ms and sc.spheres.count <= STAGE_SPHERES
-
-
-def sphere_stage_bytes_of(sc: Scene) -> int:
-    """The sphere stage render_kernel's path loop scans for scene `sc`: its
-    bytes on the brute route (no sphere BVH and no mesh) where the stage
-    fits (sphere_stage_fits), else 0.  Decided before a launch."""
-    if sc.mesh is not None or not sphere_stage_fits(sc):
-        return 0
-    return sphere_stage_bytes(sc.spheres.count)
+    f, mm = (sc.mesh.num_triangles, sc.bvh.num_nodes) if sc.mesh is not None else (0, 0)
+    n = sc.spheres.count
+    staged = not ms and n <= STAGE_SPHERES
+    bvh = bvh_stage_bytes(n, ms, f, mm) if ms or f else 0
+    return Route("mesh_bvh" if f else "sphere_bvh" if ms else "brute",
+                 "sphere_bvh" if ms else "staged" if staged else "global",
+                 sphere_stage_bytes(n) if staged else 0,
+                 bvh if bvh <= STAGE_BYTES else 0)
 
 
 @dataclasses.dataclass(frozen=True)
 class PackedScene:
     """A scene as the kernels read it: `args`, the scene, light and sampler
     arguments every render entry point of the library takes, in C order
-    (pointers into `tensors`, which this object keeps alive), `route`,
-    the launch-count key of the geometry and options ("brute",
-    "sphere_bvh" or "mesh_bvh", suffixed "+nee" and "+<sampler>"), and
-    `stage_bytes`, the stage of render_kernel's path loop: the BVH stage
-    (stage_bytes_of) or the brute route's sphere stage
-    (sphere_stage_bytes_of); 0: the global arrays."""
+    (pointers into `tensors`, which this object keeps alive), and `route`,
+    its Route."""
 
     args: tuple
     tensors: tuple
-    route: str
-    stage_bytes: int
+    route: Route
 
 
 def pack_scene(sc: Scene, nee: bool, mis: bool, sampler_spec: tuple | None) -> PackedScene:
@@ -699,21 +717,8 @@ def pack_scene(sc: Scene, nee: bool, mis: bool, sampler_spec: tuple | None) -> P
             ptr(lplanes), n_sl, ptr(tplanes), n_tl, int(nee), int(mis and nee),
             kind, kx, ky, nbits,
         )
-        route = "mesh_bvh" if n_tris else "sphere_bvh" if nodes(sbvh) else "brute"
-        route += ("+nee" if nee else "") + ("" if kind == 0 else "+" + sampler_spec[0])
-        return PackedScene(args, (planes, sbvh, table, faces, mbvh, lplanes, tplanes), route,
-                           stage_bytes_of(sc) or sphere_stage_bytes_of(sc))
-
-
-def launch_route(packed: PackedScene, mode: str, adaptive: bool, rays: bool) -> tuple[int, str]:
-    """What render_cuda launches for a packed scene: the stage it passes
-    (PackedScene.stage_bytes in the fixed path loop, else 0) and the
-    LAUNCHES key it records ("megakernel:" + route, "+staged" when the loop
-    reads a stage, "+adaptive", "+rays")."""
-    stage = packed.stage_bytes if mode == "path" and not adaptive else 0
-    key = ("megakernel:" + packed.route + ("+staged" if stage else "")
-           + ("+adaptive" if adaptive else "") + ("+rays" if rays else ""))
-    return stage, key
+        return PackedScene(args, (planes, sbvh, table, faces, mbvh, lplanes, tplanes),
+                           route_of(sc))
 
 
 def _require_cuda(*tensors: torch.Tensor) -> torch.device:
@@ -769,10 +774,9 @@ def render_cuda(
     and stream as render_reference (whose default light_pick='sample' is
     the kernel's > 4-light pick).  A scene with a sphere BVH walks it; a
     mesh must have its BVH (make_scene builds one).  The fixed path loop
-    reads a brute-route scene of at most STAGE_SPHERES spheres
-    (sphere_stage_bytes_of) and a BVH scene of at most STAGE_BYTES of stage
-    (stage_bytes_of) from shared memory, with the same bits ("+staged" in
-    LAUNCHES).
+    reads a brute-route scene of at most STAGE_SPHERES spheres and a BVH
+    scene of at most STAGE_BYTES of stage from shared memory
+    (Route.path_stage), with the same bits ("+staged" in LAUNCHES).
 
     The options of render_pallas: `adaptive_tol > 0` makes spp a per-tile
     budget (the adaptive kernel, a cluster of blocks per tile); `return_spp_map` and
@@ -806,13 +810,15 @@ def render_cuda(
     # The path kernel's pixel-group cursor, zero at launch.
     path_loop = plan.state is None and mode == "path"
     cursor = torch.zeros(1, dtype=torch.int32, device=dev) if path_loop else None
-    stage, key = launch_route(packed, mode, plan.state is not None, rays is not None)
+    adaptive = plan.state is not None
+    stage = packed.route.path_stage(mode, adaptive)
     _launch(packed, camera, dev, MODES[mode], out, rays, plan, cursor, walks=walk_counts,
             width=width, height=height, sample_index=sample_index, frame_seed=frame_seed,
             y_offset=y_offset, row_stride=row_stride, max_depth=max_depth, t_min=t_min,
             t_max=t_max, russian_roulette_depth=russian_roulette_depth,
             sky_intensity=sky_intensity, clamp=clamp, spp=spp, stage=stage)
-    LAUNCHES[key] += 1
+    LAUNCHES[packed.route.launch_key("megakernel", nee, sampler_spec, staged=stage > 0,
+                                     adaptive=adaptive, rays=rays is not None)] += 1
     return _outputs(out, plan, spp, return_spp_map, rays)
 
 
@@ -823,8 +829,8 @@ def _launch(packed: PackedScene, camera: Camera, dev: torch.device, mode: int, o
             t_max: float, russian_roulette_depth: int, sky_intensity: float, clamp: float,
             spp: int, stage: int = 0) -> None:
     """One grt_render launch on dev's current stream, reading the scene
-    from a stage of `stage` bytes (PackedScene.stage_bytes; 0: none);
-    raises if refused."""
+    from a stage of `stage` bytes (Route.path_stage; 0: none); raises if
+    refused."""
     with span("launch"):
         lib = build.load()
         cam = camera_vector(camera).contiguous()
@@ -880,7 +886,8 @@ def render_guides(
             height=height, sample_index=sample_index, frame_seed=frame_seed,
             y_offset=y_offset, row_stride=row_stride, max_depth=1, t_min=t_min,
             t_max=t_max, russian_roulette_depth=0, sky_intensity=1.0, clamp=0.0, spp=spp)
-    LAUNCHES["megakernel:" + packed.route + "+guides" + ("+rays" if rays is not None else "")] += 1
+    LAUNCHES[packed.route.launch_key("megakernel", False, sampler_spec, guides=True,
+                                     rays=rays is not None)] += 1
     return _guides_dict(out, rays)
 
 
@@ -957,8 +964,8 @@ STAGES = {"global": 0, "spheres": 1, "bvh": 2}
 
 def render_occupancy(nee: bool, count: bool, stage: str, stage_bytes: int = 0) -> int:
     """The blocks of render_kernel<nee, count, STAGES[stage]> one SM of the
-    current card holds at once with `stage_bytes` of stage (the launcher's
-    own occupancy query; for measurement)."""
+    current card holds at once with `stage_bytes` of stage: the figure the
+    launcher sizes its grid by (for measurement)."""
     per_sm = ctypes.c_int(0)
     build.check(build.load().grt_render_occupancy(int(nee), int(count), STAGES[stage],
                                                   int(stage_bytes), ctypes.byref(per_sm)),

@@ -30,6 +30,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 enum Mix { SLAB = 0, FMA = 1 };
@@ -195,21 +197,6 @@ __global__ void __launch_bounds__(256) slab_kernel(const float* __restrict__ x,
   }
 }
 
-int g_sms = 0;
-
-// Blocks of 256 threads for `groups` groups: one a thread, at most 8
-// blocks an SM (2,048 threads: what an SM holds at once).
-int slab_grid(int groups) {
-  if (g_sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (g_sms < 1) g_sms = 1;
-  }
-  const int need = (groups + 255) / 256;
-  return need < 8 * g_sms ? need : 8 * g_sms;
-}
-
 }  // namespace
 
 // Plain C interface for ctypes (ops/cuda/build.py).  Each launcher enqueues
@@ -246,18 +233,19 @@ extern "C" int grt_slab_dtype(const float* x, float* out, int n, int rounds, int
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
   if (n % 2) return 1;
-  const int grid = slab_grid((n + kSlabGroup - 1) / kSlabGroup);
   const bool vec = (reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(out)) % 16 == 0;
-#define GRT_SLAB(BF16, CMP, VEC) slab_kernel<BF16, CMP, VEC><<<grid, 256, 0, s>>>(x, out, n, rounds)
-  if (bf16) {
-    if (compare) { if (vec) GRT_SLAB(true, true, true); else GRT_SLAB(true, true, false); }
-    else { if (vec) GRT_SLAB(true, false, true); else GRT_SLAB(true, false, false); }
-  } else {
-    if (compare) { if (vec) GRT_SLAB(false, true, true); else GRT_SLAB(false, true, false); }
-    else { if (vec) GRT_SLAB(false, false, true); else GRT_SLAB(false, false, false); }
-  }
-#undef GRT_SLAB
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(with_flags([&](auto k_bf16, auto k_compare, auto k_vec) {
+    const auto kernel =
+        slab_kernel<decltype(k_bf16)::value, decltype(k_compare)::value, decltype(k_vec)::value>;
+    Fit f;
+    const cudaError_t e = fit(kernel, 256, 0, &f);
+    if (e != cudaSuccess) return e;
+    // Blocks of 256 threads, one a group of kSlabGroup elements, at most 8
+    // blocks an SM (2,048 threads: what an SM holds at once).
+    kernel<<<grid_of(((n + kSlabGroup - 1) / kSlabGroup + 255) / 256, 8LL * f.sms), 256, 0, s>>>(
+        x, out, n, rounds);
+    return cudaGetLastError();
+  }, bf16 != 0, compare != 0, vec));
 }
 
 extern "C" const char* grt_error_string(int code) {

@@ -61,6 +61,7 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
 #include "wavefront.cuh"
 
 namespace {
@@ -515,60 +516,6 @@ __global__ void wf_advance_kernel(int* ctr, const WfSched sched, long long* stat
   wf_reset_bounds(bounds);
 }
 
-int g_sms = 0;
-
-int sms() {
-  if (g_sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (g_sms < 1) g_sms = 1;
-  }
-  return g_sms;
-}
-
-int grid_for(int slots) {
-  const int need = (slots + kThreads - 1) / kThreads;
-  const int fill = sms() * (2048 / kThreads);
-  return need < fill ? (need > 0 ? need : 1) : fill;
-}
-
-// The blocks of the two passes (both forms of the first) resident on the
-// card at once, per k1 = keys + 1 (a handful occur: 2, 9, 33, 513, 2,049).
-struct Grids {
-  int k1, count_wide, count, scatter;
-};
-Grids g_grids[8];
-int g_n_grids = 0;
-
-int resident(const void* kernel, int words) {
-  int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                (size_t)words * sizeof(int));
-  return sms() * (per_sm > 0 ? per_sm : 1);
-}
-
-cudaError_t grids_for(int k1, Grids* out) {
-  for (int g = 0; g < g_n_grids; ++g) {
-    if (g_grids[g].k1 == k1) {
-      *out = g_grids[g];
-      return cudaSuccess;
-    }
-  }
-  if (g_n_grids == 0) {
-    // Room for the most keys the partition takes (2,048 and the dead key).
-    const cudaError_t err = cudaFuncSetAttribute(
-        wf_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(wf_scatter_words(2049) * sizeof(int)));
-    if (err != cudaSuccess) return err;
-  }
-  *out = {k1, resident((const void*)wf_count_kernel<true>, wf_count_words(k1)),
-          resident((const void*)wf_count_kernel<false>, wf_count_words(k1)),
-          resident((const void*)wf_scatter_kernel, wf_scatter_words(k1))};
-  if (g_n_grids < 8) g_grids[g_n_grids++] = *out;
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // Plain C interface for ctypes (ops/cuda/build.py).  Each launcher enqueues
@@ -598,19 +545,27 @@ extern "C" int grt_wf_partition(int* ctr, double compact_threshold, double refil
                     {f0, f1}, {i0, i1}, ni, stride, sort, bucket, n_keys, keys, status, sync,
                     perm, bounds};
   const int k1 = n_keys + 1;
-  Grids g;
-  const cudaError_t err = grids_for(k1, &g);
+  const size_t count_bytes = wf_count_words(k1) * sizeof(int);
+  const size_t scatter_bytes = wf_scatter_words(k1) * sizeof(int);
+  // The blocks of each pass resident on the card at once (the wide count
+  // pass runs a block a tile only when every tile's block is resident).
+  Fit wide, narrow, scatter;
+  cudaError_t err = fit(wf_count_kernel<true>, kThreads, count_bytes, &wide);
+  if (err == cudaSuccess) err = fit(wf_count_kernel<false>, kThreads, count_bytes, &narrow);
+  if (err == cudaSuccess) err = fit(wf_scatter_kernel, kThreads, scatter_bytes, &scatter);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (stride + kTile - 1) / kTile;
-  if (sort == kSortSpatial) wf_bounds_kernel<<<grid_for(stride), kThreads, 0, s>>>(a);
-  const int scatter_grid = g.scatter < tiles ? g.scatter : tiles;
-  const size_t count_bytes = wf_count_words(k1) * sizeof(int);
-  if (tiles <= g.count_wide) {
+  if (sort == kSortSpatial) {
+    // A thread a slot, at most 2,048 threads an SM.
+    const long long need = (stride + kThreads - 1) / kThreads;
+    wf_bounds_kernel<<<grid_of(need, wide.sms * (2048LL / kThreads)), kThreads, 0, s>>>(a);
+  }
+  if (tiles <= wide.resident()) {
     wf_count_kernel<true><<<tiles, kThreads, count_bytes, s>>>(a);
   } else {
-    wf_count_kernel<false><<<g.count < tiles ? g.count : tiles, kThreads, count_bytes, s>>>(a);
+    wf_count_kernel<false><<<grid_of(tiles, narrow.resident()), kThreads, count_bytes, s>>>(a);
   }
-  wf_scatter_kernel<<<scatter_grid, kThreads, wf_scatter_words(k1) * sizeof(int), s>>>(a);
+  wf_scatter_kernel<<<grid_of(tiles, scatter.resident()), kThreads, scatter_bytes, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -60,8 +60,8 @@ Design, against the TPU engine:
   scene of at most STAGE_SPHERES spheres, each block of the bounce kernel
   stages the active spheres in shared memory once a launch and skips the
   roots of the spheres a ray misses; a larger brute scene is scanned from
-  device memory.  `Engine.sphere_scan` decides this from the scene before
-  the launch, and both scans find the same hits bit for bit.
+  device memory.  The scene's Route (megakernel.route_of) decides this
+  before the launch, and both scans find the same hits bit for bit.
 - **Host synchronisation.**  The loop's counts live in a small i32 tensor
   on the device: the array's slot count, its live rays, its buffer, the
   stream cursor and a "done" flag.  Every kernel of an iteration reads them
@@ -153,8 +153,8 @@ _BOUNDS_RESET = (_ordered(3.4e38), _ordered(-3.4e38))
 #: iteration (per bounce, summed over samples, without regeneration), all
 #: counted on the device; host reads of the device (`host_syncs`), the
 #: launches the host enqueued (`enqueued`), and how the bounce kernel
-#: scanned the spheres (`sphere_scan`: Engine.sphere_scan, or 'plain' for
-#: the plain version).
+#: scanned the spheres (`sphere_scan`: the scene's Route.sphere_scan, or
+#: 'plain' for the plain version).
 LAST_RUN: dict = {}
 
 
@@ -273,19 +273,6 @@ class Engine:
             self._packed = mk.pack_scene(self.scene, self.nee, self.mis, self.sampler_spec)
             self._cam_vec = mk.camera_vector(self.camera).contiguous()
         return self._packed
-
-    def route(self, regen: bool) -> str:
-        return ("wavefront:" + self.packed().route + ("+regen" if regen else "")
-                + ("+rays" if self.count_rays else ""))
-
-    def sphere_scan(self) -> str:
-        """How the bounce kernel scans this scene's spheres, decided from the
-        scene alone: 'sphere_bvh' (the walk), 'staged' (a brute scan of at
-        most STAGE_SPHERES spheres from shared memory) or 'global' (a
-        larger brute scan from device memory)."""
-        if self.scene.sphere_bvh is not None:
-            return "sphere_bvh"
-        return "staged" if mk.sphere_stage_fits(self.scene) else "global"
 
 
 def new_state(n: int, regen: bool, device, *, per_ray_sample: bool = False
@@ -687,9 +674,10 @@ def _bounce_launch(eng: Engine, f, i, stride: int, n: int, *, ctr=None, regen: b
             int(per_ray_sample), int(regen), int(sample) & 0xFFFFFFFF, int(bounce),
             int(sample_base) & 0xFFFFFFFF, int(n_pixels), out.data_ptr(),
             None if rays_out is None else rays_out.data_ptr(),
-            int(eng.sphere_scan() == "staged"), torch.cuda.current_stream(dev).cuda_stream)
+            int(packed.route.bounce_staged), torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "wavefront_bounce")
-    LAUNCHES[eng.route(regen)] += 1
+    LAUNCHES[packed.route.launch_key("wavefront", eng.nee, eng.sampler_spec, regen=regen,
+                                     rays=eng.count_rays)] += 1
 
 
 def wavefront_bounce(eng: Engine, state_f, state_i, n: int, *, regen: bool, sample: int = 0,
@@ -998,7 +986,8 @@ def _render(scene_or_spheres, camera, *, plain: bool, width, height, sample_inde
     LAST_RUN.clear()
     LAST_RUN.update(run.counts(regenerate, max(max_depth, 0)), regenerate=bool(regenerate),
                     sort=sort, sample_batch=None if regenerate else batch,
-                    poll_every=POLL_EVERY, sphere_scan="plain" if plain else eng.sphere_scan())
+                    poll_every=POLL_EVERY,
+                    sphere_scan="plain" if plain else eng.packed().route.sphere_scan)
     # The megakernel's mean is an IEEE division; torch divides a CUDA tensor
     # by a Python number as a multiplication by its reciprocal, which rounds
     # differently unless spp is a power of two.

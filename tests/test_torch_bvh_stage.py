@@ -3,8 +3,8 @@ the CPU.
 
 The kernel itself runs only on the card (tests/test_torch_cuda.py holds
 it to the wavefront engine and to the global walk bit for bit); here:
-the route decision from the scene (ops/cuda/megakernel.stage_bytes_of)
-and its cap against the kernel's; the counters of the kernel's walks
+the route decision from the scene (ops/cuda/megakernel.route_of) and its
+cap against the kernel's; the counters of the kernel's walks
 (ops/intersect.BVH_VISITS in intersect_bvh, the plain sphere-BVH walk
 walk_sphere_bvh, count_walks) against per-ray loops over the same
 threaded trees; the sphere-BVH walk's winners against the port's and
@@ -70,15 +70,18 @@ KNOWN = {"cornell_nee_mis": 832, "config3": 10448, "config4_icosphere6": 0,
 def test_the_stage_is_decided_from_the_scene(name):
     sc = T.as_scene(_scenes()[name])
     want = _counted(sc)
-    assert mk.stage_bytes_of(sc) == want
+    route = mk.route_of(sc)
+    assert route.bvh_stage == want
     if name in KNOWN:
         assert want == KNOWN[name]
-    packed = mk.pack_scene(sc, False, False, None)
-    # A brute-route scene takes the sphere stage instead.
-    assert packed.stage_bytes == (want or mk.sphere_stage_bytes_of(sc))
-    # The launch-count key of the packed scene names the geometry only:
-    # render_cuda adds "+staged" for the path loop.
-    assert "+staged" not in packed.route
+    assert mk.pack_scene(sc, False, False, None).route == route
+    # The path loop reads the BVH stage; a brute-route scene takes the
+    # sphere stage instead, and no other loop reads either.
+    brute = route.sphere_stage if route.geometry == "brute" else 0
+    assert route.path_stage("path", False) == (want or brute)
+    assert route.path_stage("path", True) == route.path_stage("normal", False) == 0
+    # The launch key names the geometry, and "+staged" only when asked.
+    assert "+staged" not in route.launch_key("megakernel", False, None)
 
 
 def test_the_cap_is_the_kernels_and_fits_the_half_ring():
@@ -87,7 +90,7 @@ def test_the_cap_is_the_kernels_and_fits_the_half_ring():
     rows = int(re.search(r"constexpr int kRingRows = (\d+);", src).group(1))
     staged_rows = int(re.search(r"constexpr int kStagedRingRows = (\d+);", src).group(1))
     warps = int(re.search(r"constexpr int kRegenWarps = (\d+);", src).group(1))
-    assert cap == mk.STAGE_BYTES
+    assert cap == mk.STAGE_BYTES == mk._cu_constant("kBvhStageBytes")
     # A ring slot is a uint4: the half ring frees room for the whole stage.
     assert warps * (rows - staged_rows) * 32 * 16 >= cap
     assert mk.bvh_stage_bytes(2, 0, 12, 7) == 832

@@ -301,7 +301,7 @@ def test_staged_bvh_route_equals_wavefront_and_global_walk(dev, case, monkeypatc
                                                       regenerate="off"), frame_seed=15)
     assert torch.equal(got, want)
     sc, cam = T.as_scene(scene).to(dev), T.derive_camera(cam_s, w, h).to(dev)
-    stage = mk.stage_bytes_of(sc)
+    stage = mk.route_of(sc).bvh_stage
     assert (stage > 0) == (case != "above_cap")
     assert stage == (mk.STAGE_BYTES if case == "at_cap" else stage)
     rk = dict(width=w, height=h, t_min=cfg.t_min, frame_seed=15, **kw)
@@ -328,14 +328,15 @@ def test_staged_route_is_refused_where_it_does_not_apply(dev):
               sky_intensity=1.0, clamp=0.0, spp=1)
     out = torch.empty((18, 32, 3), device=dev)
     cursor = torch.zeros(1, dtype=torch.int32, device=dev)
-    for stage in (packed.stage_bytes + 16, mk.STAGE_BYTES + 16):
+    stage = packed.route.path_stage("path", False)
+    for wrong in (stage + 16, mk.STAGE_BYTES + 16):
         with pytest.raises(RuntimeError, match="failed to launch"):
-            mk._launch(packed, cam, dev, 0, out, None, plan, cursor, stage=stage, **kw)
+            mk._launch(packed, cam, dev, 0, out, None, plan, cursor, stage=wrong, **kw)
     brute = mk.pack_scene(T.as_scene(T.one_weekend_scene(0, device=dev)), False, False, None)
-    assert brute.stage_bytes == mk.sphere_stage_bytes(197)
+    assert brute.route.path_stage("path", False) == mk.sphere_stage_bytes(197)
     with pytest.raises(RuntimeError, match="failed to launch"):
         mk._launch(brute, cam, dev, 0, out, None, plan, cursor, stage=16 * 197, **kw)
-    mk._launch(packed, cam, dev, 0, out, None, plan, cursor, stage=packed.stage_bytes, **kw)
+    mk._launch(packed, cam, dev, 0, out, None, plan, cursor, stage=stage, **kw)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all())
 
@@ -765,7 +766,7 @@ def test_sphere_stage_equals_global_scan_bit_for_bit(dev, case):
     sc = T.as_scene(spheres)
     cam = T.derive_camera(cam_s, w, h).to(dev)
     kw.update(width=w, height=h)
-    stage = mk.pack_scene(sc, False, False, None).stage_bytes
+    stage = mk.pack_scene(sc, False, False, None).route.path_stage("path", False)
     assert stage == mk.sphere_stage_bytes(sc.spheres.count) > 0
     got, rays = _path_loop(sc, cam, dev, stage, **kw)
     want, want_rays = _path_loop(sc, cam, dev, 0, **kw)

@@ -122,10 +122,10 @@ def test_staged_and_global_walks_count_the_same(dev, monkeypatch, name):
     else:
         sc, settings, kw = _stage_scenes()[name]
     kw = {k: v for k, v in kw.items() if k not in ("width", "height")}
-    assert mk.stage_bytes_of(sc) > 0
+    assert mk.route_of(sc).bvh_stage > 0
     staged = _counts(sc, settings, dev, **kw)
     monkeypatch.setattr(mk, "STAGE_BYTES", 0)
-    assert mk.stage_bytes_of(sc) == 0
+    assert mk.route_of(sc).bvh_stage == 0
     walked = _counts(sc, settings, dev, **kw)
     assert torch.equal(staged[0], walked[0]) and torch.equal(staged[1], walked[1])
     assert np.array_equal(staged[2], walked[2])
@@ -217,7 +217,7 @@ def test_mesh_bvh_480p_matches_the_benchmark_reference(dev):
     data = spec.scene_data(c, 201)
     cell = spec.Cell("mesh_bvh_480p.test", 1, c, {"backend": "cuda", "spp": 4}, (), ())
     prog = entry.setup(cell, data, dev)
-    assert mk.stage_bytes_of(prog.scene) == 0
+    assert mk.route_of(prog.scene).bvh_stage == 0
     before = mk.LAUNCHES["megakernel:mesh_bvh"]
     frames = [prog.frame(check.frame_seed(201, k)) for k in range(2)]
     assert mk.LAUNCHES["megakernel:mesh_bvh"] == before + 2

@@ -81,15 +81,16 @@ def test_full_size_scene_is_the_configurations():
 
 def test_the_program_takes_the_global_walk():
     """The program's scene of the configuration is too large for
-    render_kernel's stage (stage_bytes_of 0) and packs as the mesh route:
-    the cell measures the global BVH walk."""
+    render_kernel's stage (its Route's bvh_stage 0) and packs as the mesh
+    route: the cell measures the global BVH walk."""
     data = spec.scene_data(_config(), 0)
     sc = entry.program_scene(data, torch.device("cpu"))
     assert sc.mesh.num_triangles == 81_920 and sc.mesh.smooth
     assert mk.bvh_stage_bytes(1, 0, 81_920, sc.bvh.num_nodes) > mk.STAGE_BYTES
-    assert mk.stage_bytes_of(sc) == 0
-    packed = mk.pack_scene(sc, False, False, None)
-    assert packed.route == "mesh_bvh" and packed.stage_bytes == 0
+    route = mk.pack_scene(sc, False, False, None).route
+    assert route == mk.route_of(sc)
+    assert route.geometry == "mesh_bvh" and route.bvh_stage == 0
+    assert route.path_stage("path", False) == 0
 
 
 @pytest.mark.parametrize("subdivisions", [0, 1, 3])

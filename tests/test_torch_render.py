@@ -229,6 +229,22 @@ def test_ctypes_signatures_match_the_c_interface():
             assert len(params.split(",")) == len(target.signatures[name][1]), name
 
 
+def test_launch_decisions_live_in_the_launch_helper():
+    """The SM count and the occupancy calculator are asked in one place,
+    ops/cuda/launch.cuh, which every CUDA source includes and every target
+    rebuilds on; no source keeps its own instance ladder macro."""
+    from gpu_ray_tracing_tpu_torch.ops.cuda import build
+
+    helper = os.path.join(os.path.dirname(build.__file__), "launch.cuh")
+    queries = ("cudaOccupancyMaxActiveBlocksPerMultiprocessor", "cudaDevAttrMultiProcessorCount")
+    assert all(q in open(helper).read() for q in queries)
+    for target in build.TARGETS.values():
+        src = open(target.source).read()
+        assert '#include "launch.cuh"' in src and helper in target.headers, target.source
+        assert not any(q in src for q in queries), target.source
+        assert "GRT_WF_LAUNCH" not in src
+
+
 def test_cuda_backend_raises_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present; this checks the CPU-only refusal")

@@ -76,7 +76,7 @@ def test_render_records_render_enclosing_camera():
 def test_pack_scene_records_its_span():
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         packed = mk.pack_scene(T.make_scene(T.base_scene()), False, False, None)
-    assert packed.route == "brute"
+    assert packed.route.geometry == "brute"
     assert [s[0] for s in _spans(prof)] == ["grt.pack_scene"]
 
 

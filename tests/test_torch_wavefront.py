@@ -507,17 +507,21 @@ def _spheres(n: int):
     ("none", "staged"), ("one_weekend", "staged"), ("stage_full", "staged"),
     ("stage_over", "global"), ("sphere_bvh", "sphere_bvh"), ("mesh", "staged")])
 def test_sphere_scan_is_decided_from_the_scene(case, want):
-    """How the bounce kernel scans spheres (Engine.sphere_scan) follows from
-    the scene alone: a brute scan of at most STAGE_SPHERES spheres (a mesh
-    beside them or not, inactive ones counted) from the stage, a larger one
-    from device memory, a sphere BVH by its walk.  A plain render reports
-    'plain' in LAST_RUN."""
+    """How the bounce kernel scans spheres (the scene's Route.sphere_scan,
+    and its reader Route.bounce_staged) follows from the scene alone: a
+    brute scan of at most STAGE_SPHERES spheres (a mesh beside them or
+    not, inactive ones counted) from the stage, a larger one from device
+    memory, a sphere BVH by its walk.  The engine packs that Route.  A
+    plain render reports 'plain' in LAST_RUN."""
     scene = {"none": lambda: _spheres(0), "one_weekend": lambda: T.one_weekend_scene(0),
              "stage_full": lambda: _spheres(twf.STAGE_SPHERES),
              "stage_over": lambda: _spheres(twf.STAGE_SPHERES + 1),
              "sphere_bvh": _sphere_bvh_scene, "mesh": _mesh_scene}[case]()
     cam = T.derive_camera(T.CameraSettings.default(), 8, 6)
-    assert twf.Engine(scene, cam, 0, 2, 1e-3, total_width=8).sphere_scan() == want
+    route = tmk.route_of(T.as_scene(scene))
+    assert route.sphere_scan == want
+    assert route.bounce_staged == (want == "staged")
+    assert twf.Engine(scene, cam, 0, 2, 1e-3, total_width=8).packed().route == route
     if case != "none":  # the plain scan's reduction needs a sphere
         T.render_wavefront_reference(scene, cam, width=8, height=6, max_depth=2, t_min=1e-3)
         assert twf.LAST_RUN["sphere_scan"] == "plain"
@@ -568,24 +572,25 @@ def test_megakernel_stage_is_decided_from_the_scene(case, mode, adaptive, route,
     sphere BVH, no mesh) of at most STAGE_SPHERES spheres, inactive ones
     counted, from the sphere stage (16 + 20 n bytes), a small BVH scene
     from the BVH stage, anything else from device memory; the adaptive
-    loop and the AOV modes take no stage.  The launch key render_cuda
-    records ends in "+staged" exactly when the loop reads a stage."""
+    loop and the AOV modes take no stage (Route.path_stage).  The launch
+    key (Route.launch_key) ends in "+staged" exactly when the loop reads a
+    stage."""
     sc = T.as_scene(_route_scene(case))
     n = sc.spheres.count
     assert tmk.sphere_stage_bytes(n) == 16 + 20 * n
-    scene_stage = {"spheres": tmk.sphere_stage_bytes(n), "bvh": tmk.stage_bytes_of(sc)}
-    brute_staged = route == "brute" and n <= tmk.STAGE_SPHERES
-    assert tmk.sphere_stage_bytes_of(sc) == (scene_stage["spheres"] if brute_staged else 0)
-    packed = tmk.pack_scene(sc, False, False, None)
-    assert packed.route == route
-    assert packed.stage_bytes == (scene_stage["spheres"] if brute_staged
-                                  else scene_stage["bvh"])
-    want = {**scene_stage, None: 0}
-    got_stage, key = tmk.launch_route(packed, mode, adaptive, False)
+    r = tmk.route_of(sc)
+    assert tmk.pack_scene(sc, False, False, None).route == r
+    assert r.geometry == route
+    fits = n <= tmk.STAGE_SPHERES and sc.sphere_bvh is None
+    assert r.sphere_stage == (tmk.sphere_stage_bytes(n) if fits else 0)
+    want = {"spheres": tmk.sphere_stage_bytes(n), "bvh": r.bvh_stage, None: 0}
+    got_stage = r.path_stage(mode, adaptive)
     assert got_stage == want[stage] and (got_stage > 0) == (stage is not None)
+    key = r.launch_key("megakernel", False, None, staged=got_stage > 0, adaptive=adaptive)
     assert key == ("megakernel:" + route + ("+staged" if stage else "")
                    + ("+adaptive" if adaptive else ""))
-    assert tmk.launch_route(packed, mode, adaptive, True)[1] == key + "+rays"
+    assert r.launch_key("megakernel", False, None, staged=got_stage > 0, adaptive=adaptive,
+                        rays=True) == key + "+rays"
 
 
 def test_engine_against_jax_render_wavefront():
